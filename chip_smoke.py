@@ -9,11 +9,14 @@ Phases, in order (any failure raises and the script exits non-zero):
   3. each kernel against its plain torch version on the card, and timed
      (CUDA events, median of >= 10 after warm-up) beside its bound, its
      plain version and, where one exists, a single PyTorch call; the inner
-     kernel at the full-width shape on a cold-start and a mid-solve working
-     set, and beside two measured floors per iteration (its reduction chain
-     alone, its K_BB row reads alone);
+     kernels at the full-width shape on a cold-start and a mid-solve working
+     set (the multipair kernel at p = 2, 4 and 8), and beside two measured
+     floors per iteration (the reduction chain alone, the K_BB row reads
+     alone); the f-update with candidate selection against the f-update
+     alone (df bit for bit) and against the plain selection epilogue;
   4. the main path at mid size, trained on the card and on the CPU, held
-     to the same SV-ID set, status and b (within 1e-4);
+     to the same SV-ID set, status and b (within 1e-4); 4b. the same for
+     the multipair + fused-selection path;
   5. the main path at full width: mnist_like(n=70000, d=784, noise=30,
      label_noise=0.005), BinarySVC on rows [:60000] with C=10,
      gamma=0.00125, q=2048, wss=2, max_inner=4096, f64 accumulators,
@@ -21,8 +24,14 @@ Phases, in order (any failure raises and the script exits non-zero):
      counts are read around this run and must be > 0; the fit's host
      phases (scale, cast, copy, solve, copy back, SV extraction) and the
      solver's time blocked at its host syncs are printed;
-  6. where the time goes: the same fit once more under torch.profiler,
-     device time by kernel and the device's busy share of the wall time.
+  5b. the second path at full width: the same job with wss=1,
+     multipair=4, fused_selection=True and max_iter=10^7; the multipair
+     and fused-selection kernels' launch counts are read around it and
+     must be > 0, it must end CONVERGED with accuracy within 0.002 of
+     phase 5's;
+  6. where the time goes: the fits of phases 5 and 5b once more under
+     torch.profiler, device time by kernel and the device's busy share of
+     the wall time.
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
@@ -88,11 +97,14 @@ def main():
         from tpusvm_torch.data.scaler import MinMaxScaler
         from tpusvm_torch.data.synthetic import mnist_like
         from tpusvm_torch.ops.cuda import _build
-        from tpusvm_torch.ops.cuda.fused_fupdate import (rbf_cross_matvec_kernel,
-                                                         rbf_cross_matvec_ref)
-        from tpusvm_torch.ops.cuda.inner_smo import (inner_smo_kernel,
-                                                     inner_smo_ref,
-                                                     iteration_floor_probe)
+        from tpusvm_torch.ops.cuda.fused_fupdate import (
+            fused_fupdate_select_kernel, fused_fupdate_select_ref,
+            rbf_cross_matvec_kernel, rbf_cross_matvec_ref,
+            select_candidates_ref, select_epilogue_probe, selection_shape)
+        from tpusvm_torch.ops.cuda.inner_smo import (
+            inner_smo_kernel, inner_smo_multipair_kernel,
+            inner_smo_multipair_ref, inner_smo_ref, iteration_floor_probe,
+            multipair_floor_probe)
         from tpusvm_torch.ops.rbf import rbf_cross, sq_norms
         from tpusvm_torch.ops.selection import i_high_mask, i_low_mask
         from tpusvm_torch.config import SVMConfig
@@ -288,6 +300,135 @@ def main():
         "shape": {"q": q, "max_inner": 4096, "wss": 2, "updates": st[0],
                   "iterations": iters}})
 
+    # the multipair kernel at the CPU tests' size, then at the full-width
+    # shape for p = 2, 4, 8 on the cold-start and the round-4 working sets
+    g3 = np.random.default_rng(7)
+    X5 = torch.as_tensor(g3.random((512, 8)), dtype=torch.float32, device=dev)
+    y5 = torch.as_tensor(np.where(g3.random(512) < 0.5, 1, -1), device=dev)
+    mp_err = 0.0
+
+    def multipair_case(K_BB, y_B, a_B, f_B, act_B, p, label, max_inner=4096):
+        nonlocal mp_err
+        margs = (K_BB, y_B, a_B, f_B, act_B, C, 1e-12, 1e-5)
+        a_k, st_k = inner_smo_multipair_kernel(*margs, max_inner=max_inner,
+                                               multipair=p)
+        t = time.perf_counter()
+        a_r, st_r = inner_smo_multipair_ref(*margs, max_inner=max_inner,
+                                            multipair=p)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t) * 1e3
+        err = float((a_k - a_r).abs().max())
+        mp_err = max(mp_err, err)
+        st = st_k.tolist()
+        log(f"[3] inner_smo multipair q={K_BB.shape[0]} p={p} {label}: stat "
+            f"kernel {st} plain {st_r.tolist()}, max_abs_err {err:.3e}")
+        check(st == st_r.tolist(), f"multipair p={p} {label}: stat differs "
+              f"(kernel {st}, plain {st_r.tolist()})")
+        check(err <= 1e-5 * C, f"multipair p={p} {label}: error {err}")
+        check(st[0] > 0 and st[2] in (1, 2, 5), f"multipair: bad stat {st}")
+        ms = cuda_ms(lambda: inner_smo_multipair_kernel(
+            *margs, max_inner=max_inner, multipair=p))
+        log(f"[3]     kernel {ms:.3f} ms, {ms * 1e3 / st[3]:.2f} us/iteration, "
+            f"{st[0] / st[3]:.2f} updates/iteration, plain {plain:.1f} ms "
+            "(one run)")
+        return st, ms, plain
+
+    multipair_case(rbf_cross(X5, X5, 0.5), y5, torch.zeros(512, device=dev),
+                   -y5.float(), torch.ones(512, dtype=torch.bool, device=dev), 2,
+                   "q=512 (CPU tests' size)")
+    mp_runs = {}
+    for p in (2, 4, 8):
+        mp_runs[p] = multipair_case(
+            K_BB, y_B, torch.zeros(q, device=dev), -y_B.float(),
+            torch.ones(q, dtype=torch.bool, device=dev), p, "cold start")
+        multipair_case(K4, y_B4, a_B4, f3[B4], act4, p, "round 4")
+    # the path's p = 4: floors on the cold-start run's iteration count
+    st_mp, mp_ms, mp_plain = mp_runs[4]
+    mp_iters = st_mp[3]
+    mp_chain = cuda_ms(lambda: multipair_floor_probe(K_BB, mp_iters, multipair=4,
+                                                     mode="chain"))
+    mp_rows = cuda_ms(lambda: multipair_floor_probe(K_BB, mp_iters, multipair=4,
+                                                    mode="rows"))
+    # bytes the run's updates need: two K_BB rows each, plus the vectors
+    mp_bytes = st_mp[0] * 2.0 * q * 4 + 6.0 * q * 4
+    mp_bound = mp_bytes / peak_bw * 1e3
+    per_mp = lambda ms: ms * 1e3 / max(mp_iters, 1)
+    log(f"[3] inner_smo multipair q={q} p=4 cold start: kernel {mp_ms:.3f} ms for "
+        f"{st_mp[0]} updates ({mp_iters} iterations, {per_mp(mp_ms):.2f} "
+        f"us/iteration, {mp_ms * 1e3 / st_mp[0]:.3f} us/update; single-pair "
+        f"wss=2 {k_ms * 1e3 / st[0]:.3f} us/update); floors: reduction chain "
+        f"{mp_chain:.3f} ms ({per_mp(mp_chain):.2f} us/iteration, kernel at "
+        f"{mp_ms / mp_chain:.2f}x), row reads {mp_rows:.3f} ms "
+        f"({per_mp(mp_rows):.3f} us/iteration); HBM byte bound {mp_bound:.4f} ms")
+    kernels.append({
+        "name": "inner_smo_multipair", "route": "cuda",
+        "source": "tpusvm_torch/csrc/inner_smo_multipair.cu",
+        "replaces": "tpusvm/ops/pallas/inner_smo.py:277",
+        "launches": None, "max_abs_err": mp_err, "ms": mp_ms, "kernel_ms": mp_ms,
+        "plain_ms": mp_plain, "bound_ms": mp_bound, "bound_by": "bytes",
+        "library_ms": None, "chain_floor_ms": mp_chain, "rows_floor_ms": mp_rows,
+        "shape": {"q": q, "max_inner": 4096, "multipair": 4, "wss": 1,
+                  "updates": st_mp[0], "iterations": mp_iters}})
+
+    # the f-update with candidate selection: df against the f-update alone
+    # (bit for bit), the candidates against the plain epilogue on that df,
+    # at the bench shape (round 4's f and alpha) and a ragged shape
+    def select_case(Xc, XBc, cc, snc, f32c, a32c, yec, label):
+        nc, dc = Xc.shape
+        blk, nb, kc, _ = selection_shape(nc, dc, XBc.shape[0])
+        args = (Xc, XBc, cc, GAMMA, snc, f32c, a32c, yec, C, 1e-12)
+        df, *cands = fused_fupdate_select_kernel(*args, block=blk, k_cand=kc)
+        df1 = rbf_cross_matvec_kernel(Xc, XBc, cc, GAMMA, snc)
+        want = select_candidates_ref(f32c + df, a32c, yec, C, 1e-12, nc, blk, kc)
+        err = float((df - rbf_cross_matvec_ref(Xc, XBc, cc, GAMMA, snc)).abs().max())
+        torch.cuda.synchronize()
+        same = [torch.equal(g, w) for g, w in zip(cands, want)]
+        log(f"[3] fused_select {label} (block {blk}, {nb} blocks, k_cand {kc}): "
+            f"df bit-equal to fused_fupdate {torch.equal(df, df1)}, max_abs_err "
+            f"to the plain contraction {err:.3e}; candidates equal to the plain "
+            f"epilogue on the kernel's df {same}")
+        check(torch.equal(df, df1), f"fused_select {label}: df differs")
+        check(err <= 1e-5 * float(cc.abs().sum()), f"fused_select {label}: {err}")
+        check(all(same), f"fused_select {label}: candidates differ {same}")
+        return args, blk, kc, nb, err
+
+    f3_32, a3_32 = f3.float(), alpha3.float()
+    sel_args, blk, kc, nb, sel_err = select_case(X, XB, coef, sn, f3_32, a3_32,
+                                        Y.to(torch.int32), f"bench n={n} d={d} q={q}")
+    gr = np.random.default_rng(2)
+    select_case(Xr, XBr, cr, None,
+                torch.as_tensor(np.round(gr.standard_normal(1000), 1),
+                                dtype=torch.float32, device=dev),
+                torch.as_tensor(gr.choice([0.0, C, 2.5], size=1000),
+                                dtype=torch.float32, device=dev),
+                torch.as_tensor(np.where(gr.random(1000) < 0.5, 1, -1)
+                                * (gr.random(1000) > 0.1), dtype=torch.int32,
+                                device=dev), "ragged n=1000 d=37 q=256")
+    s_ms = cuda_ms(lambda: fused_fupdate_select_kernel(*sel_args, block=blk,
+                                                       k_cand=kc))
+    f_ms = cuda_ms(lambda: rbf_cross_matvec_kernel(X, XB, coef, GAMMA, sn))
+    df_bench = rbf_cross_matvec_kernel(X, XB, coef, GAMMA, sn)
+    e_ms = cuda_ms(lambda: select_epilogue_probe(df_bench, f3_32, a3_32,
+                                                 Y.to(torch.int32), C, 1e-12,
+                                                 block=blk, k_cand=kc))
+    sp_ms = cuda_ms(lambda: fused_fupdate_select_ref(*sel_args, block=blk,
+                                                     k_cand=kc), reps=5)
+    s_bytes = 4.0 * (n * d + q * d + q + 4 * n + n + 4 * nb * kc)
+    s_ops, s_byt = flops / peak_flops * 1e3, s_bytes / peak_bw * 1e3
+    log(f"[3] fused_select bench: kernel {s_ms:.3f} ms (both launches; the "
+        f"f-update alone {f_ms:.3f} ms, the epilogue launch alone {e_ms:.4f} "
+        f"ms), plain {sp_ms:.3f} ms, torch.matmul(X, XB.T) {lib_ms:.3f} ms; "
+        f"bound {max(s_ops, s_byt):.3f} ms")
+    kernels.append({
+        "name": "fused_fupdate_select", "route": "cuda",
+        "source": "tpusvm_torch/csrc/fused_select.cu",
+        "replaces": "tpusvm/ops/pallas/fused_fupdate.py:334",
+        "launches": None, "max_abs_err": sel_err, "ms": s_ms, "kernel_ms": s_ms,
+        "plain_ms": sp_ms, "bound_ms": max(s_ops, s_byt),
+        "bound_by": "operations" if s_ops >= s_byt else "bytes",
+        "library_ms": lib_ms, "fupdate_alone_ms": f_ms, "epilogue_ms": e_ms,
+        "shape": {"n": n, "d": d, "q": q, "block": blk, "k_cand": kc}})
+
     # ---- 4. main path, mid size, card against CPU -------------------------
     Xm, Ym = mnist_like(n=2000, d=784, noise=30.0, label_noise=0.005, seed=587)
     opts = dict(q=256, wss=2, max_inner=512)
@@ -306,68 +447,114 @@ def main():
           f"mid: SV-ID sets differ ({len(set(mc.sv_ids_) ^ set(mh.sv_ids_))} ids)")
     check(abs(mc.b_ - mh.b_) <= 1e-4, f"mid: |db| = {abs(mc.b_ - mh.b_)}")
 
-    # ---- 5. main path at full width ---------------------------------------
-    model = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
-                      solver_opts=dict(q=2048, wss=2, max_inner=4096),
-                      device="cuda")
-    rbf_cross_matvec_kernel.launches = 0
-    inner_smo_kernel.launches = 0
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    model.fit(X_all[:60000], Y_all[:60000])
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t
-    launches = {"fused_fupdate": rbf_cross_matvec_kernel.launches,
-                "inner_smo": inner_smo_kernel.launches}
-    res = model.result_
-    t = time.perf_counter()
-    pred = model.predict(X_all[60000:])
-    predict_s = time.perf_counter() - t
-    acc = float((pred == Y_all[60000:]).mean())
-    updates = model.n_iter_ - 1
-    log(f"[5] full width n=60000 d=784: train {train_s:.3f} s, status "
-        f"{model.status_.name}, outer rounds {res.n_outer}, updates {updates} "
-        f"({updates / train_s:.0f}/s), SV count {model.n_support_}, "
-        f"b {model.b_:.15f}, accuracy {acc:.4f} on 10000, rescue rounds "
-        f"{res.n_rescue}, host syncs {res.n_host_syncs}, predict {predict_s:.3f} s, "
-        f"launches {launches}")
-    spans = {k: round(v * 1e3, 3) for k, v in model.fit_phases_.items()}
-    log(f"[5] fit phases, host ms: {json.dumps(spans)}; inside solve: blocked "
-        f"at host syncs {res.host_wait_s * 1e3:.3f} ms, the rest (host code "
-        f"and launches) {(model.fit_phases_['solve'] - res.host_wait_s) * 1e3:.3f} ms")
-    check(model.status_ == Status.CONVERGED, f"full: {model.status_.name}")
-    check(all(v > 0 for v in launches.values()), f"kernels not launched: {launches}")
-    check(np.isfinite(model.b_) and np.isfinite(model.sv_alpha_).all(),
-          "full: non-finite model")
-    check(acc > 0.9, f"full: accuracy {acc}")
-    path = str(_build.BUILD_DIR / "chip_smoke_model.npz")
-    model.save(path)
-    again = BinarySVC.load(path, device="cuda")
-    check(np.array_equal(again.predict(X_all[60000:]), pred),
-          "reloaded model predicts differently")
-    log(f"[5] saved and reloaded {path}: predictions equal")
+    # ---- 4b. the multipair + fused-selection path, mid size, card vs CPU --
+    opts_b = dict(q=512, wss=1, max_inner=512, multipair=2, fused_selection=True)
+    fits = {}
+    for where in ("cuda", "cpu"):
+        t = time.perf_counter()
+        fits[where] = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
+                                solver_opts=opts_b, device=where).fit(Xm, Ym)
+        m = fits[where]
+        log(f"[4b] mid n=2000 q=512 multipair=2 fused_selection on {where}: "
+            f"{time.perf_counter() - t:.2f} s, status {m.status_.name}, SVs "
+            f"{m.n_support_}, b {m.b_:.9f}, updates {m.n_iter_ - 1}, rounds "
+            f"{m.result_.n_outer}, rescue rounds {m.result_.n_rescue}")
+    mc, mh = fits["cuda"], fits["cpu"]
+    check(mc.status_ == mh.status_ == Status.CONVERGED, "mid 4b: not CONVERGED")
+    check(np.array_equal(mc.sv_ids_, mh.sv_ids_),
+          f"mid 4b: SV-ID sets differ ({len(set(mc.sv_ids_) ^ set(mh.sv_ids_))} ids)")
+    check(abs(mc.b_ - mh.b_) <= 1e-4, f"mid 4b: |db| = {abs(mc.b_ - mh.b_)}")
 
-    # ---- 6. where the time goes: one more full-width fit, profiled -------
+    # ---- 5. and 5b. both paths at full width ------------------------------
+    counters = {"fused_fupdate": rbf_cross_matvec_kernel,
+                "inner_smo": inner_smo_kernel,
+                "inner_smo_multipair": inner_smo_multipair_kernel,
+                "fused_fupdate_select": fused_fupdate_select_kernel}
+    full_opts = {
+        "5": dict(q=2048, wss=2, max_inner=4096),
+        "5b": dict(q=2048, wss=1, max_inner=4096, multipair=4,
+                   fused_selection=True),
+    }
+    # 5b alone gets 10^7 updates: at p=4 the Jacobi slot steps overshoot at
+    # this width and the solve needs about 2.6 million (PERF.md, section 6)
+    max_iter = {"5": 10**6, "5b": 10**7}
+    path_kernels = {"5": ("fused_fupdate", "inner_smo"),
+                    "5b": ("inner_smo_multipair", "fused_fupdate_select")}
+    launches = {}
+    models = {}
+    for phase, sopts in full_opts.items():
+        model = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=max_iter[phase]),
+                          solver_opts=sopts, device="cuda")
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.fit(X_all[:60000], Y_all[:60000])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t
+        counts = {k: fn.launches for k, fn in counters.items()}
+        for k in path_kernels[phase]:
+            launches[k] = counts[k]
+        res = model.result_
+        t = time.perf_counter()
+        pred = model.predict(X_all[60000:])
+        predict_s = time.perf_counter() - t
+        acc = float((pred == Y_all[60000:]).mean())
+        updates = model.n_iter_ - 1
+        models[phase] = (model, acc)
+        log(f"[{phase}] full width n=60000 d=784 {json.dumps(sopts)}: train "
+            f"{train_s:.3f} s, status {model.status_.name}, outer rounds "
+            f"{res.n_outer}, updates {updates} ({updates / train_s:.0f}/s), SV "
+            f"count {model.n_support_}, b {model.b_:.15f}, accuracy {acc:.4f} on "
+            f"10000, rescue rounds {res.n_rescue}, host syncs {res.n_host_syncs}, "
+            f"predict {predict_s:.3f} s, launches {counts}")
+        spans = {k: round(v * 1e3, 3) for k, v in model.fit_phases_.items()}
+        log(f"[{phase}] fit phases, host ms: {json.dumps(spans)}; inside solve: "
+            f"blocked at host syncs {res.host_wait_s * 1e3:.3f} ms, the rest (host "
+            f"code and launches) "
+            f"{(model.fit_phases_['solve'] - res.host_wait_s) * 1e3:.3f} ms")
+        check(model.status_ == Status.CONVERGED, f"full {phase}: {model.status_.name}")
+        check(all(counts[k] > 0 for k in path_kernels[phase]),
+              f"full {phase}: kernels not launched: {counts}")
+        check(np.isfinite(model.b_) and np.isfinite(model.sv_alpha_).all(),
+              f"full {phase}: non-finite model")
+        check(acc > 0.9, f"full {phase}: accuracy {acc}")
+        if phase == "5":
+            path = str(_build.BUILD_DIR / "chip_smoke_model.npz")
+            model.save(path)
+            again = BinarySVC.load(path, device="cuda")
+            check(np.array_equal(again.predict(X_all[60000:]), pred),
+                  "reloaded model predicts differently")
+            log(f"[5] saved and reloaded {path}: predictions equal")
+    (m5, acc5), (m5b, acc5b) = models["5"], models["5b"]
+    log(f"[5b] against phase 5's model: accuracy {acc5b:.4f} vs {acc5:.4f}, SV-ID "
+        f"symmetric difference {len(set(m5.sv_ids_) ^ set(m5b.sv_ids_))} of "
+        f"{m5.n_support_}, |db| {abs(m5.b_ - m5b.b_):.3e}")
+    check(abs(acc5b - acc5) <= 0.002, f"5b accuracy {acc5b} vs phase 5 {acc5}")
+
+    # ---- 6. where the time goes: each full-width fit again, profiled -----
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
-                  solver_opts=dict(q=2048, wss=2, max_inner=4096),
-                  device="cuda").fit(X_all[:60000], Y_all[:60000])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    by_kernel = {}
-    for e in prof.events():
-        if str(getattr(e, "device_type", "")).endswith("CUDA"):
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time / 1e3
-    busy = sum(by_kernel.values())
-    log(f"[6] profiled full-width fit: wall {wall_ms:.1f} ms, device busy "
-        f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
-        f"{100 * (1 - busy / wall_ms):.1f}%")
-    for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"    {ms:9.3f} ms  {name[:100]}")
-    check(busy > 0, "profiler saw no device time")
+    for phase, sopts in full_opts.items():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=max_iter[phase]),
+                      solver_opts=sopts, device="cuda").fit(X_all[:60000],
+                                                            Y_all[:60000])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        by_kernel = {}
+        for e in prof.events():
+            if str(getattr(e, "device_type", "")).endswith("CUDA"):
+                by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time / 1e3
+        busy = sum(by_kernel.values())
+        log(f"[6] profiled full-width fit of phase {phase}: wall {wall_ms:.1f} ms, "
+            f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
+            f"{100 * (1 - busy / wall_ms):.1f}%")
+        for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"    {ms:9.3f} ms  {name[:100]}")
+        check(busy > 0, "profiler saw no device time")
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

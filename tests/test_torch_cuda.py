@@ -1,5 +1,5 @@
-"""The CUDA kernels against their plain versions on the card, and a fit
-that goes through both. Marked `cuda`: skipped where no CUDA device is
+"""The CUDA kernels against their plain versions on the card, and fits
+that go through them. Marked `cuda`: skipped where no CUDA device is
 present (run on the card with `python -m pytest tests/test_torch_cuda.py`)."""
 
 import numpy as np
@@ -9,10 +9,17 @@ import torch
 from tpusvm_torch.config import SVMConfig
 from tpusvm_torch.data.synthetic import mnist_like
 from tpusvm_torch.models.svm import BinarySVC
-from tpusvm_torch.ops.cuda.fused_fupdate import (rbf_cross_matvec_kernel,
-                                                 rbf_cross_matvec_ref)
-from tpusvm_torch.ops.cuda.inner_smo import (inner_smo_kernel, inner_smo_ref,
-                                             iteration_floor_probe)
+from tpusvm_torch.ops.cuda.fused_fupdate import (fused_fupdate_select_kernel,
+                                                 rbf_cross_matvec_kernel,
+                                                 rbf_cross_matvec_ref,
+                                                 select_candidates_ref,
+                                                 select_epilogue_probe)
+from tpusvm_torch.ops.cuda.inner_smo import (inner_smo_kernel,
+                                             inner_smo_multipair_kernel,
+                                             inner_smo_multipair_ref,
+                                             inner_smo_ref,
+                                             iteration_floor_probe,
+                                             multipair_floor_probe)
 from tpusvm_torch.ops.rbf import rbf_cross
 
 pytestmark = pytest.mark.cuda
@@ -75,3 +82,67 @@ def test_fit_launches_both_kernels(dev):
     assert m.status_.name == "CONVERGED"
     assert rbf_cross_matvec_kernel.launches > 0
     assert inner_smo_kernel.launches > 0
+
+
+@pytest.mark.parametrize("q,p", [(512, 2), (1024, 4), (2048, 8)])
+def test_multipair_kernel_matches_plain(dev, q, p):
+    rng = np.random.default_rng(q + p)
+    X = torch.as_tensor(rng.random((q, 8)), dtype=torch.float32, device=dev)
+    y = torch.as_tensor(np.where(rng.random(q) < 0.5, 1, -1), device=dev)
+    args = (rbf_cross(X, X, 0.5), y, torch.zeros(q, device=dev), -y.float(),
+            torch.ones(q, dtype=torch.bool, device=dev), 10.0, 1e-12, 1e-5)
+    before = inner_smo_kernel.launches
+    a_k, st_k = inner_smo_multipair_kernel(*args, max_inner=1024, multipair=p)
+    a_r, st_r = inner_smo_multipair_ref(*args, max_inner=1024, multipair=p)
+    torch.cuda.synchronize()
+    assert st_k.tolist() == st_r.tolist()
+    assert float((a_k - a_r).abs().max()) <= 1e-5 * 10.0
+    assert inner_smo_kernel.launches == before
+
+
+@pytest.mark.parametrize("n,d,q,block,k_cand", [(1000, 37, 256, 128, 16),
+                                                (300, 3, 64, 64, 32),
+                                                (4099, 784, 512, 512, 8)])
+def test_fused_select_kernel_matches_plain(dev, n, d, q, block, k_cand):
+    rng = np.random.default_rng(n)
+    X = torch.as_tensor(rng.random((n, d)), dtype=torch.float32, device=dev)
+    XB = torch.as_tensor(rng.random((q, d)), dtype=torch.float32, device=dev)
+    coef = torch.as_tensor(rng.standard_normal(q), dtype=torch.float32, device=dev)
+    f = torch.as_tensor(np.round(rng.standard_normal(n), 1), dtype=torch.float32,
+                        device=dev)
+    a = torch.as_tensor(rng.choice([0.0, 10.0, 2.5], size=n), dtype=torch.float32,
+                        device=dev)
+    y_eff = torch.as_tensor(np.where(rng.random(n) < 0.5, 1, -1)
+                            * (rng.random(n) > 0.1), dtype=torch.int32, device=dev)
+    df, *cands = fused_fupdate_select_kernel(X, XB, coef, 0.1, None, f, a, y_eff,
+                                             10.0, 1e-12, block=block,
+                                             k_cand=k_cand)
+    want = select_candidates_ref(f + df, a, y_eff, 10.0, 1e-12, n, block, k_cand)
+    alone = select_epilogue_probe(df, f, a, y_eff, 10.0, 1e-12, block=block,
+                                  k_cand=k_cand)
+    torch.cuda.synchronize()
+    assert torch.equal(df, rbf_cross_matvec_kernel(X, XB, coef, 0.1))
+    for got, w, e in zip(cands, want, alone):
+        assert torch.equal(got, w) and torch.equal(e, w)
+
+
+@pytest.mark.parametrize("mode", ["chain", "rows"])
+def test_multipair_floor_probe_runs(dev, mode):
+    K = torch.rand(512, 512, device=dev)
+    before = inner_smo_multipair_kernel.launches
+    out = multipair_floor_probe(K, 100, multipair=2, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert inner_smo_multipair_kernel.launches == before
+
+
+def test_fit_launches_the_multipair_and_select_kernels(dev):
+    X, Y = mnist_like(n=3000, d=784, noise=30.0, label_noise=0.005)
+    inner_smo_multipair_kernel.launches = 0
+    fused_fupdate_select_kernel.launches = 0
+    m = BinarySVC(SVMConfig(max_iter=10**6), device="cuda",
+                  solver_opts=dict(q=512, wss=1, max_inner=512, multipair=2,
+                                   fused_selection=True)).fit(X, Y)
+    assert m.status_.name == "CONVERGED"
+    assert inner_smo_multipair_kernel.launches > 0
+    assert fused_fupdate_select_kernel.launches > 0

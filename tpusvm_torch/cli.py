@@ -45,6 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--wss", type=int, choices=(1, 2), default=1)
     tr.add_argument("--max-inner", type=int, default=1024)
     tr.add_argument("--max-iter", type=int, default=100000)
+    tr.add_argument("--solver-opt", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="extra blocked_smo_solve keyword (repeatable), e.g. "
+                    "multipair=4 or fused_selection=true")
     tr.add_argument("--save", metavar="PATH", help="write the model .npz")
     pr = sub.add_parser("predict", help="score a saved model")
     _add_data_args(pr)
@@ -63,6 +67,32 @@ def _data(args):
     else:
         X, Y = rings(n=total, seed=args.seed)
     return X[:args.n], Y[:args.n], X[args.n:], Y[args.n:]
+
+
+def _parse_solver_opts(items) -> dict:
+    """KEY=VALUE --solver-opt strings -> typed knob dict.
+
+    Values convert bool -> int -> float -> string in that order, so
+    fused_selection=false is a real False (not a truthy str) and
+    multipair=4 an int, while knobs like inner=kernel stay strings.
+    """
+    opts = {}
+    for item in items:
+        key, sep, value = item.partition("=")
+        if not sep or not key:
+            raise SystemExit(f"--solver-opt expects KEY=VALUE, got {item!r}")
+        if value.lower() in ("true", "false"):
+            opts[key] = value.lower() == "true"
+            continue
+        for conv in (int, float):
+            try:
+                opts[key] = conv(value)
+                break
+            except ValueError:
+                continue
+        else:
+            opts[key] = value
+    return opts
 
 
 class _Timer:
@@ -98,8 +128,9 @@ def cmd_train(args) -> int:
     timer.add("data", t)
     print(f"n = {X.shape[0]}, n_features = {X.shape[1]}")
     cfg = SVMConfig(C=args.C, gamma=args.gamma, max_iter=args.max_iter)
-    model = BinarySVC(config=cfg, device=args.device, solver_opts=dict(
-        q=args.q, wss=args.wss, max_inner=args.max_inner))
+    opts = dict(q=args.q, wss=args.wss, max_inner=args.max_inner)
+    opts.update(_parse_solver_opts(args.solver_opt))
+    model = BinarySVC(config=cfg, device=args.device, solver_opts=opts)
     t = time.perf_counter()
     model.fit(X, Y)
     timer.add("training", t)

@@ -36,7 +36,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "smo_common.cuh"
+
 namespace {
+
+using tpusvm::gt_first;
+using tpusvm::lt_first;
 
 constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
@@ -45,13 +50,6 @@ constexpr int CONVERGED = 1;
 constexpr int NO_WORKING_SET = 2;
 constexpr int MAX_ITER = 5;
 constexpr int GUARD_TRIPPED = -1;
-
-__device__ __forceinline__ bool lt_first(float v, int i, float bv, int bi) {
-  return v < bv || (v == bv && i < bi);
-}
-__device__ __forceinline__ bool gt_first(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
 
 struct Scratch {
   float v0[WARPS + 1];
@@ -205,21 +203,10 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
       if (eta_exclude) b_l_pair = (g > -INFINITY) ? b_l_pair : bl;
     }
 
-    // ---- analytic pair update (tpusvm_torch/solver/analytic.py) ----
-    const float s = y_h * y_l;
-    const float eta = (K11 + K22) - 2.f * K12;
-    const float U = s < 0.f ? fmaxf(0.f, a_l - a_h) : fmaxf(0.f, (a_l + a_h) - C);
-    const float V = s < 0.f ? fminf(C, (C + a_l) - a_h) : fminf(C, a_l + a_h);
-    const bool feasible = U <= V + 1e-12f;
-    const bool eta_ok = eta > eps;
-    const bool do_update = proceed && feasible && eta_ok;
-    const float safe_eta = eta_ok ? eta : 1.f;
-    float a_l_new = a_l + (y_l * (bh - b_l_pair)) / safe_eta;
-    a_l_new = fmaxf(fminf(a_l_new, V), U);
-    const float a_h_new = a_h + s * (a_l - a_l_new);
-    const float da_h = do_update ? a_h_new - a_h : 0.f;
-    const float da_l = do_update ? a_l_new - a_l : 0.f;
-    const bool stalled = do_update && da_h == 0.f && da_l == 0.f;
+    const tpusvm::PairStep st =
+        tpusvm::pair_step(K11, K22, K12, y_h, y_l, a_h, a_l, bh, b_l_pair, C, eps, proceed);
+    const float da_h = st.da_h;
+    const float da_l = st.da_l;
 
     const float ch = da_h * y_h;
     const float cl = da_l * y_l;
@@ -228,10 +215,10 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
     for (int i = tid; i < q; i += THREADS)
       s_f[i] = __fmaf_rn(cl, row_l[i], __fmaf_rn(ch, row_h[i], s_f[i]));
 
-    const bool ok = do_update && !stalled;
+    const bool ok = st.do_update && !st.stalled;
     n_upd += ok ? 1 : 0;
     progress = progress || ok;
-    const bool dead = proceed && (!feasible || !eta_ok || stalled);
+    const bool dead = proceed && (!st.feasible || !st.eta_ok || st.stalled);
     __syncthreads();  // every thread has read a_h, a_l and act before the writes
     if (tid == 0) {
       // i_h == i_l forces eta == 0, hence zero deltas: the order is safe

@@ -37,8 +37,8 @@ class BinarySVC:
     accum_dtype: the solver's alpha/f dtype; "auto" = torch.float64 (f32
     features with f64 accumulators), None = same as the features.
     solver_opts: blocked_smo_solve knobs (q, max_outer, max_inner, wss,
-    inner, fused_fupdate, eta_exclude). device: where fit and scoring run
-    ("cuda" unless the caller asks for "cpu").
+    inner, fused_fupdate, eta_exclude, multipair, fused_selection). device:
+    where fit and scoring run ("cuda" unless the caller asks for "cpu").
     """
 
     def __init__(self, config: SVMConfig = SVMConfig(), scale: bool = True,

@@ -5,9 +5,9 @@ shared library with a plain C interface, under build/tpusvm_torch/ at the
 root of the checkout, and loaded with ctypes. Nothing is built when the
 package is imported: the first call that needs a kernel builds it (or
 `build_all` builds every source at once, one nvcc process per source, all
-started together). The library name carries a hash of the source and the
-flags, so an edited source is rebuilt and a stale one is never loaded. A
-failed build raises with nvcc's output.
+started together). The library name carries a hash of the source, the
+shared headers and the flags, so an edited source is rebuilt and a stale
+one is never loaded. A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -29,11 +29,13 @@ BUILD_DIR = _PKG.parent / "build" / "tpusvm_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# per-source extra flags: the inner subproblem follows the reference's f32
+# per-source extra flags: the inner subproblems follow the reference's f32
 # rounding step by step, so no multiply-add contraction there
 SOURCES = {
     "fused_fupdate": ("fused_fupdate.cu", ()),
+    "fused_select": ("fused_select.cu", ()),
     "inner_smo": ("inner_smo.cu", ("-fmad=false",)),
+    "inner_smo_multipair": ("inner_smo_multipair.cu", ("-fmad=false",)),
 }
 
 _lock = threading.Lock()
@@ -53,6 +55,9 @@ def nvcc_path() -> str:
 def _lib_path(name: str) -> Path:
     src, extra = SOURCES[name]
     h = hashlib.sha1((CSRC / src).read_bytes())
+    # the shared headers too: an edited header rebuilds every source
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS + extra).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

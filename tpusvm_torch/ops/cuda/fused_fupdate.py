@@ -3,7 +3,10 @@
 `rbf_cross_matvec_kernel` runs csrc/fused_fupdate.cu on a CUDA tensor
 (the port of the TPU kernel rbf_cross_matvec_pallas,
 tpusvm/ops/pallas/fused_fupdate.py) and its plain version
-`rbf_cross_matvec_ref` on a CPU tensor. IEEE f32 throughout.
+`rbf_cross_matvec_ref` on a CPU tensor. `fused_fupdate_select_kernel`
+(csrc/fused_select.cu, the port of fused_fupdate_select_pallas) adds the
+next round's working-set candidates; its plain version is
+`fused_fupdate_select_ref`. IEEE f32 throughout.
 """
 
 from __future__ import annotations
@@ -76,3 +79,201 @@ def rbf_cross_matvec_kernel(X: torch.Tensor, XB: torch.Tensor,
 
 
 rbf_cross_matvec_kernel.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The f-update with fused candidate selection (port of
+# fused_fupdate_select_pallas): df as above, plus per row block the k_cand
+# best I_high and I_low candidates of the updated f. The row block and
+# k_cand define the candidate pool, so they follow the TPU kernel's
+# arithmetic exactly; on the card they are not a memory budget.
+
+_RESIDENT_BUDGET = 64_000_000
+_STACK_BUDGET_FLOOR = 15_000_000
+
+
+def _stack_bytes(block: int, q: int, d: int) -> int:
+    return block * (2 * q * 8 + d * 4)
+
+
+def _auto_block(q: int, d: int, n: int) -> int:
+    """The TPU kernel's row block for (q, d, n); ValueError where its cost
+    model admits none (selection_shape then takes 1024)."""
+    if 4 * q * d + 12 * q > _RESIDENT_BUDGET:
+        raise ValueError(f"no row block admitted at q={q}, d={d}")
+    floor = max(8, min(128, n))
+    if _stack_bytes(floor, q, d) > _STACK_BUDGET_FLOOR:
+        raise ValueError(f"no row block admitted at q={q}, d={d}")
+    block = floor
+    while block < 1024 and _stack_bytes(2 * block, q, d) <= 12_000_000:
+        block *= 2
+    return block
+
+
+def selection_shape(n: int, d: int, q: int, k_min: int = 8):
+    """(block, nb, k_cand, ncand) of the candidate pool: rows per block,
+    blocks, candidates per block and per index set, and nb * k_cand.
+    k_cand covers a full q/2 half (with a k_min floor) and is <= block."""
+    try:
+        block = _auto_block(q, d, n)
+    except ValueError:
+        block = 1024
+    block = min(block, max(n, 8))
+    nb = -(-n // block)
+    half = max(q // 2, 1)
+    k_cand = min(max(k_min, -(-half // nb)), block)
+    return block, nb, k_cand, nb * k_cand
+
+
+def select_candidates_ref(f_new32, alpha32, y_eff, C, eps, n: int,
+                          block: int, k_cand: int):
+    """Plain version of the selection epilogue on the updated f32 f.
+
+    Per block of `block` rows: the k_cand smallest keys of I_high and the
+    k_cand largest of I_low, each pick taking the LAST row among equal
+    keys; rows >= n and rows with y_eff == 0 belong to neither set, so a
+    block short of members fills with +-inf at its largest unpicked rows
+    (in the last block, rows >= n). Masks are f32: alpha32 against f32
+    C - eps and eps. Returns (up_val, up_idx, low_val, low_idx), each
+    (nb * k_cand,), indices int32 and global.
+    """
+    dev = f_new32.device
+    f32 = torch.float32
+    nb = -(-n // block)
+    pad = nb * block - n
+    C32 = torch.tensor(C, dtype=f32, device=dev)
+    eps32 = torch.tensor(eps, dtype=f32, device=dev)
+    a = alpha32.to(f32)
+    ye = y_eff.to(torch.int32)
+    m_h = torch.where(ye == 1, a < C32 - eps32, (ye == -1) & (a > eps32))
+    m_l = torch.where(ye == 1, a > eps32, (ye == -1) & (a < C32 - eps32))
+    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    key_up = torch.nn.functional.pad(torch.where(m_h, f_new32, inf), (0, pad),
+                                     value=float("inf")).view(nb, block)
+    key_lo = torch.nn.functional.pad(torch.where(m_l, f_new32, -inf),
+                                     (0, pad), value=-float("inf")).view(nb, block)
+    # the picks in order are the rows sorted by key, then by row
+    # descending: a stable sort of the row-reversed block
+    rows = torch.arange(block - 1, -1, -1, device=dev)
+    base = (torch.arange(nb, device=dev) * block)[:, None]
+
+    def pick(key, descending):
+        order = torch.sort(key.flip(1), dim=1, descending=descending,
+                           stable=True).indices[:, :k_cand]
+        val = torch.gather(key.flip(1), 1, order)
+        return val.reshape(-1), (base + rows[order]).to(torch.int32).reshape(-1)
+
+    up_val, up_idx = pick(key_up, False)
+    low_val, low_idx = pick(key_lo, True)
+    return up_val, up_idx, low_val, low_idx
+
+
+def fused_fupdate_select_ref(X, XB, coef, gamma, sn, f32_f, alpha32, y_eff,
+                             C, eps, *, block: int, k_cand: int):
+    """Plain version: `rbf_cross_matvec_ref`, then the epilogue on
+    f32_f + df. Returns (df, up_val, up_idx, low_val, low_idx)."""
+    df = rbf_cross_matvec_ref(X, XB, coef, gamma, sn)
+    n = X.shape[0]
+    return (df, *select_candidates_ref(f32_f.float() + df, alpha32, y_eff, C,
+                                       eps, n, block, k_cand))
+
+
+@functools.cache
+def _bind_select():
+    fn = _build.load("fused_select").tpusvm_fused_fupdate_select
+    fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_float,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_int, _P, _P, _P,
+                   _P, _P, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_fupdate_select_kernel(X, XB, coef, gamma, sn, f32_f, alpha32,
+                                y_eff, C, eps, *, block: int, k_cand: int):
+    """df (n,) f32 and the next round's candidates, as
+    `fused_fupdate_select_ref` returns them.
+
+    f32_f is the current f in f32, alpha32 the post-round alphas in f32,
+    y_eff = y * valid as int32. CPU tensors run the plain version; CUDA
+    tensors launch csrc/fused_select.cu (two launches, counted once in
+    `.launches`): df bit-identical to `rbf_cross_matvec_kernel`'s.
+    """
+    if not X.is_cuda:
+        return fused_fupdate_select_ref(X, XB, coef, gamma, sn, f32_f, alpha32,
+                                        y_eff, C, eps, block=block,
+                                        k_cand=k_cand)
+    n, d = X.shape
+    q = XB.shape[0]
+    if not 1 <= k_cand <= block:
+        raise ValueError(f"k_cand must be in [1, block={block}], got {k_cand}")
+    X = _f32(X, "X", (n, d))
+    XB = _f32(XB, "XB", (q, d))
+    coef = _f32(coef, "coef", (q,))
+    sn = sq_norms(X) if sn is None else _f32(sn, "sn", (n,))
+    f32_f = _f32(f32_f, "f32_f", (n,))
+    alpha32 = _f32(alpha32, "alpha32", (n,))
+    if y_eff.dtype != torch.int32 or tuple(y_eff.shape) != (n,):
+        raise ValueError(f"y_eff must be int32 of shape ({n},)")
+    y_eff = y_eff.contiguous()
+    for t in (XB, coef, sn, f32_f, alpha32, y_eff):
+        if t.device != X.device:
+            raise ValueError("all operands must be on X's device")
+    snB = sq_norms(XB)
+    nb = -(-n // block)
+    dev = X.device
+    df = torch.empty(n, dtype=torch.float32, device=dev)
+    up_val = torch.empty(nb * k_cand, dtype=torch.float32, device=dev)
+    low_val = torch.empty_like(up_val)
+    up_idx = torch.empty(nb * k_cand, dtype=torch.int32, device=dev)
+    low_idx = torch.empty_like(up_idx)
+    rc = _bind_select()(
+        X.data_ptr(), XB.data_ptr(), coef.data_ptr(), sn.data_ptr(),
+        snB.data_ptr(), float(gamma), n, d, q, f32_f.data_ptr(),
+        alpha32.data_ptr(), y_eff.data_ptr(), float(C), float(eps), block,
+        k_cand, df.data_ptr(), up_val.data_ptr(), up_idx.data_ptr(),
+        low_val.data_ptr(), low_idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    fused_fupdate_select_kernel.launches += 1
+    _build.check(rc, "fused_fupdate_select kernel")
+    return df, up_val, up_idx, low_val, low_idx
+
+
+fused_fupdate_select_kernel.launches = 0
+
+
+@functools.cache
+def _bind_epilogue():
+    fn = _build.load("fused_select").tpusvm_select_candidates
+    fn.argtypes = [_P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                   _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def select_epilogue_probe(df, f32_f, alpha32, y_eff, C, eps, *, block: int,
+                          k_cand: int):
+    """Launch fused_select.cu's epilogue alone on CUDA tensors (df, f32_f,
+    alpha32 float32, y_eff int32, all (n,)), so that its time shows apart
+    from the f-update's. Not a kernel of the solver: not counted in
+    `.launches`. Returns the four candidate arrays."""
+    if not df.is_cuda:
+        raise ValueError("select_epilogue_probe measures the card: pass CUDA "
+                         "tensors")
+    n = df.shape[0]
+    nb = -(-n // block)
+    dev = df.device
+    up_val = torch.empty(nb * k_cand, dtype=torch.float32, device=dev)
+    low_val = torch.empty_like(up_val)
+    up_idx = torch.empty(nb * k_cand, dtype=torch.int32, device=dev)
+    low_idx = torch.empty_like(up_idx)
+    ops = [_f32(t, name, (n,)) for t, name in ((df, "df"), (f32_f, "f32_f"),
+                                               (alpha32, "alpha32"))]
+    rc = _bind_epilogue()(
+        *(t.data_ptr() for t in ops), y_eff.contiguous().data_ptr(), float(C),
+        float(eps), n, block, k_cand, up_val.data_ptr(), up_idx.data_ptr(),
+        low_val.data_ptr(), low_idx.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "fused_select epilogue")
+    return up_val, up_idx, low_val, low_idx

@@ -28,6 +28,7 @@ from tpusvm_torch.status import Status
 
 _P = ctypes.c_void_p
 _INF = float("inf")
+_LANE = 128
 
 # dynamic shared memory a block may use on Hopper (232,448 B), less the
 # kernel's static reduction scratch
@@ -134,6 +135,137 @@ def inner_smo_ref(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
     return a, stat
 
 
+def inner_smo_multipair_ref(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
+                            max_inner: int, multipair: int, wss: int = 1):
+    """Plain version of the multipair subproblem (p = multipair > 1).
+
+    Per iteration: slot s pairs the first-argmin I_high row of
+    [s*q/(2p), (s+1)*q/(2p)) with the first-argmax I_low row of
+    [q/2 + s*q/(2p), ...), each against the iteration-start f (Jacobi);
+    a slot steps only on a locally violating pair and never shrinks.
+    Then the globally worst pair steps (Gauss-Seidel, alphas read after
+    the slot writes), unless an applied slot update touched either of
+    its ends; it shrinks its i_low only when every slot idled. f takes
+    all 2(p+1) row terms into one df, in slot order, global last. A lane
+    gets at most one nonzero alpha delta per iteration (asserted), which
+    is why the kernel keeps one copy of alpha. Returns (a_B_new, stat)
+    like `inner_smo_ref`.
+    """
+    p = multipair
+    q = K_BB.shape[0]
+    check_multipair(q, wss, p)
+    if p < 2:
+        raise ValueError(f"the multipair kernel runs p >= 2 slot pairs, got "
+                         f"{p}; p=1 is inner_smo_ref")
+    dev = K_BB.device
+    f32 = torch.float32
+    K = K_BB.to(f32)
+    diag = torch.diagonal(K).clone()
+    y = y_B.to(f32)
+    a = a_B.to(f32).clone()
+    f = f_B.to(f32).clone()
+    act = active_B.to(torch.bool).clone()
+    C32 = torch.tensor(C, dtype=f32, device=dev)
+    eps32 = torch.tensor(eps, dtype=f32, device=dev)
+    tau32 = torch.tensor(tau, dtype=f32, device=dev)
+    Cme = C32 - eps32
+    two_tau = 2.0 * tau32
+    pos = y > 0
+    inf = torch.tensor(_INF, dtype=f32, device=dev)
+    span = q // (2 * p)
+    base = torch.arange(p, device=dev) * span
+    n_upd = 0
+    iters = 0
+    progress = False
+    reason = Status.RUNNING
+    while reason == Status.RUNNING:
+        iters += 1
+        lo = a > eps32
+        hi = a < Cme
+        m_h = act & ((pos & hi) | (~pos & lo))
+        m_l = act & ((pos & lo) | (~pos & hi))
+        vh = torch.where(m_h, f, inf)
+        vl = torch.where(m_l, f, -inf)
+        i_hg = torch.argmin(vh)
+        i_lg = torch.argmax(vl)
+        b_h, b_l = vh[i_hg], vl[i_lg]
+        found = (b_h < inf) & (b_l > -inf)
+        converged = found & (b_l <= b_h + two_tau)
+        proceed = found & ~converged
+        # the p slots at once: argmin/argmax along each slot's rows give
+        # the first occurrence, and the slot's first row when it is empty
+        ih = base + torch.argmin(vh[:q // 2].view(p, span), dim=1)
+        il = q // 2 + base + torch.argmax(vl[q // 2:].view(p, span), dim=1)
+        bh_s, bl_s = vh[ih], vl[il]
+        ok_s = (bh_s < inf) & (bl_s > -inf) & (bl_s > bh_s + two_tau)
+        y_h, y_l = y[ih], y[il]
+        upd = pair_update(diag[ih], diag[il], K[ih, il], y_h, y_l, a[ih],
+                          a[il], bh_s, bl_s, C32, eps32, proceed & ok_s)
+        ok = upd.do_update & ~upd.stalled
+        a[ih] = a[ih] + upd.da_h
+        a[il] = a[il] + upd.da_l
+        touched = ok & ((ih == i_hg) | (il == i_hg) | (ih == i_lg)
+                        | (il == i_lg))
+        n_slot = ok.sum()
+        glob_go = proceed & ~touched.any()
+        a_hg, a_lg = a[i_hg].clone(), a[i_lg].clone()
+        y_hg, y_lg = y[i_hg], y[i_lg]
+        updg = pair_update(diag[i_hg], diag[i_lg], K[i_hg, i_lg], y_hg, y_lg,
+                           a_hg, a_lg, b_h, b_l, C32, eps32, glob_go)
+        okg = updg.do_update & ~updg.stalled
+        deadg = glob_go & (n_slot == 0) & (~updg.feasible | ~updg.eta_ok
+                                           | updg.stalled)
+        a[i_hg] = a_hg + updg.da_h
+        a[i_lg] = a_lg + updg.da_l
+        # one nonzero delta per lane: the slots are disjoint, and the
+        # global step runs only when no applied slot update touched it
+        nz = torch.cat([ih[upd.da_h != 0], il[upd.da_l != 0],
+                        torch.stack([i_hg, i_lg])[torch.stack(
+                            [updg.da_h, updg.da_l]) != 0]])
+        ch, cl = upd.da_h * y_h, upd.da_l * y_l
+        df = _fma(ch[0], K[ih[0]], cl[0] * K[il[0]])
+        for s in range(1, p):
+            df = _fma(cl[s], K[il[s]], _fma(ch[s], K[ih[s]], df))
+        df = _fma(updg.da_l * y_lg, K[i_lg], _fma(updg.da_h * y_hg, K[i_hg], df))
+        f = f + df
+        act[i_lg] = act[i_lg] & ~deadg
+        n_ok = n_slot + okg.to(n_slot.dtype)
+        idle = proceed & (n_ok == 0) & ~deadg
+        # one host read per iteration
+        n_ok_v, found_v, conv_v, idle_v, n_nz, n_nz_u = torch.stack([
+            n_ok, found.long(), converged.long(), idle.long(),
+            torch.tensor(nz.numel(), device=dev), nz.unique().numel()
+            + torch.zeros((), dtype=torch.long, device=dev)]).tolist()
+        assert n_nz == n_nz_u, "two nonzero alpha deltas on one lane"
+        n_upd += n_ok_v
+        progress = progress or n_ok_v > 0
+        if not found_v or idle_v:
+            reason = Status.NO_WORKING_SET
+        elif conv_v:
+            reason = Status.CONVERGED
+        elif n_upd >= max_inner:
+            reason = Status.MAX_ITER
+    stat = torch.tensor([n_upd, int(progress), int(reason), iters],
+                        dtype=torch.int32, device=dev)
+    return a, stat
+
+
+def check_multipair(q: int, wss: int, multipair: int) -> None:
+    """The multipair kernel's argument checks (the TPU kernel's messages)."""
+    if multipair < 1:
+        raise ValueError(f"multipair must be >= 1, got {multipair}")
+    if multipair > 1:
+        if wss != 1:
+            raise ValueError("multipair requires wss=1 (slot pairing is "
+                             "first-order)")
+        rows = q // _LANE
+        if q % _LANE or rows % (2 * multipair):
+            raise ValueError(
+                f"multipair={multipair} needs (q//{_LANE}) % {2 * multipair} "
+                f"== 0 (rows per slot per half >= 1), got q={q} (R={rows})"
+            )
+
+
 def _fma(a, b, c):
     """f32 a*b + c with one rounding, as a fused multiply-add gives it.
 
@@ -163,19 +295,8 @@ def _bind():
     return fn
 
 
-def inner_smo_kernel(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
-                     max_inner: int, wss: int = 1, eta_exclude: bool = False):
-    """The subproblem on K_BB (q, q): returns (a_B_new (q,) f32, stat).
-
-    stat is int32 [n_updates, progress, reason, iterations]. CPU tensors run
-    `inner_smo_ref`; CUDA tensors launch the kernel (counted in
-    `.launches`). Inputs may be any float dtype; compute is float32.
-    """
-    _check_args(wss, eta_exclude)
-    if not K_BB.is_cuda:
-        return inner_smo_ref(K_BB, y_B, a_B, f_B, active_B, C, eps, tau,
-                             max_inner=max_inner, wss=wss,
-                             eta_exclude=eta_exclude)
+def _operands(K_BB, y_B, a_B, f_B, active_B):
+    """Checked, contiguous float32 operands for a kernel launch."""
     q = K_BB.shape[0]
     if tuple(K_BB.shape) != (q, q):
         raise ValueError(f"K_BB must be square, got {tuple(K_BB.shape)}")
@@ -194,7 +315,31 @@ def inner_smo_kernel(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
         return t
 
     K = K_BB.to(torch.float32).contiguous()
-    y, a, f, act = vec(y_B), vec(a_B), vec(f_B), vec(active_B)
+    return K, vec(y_B), vec(a_B), vec(f_B), vec(active_B)
+
+
+def inner_smo_kernel(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
+                     max_inner: int, wss: int = 1, eta_exclude: bool = False,
+                     multipair: int = 1):
+    """The subproblem on K_BB (q, q): returns (a_B_new (q,) f32, stat).
+
+    stat is int32 [n_updates, progress, reason, iterations]. CPU tensors run
+    `inner_smo_ref`; CUDA tensors launch the kernel (counted in
+    `.launches`). Inputs may be any float dtype; compute is float32.
+    multipair=p > 1 runs `inner_smo_multipair_kernel` instead.
+    """
+    _check_args(wss, eta_exclude)
+    check_multipair(K_BB.shape[0], wss, multipair)
+    if multipair > 1:
+        return inner_smo_multipair_kernel(
+            K_BB, y_B, a_B, f_B, active_B, C, eps, tau, max_inner=max_inner,
+            multipair=multipair, wss=wss)
+    if not K_BB.is_cuda:
+        return inner_smo_ref(K_BB, y_B, a_B, f_B, active_B, C, eps, tau,
+                             max_inner=max_inner, wss=wss,
+                             eta_exclude=eta_exclude)
+    K, y, a, f, act = _operands(K_BB, y_B, a_B, f_B, active_B)
+    q, dev = K.shape[0], K.device
     a_out = torch.empty(q, dtype=torch.float32, device=dev)
     stat = torch.empty(4, dtype=torch.int32, device=dev)
     fn = _bind()
@@ -209,6 +354,58 @@ def inner_smo_kernel(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
 
 
 inner_smo_kernel.launches = 0
+
+# the CUDA multipair kernel reduces each of the 2p slot halves with its own
+# warps of one 32-warp block
+_MAX_MULTIPAIR = 16
+
+
+@functools.cache
+def _bind_multipair():
+    fn = _build.load("inner_smo_multipair").tpusvm_inner_smo_multipair
+    fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   _P, _P, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def inner_smo_multipair_kernel(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
+                               max_inner: int, multipair: int, wss: int = 1):
+    """The multipair subproblem (p = multipair >= 2 slot pairs per
+    iteration): returns (a_B_new (q,) f32, stat) like `inner_smo_kernel`.
+
+    CPU tensors run `inner_smo_multipair_ref`; CUDA tensors launch
+    csrc/inner_smo_multipair.cu (counted in `.launches`, apart from the
+    single-pair kernel's count).
+    """
+    q = K_BB.shape[0]
+    check_multipair(q, wss, multipair)
+    if multipair < 2:
+        raise ValueError(f"the multipair kernel runs p >= 2 slot pairs, got "
+                         f"{multipair}; p=1 is inner_smo_kernel")
+    if not K_BB.is_cuda:
+        return inner_smo_multipair_ref(K_BB, y_B, a_B, f_B, active_B, C, eps,
+                                       tau, max_inner=max_inner,
+                                       multipair=multipair, wss=wss)
+    if multipair > _MAX_MULTIPAIR:
+        raise ValueError(f"the CUDA multipair kernel takes p <= "
+                         f"{_MAX_MULTIPAIR}, got {multipair}")
+    K, y, a, f, act = _operands(K_BB, y_B, a_B, f_B, active_B)
+    dev = K.device
+    a_out = torch.empty(q, dtype=torch.float32, device=dev)
+    stat = torch.empty(4, dtype=torch.int32, device=dev)
+    rc = _bind_multipair()(
+        K.data_ptr(), y.data_ptr(), a.data_ptr(), f.data_ptr(),
+        act.data_ptr(), float(C), float(eps), float(tau), q, int(max_inner),
+        int(multipair), a_out.data_ptr(), stat.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    inner_smo_multipair_kernel.launches += 1
+    _build.check(rc, "inner_smo multipair kernel")
+    return a_out, stat
+
+
+inner_smo_multipair_kernel.launches = 0
 
 _PROBE_MODES = {"chain": 0, "rows": 1}
 
@@ -240,4 +437,31 @@ def iteration_floor_probe(K_BB, iters: int, *, wss: int, mode: str):
                        _PROBE_MODES[mode], out.data_ptr(),
                        torch.cuda.current_stream(K.device).cuda_stream)
     _build.check(rc, "inner_smo floor probe")
+    return out
+
+
+@functools.cache
+def _bind_multipair_probe():
+    fn = _build.load("inner_smo_multipair").tpusvm_inner_smo_multipair_floor_probe
+    fn.argtypes = [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   _P, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def multipair_floor_probe(K_BB, iters: int, *, multipair: int, mode: str):
+    """`iteration_floor_probe` for the multipair kernel: mode "chain" runs
+    only its per-iteration reductions and barriers, "rows" only its
+    2(p+1) K_BB row reads. Not counted in `.launches`."""
+    check_multipair(K_BB.shape[0], 1, multipair)
+    if not K_BB.is_cuda:
+        raise ValueError("multipair_floor_probe measures the card: pass a "
+                         "CUDA tensor")
+    K = K_BB.to(torch.float32).contiguous()
+    out = torch.empty(1024, dtype=torch.float32, device=K.device)
+    rc = _bind_multipair_probe()(
+        K.data_ptr(), K.shape[0], int(multipair), int(iters),
+        _PROBE_MODES[mode], out.data_ptr(),
+        torch.cuda.current_stream(K.device).cuda_stream)
+    _build.check(rc, "inner_smo multipair floor probe")
     return out

@@ -4,12 +4,16 @@ Each outer round:
   1. the Keerthi stop check b_low <= b_high + 2 tau over the masked f;
   2. working-set selection: the q/2 smallest-f I_high members and the q/2
      largest-f I_low members, by a stable sort so that ties go to the lower
-     index (the order lax.top_k gives);
+     index (the order lax.top_k gives) -- over all n rows, or, with
+     fused_selection, over the candidate pool the previous round's
+     f-update kernel wrote;
   3. K_BB = K(X_B, X_B), one matmul;
-  4. the inner subproblem on K_BB: the CUDA kernel (inner="kernel") or the
+  4. the inner subproblem on K_BB: the CUDA kernel (inner="kernel", one
+     pair per iteration, or p slot pairs with multipair=p) or the
      accum-dtype eager loop (inner="loop");
   5. the f-update f += K(X, X_B) @ (dalpha * y_B): the fused CUDA kernel
-     (fused_fupdate=True) or the blocked torch contraction.
+     (fused_fupdate=True; with fused_selection it also writes the next
+     round's candidates) or the blocked torch contraction.
 
 The outer loop runs on the host with at most two host synchronisations per
 round: one reads the stop check, one reads the inner kernel's status. The
@@ -27,8 +31,10 @@ from typing import Optional
 import torch
 
 from tpusvm_torch.device import resolve_device
-from tpusvm_torch.ops.cuda.fused_fupdate import rbf_cross_matvec_kernel
-from tpusvm_torch.ops.cuda.inner_smo import inner_smo_kernel
+from tpusvm_torch.ops.cuda.fused_fupdate import (fused_fupdate_select_kernel,
+                                                 rbf_cross_matvec_kernel,
+                                                 selection_shape)
+from tpusvm_torch.ops.cuda.inner_smo import check_multipair, inner_smo_kernel
 from tpusvm_torch.ops.rbf import rbf_cross, rbf_cross_matvec, sq_norms
 from tpusvm_torch.ops.selection import i_high_mask, i_low_mask
 from tpusvm_torch.solver.analytic import pair_update
@@ -145,25 +151,83 @@ def _inner_smo(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, max_inner,
     return a, n_upd, progress, reason
 
 
+def _top_k(key, k: int, largest: bool):
+    """Indices of lax.top_k's k picks of the float32 `key` (or of the k
+    smallest, as lax.top_k(-key) gives them): by IEEE total order, in
+    which -0.0 < +0.0, equal values to the lower index first."""
+    bits = key.contiguous().view(torch.int32)
+    # flipping the magnitude bits of the negatives makes the int order the
+    # float total order
+    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    return torch.sort(order, descending=largest, stable=True).indices[:k]
+
+
 def select_working_set(f, m_h, m_l, half: int):
     """(B, is_first): q = 2*half indices, I_high's half smallest-f members
-    then I_low's half largest-f members not already taken, ties to the
-    lower index; is_first marks the first copy of an index picked twice.
+    then I_low's half largest-f members not already taken, in lax.top_k's
+    order (`_top_k`); is_first marks the first copy of an index picked
+    twice.
     """
     n = f.shape[0]
     inf = float("inf")
     key_up = torch.where(m_h, f, inf).to(torch.float32)
-    idx_up = torch.sort(key_up, stable=True).indices[:half]
+    idx_up = _top_k(key_up, half, largest=False)
     # only genuine I_high members count as taken (fillers are not)
     in_up = torch.zeros(n, dtype=torch.bool, device=f.device)
     in_up[idx_up] = m_h[idx_up]
     key_low = torch.where(m_l & ~in_up, f, -inf).to(torch.float32)
-    idx_low = torch.sort(-key_low, stable=True).indices[:half]
+    idx_low = _top_k(key_low, half, largest=True)
     B = torch.cat([idx_up, idx_low])
     dup_low = (idx_low[:, None] == idx_up[None, :]).any(dim=1)
     is_first = torch.cat([torch.ones(half, dtype=torch.bool, device=f.device),
                           ~dup_low])
     return B, is_first
+
+
+def bootstrap_candidates(f, alpha, Y, valid, C, eps, ncand: int):
+    """Round-1 candidate lists for fused selection: an exact masked top
+    ncand over the full f (what the kernel's per-block epilogue
+    approximates every later round), in lax.top_k's order. Returns (up_val, up_idx, low_val, low_idx); fillers are
+    +-inf with index 0.
+    """
+    n = f.shape[0]
+    m_h = i_high_mask(alpha, Y, C, eps, valid)
+    m_l = i_low_mask(alpha, Y, C, eps, valid)
+    key_up = torch.where(m_h, f, float("inf")).to(torch.float32)
+    key_lo = torch.where(m_l, f, -float("inf")).to(torch.float32)
+    k = min(ncand, n)
+    ui = _top_k(key_up, k, largest=False)
+    li = _top_k(key_lo, k, largest=True)
+    uv, lv = key_up[ui], key_lo[li]
+    pad = ncand - k
+    if pad:
+        uv = torch.cat([uv, uv.new_full((pad,), float("inf"))])
+        lv = torch.cat([lv, lv.new_full((pad,), -float("inf"))])
+        ui = torch.cat([ui, ui.new_zeros(pad)])
+        li = torch.cat([li, li.new_zeros(pad)])
+    return uv, ui.to(torch.int32), lv, li.to(torch.int32)
+
+
+def select_from_candidates(cands, m_h, half: int):
+    """(B, is_first) from a candidate pool: the half smallest-value I_high
+    candidates, then the half largest-value I_low candidates whose row is
+    not a genuine I_high pick, both in lax.top_k's order; filler indices clamp to
+    n-1, and is_first marks the first occurrence of each row over all q
+    (a row can repeat within a half through clamped fillers).
+    """
+    up_val, up_idx, low_val, low_idx = cands
+    n = m_h.shape[0]
+    sel_up = _top_k(up_val, half, largest=False)
+    idx_up = torch.clamp(up_idx[sel_up].long(), max=n - 1)
+    in_up = torch.zeros(n, dtype=torch.bool, device=m_h.device)
+    in_up[idx_up] = m_h[idx_up]
+    low_safe = torch.clamp(low_idx.long(), max=n - 1)
+    low_key = torch.where(in_up[low_safe], -float("inf"), low_val)
+    sel_lo = _top_k(low_key, half, largest=True)
+    B = torch.cat([idx_up, low_safe[sel_lo]])
+    pos = torch.arange(B.shape[0], device=B.device)
+    earlier = (B[:, None] == B[None, :]) & (pos[None, :] < pos[:, None])
+    return B, ~earlier.any(dim=1)
 
 
 def blocked_smo_solve(
@@ -188,6 +252,8 @@ def blocked_smo_solve(
     fused_fupdate="auto",
     wss: int = 1,
     eta_exclude: bool = False,
+    multipair: int = 1,
+    fused_selection: bool = False,
     device="cuda",
 ) -> SMOResult:
     """Train to the reference's stopping criterion with blocked working sets.
@@ -206,6 +272,12 @@ def blocked_smo_solve(
     (True), the blocked torch contraction (False), "auto" = as inner.
     wss: 1 = first-order partner, 2 = maximal-gain partner. eta_exclude
     (kernel engine, wss=2): drop degenerate partners from the gain pick.
+    multipair (kernel engine, wss=1): p > 1 runs the multipair subproblem,
+    p slot pairs plus the global pair per iteration; needs
+    (q//128) % (2p) == 0. fused_selection (fused f-update only): the
+    f-update kernel also writes per-row-block candidates, and the next
+    round selects from them instead of from all n rows; the stop check
+    stays exact over the full f.
     """
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
@@ -228,6 +300,20 @@ def blocked_smo_solve(
             "eta_exclude configures the kernel engine's wss=2 gain pick; "
             f"the effective config here is inner={inner!r}, wss={wss}"
         )
+    if multipair != 1:
+        if inner != "kernel":
+            raise ValueError(
+                f"multipair={multipair} is a kernel-engine feature; the "
+                f"effective inner engine here is {inner!r} (inner='auto' "
+                "resolves to the kernel only when q is a multiple of 128)"
+            )
+        check_multipair(q, wss, multipair)
+    if fused_selection and not fused:
+        raise ValueError(
+            "fused_selection extends the fused f-update kernel; the "
+            "effective fused_fupdate here is False (fused_fupdate='auto' "
+            "resolves to the kernel only when q is a multiple of 128)"
+        )
     half = q // 2
     valid = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
              else torch.as_tensor(valid, device=dev).to(torch.bool))
@@ -246,6 +332,12 @@ def blocked_smo_solve(
     else:
         f = -yf
     f = torch.where(valid, f, torch.zeros((), dtype=adt, device=dev))
+
+    if fused_selection:
+        sel_block, _, k_cand, ncand = selection_shape(n, X.shape[1], q)
+        # invalid rows enter the kernel with y=0, in neither index set
+        y_eff = (Y * valid).to(torch.int32)
+        cands = bootstrap_candidates(f, alpha, Y, valid, C, eps, ncand)
 
     nan = float("nan")
     b_high = b_low = nan
@@ -276,7 +368,10 @@ def blocked_smo_solve(
             status = Status.CONVERGED
             break
 
-        B, is_first = select_working_set(f, m_h, m_l, half)
+        if fused_selection:
+            B, is_first = select_from_candidates(cands, m_h, half)
+        else:
+            B, is_first = select_working_set(f, m_h, m_l, half)
         X_B = X[B]
         y_B = Y[B]
         a_B = alpha[B]
@@ -293,7 +388,8 @@ def blocked_smo_solve(
             a_B_q = a_B.to(torch.float32).to(adt)
             a_new, stat = inner_smo_kernel(
                 K_BB, y_B, a_B, f_B, active_B, C, eps, tau,
-                max_inner=max_inner, wss=wss, eta_exclude=eta_exclude)
+                max_inner=max_inner, wss=wss, eta_exclude=eta_exclude,
+                multipair=multipair)
             da_B = a_new.to(adt) - a_B_q
             # host sync 2: the kernel's status
             t_wait = time.perf_counter()
@@ -322,7 +418,16 @@ def blocked_smo_solve(
         # index_add_, not a scatter-set: an inactive duplicate carries a
         # zero delta, so a doubly-indexed row stays right
         alpha.index_add_(0, B, da_B)
-        f = f + matvec(X, X_B, dcoef.to(X.dtype), gamma, sn).to(adt)
+        if fused_selection:
+            # the epilogue masks with the post-round alphas, and keys on
+            # f32(f) + df
+            df, *cands = fused_fupdate_select_kernel(
+                X, X_B, dcoef.to(X.dtype), gamma, sn, f.to(torch.float32),
+                alpha.to(torch.float32), y_eff, C, eps, block=sel_block,
+                k_cand=k_cand)
+        else:
+            df = matvec(X, X_B, dcoef.to(X.dtype), gamma, sn)
+        f = f + df.to(adt)
         n_outer += 1
         n_updates += int(upd)
         if not progress:
