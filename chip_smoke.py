@@ -13,7 +13,12 @@ Phases, in order (any failure raises and the script exits non-zero):
      set (the multipair kernel at p = 2, 4 and 8), and beside two measured
      floors per iteration (the reduction chain alone, the K_BB row reads
      alone); the f-update with candidate selection against the f-update
-     alone (df bit for bit) and against the plain selection epilogue;
+     alone (df bit for bit) and against the plain selection epilogue; the
+     f-update's kernel values against f64 beside a single-pass TF32
+     product's (the error must be under a tenth of that one's, which it is
+     only if the 3xTF32 lo terms apply), the f-update itself against f64
+     beside the plain f32 version's (within 3x of it), and its time beside
+     its 3xTF32 bound on the tensor cores;
   4. the main path at mid size, trained on the card and on the CPU, held
      to the same SV-ID set, status and b (within 1e-4); 4b. the same for
      the multipair + fused-selection path;
@@ -46,8 +51,9 @@ import time
 import numpy as np
 
 # published rates of the H100 SXM part (NVIDIA data sheet, dense, at its
-# 700 W limit): f32 on the FMA units, and device-memory bandwidth
-_PEAKS = {"NVIDIA H100 80GB HBM3": (67.0e12, 3.35e12)}
+# 700 W limit): f32 on the FMA units, device-memory bandwidth, and TF32 on
+# the tensor cores
+_PEAKS = {"NVIDIA H100 80GB HBM3": (67.0e12, 3.35e12, 495.0e12)}
 C, GAMMA = 10.0, 0.00125
 
 
@@ -85,6 +91,66 @@ def cuda_ms(fn, reps=10, warmup=2):
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def host_us(fn, reps=20):
+    """Microseconds the host spends in one fn() that only launches work: the
+    mean over reps calls made back to back, with no wait for the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def precision_errors(kernel, plain, X, XB, coef, gamma, sn):
+    """Max |err| against the same function in f64 of the f-update at
+    `gamma` (`kernel`, the f32 `plain` version, and a single-pass TF32
+    product with the plain epilogue), and of kernel values K(x_i, xb_k) of
+    four columns at gamma = 1 / median d2 (the kernel run with a one-hot
+    coef, which adds exact zeros), where the contraction's error shows above
+    f32's rounding of the rest. Returns (fupdate errors, kernel-value
+    errors, the four gammas). TF32 is switched on for the one product and
+    off again."""
+    import torch
+
+    X64, XB64 = X.double(), XB.double()
+    d2_64 = ((X64 * X64).sum(1)[:, None] + (XB64 * XB64).sum(1)[None, :]
+             - 2.0 * (X64 @ XB64.T)).clamp_min(0.0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        dot_tf32 = X @ XB.T
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    snB = (XB * XB).sum(1)
+    d2_tf32 = (sn[:, None] + snB[None, :] - 2.0 * dot_tf32).clamp_min(0.0)
+
+    def err(out, ref):
+        return float((out.double() - ref).abs().max())
+
+    ref = torch.exp(-gamma * d2_64) @ coef.double()
+    fupdate = {"kernel": err(kernel(X, XB, coef, gamma, sn), ref),
+               "plain f32": err(plain(X, XB, coef, gamma, sn), ref),
+               "single-pass TF32": err(torch.exp(-gamma * d2_tf32) @ coef, ref)}
+    q = XB.shape[0]
+    values = dict.fromkeys(fupdate, 0.0)
+    gammas = []
+    for k in (0, q // 3, 2 * q // 3, q - 1):
+        g = 1.0 / float(d2_64[:, k].median())
+        gammas.append(g)
+        e_k = torch.zeros_like(coef)
+        e_k[k] = 1.0
+        ref = torch.exp(-g * d2_64[:, k])
+        for name, out in (("kernel", kernel(X, XB, e_k, g, sn)),
+                          ("plain f32", plain(X, XB, e_k, g, sn)),
+                          ("single-pass TF32", torch.exp(-g * d2_tf32[:, k]))):
+            values[name] = max(values[name], err(out, ref))
+    return fupdate, values, gammas
 
 
 def main():
@@ -127,12 +193,12 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    peak_flops, peak_bw = peaks(kind)
+    peak_flops, peak_bw, peak_tf32 = peaks(kind)
     log(f"[1] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}; device {kind} "
         f"(count {torch.cuda.device_count()}); nvidia-smi: {smi}; peaks used "
-        f"for bounds: f32 {peak_flops / 1e12:.1f} TFLOP/s, "
-        f"{peak_bw / 1e12:.2f} TB/s")
+        f"for bounds: f32 {peak_flops / 1e12:.1f} TFLOP/s, TF32 tensor "
+        f"{peak_tf32 / 1e12:.1f} TFLOP/s, {peak_bw / 1e12:.2f} TB/s")
 
     # ---- 2. build ---------------------------------------------------------
     t = time.perf_counter()
@@ -188,24 +254,59 @@ def main():
     cr = torch.as_tensor(rng.standard_normal(256), dtype=torch.float32, device=dev)
     fused_case(Xr, XBr, cr, None, "ragged n=1000 d=37 q=256")
 
+    # the contraction's precision: 3xTF32 against a single-pass TF32 product
+    fu_err, kv_err, kv_gammas = precision_errors(
+        rbf_cross_matvec_kernel, rbf_cross_matvec_ref, X, XB, coef, GAMMA, sn)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 left switched on")
+    for label, errs in ((f"kernel values at gamma=1/median d2 ({min(kv_gammas):.4g}"
+                         f"..{max(kv_gammas):.4g})", kv_err),
+                        (f"f-update at gamma={GAMMA}", fu_err)):
+        log(f"[3] fused_fupdate bench precision, {label}, max |err| against f64: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; kernel / single-pass TF32 = "
+            f"{errs['kernel'] / errs['single-pass TF32']:.3f}, kernel / plain f32 "
+            f"= {errs['kernel'] / errs['plain f32']:.3f}")
+    # kernel values isolate the contraction: the lo terms must apply
+    check(kv_err["kernel"] < 0.1 * kv_err["single-pass TF32"],
+          f"fused_fupdate kernel values: error {kv_err['kernel']} is not under a "
+          f"tenth of single-pass TF32's {kv_err['single-pass TF32']}")
+    # at the solver's gamma the f32 rounding of the epilogue's sum sets the
+    # error, for the kernel as for the plain version
+    check(fu_err["kernel"] <= 3.0 * fu_err["plain f32"],
+          f"fused_fupdate at gamma={GAMMA}: error {fu_err['kernel']} is over 3x the "
+          f"plain f32 version's {fu_err['plain f32']}")
+
     k_ms = cuda_ms(lambda: rbf_cross_matvec_kernel(X, XB, coef, GAMMA, sn))
+    k_host = host_us(lambda: rbf_cross_matvec_kernel(X, XB, coef, GAMMA, sn))
     p_ms = cuda_ms(lambda: rbf_cross_matvec_ref(X, XB, coef, GAMMA, sn))
     lib_ms = cuda_ms(lambda: torch.matmul(X, XB.T))
     flops = 2.0 * n * d * q
     nbytes = 4.0 * (n * d + q * d + q + n + n)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-    log(f"[3] fused_fupdate bench: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, "
-        f"torch.matmul(X, XB.T) {lib_ms:.3f} ms; bound {max(t_ops, t_bytes):.3f} ms "
-        f"(operations {t_ops:.3f}, bytes {t_bytes:.4f}); "
-        f"{flops / k_ms / 1e9:.1f} TFLOP/s achieved")
+    # the kernel's operations: three TF32 products on the tensor cores
+    t_tc = 3 * flops / peak_tf32 * 1e3
+    t_bytes = nbytes / peak_bw * 1e3
+
+    def bounds_line(ms):
+        return (f"bound: 3xTF32 {t_tc:.3f} ms ({100 * t_tc / ms:.1f}% of it "
+                f"reached; bytes {t_bytes:.4f} ms); {flops / ms / 1e9:.1f} "
+                f"effective TFLOP/s (2nqd / time), {3 * flops / ms / 1e9:.1f} TF32 "
+                f"TFLOP/s issued; for reference, 2nqd at the f32 FMA rate takes "
+                f"{flops / peak_flops * 1e3:.3f} ms")
+
+    log(f"[3] fused_fupdate bench: kernel {k_ms:.3f} ms (host {k_host:.1f} us a "
+        f"call in the wrapper), plain {p_ms:.3f} ms, torch.matmul(X, XB.T) "
+        f"{lib_ms:.3f} ms; {bounds_line(k_ms)}")
+    check(k_ms < lib_ms, f"fused_fupdate {k_ms} ms is not under torch.matmul's "
+          f"{lib_ms} ms")
     kernels.append({
         "name": "fused_fupdate", "route": "cuda",
         "source": "tpusvm_torch/csrc/fused_fupdate.cu",
         "replaces": "tpusvm/ops/pallas/fused_fupdate.py:150",
         "launches": None, "max_abs_err": err_bench, "ms": k_ms, "kernel_ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": lib_ms,
+        "plain_ms": p_ms, "bound_ms": max(t_tc, t_bytes),
+        "bound_by": "operations" if t_tc >= t_bytes else "bytes",
+        "library_ms": lib_ms, "max_abs_err_f64": fu_err,
+        "kernel_value_err_f64": kv_err,
         "shape": {"n": n, "d": d, "q": q}})
 
     # the inner kernel against its plain version at the CPU tests' sizes
@@ -414,18 +515,20 @@ def main():
     sp_ms = cuda_ms(lambda: fused_fupdate_select_ref(*sel_args, block=blk,
                                                      k_cand=kc), reps=5)
     s_bytes = 4.0 * (n * d + q * d + q + 4 * n + n + 4 * nb * kc)
-    s_ops, s_byt = flops / peak_flops * 1e3, s_bytes / peak_bw * 1e3
-    log(f"[3] fused_select bench: kernel {s_ms:.3f} ms (both launches; the "
+    s_byt = s_bytes / peak_bw * 1e3
+    log(f"[3] fused_select bench: kernel {s_ms:.3f} ms (all four launches; the "
         f"f-update alone {f_ms:.3f} ms, the epilogue launch alone {e_ms:.4f} "
         f"ms), plain {sp_ms:.3f} ms, torch.matmul(X, XB.T) {lib_ms:.3f} ms; "
-        f"bound {max(s_ops, s_byt):.3f} ms")
+        f"{bounds_line(s_ms)}")
+    check(s_ms < lib_ms, f"fused_select {s_ms} ms is not under torch.matmul's "
+          f"{lib_ms} ms")
     kernels.append({
         "name": "fused_fupdate_select", "route": "cuda",
         "source": "tpusvm_torch/csrc/fused_select.cu",
         "replaces": "tpusvm/ops/pallas/fused_fupdate.py:334",
         "launches": None, "max_abs_err": sel_err, "ms": s_ms, "kernel_ms": s_ms,
-        "plain_ms": sp_ms, "bound_ms": max(s_ops, s_byt),
-        "bound_by": "operations" if s_ops >= s_byt else "bytes",
+        "plain_ms": sp_ms, "bound_ms": max(t_tc, s_byt),
+        "bound_by": "operations" if t_tc >= s_byt else "bytes",
         "library_ms": lib_ms, "fupdate_alone_ms": f_ms, "epilogue_ms": e_ms,
         "shape": {"n": n, "d": d, "q": q, "block": blk, "k_cand": kc}})
 
@@ -544,16 +647,23 @@ def main():
                                                             Y_all[:60000])
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t) * 1e3
-        by_kernel = {}
+        by_kernel, count = {}, {}
         for e in prof.events():
             if str(getattr(e, "device_type", "")).endswith("CUDA"):
                 by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time / 1e3
+                count[e.name] = count.get(e.name, 0) + 1
         busy = sum(by_kernel.values())
         log(f"[6] profiled full-width fit of phase {phase}: wall {wall_ms:.1f} ms, "
             f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
             f"{100 * (1 - busy / wall_ms):.1f}%")
         for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
             log(f"    {ms:9.3f} ms  {name[:100]}")
+        # the f-update's own launches (csrc/rbf_tile.cuh): X_B's split, the
+        # main loop, the sum of the partials
+        fu = {k: v for k, v in by_kernel.items() if "rbf::" in k}
+        log(f"[6] phase {phase} f-update: {sum(fu.values()):.1f} ms in all, "
+            + ", ".join(f"{k.split('(')[0].split('::')[-1]} {v:.1f} ms in "
+                        f"{count[k]} launches" for k, v in sorted(fu.items())))
         check(busy > 0, "profiler saw no device time")
 
     for k in kernels:

@@ -17,18 +17,21 @@
 //     +-inf fillers are its largest unpicked rows, which in the last block
 //     are rows >= n; indices are global (block start + row).
 //
-// What bounds it on an H100: the df contraction, 2*n*d*q multiply-adds
-// (192.7 GFLOP at n=60000, d=784, q=2048), as for fused_fupdate.cu; the
-// epilogue reads 4 floats per row and writes 4*nb*k_cand values, nothing
-// next to that.
+// What bounds it on an H100: the df contraction, 2*n*d*q flops (192.7
+// GFLOP at n=60000, d=784, q=2048), as for fused_fupdate.cu: 3xTF32 on the
+// tensor cores, 1.168 ms at 495 TFLOP/s, with the chosen unit's 9.0 GB of
+// L2 reads next; the epilogue reads 4 floats per row and writes
+// 4*nb*k_cand values, nothing next to that.
 //
-// Design, a first version in two launches on one stream: (1) the f-update's
-// main loop from rbf_tile.cuh, the same code and flags as fused_fupdate.cu,
-// so df is bit-identical to it; (2) an epilogue kernel, one block of 256
-// threads per row block: keys into shared memory, then k_cand rounds of a
-// block-wide (key, row) reduction with the last row winning ties, for I_high
-// and I_low together, the winner marked picked. Fusing (2) into (1)'s
-// epilogue is later work: a 128-row tile of (1) holds half a 256-row block.
+// Design, in four launches on one stream: (1) to (3) the f-update of
+// rbf_tile.cuh (X_B's TF32 split, the TMA + wgmma main loop over
+// (row block, column tile) units, the fixed-order sum of their partials),
+// the same code and flags as fused_fupdate.cu, so df is bit-identical to
+// it; (4) an epilogue kernel, one block of 256 threads per row block: keys
+// into shared memory, then k_cand rounds of a block-wide (key, row)
+// reduction with the last row winning ties, for I_high and I_low together,
+// the winner marked picked. Fusing (4) into the main loop is later work: a
+// row's df is complete only once every column tile's unit has run.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -152,13 +155,14 @@ extern "C" int tpusvm_select_candidates(const float* df, const float* f32_f, con
 
 extern "C" int tpusvm_fused_fupdate_select(const float* X, const float* XB, const float* coef,
                                            const float* sn, const float* snB, float gamma,
-                                           int n, int d, int q, const float* f32_f,
+                                           int n, int d, int ld, int q, float* scratch,
+                                           const float* f32_f,
                                            const float* alpha, const int* y_eff, float C,
                                            float eps, int block, int k_cand, float* df,
                                            float* up_val, int* up_idx, float* low_val,
                                            int* low_idx, cudaStream_t stream) {
-  const int rc = tpusvm::launch_rbf_cross_matvec(X, XB, coef, sn, snB, gamma, n, d, q, df,
-                                                 stream);
+  const int rc = tpusvm::launch_rbf_cross_matvec(X, XB, coef, sn, snB, gamma, n, d, ld, q,
+                                                 scratch, df, stream);
   if (rc != 0) return rc;
   return tpusvm_select_candidates(df, f32_f, alpha, y_eff, C, eps, n, block, k_cand, up_val,
                                   up_idx, low_val, low_idx, stream);

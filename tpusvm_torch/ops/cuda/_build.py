@@ -26,6 +26,9 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpusvm_torch"
 
+# No link flags: the f-update's tensor maps are encoded through
+# cuTensorMapEncodeTiled, which csrc/rbf_tile.cuh looks up at run time with
+# cudaGetDriverEntryPointByVersion (cudart), so nothing links -lcuda.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -111,6 +114,17 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(rc: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a C entry point."""
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+    """Raise on a non-zero code returned by a C entry point: a cudaError_t,
+    or one of csrc/rbf_tile.cuh's tensor-map codes (negative)."""
+    if rc == 0:
+        return
+    if rc == -1000:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled not found through "
+                           "cudaGetDriverEntryPointByVersion")
+    if -3000 < rc <= -2000:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused the "
+                           f"layout (CUresult {-2000 - rc})")
+    if rc == -3000:
+        raise RuntimeError(f"{what}: TMA operands need a row pitch that is a "
+                           "multiple of 16 bytes and 16-byte aligned bases")
+    raise RuntimeError(f"{what}: CUDA error {rc} at launch")

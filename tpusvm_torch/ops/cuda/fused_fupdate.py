@@ -6,7 +6,17 @@ tpusvm/ops/pallas/fused_fupdate.py) and its plain version
 `rbf_cross_matvec_ref` on a CPU tensor. `fused_fupdate_select_kernel`
 (csrc/fused_select.cu, the port of fused_fupdate_select_pallas) adds the
 next round's working-set candidates; its plain version is
-`fused_fupdate_select_ref`. IEEE f32 throughout.
+`fused_fupdate_select_ref`.
+
+The plain versions are IEEE f32. On the card the contraction runs as
+3xTF32 on the tensor cores: each operand is split as a = hi + lo with
+hi = tf32(a) and lo = tf32(a - hi) (`tf32_split`, rounding to nearest,
+ties away from zero), and the kernel sums lo.hi + hi.lo + hi.hi in f32,
+each 32-wide k slice in a fresh accumulator, the slices added with IEEE
+adds. `rbf_cross_matvec_3xtf32` is a plain-torch model of that precision,
+not of the card's rounding: the same split and the same three products,
+each a full-depth f32 matmul, so that the CPU tests can show the solver
+tolerates a contraction with the lo.lo term dropped.
 """
 
 from __future__ import annotations
@@ -18,9 +28,65 @@ from typing import Optional
 import torch
 
 from tpusvm_torch.ops.cuda import _build
-from tpusvm_torch.ops.rbf import rbf_cross_matvec, sq_norms
+from tpusvm_torch.ops.rbf import (check_full_f32, rbf_cross_matvec,
+                                  sq_norms)
 
 _P = ctypes.c_void_p
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) of a float32 tensor: hi = tf32(x), lo = tf32(x - hi).
+
+    tf32 keeps 10 explicit significand bits: the low 13 bits of the f32
+    pattern are rounded off to nearest, ties away from zero (PTX
+    cvt.rna.tf32.f32), on the bit pattern, so subnormals round in their
+    own scale, the sign is kept, and a NaN stays a NaN. x - hi is exact in
+    f32, so hi + lo == x whenever lo needs no rounding, and |x - hi - lo|
+    <= 2^-11 |x - hi| otherwise.
+    """
+    if x.dtype != torch.float32:
+        raise ValueError(f"tf32_split takes float32, got {x.dtype}")
+
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        # adding half an ulp to the magnitude bits rounds ties away from 0
+        r = ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+        return torch.where(torch.isnan(v), v, r)
+
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _dot_3xtf32(XA: torch.Tensor, XB: torch.Tensor) -> torch.Tensor:
+    """XA . XB^T from the TF32 parts the kernel uses: three f32 matmuls of
+    the parts (each product of two TF32 values is exact in f32), added."""
+    check_full_f32(XA)
+    ah, al = tf32_split(XA)
+    bh, bl = tf32_split(XB)
+    return al @ bh.T + ah @ bl.T + ah @ bh.T
+
+
+def rbf_cross_matvec_3xtf32(X: torch.Tensor, XB: torch.Tensor,
+                            coef: torch.Tensor, gamma,
+                            sn: Optional[torch.Tensor] = None,
+                            block: int = 8192) -> torch.Tensor:
+    """The f-update with a 3xTF32 dot (the kernel's split and products, in
+    three full-depth f32 matmuls rounded apart, which is coarser than the
+    card's per-slice sums) and the plain version's f32 epilogue. Shape
+    (n,)."""
+    X = X.float()
+    XB = XB.float()
+    coef = coef.float()
+    if sn is None:
+        sn = sq_norms(X)
+    snB = sq_norms(XB)
+    out = torch.empty(X.shape[0], dtype=torch.float32, device=X.device)
+    for start in range(0, X.shape[0], block):
+        stop = min(start + block, X.shape[0])
+        d2 = (sn[start:stop, None] + snB[None, :]
+              - 2.0 * _dot_3xtf32(X[start:stop], XB))
+        out[start:stop] = torch.exp(-gamma * torch.clamp_min(d2, 0.0)) @ coef
+    return out
 
 
 def rbf_cross_matvec_ref(X: torch.Tensor, XB: torch.Tensor, coef: torch.Tensor,
@@ -35,7 +101,7 @@ def rbf_cross_matvec_ref(X: torch.Tensor, XB: torch.Tensor, coef: torch.Tensor,
 def _bind():
     fn = _build.load("fused_fupdate").tpusvm_rbf_cross_matvec
     fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, _P, _P]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -47,6 +113,41 @@ def _f32(t: torch.Tensor, name: str, shape) -> torch.Tensor:
     return t.contiguous()
 
 
+# columns of X_B per work unit of the main loop (BN in csrc/rbf_tile.cuh)
+_TILE_N = 128
+
+
+def _tma_rows(X: torch.Tensor) -> torch.Tensor:
+    """X as the main loop's TMA loads take it: rows padded with zero
+    columns to a multiple of 4 floats (a 16-byte pitch; zero columns change
+    neither a dot nor a norm), on a 16-byte aligned base (else copied)."""
+    d = X.shape[1]
+    if d % 4:
+        return torch.nn.functional.pad(X, (0, 4 - d % 4))
+    if X.data_ptr() % 16:
+        return X.clone()
+    return X
+
+
+def _operands(X, XB, coef, sn):
+    n, d = X.shape
+    q = XB.shape[0]
+    X = _f32(X, "X", (n, d))
+    XB = _f32(XB, "XB", (q, d))
+    coef = _f32(coef, "coef", (q,))
+    sn = sq_norms(X) if sn is None else _f32(sn, "sn", (n,))
+    for t in (XB, coef, sn):
+        if t.device != X.device:
+            raise ValueError("all operands must be on X's device")
+    Xt = _tma_rows(X)
+    ld = Xt.shape[1]
+    # the kernel's scratch: X_B's TF32 hi and lo parts, then one partial
+    # row sum per column tile of _TILE_N
+    scratch = torch.empty(2 * q * ld + -(-q // _TILE_N) * n,
+                          dtype=torch.float32, device=X.device)
+    return (Xt, XB, coef, sn, sq_norms(XB), n, d, ld, q, scratch)
+
+
 def rbf_cross_matvec_kernel(X: torch.Tensor, XB: torch.Tensor,
                             coef: torch.Tensor, gamma,
                             sn: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -54,25 +155,19 @@ def rbf_cross_matvec_kernel(X: torch.Tensor, XB: torch.Tensor,
 
     X (n, d) and XB (q, d) float32 (XB is the gathered X[B], row-major),
     coef (q,), sn = sq_norms(X) if given. CPU tensors run the plain
-    version; CUDA tensors launch the kernel (counted in `.launches`).
+    version; CUDA tensors launch the kernel (counted in `.launches`), whose
+    contraction is 3xTF32 on the tensor cores. For the kernel's TMA loads,
+    X with d % 4 != 0 is padded with zero columns and a misaligned X is
+    copied; X_B's TF32 parts and the per-tile partial sums go to scratch the
+    wrapper allocates.
     """
     if not X.is_cuda:
         return rbf_cross_matvec_ref(X, XB, coef, gamma, sn)
-    n, d = X.shape
-    q = XB.shape[0]
-    X = _f32(X, "X", (n, d))
-    XB = _f32(XB, "XB", (q, d))
-    coef = _f32(coef, "coef", (q,))
-    sn = sq_norms(X) if sn is None else _f32(sn, "sn", (n,))
-    snB = sq_norms(XB)
-    for t in (XB, coef, sn):
-        if t.device != X.device:
-            raise ValueError("all operands must be on X's device")
+    Xt, XB, coef, sn, snB, n, d, ld, q, scratch = _operands(X, XB, coef, sn)
     out = torch.empty(n, dtype=torch.float32, device=X.device)
-    fn = _bind()
-    rc = fn(X.data_ptr(), XB.data_ptr(), coef.data_ptr(), sn.data_ptr(),
-            snB.data_ptr(), float(gamma), n, d, q, out.data_ptr(),
-            torch.cuda.current_stream(X.device).cuda_stream)
+    rc = _bind()(Xt.data_ptr(), XB.data_ptr(), coef.data_ptr(), sn.data_ptr(),
+                 snB.data_ptr(), float(gamma), n, d, ld, q, scratch.data_ptr(),
+                 out.data_ptr(), torch.cuda.current_stream(X.device).cuda_stream)
     rbf_cross_matvec_kernel.launches += 1
     _build.check(rc, "rbf_cross_matvec kernel")
     return out
@@ -182,9 +277,9 @@ def fused_fupdate_select_ref(X, XB, coef, gamma, sn, f32_f, alpha32, y_eff,
 def _bind_select():
     fn = _build.load("fused_select").tpusvm_fused_fupdate_select
     fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_int, _P, _P, _P,
-                   _P, _P, _P]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                   _P, _P, _P, _P, _P, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -196,30 +291,25 @@ def fused_fupdate_select_kernel(X, XB, coef, gamma, sn, f32_f, alpha32,
 
     f32_f is the current f in f32, alpha32 the post-round alphas in f32,
     y_eff = y * valid as int32. CPU tensors run the plain version; CUDA
-    tensors launch csrc/fused_select.cu (two launches, counted once in
-    `.launches`): df bit-identical to `rbf_cross_matvec_kernel`'s.
+    tensors launch csrc/fused_select.cu (the f-update's three launches and
+    the epilogue's, counted once in `.launches`): df bit-identical to
+    `rbf_cross_matvec_kernel`'s.
     """
     if not X.is_cuda:
         return fused_fupdate_select_ref(X, XB, coef, gamma, sn, f32_f, alpha32,
                                         y_eff, C, eps, block=block,
                                         k_cand=k_cand)
-    n, d = X.shape
-    q = XB.shape[0]
     if not 1 <= k_cand <= block:
         raise ValueError(f"k_cand must be in [1, block={block}], got {k_cand}")
-    X = _f32(X, "X", (n, d))
-    XB = _f32(XB, "XB", (q, d))
-    coef = _f32(coef, "coef", (q,))
-    sn = sq_norms(X) if sn is None else _f32(sn, "sn", (n,))
+    Xt, XB, coef, sn, snB, n, d, ld, q, scratch = _operands(X, XB, coef, sn)
     f32_f = _f32(f32_f, "f32_f", (n,))
     alpha32 = _f32(alpha32, "alpha32", (n,))
     if y_eff.dtype != torch.int32 or tuple(y_eff.shape) != (n,):
         raise ValueError(f"y_eff must be int32 of shape ({n},)")
     y_eff = y_eff.contiguous()
-    for t in (XB, coef, sn, f32_f, alpha32, y_eff):
+    for t in (f32_f, alpha32, y_eff):
         if t.device != X.device:
             raise ValueError("all operands must be on X's device")
-    snB = sq_norms(XB)
     nb = -(-n // block)
     dev = X.device
     df = torch.empty(n, dtype=torch.float32, device=dev)
@@ -228,12 +318,12 @@ def fused_fupdate_select_kernel(X, XB, coef, gamma, sn, f32_f, alpha32,
     up_idx = torch.empty(nb * k_cand, dtype=torch.int32, device=dev)
     low_idx = torch.empty_like(up_idx)
     rc = _bind_select()(
-        X.data_ptr(), XB.data_ptr(), coef.data_ptr(), sn.data_ptr(),
-        snB.data_ptr(), float(gamma), n, d, q, f32_f.data_ptr(),
-        alpha32.data_ptr(), y_eff.data_ptr(), float(C), float(eps), block,
-        k_cand, df.data_ptr(), up_val.data_ptr(), up_idx.data_ptr(),
-        low_val.data_ptr(), low_idx.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        Xt.data_ptr(), XB.data_ptr(), coef.data_ptr(), sn.data_ptr(),
+        snB.data_ptr(), float(gamma), n, d, ld, q, scratch.data_ptr(),
+        f32_f.data_ptr(), alpha32.data_ptr(),
+        y_eff.data_ptr(), float(C), float(eps), block, k_cand, df.data_ptr(),
+        up_val.data_ptr(), up_idx.data_ptr(), low_val.data_ptr(),
+        low_idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     fused_fupdate_select_kernel.launches += 1
     _build.check(rc, "fused_fupdate_select kernel")
     return df, up_val, up_idx, low_val, low_idx
