@@ -9,16 +9,18 @@ Phases, in order (any failure raises and the script exits non-zero):
   3. each kernel against its plain torch version on the card, and timed
      (CUDA events, median of >= 10 after warm-up) beside its bound, its
      plain version and, where one exists, a single PyTorch call; the inner
-     kernels at the full-width shape on a cold-start and a mid-solve working
-     set (the multipair kernel at p = 2, 4 and 8), and beside two measured
-     floors per iteration (the reduction chain alone, the K_BB row reads
-     alone); the f-update with candidate selection against the f-update
-     alone (df bit for bit) and against the plain selection epilogue; the
-     f-update's kernel values against f64 beside a single-pass TF32
-     product's (the error must be under a tenth of that one's, which it is
-     only if the 3xTF32 lo terms apply), the f-update itself against f64
-     beside the plain f32 version's (within 3x of it), and its time beside
-     its 3xTF32 bound on the tensor cores;
+     kernels bit for bit (a_out and all four stat entries) at q=256 and at
+     the full-width shape on a cold-start and a mid-solve working set (the
+     multipair kernel at p = 2, 4 and 8), and beside measured floors per
+     iteration (the reduction chain alone, one iteration's K_BB row reads
+     alone, issued as the kernel issues them, and their sum); the f-update
+     with candidate selection against the f-update alone (df bit for bit)
+     and against the plain selection epilogue; the f-update's kernel
+     values against f64 beside a single-pass TF32 product's (the error must
+     be under a tenth of that one's, which it is only if the 3xTF32 lo terms
+     apply), the f-update itself against f64 beside the plain f32 version's
+     (within 3x of it), and its time beside its 3xTF32 bound on the tensor
+     cores;
   4. the main path at mid size, trained on the card and on the CPU, held
      to the same SV-ID set, status and b (within 1e-4); 4b. the same for
      the multipair + fused-selection path;
@@ -153,6 +155,42 @@ def precision_errors(kernel, plain, X, XB, coef, gamma, sn):
     return fupdate, values, gammas
 
 
+def inner_working_sets(X, Y, sn, q, dev):
+    """The inner kernels' inputs at full width: the first round's working
+    set (the tie-heavy cold start f = -y) and the fourth round's (after three
+    rounds of the wss=2 solve: nonzero alphas, f from them), each as
+    (K_BB, y_B, a_B, f_B, active_B). Returns (cold, round4, B, alpha3, f3):
+    B the first round's working set, alpha3 and f3 the state after three
+    rounds."""
+    import torch
+    from tpusvm_torch.ops.cuda.fused_fupdate import rbf_cross_matvec_kernel
+    from tpusvm_torch.ops.rbf import rbf_cross
+    from tpusvm_torch.ops.selection import i_high_mask, i_low_mask
+    from tpusvm_torch.solver.blocked import blocked_smo_solve, select_working_set
+
+    def working_set(alpha, f):
+        return select_working_set(f, i_high_mask(alpha, Y, C, 1e-12),
+                                  i_low_mask(alpha, Y, C, 1e-12), q // 2)
+
+    n = X.shape[0]
+    alpha0 = torch.zeros(n, dtype=torch.float64, device=dev)
+    B, _ = working_set(alpha0, -Y.to(torch.float64))
+    XB, y_B = X[B].contiguous(), Y[B]
+    cold = (rbf_cross(XB, XB, GAMMA), y_B, torch.zeros(q, device=dev), -y_B.float(),
+            torch.ones(q, dtype=torch.bool, device=dev))
+    res3 = blocked_smo_solve(X, Y, C=C, gamma=GAMMA, q=q, wss=2, max_inner=4096,
+                             max_outer=3, accum_dtype=torch.float64, device=dev)
+    alpha3 = res3.alpha
+    yd = Y.to(torch.float64)
+    f3 = rbf_cross_matvec_kernel(X, X, (alpha3 * yd).float(), GAMMA, sn).double() - yd
+    B4, first4 = working_set(alpha3, f3)
+    a_B4, y_B4 = alpha3[B4], Y[B4]
+    act4 = first4 & (i_high_mask(a_B4, y_B4, C, 1e-12)
+                     | i_low_mask(a_B4, y_B4, C, 1e-12))
+    round4 = (rbf_cross(X[B4], X[B4], GAMMA), y_B4, a_B4, f3[B4], act4)
+    return cold, round4, B, alpha3, f3
+
+
 def main():
     import torch
 
@@ -172,11 +210,8 @@ def main():
             inner_smo_multipair_ref, inner_smo_ref, iteration_floor_probe,
             multipair_floor_probe)
         from tpusvm_torch.ops.rbf import rbf_cross, sq_norms
-        from tpusvm_torch.ops.selection import i_high_mask, i_low_mask
         from tpusvm_torch.config import SVMConfig
         from tpusvm_torch.models.svm import BinarySVC
-        from tpusvm_torch.solver.blocked import (blocked_smo_solve,
-                                                 select_working_set)
         from tpusvm_torch.status import Status
     except ImportError as e:
         print(f"chip_smoke: tpusvm_torch is not importable here ({e})",
@@ -225,16 +260,12 @@ def main():
     n, d = X.shape
     q = 2048
 
-    # the first round's working set of the full-width solve: the tie-heavy
-    # cold start f = -y
-    alpha0 = torch.zeros(n, dtype=torch.float64, device=dev)
-    f0 = -Y.to(torch.float64)
-    B, _ = select_working_set(f0, i_high_mask(alpha0, Y, C, 1e-12),
-                              i_low_mask(alpha0, Y, C, 1e-12), q // 2)
+    sn = sq_norms(X)
+    # the full-width solve's first working set (cold start) and fourth
+    cold, round4, B, alpha3, f3 = inner_working_sets(X, Y, sn, q, dev)
     XB = X[B].contiguous()
     gen = torch.Generator(device="cpu").manual_seed(0)
     coef = (torch.randn(q, generator=gen) * 0.5).to(dev)
-    sn = sq_norms(X)
 
     def fused_case(Xc, XBc, cc, snc, label):
         got = rbf_cross_matvec_kernel(Xc, XBc, cc, GAMMA, snc)
@@ -309,95 +340,89 @@ def main():
         "kernel_value_err_f64": kv_err,
         "shape": {"n": n, "d": d, "q": q}})
 
-    # the inner kernel against its plain version at the CPU tests' sizes
+    # the inner kernels against their plain versions, bit for bit: a_out
+    # and all four stat entries
+    inner_errs = {"inner_smo": 0.0, "inner_smo_multipair": 0.0}
+
+    def same(kernel_out, plain_out, label):
+        (a_k, st_k), (a_r, st_r) = kernel_out, plain_out
+        torch.cuda.synchronize()
+        st = st_k.tolist()
+        name = "inner_smo_multipair" if "multipair" in label else "inner_smo"
+        inner_errs[name] = max(inner_errs[name], float((a_k - a_r).abs().max()))
+        equal = torch.equal(a_k, a_r) and st == st_r.tolist()
+        log(f"[3] {label}: stat kernel {st} plain {st_r.tolist()}, a_out and stat "
+            f"bit-equal {equal}")
+        check(equal, f"{label}: kernel differs from its plain version "
+              f"(max |da| {float((a_k - a_r).abs().max())})")
+        check(st[2] in (1, 2, 5), f"{label}: bad stat {st}")
+        return st
+
     g2 = np.random.default_rng(3)
     Xq = torch.as_tensor(g2.random((256, 8)), dtype=torch.float32, device=dev)
     yq = torch.as_tensor(np.where(g2.random(256) < 0.5, 1, -1), device=dev)
     Kq = rbf_cross(Xq, Xq, 0.5)
-    inner_err = 0.0
     for wss, ex in ((1, False), (2, False), (2, True)):
         args = (Kq, yq, torch.zeros(256, device=dev), -yq.float(),
                 torch.ones(256, dtype=torch.bool, device=dev), C, 1e-12, 1e-5)
-        a_k, st_k = inner_smo_kernel(*args, max_inner=512, wss=wss, eta_exclude=ex)
-        a_r, st_r = inner_smo_ref(*args, max_inner=512, wss=wss, eta_exclude=ex)
-        torch.cuda.synchronize()
-        err = float((a_k - a_r).abs().max())
-        inner_err = max(inner_err, err)
-        log(f"[3] inner_smo q=256 wss={wss} eta_exclude={ex}: stat kernel "
-            f"{st_k.tolist()} plain {st_r.tolist()}, max_abs_err {err:.3e}")
-        check(st_k.tolist()[:3] == st_r.tolist()[:3],
-              f"inner_smo wss={wss} eta_exclude={ex}: status differs")
-        check(err <= 1e-5 * C, f"inner_smo wss={wss}: error {err}")
+        same(inner_smo_kernel(*args, max_inner=512, wss=wss, eta_exclude=ex),
+             inner_smo_ref(*args, max_inner=512, wss=wss, eta_exclude=ex),
+             f"inner_smo q=256 wss={wss} eta_exclude={ex}")
 
     # at the full-width shape: the first round's K_BB (cold start) and the
     # fourth round's (a mid-solve state: nonzero alphas, f from them)
-    def inner_case(K_BB, y_B, a_B, f_B, act_B, label):
-        inner_args = (K_BB, y_B, a_B, f_B, act_B, C, 1e-12, 1e-5)
-        a_k, st_k = inner_smo_kernel(*inner_args, max_inner=4096, wss=2)
+    def inner_case(ws, label):
+        inner_args = (*ws, C, 1e-12, 1e-5)
+        out = inner_smo_kernel(*inner_args, max_inner=4096, wss=2)
         t = time.perf_counter()
-        a_r, st_r = inner_smo_ref(*inner_args, max_inner=4096, wss=2)
+        ref = inner_smo_ref(*inner_args, max_inner=4096, wss=2)
         torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t) * 1e3
-        err = float((a_k - a_r).abs().max())
-        st = st_k.tolist()
-        log(f"[3] inner_smo q={q} max_inner=4096 wss=2 {label}: stat kernel "
-            f"{st} plain {st_r.tolist()}, max_abs_err {err:.3e}")
-        check(st[:3] == st_r.tolist()[:3], f"inner_smo q={q} {label}: status "
-              f"differs (kernel {st}, plain {st_r.tolist()})")
-        check(err <= 1e-5 * C, f"inner_smo q={q} {label}: error {err}")
-        check(st[0] > 0 and st[2] in (1, 2, 5), f"inner_smo q={q}: bad stat {st}")
+        st = same(out, ref, f"inner_smo q={q} max_inner=4096 wss=2 {label}")
+        check(st[0] > 0, f"inner_smo q={q}: no update {st}")
         k_ms = cuda_ms(lambda: inner_smo_kernel(*inner_args, max_inner=4096, wss=2))
-        return err, st, k_ms, p_ms
+        return st, k_ms, p_ms
 
-    K_BB = rbf_cross(XB, XB, GAMMA)
-    y_B = Y[B]
-    err_cold, st, k_ms, p_ms = inner_case(
-        K_BB, y_B, torch.zeros(q, device=dev), -y_B.float(),
-        torch.ones(q, dtype=torch.bool, device=dev), "cold start")
-
-    res3 = blocked_smo_solve(X, Y, C=C, gamma=GAMMA, q=q, wss=2, max_inner=4096,
-                             max_outer=3, accum_dtype=torch.float64, device=dev)
-    alpha3 = res3.alpha
-    yd = Y.to(torch.float64)
-    f3 = rbf_cross_matvec_kernel(X, X, (alpha3 * yd).float(), GAMMA, sn).double() - yd
-    B4, first4 = select_working_set(f3, i_high_mask(alpha3, Y, C, 1e-12),
-                                    i_low_mask(alpha3, Y, C, 1e-12), q // 2)
-    a_B4, y_B4 = alpha3[B4], Y[B4]
-    act4 = first4 & (i_high_mask(a_B4, y_B4, C, 1e-12)
-                     | i_low_mask(a_B4, y_B4, C, 1e-12))
-    K4 = rbf_cross(X[B4], X[B4], GAMMA)
-    err_mid, st_mid, k_mid_ms, _ = inner_case(
-        K4, y_B4, a_B4, f3[B4], act4,
-        f"round 4 ({int((a_B4 > 0).sum())} nonzero alphas)")
+    st, k_ms, p_ms = inner_case(cold, "cold start")
+    a_B4 = round4[2]
+    st_mid, k_mid_ms, _ = inner_case(
+        round4, f"round 4 ({int((a_B4 > 0).sum())} nonzero alphas)")
     log(f"[3] inner_smo q={q} round 4: kernel {k_mid_ms:.3f} ms for "
         f"{st_mid[0]} updates ({k_mid_ms * 1e3 / max(st_mid[3], 1):.2f} "
         "us/iteration)")
 
-    # floors on the cold-start run's iteration count: the reduction chain
-    # alone, and the two K_BB row reads alone (K_BB is L2-resident)
+    def floors(probe, K_BB, iters, **kw):
+        """Per-iteration floors in us: the reduction chain alone, one
+        iteration's row reads alone (all in flight as the kernel issues
+        them), and their sum."""
+        chain = cuda_ms(lambda: probe(K_BB, iters, mode="chain", **kw))
+        rows = cuda_ms(lambda: probe(K_BB, iters, mode="rows", **kw))
+        return chain, rows, chain + rows
+
+    def floors_line(ms, fl, iters):
+        per = lambda t: t * 1e3 / max(iters, 1)
+        chain, rows, both = fl
+        return (f"{per(ms):.2f} us/iteration; floors per iteration: reduction "
+                f"chain {per(chain):.2f} us, row reads {per(rows):.2f} us, their sum "
+                f"{per(both):.2f} us (kernel at {ms / both:.2f}x the sum)")
+
+    # floors on the cold-start run's iteration count (K_BB is L2-resident)
     iters = st[3]
-    chain_ms = cuda_ms(lambda: iteration_floor_probe(K_BB, iters, wss=2,
-                                                     mode="chain"))
-    rows_ms = cuda_ms(lambda: iteration_floor_probe(K_BB, iters, wss=2,
-                                                    mode="rows"))
+    K_BB = cold[0]
+    fl = floors(iteration_floor_probe, K_BB, iters, wss=2)
     ibytes = iters * 2.0 * q * 4 + 5.0 * q * 4 + q * 4
     i_bound = ibytes / peak_bw * 1e3
-    per = lambda ms: ms * 1e3 / max(iters, 1)
     log(f"[3] inner_smo q={q} cold start: kernel {k_ms:.3f} ms for {st[0]} "
-        f"updates ({iters} iterations, {per(k_ms):.2f} us/iteration), plain "
-        f"{p_ms:.1f} ms (one run); floors: reduction chain {chain_ms:.3f} ms "
-        f"({per(chain_ms):.2f} us/iteration, kernel at "
-        f"{k_ms / chain_ms:.2f}x), row reads from L2 by one block "
-        f"{rows_ms:.3f} ms ({per(rows_ms):.3f} us/iteration, "
-        f"{ibytes / rows_ms / 1e6:.1f} GB/s); HBM byte bound {i_bound:.4f} ms")
+        f"updates ({iters} iterations), {floors_line(k_ms, fl, iters)}; plain "
+        f"{p_ms:.1f} ms (one run); HBM byte bound {i_bound:.4f} ms")
     kernels.append({
         "name": "inner_smo", "route": "cuda",
         "source": "tpusvm_torch/csrc/inner_smo.cu",
         "replaces": "tpusvm/ops/pallas/inner_smo.py:545",
-        "launches": None, "max_abs_err": max(inner_err, err_cold, err_mid),
+        "launches": None, "max_abs_err": inner_errs["inner_smo"],
         "ms": k_ms, "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": i_bound,
         "bound_by": "bytes", "library_ms": None,
-        "chain_floor_ms": chain_ms, "rows_floor_ms": rows_ms,
+        "chain_floor_ms": fl[0], "rows_floor_ms": fl[1], "floor_sum_ms": fl[2],
         "shape": {"q": q, "max_inner": 4096, "wss": 2, "updates": st[0],
                   "iterations": iters}})
 
@@ -406,27 +431,16 @@ def main():
     g3 = np.random.default_rng(7)
     X5 = torch.as_tensor(g3.random((512, 8)), dtype=torch.float32, device=dev)
     y5 = torch.as_tensor(np.where(g3.random(512) < 0.5, 1, -1), device=dev)
-    mp_err = 0.0
 
-    def multipair_case(K_BB, y_B, a_B, f_B, act_B, p, label, max_inner=4096):
-        nonlocal mp_err
-        margs = (K_BB, y_B, a_B, f_B, act_B, C, 1e-12, 1e-5)
-        a_k, st_k = inner_smo_multipair_kernel(*margs, max_inner=max_inner,
-                                               multipair=p)
+    def multipair_case(ws, p, label, max_inner=4096):
+        margs = (*ws, C, 1e-12, 1e-5)
+        out = inner_smo_multipair_kernel(*margs, max_inner=max_inner, multipair=p)
         t = time.perf_counter()
-        a_r, st_r = inner_smo_multipair_ref(*margs, max_inner=max_inner,
-                                            multipair=p)
+        ref = inner_smo_multipair_ref(*margs, max_inner=max_inner, multipair=p)
         torch.cuda.synchronize()
         plain = (time.perf_counter() - t) * 1e3
-        err = float((a_k - a_r).abs().max())
-        mp_err = max(mp_err, err)
-        st = st_k.tolist()
-        log(f"[3] inner_smo multipair q={K_BB.shape[0]} p={p} {label}: stat "
-            f"kernel {st} plain {st_r.tolist()}, max_abs_err {err:.3e}")
-        check(st == st_r.tolist(), f"multipair p={p} {label}: stat differs "
-              f"(kernel {st}, plain {st_r.tolist()})")
-        check(err <= 1e-5 * C, f"multipair p={p} {label}: error {err}")
-        check(st[0] > 0 and st[2] in (1, 2, 5), f"multipair: bad stat {st}")
+        st = same(out, ref, f"inner_smo multipair q={ws[0].shape[0]} p={p} {label}")
+        check(st[0] > 0, f"multipair: no update {st}")
         ms = cuda_ms(lambda: inner_smo_multipair_kernel(
             *margs, max_inner=max_inner, multipair=p))
         log(f"[3]     kernel {ms:.3f} ms, {ms * 1e3 / st[3]:.2f} us/iteration, "
@@ -434,40 +448,33 @@ def main():
             "(one run)")
         return st, ms, plain
 
-    multipair_case(rbf_cross(X5, X5, 0.5), y5, torch.zeros(512, device=dev),
-                   -y5.float(), torch.ones(512, dtype=torch.bool, device=dev), 2,
+    multipair_case((rbf_cross(X5, X5, 0.5), y5, torch.zeros(512, device=dev),
+                    -y5.float(), torch.ones(512, dtype=torch.bool, device=dev)), 2,
                    "q=512 (CPU tests' size)")
     mp_runs = {}
     for p in (2, 4, 8):
-        mp_runs[p] = multipair_case(
-            K_BB, y_B, torch.zeros(q, device=dev), -y_B.float(),
-            torch.ones(q, dtype=torch.bool, device=dev), p, "cold start")
-        multipair_case(K4, y_B4, a_B4, f3[B4], act4, p, "round 4")
+        mp_runs[p] = multipair_case(cold, p, "cold start")
+        multipair_case(round4, p, "round 4")
     # the path's p = 4: floors on the cold-start run's iteration count
     st_mp, mp_ms, mp_plain = mp_runs[4]
     mp_iters = st_mp[3]
-    mp_chain = cuda_ms(lambda: multipair_floor_probe(K_BB, mp_iters, multipair=4,
-                                                     mode="chain"))
-    mp_rows = cuda_ms(lambda: multipair_floor_probe(K_BB, mp_iters, multipair=4,
-                                                    mode="rows"))
+    mp_fl = floors(multipair_floor_probe, K_BB, mp_iters, multipair=4)
     # bytes the run's updates need: two K_BB rows each, plus the vectors
     mp_bytes = st_mp[0] * 2.0 * q * 4 + 6.0 * q * 4
     mp_bound = mp_bytes / peak_bw * 1e3
-    per_mp = lambda ms: ms * 1e3 / max(mp_iters, 1)
     log(f"[3] inner_smo multipair q={q} p=4 cold start: kernel {mp_ms:.3f} ms for "
-        f"{st_mp[0]} updates ({mp_iters} iterations, {per_mp(mp_ms):.2f} "
-        f"us/iteration, {mp_ms * 1e3 / st_mp[0]:.3f} us/update; single-pair "
-        f"wss=2 {k_ms * 1e3 / st[0]:.3f} us/update); floors: reduction chain "
-        f"{mp_chain:.3f} ms ({per_mp(mp_chain):.2f} us/iteration, kernel at "
-        f"{mp_ms / mp_chain:.2f}x), row reads {mp_rows:.3f} ms "
-        f"({per_mp(mp_rows):.3f} us/iteration); HBM byte bound {mp_bound:.4f} ms")
+        f"{st_mp[0]} updates ({mp_iters} iterations, {mp_ms * 1e3 / st_mp[0]:.3f} "
+        f"us/update; single-pair wss=2 {k_ms * 1e3 / st[0]:.3f} us/update), "
+        f"{floors_line(mp_ms, mp_fl, mp_iters)}; HBM byte bound {mp_bound:.4f} ms")
     kernels.append({
         "name": "inner_smo_multipair", "route": "cuda",
         "source": "tpusvm_torch/csrc/inner_smo_multipair.cu",
         "replaces": "tpusvm/ops/pallas/inner_smo.py:277",
-        "launches": None, "max_abs_err": mp_err, "ms": mp_ms, "kernel_ms": mp_ms,
+        "launches": None, "max_abs_err": inner_errs["inner_smo_multipair"],
+        "ms": mp_ms, "kernel_ms": mp_ms,
         "plain_ms": mp_plain, "bound_ms": mp_bound, "bound_by": "bytes",
-        "library_ms": None, "chain_floor_ms": mp_chain, "rows_floor_ms": mp_rows,
+        "library_ms": None, "chain_floor_ms": mp_fl[0], "rows_floor_ms": mp_fl[1],
+        "floor_sum_ms": mp_fl[2],
         "shape": {"q": q, "max_inner": 4096, "multipair": 4, "wss": 1,
                   "updates": st_mp[0], "iterations": mp_iters}})
 

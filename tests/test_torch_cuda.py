@@ -113,28 +113,53 @@ def test_fused_fupdate_3xtf32_error_under_a_tenth_of_single_pass_tf32(dev):
     assert err_t > 0 and err_k < 0.1 * err_t
 
 
-@pytest.mark.parametrize("q", [128, 256, 2048])
+def _working_set(q, seed, dev, *, mid=False, dup=False):
+    """A subproblem on the card. mid: a mid-solve state (alphas at 0, C and
+    inside the box, f off -y, about 15% of lanes inactive); dup: every point
+    four times over, so eta == 0 pairs are shrunk."""
+    rng = np.random.default_rng(seed)
+    X = np.resize(rng.random((q // 4 if dup else q, 8)), (q, 8))
+    y = np.where(rng.random(q) < 0.5, 1, -1)
+    if mid:
+        a = rng.choice([0.0, 0.0, 10.0, 2.5, 7.25], size=q)
+        f = np.round(-y + 0.5 * rng.standard_normal(q), 3)
+        act = rng.random(q) > 0.15
+    else:
+        a, f, act = np.zeros(q), -y.astype(float), np.ones(q, bool)
+    Xt = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    return (rbf_cross(Xt, Xt, 0.5), torch.as_tensor(y, device=dev),
+            torch.as_tensor(a, dtype=torch.float32, device=dev),
+            torch.as_tensor(f, dtype=torch.float32, device=dev),
+            torch.as_tensor(act, device=dev), 10.0, 1e-12, 1e-5)
+
+
+# q=1500: threads own a ragged number of lanes; q=3000 and 4099: lanes past
+# the two a thread keeps in registers; mid/dup: nonzero alphas, inactive
+# lanes, shrinks; max_inner 8192 lets the small cases converge
+@pytest.mark.parametrize("q,mid,dup,max_inner", [
+    (128, False, False, 512), (256, False, False, 512), (2048, False, False, 512),
+    (256, True, True, 8192), (1500, True, False, 512), (3000, False, False, 512),
+    (4099, True, True, 512)])
 @pytest.mark.parametrize("wss,eta_exclude", [(1, False), (2, False), (2, True)])
-def test_inner_smo_kernel_matches_plain(dev, q, wss, eta_exclude):
-    rng = np.random.default_rng(3)
-    X = torch.as_tensor(rng.random((q, 8)), dtype=torch.float32, device=dev)
-    y = torch.as_tensor(np.where(rng.random(q) < 0.5, 1, -1), device=dev)
-    args = (rbf_cross(X, X, 0.5), y, torch.zeros(q, device=dev), -y.float(),
-            torch.ones(q, dtype=torch.bool, device=dev), 10.0, 1e-12, 1e-5)
-    a_k, st_k = inner_smo_kernel(*args, max_inner=512, wss=wss,
+def test_inner_smo_kernel_matches_plain(dev, q, mid, dup, max_inner, wss, eta_exclude):
+    """The kernel against its plain version bit for bit: alpha and all four
+    stat entries."""
+    args = _working_set(q, 3 + q, dev, mid=mid, dup=dup)
+    a_k, st_k = inner_smo_kernel(*args, max_inner=max_inner, wss=wss,
                                  eta_exclude=eta_exclude)
-    a_r, st_r = inner_smo_ref(*args, max_inner=512, wss=wss,
+    a_r, st_r = inner_smo_ref(*args, max_inner=max_inner, wss=wss,
                               eta_exclude=eta_exclude)
     torch.cuda.synchronize()
-    assert st_k.tolist()[:3] == st_r.tolist()[:3]
-    assert float((a_k - a_r).abs().max()) <= 1e-5 * 10.0
+    assert st_k.tolist() == st_r.tolist()
+    assert torch.equal(a_k, a_r)
 
 
 @pytest.mark.parametrize("mode", ["chain", "rows"])
-def test_iteration_floor_probe_runs(dev, mode):
-    K = torch.rand(256, 256, device=dev)
+@pytest.mark.parametrize("wss,q", [(1, 256), (2, 256), (2, 3000)])
+def test_iteration_floor_probe_runs(dev, mode, wss, q):
+    K = torch.rand(q, q, device=dev)
     before = inner_smo_kernel.launches
-    out = iteration_floor_probe(K, 100, wss=2, mode=mode)
+    out = iteration_floor_probe(K, 100, wss=wss, mode=mode)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert inner_smo_kernel.launches == before
@@ -151,19 +176,21 @@ def test_fit_launches_both_kernels(dev):
     assert inner_smo_kernel.launches > 0
 
 
-@pytest.mark.parametrize("q,p", [(512, 2), (1024, 4), (2048, 8)])
-def test_multipair_kernel_matches_plain(dev, q, p):
-    rng = np.random.default_rng(q + p)
-    X = torch.as_tensor(rng.random((q, 8)), dtype=torch.float32, device=dev)
-    y = torch.as_tensor(np.where(rng.random(q) < 0.5, 1, -1), device=dev)
-    args = (rbf_cross(X, X, 0.5), y, torch.zeros(q, device=dev), -y.float(),
-            torch.ones(q, dtype=torch.bool, device=dev), 10.0, 1e-12, 1e-5)
+@pytest.mark.parametrize("q,p,mid,dup,max_inner", [
+    (512, 2, False, False, 1024), (1024, 4, False, False, 1024),
+    (2048, 8, False, False, 1024), (512, 2, True, True, 8192),
+    (1024, 4, True, False, 1024), (2048, 4, True, True, 1024),
+    (4096, 16, True, False, 1024), (768, 3, True, False, 1024)])
+def test_multipair_kernel_matches_plain(dev, q, p, mid, dup, max_inner):
+    """The kernel against its plain version bit for bit: alpha and all four
+    stat entries, over every term count the kernel is built for."""
+    args = _working_set(q, q + p, dev, mid=mid, dup=dup)
     before = inner_smo_kernel.launches
-    a_k, st_k = inner_smo_multipair_kernel(*args, max_inner=1024, multipair=p)
-    a_r, st_r = inner_smo_multipair_ref(*args, max_inner=1024, multipair=p)
+    a_k, st_k = inner_smo_multipair_kernel(*args, max_inner=max_inner, multipair=p)
+    a_r, st_r = inner_smo_multipair_ref(*args, max_inner=max_inner, multipair=p)
     torch.cuda.synchronize()
     assert st_k.tolist() == st_r.tolist()
-    assert float((a_k - a_r).abs().max()) <= 1e-5 * 10.0
+    assert torch.equal(a_k, a_r)
     assert inner_smo_kernel.launches == before
 
 
@@ -196,10 +223,11 @@ def test_fused_select_kernel_matches_plain(dev, n, d, q, block, k_cand):
 
 
 @pytest.mark.parametrize("mode", ["chain", "rows"])
-def test_multipair_floor_probe_runs(dev, mode):
-    K = torch.rand(512, 512, device=dev)
+@pytest.mark.parametrize("q,p", [(512, 2), (2048, 4), (2048, 8), (4096, 16)])
+def test_multipair_floor_probe_runs(dev, mode, q, p):
+    K = torch.rand(q, q, device=dev)
     before = inner_smo_multipair_kernel.launches
-    out = multipair_floor_probe(K, 100, multipair=2, mode=mode)
+    out = multipair_floor_probe(K, 100, multipair=p, mode=mode)
     torch.cuda.synchronize()
     assert torch.isfinite(out).all()
     assert inner_smo_multipair_kernel.launches == before

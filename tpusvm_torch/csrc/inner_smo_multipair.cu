@@ -19,33 +19,44 @@
 // End reasons: CONVERGED (1), NO_WORKING_SET (2, also when every slot and
 // the global pair idled), MAX_ITER (5); -1 if the iteration guard trips.
 //
-// What bounds it on an H100: per iteration it reads at most 2(p+1) K_BB rows
+// What bounds it on an H100: per iteration it reads up to 2(p+1) K_BB rows
 // (2(p+1)*q*4 bytes, 80 KB at q=2048, p=4) from L2, where K_BB (16 MB)
-// stays; so, as for the single-pair kernel, the serial chain of reductions
-// and barriers per iteration is the limit, not a rate. The gain over
-// inner_smo.cu is up to p+1 updates for one chain. multipair_floor_probe
-// below measures that chain alone and the row reads alone.
+// stays, into one SM, and waits on a serial chain of reductions and two
+// barriers. The byte bound is microseconds per thousand updates; latency,
+// one SM's share of L2 and its instruction issue are the limits.
+// multipair_floor_probe below measures the chain alone and one iteration's
+// row reads alone, issued and applied as the kernel does.
 //
-// Design: one block of 1024 threads; alpha, f, y, active and diag (5q
-// floats) in dynamic shared memory, K_BB rows from L2. The 2p slot halves
-// are contiguous lane ranges; each gets 32/(2p) warps of its own, which
-// reduce it to (min over I_high, max over I_low) with first-occurrence
-// indices, all ranges at once. After one barrier, warp 0 combines them:
-// lane r holds range r; a butterfly over the warp gives the global pair on
-// every lane; lane s < p takes slot s (its high range, and its low range
-// from lane p+s by a shuffle) and computes the slot's pair update; ballots
-// give glob_touched and the slot update count; every lane computes the
-// global pair update on the same values. A lane gets at most one nonzero
-// alpha delta per iteration (slots are disjoint; the global step runs only
-// when untouched), so one copy of alpha suffices where the TPU kernel keeps
-// a vector and a scalar mirror. Warp 0 writes alpha, the shrink and the
-// 2(p+1) row coefficients; after a second barrier every thread applies the
-// row terms to its own lanes, the same lanes it scans, so no third barrier
-// is needed. Row terms with a zero coefficient are skipped: adding a zero
-// product leaves df's value unchanged. Built with -fmad=false; df is formed
-// as XLA on the CPU contracts the reference's sum (checked bit for bit
-// against interpret mode): slot 0's pair as fma(ch0, row_h0, cl0*row_l0),
-// every later term as one fma onto df, then a plain f + df.
+// Design: one block of 1024 threads. alpha, f, y and diag (4q floats) and
+// each lane's I_high/I_low membership (q bytes, recomputed only for the
+// lanes whose alpha or active flag changes) live in dynamic shared memory,
+// followed by a row stage. The 2p slot halves are contiguous lane ranges;
+// each gets 32/(2p) warps of its own, whose threads own two neighbouring
+// lanes at a time (float2) and reduce the range to (value, index) of the
+// first argmin over I_high and first argmax over I_low (redux.sync), all
+// ranges at once. After one barrier, warp 0 combines them: lane r holds
+// range r; a warp reduction gives the global pair on every lane; lane s < p
+// takes slot s (its high range, and its low range from lane p+s by a
+// shuffle). Lanes 0..p then read the p+1 pairs' alpha, y and diag from
+// shared memory and their K12 from L2 in one round trip, and compute all
+// p+1 pair steps at once (lane p the global one, as if it stepped, masked
+// when an applied slot update touched its ends). A lane gets at most one
+// nonzero alpha delta per iteration (slots are disjoint; the global step
+// runs only when untouched), so one copy of alpha suffices where the TPU
+// kernel keeps a vector and a scalar mirror. Warp 0 writes alpha, the
+// memberships, the shrink and the 2(p+1) row coefficients. Meanwhile warp
+// 1 repeats the combine and starts a Hopper bulk copy (cp.async.bulk, on
+// an mbarrier) of the row of every pair that can step into the stage, so
+// the copies overlap warp 0's K12 round trip, pair steps and writes and the
+// second barrier (the rows of a pair that ends up idle are copied for
+// nothing). After that barrier every thread waits on the mbarrier and
+// applies the terms from the stage to its own lanes, the same lanes it
+// scans, so no third barrier is needed. Where 2(p+1) rows of q floats do
+// not fit beside the working set, the stage holds them a column chunk at a
+// time. Built with -fmad=false; df is formed as XLA on the CPU contracts
+// the reference's sum (checked bit for bit against interpret mode): slot
+// 0's pair as fma(ch0, row_h0, cl0*row_l0), every later term as one fma
+// onto df, a zero-coefficient term skipped, then a plain f + df.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -55,43 +66,30 @@
 
 namespace {
 
+using tpusvm::FULL_MASK;
 using tpusvm::gt_first;
 using tpusvm::lt_first;
+using tpusvm::warp_winner;
 
 constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_P = WARPS / 2;  // at least one warp per slot half
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_T = 2 * (MAX_P + 1);
 constexpr int RUNNING = 0;
 constexpr int CONVERGED = 1;
 constexpr int NO_WORKING_SET = 2;
 constexpr int MAX_ITER = 5;
 constexpr int GUARD_TRIPPED = -1;
 
-struct Partial {
-  float vh;
-  int ih;
-  float vl;
-  int il;
-};
+// Dynamic shared memory: alpha, f, y and diag (4q floats), each lane's
+// I_high/I_low membership (q bytes), then the row stage at a 128-byte
+// boundary: 2(p+1) rows of cw floats, cw = q unless that does not fit.
+__host__ __device__ int stage_offset(int q) { return (17 * q + 127) / 128 * 128; }
 
-// Warp-wide first argmin of (vh, ih) and first argmax of (vl, il); every
-// lane returns with the result.
-__device__ __forceinline__ void warp_argmin_argmax(float& vh, int& ih, float& vl, int& il) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ovh = __shfl_xor_sync(FULL, vh, off);
-    const int oih = __shfl_xor_sync(FULL, ih, off);
-    const float ovl = __shfl_xor_sync(FULL, vl, off);
-    const int oil = __shfl_xor_sync(FULL, il, off);
-    if (lt_first(ovh, oih, vh, ih)) { vh = ovh; ih = oih; }
-    if (gt_first(ovl, oil, vl, il)) { vl = ovl; il = oil; }
-  }
-}
-
-// The lanes a thread scans and updates: range r = warp / G of 2p ranges
-// (G = 32/(2p) warps each; warps past the last range idle), stepping by the
-// range's G*32 threads.
+// The lanes a thread scans and updates, two neighbours at a time (float2):
+// range r = warp / G of 2p ranges (G = 32/(2p) warps each; warps past the
+// last range idle), pairs of lanes stepping by the range's 2*G*32 lanes.
+// Every range has an even number of lanes (check: q % 128 == 0).
 struct Lanes {
   bool live;
   int first;
@@ -107,50 +105,188 @@ __device__ __forceinline__ Lanes my_lanes(int q, int p) {
   const int r = warp / G;
   Lanes l;
   l.live = r < ranges;
-  l.first = r * span + (warp % G) * 32 + threadIdx.x % 32;
+  l.first = r * span + 2 * ((warp % G) * 32 + threadIdx.x % 32);
   l.end = (r + 1) * span;
-  l.stride = G * 32;
+  l.stride = 2 * G * 32;
   return l;
+}
+
+// The rows one lane of the copying warp copies: lane s < p its slot's two,
+// lane p the global pair's, when that pair can step; K_BB row and stage
+// slot of each.
+struct Rows {
+  bool copy;
+  int rh, rl;
+  int th, tl;
+};
+
+// One warp: copy columns [c*cw, c*cw + cw) of the lanes' rows into the
+// stage, completing on bar (one arrival, expecting all their bytes).
+__device__ __forceinline__ void issue_chunk(const Rows& rw, const float* __restrict__ K, int q,
+                                            int cw, int c, float* stage, uint32_t bar) {
+  const int c0 = c * cw;
+  const int bytes = min(cw, q - c0) * (int)sizeof(float);
+  const int total = __reduce_add_sync(FULL_MASK, rw.copy ? 2 * bytes : 0);
+  if (threadIdx.x % 32 == 0) tpusvm::mbar_arrive_expect(bar, total);
+  __syncwarp();
+  if (rw.copy) {
+    tpusvm::bulk_copy(stage + rw.th * cw, K + (size_t)rw.rh * q + c0, bytes, bar);
+    tpusvm::bulk_copy(stage + rw.tl * cw, K + (size_t)rw.rl * q + c0, bytes, bar);
+  }
+}
+
+// f[i] += df on this thread's lanes in chunk c, df from the staged rows in
+// term order: coef[0]*row (or 0), then one FMA per later term, a zero
+// coefficient skipped (the coefficients are the block's, so the branch is
+// uniform). Every row with a nonzero coefficient was copied.
+__device__ __forceinline__ void apply_chunk(const Lanes& mine, const float* coef, int nt, int q,
+                                            int cw, int c, const float* stage, float* s_f) {
+  const int c0 = c * cw;
+  const int c1 = min(q, c0 + cw);
+  for (int i = mine.first; i < mine.end; i += mine.stride) {
+    if (i < c0 || i >= c1) continue;
+    const float* col = stage + (i - c0);
+    float2 df = make_float2(0.f, 0.f);
+    const float k0 = coef[0];
+    if (k0 != 0.f) {
+      const float2 v = *reinterpret_cast<const float2*>(col);
+      df = make_float2(k0 * v.x, k0 * v.y);
+    }
+#pragma unroll 4
+    for (int t = 1; t < nt; ++t) {
+      const float k = coef[t];
+      if (k != 0.f) {
+        const float2 v = *reinterpret_cast<const float2*>(col + t * cw);
+        df = make_float2(__fmaf_rn(k, v.x, df.x), __fmaf_rn(k, v.y, df.y));
+      }
+    }
+    float2* f = reinterpret_cast<float2*>(s_f + i);
+    const float2 f0 = *f;
+    *f = make_float2(f0.x + df.x, f0.y + df.y);
+  }
+}
+
+// A lane's membership of I_high (bit 0) and I_low (bit 1). It changes only
+// where alpha or the active mask does, so the kernel keeps it per lane and
+// recomputes it for the lanes it writes.
+__device__ __forceinline__ unsigned char membership(float a, float y, bool act, float eps,
+                                                    float Cme) {
+  const bool pos = y > 0.f;
+  const bool lo = a > eps;
+  const bool hi = a < Cme;
+  const bool mh = act && ((pos && hi) || (!pos && lo));
+  const bool ml = act && ((pos && lo) || (!pos && hi));
+  return (unsigned char)(mh | (ml << 1));
+}
+
+// One lane's candidates for the range's first argmin over I_high (vh, ih)
+// and first argmax over I_low (vl, il).
+__device__ __forceinline__ void scan_lane(int i, unsigned char mem, float f, float& vh, int& ih,
+                                          float& vl, int& il) {
+  const float vhi = (mem & 1) ? f : INFINITY;
+  const float vli = (mem & 2) ? f : -INFINITY;
+  if (lt_first(vhi, i, vh, ih)) { vh = vhi; ih = i; }
+  if (gt_first(vli, i, vl, il)) { vl = vli; il = i; }
+}
+
+// A reduction's candidate: a lane's value and index.
+struct Cand {
+  float v;
+  int i;
+};
+
+template <bool MIN>
+__device__ __forceinline__ void take(Cand& x, const Cand& o) {
+  if (tpusvm::better<MIN>(o.v, o.i, x.v, x.i)) x = o;
+}
+
+// warp-wide first argmin (MIN) or argmax of x, on every lane
+template <bool MIN>
+__device__ __forceinline__ Cand warp_cand(const Cand& x) {
+  const int src = warp_winner<MIN>(x.v, x.i);
+  return Cand{__shfl_sync(FULL_MASK, x.v, src), __shfl_sync(FULL_MASK, x.i, src)};
+}
+
+// What warps 0 and 1 both work out after the first barrier: each range's
+// result (lane r < 2p), slot s's pair on lane s < p, the global pair on
+// every lane, and whether the subproblem proceeds.
+struct Combined {
+  Cand sh, sl, gh, gl;
+  int gih, gil;
+  bool found, converged, proceed, ok_s;
+};
+
+__device__ __forceinline__ Combined combine(const Cand* part_h, const Cand* part_l, int p, int q,
+                                            float two_tau) {
+  const int lane = threadIdx.x % 32;
+  const int ranges = 2 * p;
+  const int G = WARPS / ranges;
+  Cand rh{INFINITY, INT_MAX};
+  Cand rl{-INFINITY, INT_MAX};
+  if (lane < ranges) {
+    for (int g = 0; g < G; ++g) {
+      take<true>(rh, part_h[lane * G + g]);
+      take<false>(rl, part_l[lane * G + g]);
+    }
+  }
+  // slot s = lane < p: high lanes from range s, low lanes from range p+s
+  const int from = (lane + p) & 31;
+  Combined m;
+  m.sh = rh;
+  m.sl = Cand{__shfl_sync(FULL_MASK, rl.v, from), __shfl_sync(FULL_MASK, rl.i, from)};
+  m.gh = warp_cand<true>(rh);
+  m.gl = warp_cand<false>(rl);
+  m.gih = min(m.gh.i, q - 1);
+  m.gil = min(m.gl.i, q - 1);
+  m.found = (m.gh.v < INFINITY) && (m.gl.v > -INFINITY);
+  m.converged = m.found && (m.gl.v <= m.gh.v + two_tau);
+  m.proceed = m.found && !m.converged;
+  m.ok_s = (m.sh.v < INFINITY) && (m.sl.v > -INFINITY) && (m.sl.v > m.sh.v + two_tau);
+  return m;
 }
 
 __global__ void __launch_bounds__(THREADS)
 inner_smo_multipair_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
                            const float* __restrict__ a_in, const float* __restrict__ f_in,
                            const float* __restrict__ act_in, float C, float eps, float tau,
-                           int q, int max_inner, int p, float* __restrict__ a_out,
+                           int q, int max_inner, int p, int cw, float* __restrict__ a_out,
                            int* __restrict__ stat) {
-  extern __shared__ float smem[];
-  float* s_a = smem;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_a = reinterpret_cast<float*>(smem);
   float* s_f = s_a + q;
   float* s_y = s_f + q;
-  float* s_act = s_y + q;
-  float* s_diag = s_act + q;
-  __shared__ Partial part[WARPS];
-  // row coefficients and row indices of this iteration: slots 0..p-1, then
-  // the global pair at p
-  __shared__ float s_ch[MAX_P + 1];
-  __shared__ float s_cl[MAX_P + 1];
-  __shared__ int s_ih[MAX_P + 1];
-  __shared__ int s_il[MAX_P + 1];
+  float* s_diag = s_y + q;
+  unsigned char* s_mem = reinterpret_cast<unsigned char*>(s_diag + q);
+  float* stage = reinterpret_cast<float*>(smem + stage_offset(q));
+  __shared__ Cand part_h[WARPS];
+  __shared__ Cand part_l[WARPS];
+  // this iteration's row coefficients in df order: slot 0 l, slot 0 h,
+  // then h, l of slots 1..p-1 and of the global pair
+  __shared__ float s_coef[MAX_T];
+  __shared__ __align__(8) unsigned long long s_bar;
   __shared__ int s_reason;
 
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
+  const uint32_t bar = tpusvm::smem_u32(&s_bar);
+  const float Cme = C - eps;
+  const float two_tau = 2.f * tau;
   for (int i = tid; i < q; i += THREADS) {
     s_a[i] = a_in[i];
     s_f[i] = f_in[i];
     s_y[i] = y_in[i];
-    s_act[i] = act_in[i];
+    s_mem[i] = membership(a_in[i], y_in[i], act_in[i] > 0.5f, eps, Cme);
     s_diag[i] = K[(size_t)i * q + i];
   }
+  if (tid == 0) tpusvm::mbar_init(bar);
   __syncthreads();
 
   const Lanes mine = my_lanes(q, p);
-  const int ranges = 2 * p;
-  const int G = WARPS / ranges;
-  const float Cme = C - eps;
-  const float two_tau = 2.f * tau;
+  const int nt = 2 * (p + 1);
+  const int chunks = (q + cw - 1) / cw;
+  uint32_t phase = 0;
+  Rows rw{false, 0, 0, 0, 0};  // warp 1's, lanes 0..p
   int n_upd = 0;  // kept by thread 0
   int progress = 0;
   int reason = RUNNING;
@@ -162,126 +298,97 @@ inner_smo_multipair_kernel(const float* __restrict__ K, const float* __restrict_
     if (++it > guard) { reason = GUARD_TRIPPED; break; }
 
     // ---- every range at once: first argmin over I_high, argmax over I_low
-    float vh = INFINITY; int ih = INT_MAX;
-    float vl = -INFINITY; int il = INT_MAX;
+    float vh = INFINITY, vl = -INFINITY;
+    int ih = INT_MAX, il = INT_MAX;
     if (mine.live) {
       for (int i = mine.first; i < mine.end; i += mine.stride) {
-        const float a = s_a[i];
-        const bool act = s_act[i] > 0.5f;
-        const bool pos = s_y[i] > 0.f;
-        const bool lo = a > eps;
-        const bool hi = a < Cme;
-        const bool mh = act && ((pos && hi) || (!pos && lo));
-        const bool ml = act && ((pos && lo) || (!pos && hi));
-        const float vhi = mh ? s_f[i] : INFINITY;
-        const float vli = ml ? s_f[i] : -INFINITY;
-        if (lt_first(vhi, i, vh, ih)) { vh = vhi; ih = i; }
-        if (gt_first(vli, i, vl, il)) { vl = vli; il = i; }
+        const float2 f = *reinterpret_cast<const float2*>(s_f + i);
+        const uchar2 mem = *reinterpret_cast<const uchar2*>(s_mem + i);
+        scan_lane(i, mem.x, f.x, vh, ih, vl, il);
+        scan_lane(i + 1, mem.y, f.y, vh, ih, vl, il);
       }
     }
-    warp_argmin_argmax(vh, ih, vl, il);
-    if (lane == 0) part[warp] = Partial{vh, ih, vl, il};
+    // each warp's winners, written by the lanes that hold them (seeded
+    // lanes of a warp with no candidate all write the same seed)
+    if (tpusvm::holds_winner<true>(vh, ih)) part_h[warp] = Cand{vh, ih};
+    if (tpusvm::holds_winner<false>(vl, il)) part_l[warp] = Cand{vl, il};
     __syncthreads();
 
-    if (warp == 0) {
-      // lane r < 2p: range r's result
-      float rh = INFINITY; int rih = INT_MAX;
-      float rl = -INFINITY; int ril = INT_MAX;
-      if (lane < ranges) {
-        for (int g = 0; g < G; ++g) {
-          const Partial pp = part[lane * G + g];
-          if (lt_first(pp.vh, pp.ih, rh, rih)) { rh = pp.vh; rih = pp.ih; }
-          if (gt_first(pp.vl, pp.il, rl, ril)) { rl = pp.vl; ril = pp.il; }
-        }
-      }
-      // slot s = lane < p: high lanes from range s, low lanes from range p+s
-      const float bl_s = __shfl_sync(FULL, rl, (lane + p) & 31);
-      const int il_s = __shfl_sync(FULL, ril, (lane + p) & 31);
-      const float bh_s = rh;
-      const int ih_s = rih;
-      // the global pair, on every lane
-      float gh = rh; int gih = rih;
-      float gl = rl; int gil = ril;
-      warp_argmin_argmax(gh, gih, gl, gil);
-      gih = min(gih, q - 1);
-      gil = min(gil, q - 1);
-      const bool found = (gh < INFINITY) && (gl > -INFINITY);
-      const bool converged = found && (gl <= gh + two_tau);
-      const bool proceed = found && !converged;
-
-      bool slot_ok = false;
-      bool touched = false;
-      tpusvm::PairStep st{};
-      float a_h = 0.f, a_l = 0.f, y_h = 0.f, y_l = 0.f;
+    if (warp == 1) {
+      // the rows of every pair that can step go out now, so the copies
+      // overlap warp 0's K12 round trip, pair steps and writes, and the
+      // barrier; a pair that ends up idle has copied rows that go unused
+      const Combined m = combine(part_h, part_l, p, q, two_tau);
       if (lane < p) {
-        const bool ok_s = (bh_s < INFINITY) && (bl_s > -INFINITY) && (bl_s > bh_s + two_tau);
-        a_h = s_a[ih_s];
-        a_l = s_a[il_s];
-        y_h = s_y[ih_s];
-        y_l = s_y[il_s];
-        st = tpusvm::pair_step(s_diag[ih_s], s_diag[il_s], K[(size_t)ih_s * q + il_s], y_h,
-                               y_l, a_h, a_l, bh_s, bl_s, C, eps, proceed && ok_s);
-        slot_ok = st.do_update && !st.stalled;
-        touched = slot_ok && (ih_s == gih || il_s == gih || ih_s == gil || il_s == gil);
+        rw = Rows{m.proceed && m.ok_s, m.sh.i, m.sl.i, lane == 0 ? 1 : 2 * lane,
+                  lane == 0 ? 0 : 2 * lane + 1};
+      } else {
+        rw = Rows{lane == p && m.proceed, m.gih, m.gil, 2 * p, 2 * p + 1};
       }
-      const int n_slot = __popc(__ballot_sync(FULL, slot_ok));
-      const bool glob_go = proceed && !__any_sync(FULL, touched);
-      // untouched ends hold their iteration-start alphas; on a touched end
-      // the step is off and its deltas are zero
-      const float a_hg = s_a[gih];
-      const float a_lg = s_a[gil];
-      const float y_hg = s_y[gih];
-      const float y_lg = s_y[gil];
-      const tpusvm::PairStep g =
-          tpusvm::pair_step(s_diag[gih], s_diag[gil], K[(size_t)gih * q + gil], y_hg, y_lg,
-                            a_hg, a_lg, gh, gl, C, eps, glob_go);
-      const bool okg = g.do_update && !g.stalled;
-      const bool deadg =
-          glob_go && n_slot == 0 && (!g.feasible || !g.eta_ok || g.stalled);
-      const int n_ok = n_slot + (okg ? 1 : 0);
-      __syncwarp();  // every lane has read alpha before the writes
-      if (lane < p) {
-        if (slot_ok) {
-          s_a[ih_s] = a_h + st.da_h;
-          s_a[il_s] = a_l + st.da_l;
+      issue_chunk(rw, K, q, cw, 0, stage, bar);
+    } else if (warp == 0) {
+      const Combined m = combine(part_h, part_l, p, q, two_tau);
+      // every pair's scalars and K12 in one round trip, and every pair step
+      // at once: slot s on lane s; the global pair on lane p, as if it
+      // stepped, masked below when an applied slot update touched it
+      // (alpha is still the iteration's start here)
+      const bool slot = lane < p;
+      const float vh_ = slot ? m.sh.v : m.gh.v;
+      const float vl_ = slot ? m.sl.v : m.gl.v;
+      const int jh = lane <= p ? (slot ? m.sh.i : m.gih) : 0;
+      const int jl = lane <= p ? (slot ? m.sl.i : m.gil) : 0;
+      const float a_h = s_a[jh], y_h = s_y[jh], d_h = s_diag[jh];
+      const float a_l = s_a[jl], y_l = s_y[jl], d_l = s_diag[jl];
+      const float k12 = lane <= p ? K[(size_t)jh * q + jl] : 0.f;
+      const tpusvm::PairStep st =
+          tpusvm::pair_step(d_h, d_l, k12, y_h, y_l, a_h, a_l, vh_, vl_, C, eps,
+                            slot ? m.proceed && m.ok_s : m.proceed);
+      const bool slot_ok = slot && st.do_update && !st.stalled;
+      const bool touched = slot_ok && (jh == m.gih || jl == m.gih || jh == m.gil || jl == m.gil);
+      const int n_slot = __popc(__ballot_sync(FULL_MASK, slot_ok));
+      const bool glob_go = m.proceed && !__any_sync(FULL_MASK, touched);
+      // lane p: the global step with proceed = glob_go; untouched ends hold
+      // their iteration-start alphas
+      const bool g_stalled = glob_go && st.stalled;
+      const bool okg = glob_go && st.do_update && !g_stalled;
+      const bool deadg = glob_go && n_slot == 0 && (!st.feasible || !st.eta_ok || g_stalled);
+      const float da_h = slot || glob_go ? st.da_h : 0.f;
+      const float da_l = slot || glob_go ? st.da_l : 0.f;
+      if (lane <= p) {
+        s_coef[slot ? (lane == 0 ? 1 : 2 * lane) : 2 * p] = da_h * y_h;
+        s_coef[slot ? (lane == 0 ? 0 : 2 * lane + 1) : 2 * p + 1] = da_l * y_l;
+        // the ends of a pair that steps are active members
+        if (slot_ok || (!slot && okg)) {
+          s_a[jh] = a_h + da_h;
+          s_a[jl] = a_l + da_l;
+          s_mem[jh] = membership(a_h + da_h, y_h, true, eps, Cme);
+          s_mem[jl] = membership(a_l + da_l, y_l, true, eps, Cme);
         }
-        s_ch[lane] = st.da_h * y_h;
-        s_cl[lane] = st.da_l * y_l;
-        s_ih[lane] = ih_s;
-        s_il[lane] = il_s;
+        if (!slot && deadg) s_mem[jl] = 0;  // shrunk: in neither set
       }
+      const bool okg_p = __shfl_sync(FULL_MASK, okg, p);
+      const bool deadg_p = __shfl_sync(FULL_MASK, deadg, p);
       if (lane == 0) {
-        if (okg) {
-          s_a[gih] = a_hg + g.da_h;
-          s_a[gil] = a_lg + g.da_l;
-        }
-        if (deadg) s_act[gil] = 0.f;
-        s_ch[p] = g.da_h * y_hg;
-        s_cl[p] = g.da_l * y_lg;
-        s_ih[p] = gih;
-        s_il[p] = gil;
+        const int n_ok = n_slot + (okg_p ? 1 : 0);
         n_upd += n_ok;
         progress = progress || n_ok > 0;
-        const bool idle = proceed && n_ok == 0 && !deadg;
-        s_reason = (!found || idle) ? NO_WORKING_SET
-                   : converged      ? CONVERGED
+        const bool idle = m.proceed && n_ok == 0 && !deadg_p;
+        s_reason = (!m.found || idle) ? NO_WORKING_SET
+                   : m.converged      ? CONVERGED
                    : (n_upd >= max_inner ? MAX_ITER : RUNNING);
       }
     }
     __syncthreads();
 
-    // ---- f += df on this thread's own lanes ----
-    if (mine.live) {
-      for (int i = mine.first; i < mine.end; i += mine.stride) {
-        float df = 0.f;
-        if (s_cl[0] != 0.f) df = s_cl[0] * K[(size_t)s_il[0] * q + i];
-        if (s_ch[0] != 0.f) df = __fmaf_rn(s_ch[0], K[(size_t)s_ih[0] * q + i], df);
-        for (int k = 1; k <= p; ++k) {
-          if (s_ch[k] != 0.f) df = __fmaf_rn(s_ch[k], K[(size_t)s_ih[k] * q + i], df);
-          if (s_cl[k] != 0.f) df = __fmaf_rn(s_cl[k], K[(size_t)s_il[k] * q + i], df);
-        }
-        s_f[i] = s_f[i] + df;
+    // ---- f += df on this thread's own lanes, a stage of columns at a time
+    for (int c = 0; c < chunks; ++c) {
+      if (c > 0) {
+        __syncthreads();  // every thread is done with the last chunk's stage
+        if (warp == 1) issue_chunk(rw, K, q, cw, c, stage, bar);
       }
+      tpusvm::mbar_wait(bar, phase);
+      phase ^= 1;
+      if (mine.live) apply_chunk(mine, s_coef, nt, q, cw, c, stage, s_f);
     }
     reason = s_reason;
     if (reason != RUNNING) break;
@@ -299,62 +406,115 @@ inner_smo_multipair_kernel(const float* __restrict__ K, const float* __restrict_
 
 // Floors for one iteration of inner_smo_multipair_kernel, for its bound.
 // mode 0 runs only the chain an iteration waits on: every warp's reduction,
-// the barrier, warp 0's combine of the range results and its butterfly (each
-// fed by the previous iteration's result so none overlaps), and the second
-// barrier. mode 1 only reads 2(p+1) q-float rows of K per iteration with one
-// block, as the f update does when every slot and the global pair update.
-// Neither scans shared memory or computes a pair update, so each is a lower
-// bound on the kernel's time per iteration. out holds THREADS floats.
+// the barrier, warp 0's combine of the range results and its global
+// reduction (each fed by the previous iteration's result so none overlaps),
+// and the second barrier. mode 1 runs only the f update's row reads: one
+// warp copies all 2(p+1) rows into the stage at once and every thread
+// applies them (every coefficient nonzero, as when every slot and the
+// global pair update), by the kernel's own issue_chunk and apply_chunk;
+// each iteration's rows wait on the last one's sums. Neither scans the
+// working set or computes a pair update, so each is a lower bound on the
+// kernel's time per iteration. out holds THREADS floats; mode 1 takes the
+// kernel's dynamic shared memory.
 __global__ void __launch_bounds__(THREADS)
-multipair_floor_probe(const float* __restrict__ K, int q, int p, int iters, int mode,
+multipair_floor_probe(const float* __restrict__ K, int q, int p, int cw, int iters, int mode,
                       float* __restrict__ out) {
-  __shared__ Partial part[WARPS];
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* s_f = reinterpret_cast<float*>(smem);
+  float* stage = reinterpret_cast<float*>(smem + stage_offset(q));
+  __shared__ Cand part_h[WARPS];
+  __shared__ Cand part_l[WARPS];
+  __shared__ float s_coef[MAX_T];
+  __shared__ __align__(8) unsigned long long s_bar;
   __shared__ int s_seed;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const int warp = tid / 32;
-  const int ranges = 2 * p;
-  const int G = WARPS / ranges;
+  const int nt = 2 * (p + 1);
+  const int chunks = (q + cw - 1) / cw;
   const Lanes mine = my_lanes(q, p);
-  if (tid == 0) s_seed = 0;
+  const uint32_t bar = tpusvm::smem_u32(&s_bar);
+  uint32_t phase = 0;
+  if (tid == 0) {
+    s_seed = 0;
+    tpusvm::mbar_init(bar);
+  }
+  if (tid < MAX_T) s_coef[tid] = 1.f;
+  if (mode == 1)
+    for (int i = tid; i < q; i += THREADS) s_f[i] = 0.f;
   __syncthreads();
-  float acc = 0.f;
   for (int it = 0; it < iters; ++it) {
     if (mode == 0) {
       const int seed = s_seed;
-      float vh = (float)((tid * 7 + seed) % 1021); int ih = tid;
-      float vl = (float)((tid * 13 + seed) % 1019); int il = tid;
-      warp_argmin_argmax(vh, ih, vl, il);
-      if (lane == 0) part[warp] = Partial{vh, ih, vl, il};
+      const float vh = (float)((tid * 7 + seed) % 1021);
+      const float vl = (float)((tid * 13 + seed) % 1019);
+      if (tpusvm::holds_winner<true>(vh, tid)) part_h[warp] = Cand{vh, tid};
+      if (tpusvm::holds_winner<false>(vl, tid)) part_l[warp] = Cand{vl, tid};
       __syncthreads();
       if (warp == 0) {
-        float rh = INFINITY; int rih = INT_MAX;
-        float rl = -INFINITY; int ril = INT_MAX;
-        if (lane < ranges) {
-          for (int g = 0; g < G; ++g) {
-            const Partial pp = part[lane * G + g];
-            if (lt_first(pp.vh, pp.ih, rh, rih)) { rh = pp.vh; rih = pp.ih; }
-            if (gt_first(pp.vl, pp.il, rl, ril)) { rl = pp.vl; ril = pp.il; }
-          }
-        }
-        warp_argmin_argmax(rh, rih, rl, ril);
-        if (lane == 0) s_seed = rih + ril;
+        const Combined m = combine(part_h, part_l, p, q, 0.f);
+        if (lane == 0) s_seed = m.gh.i + m.gl.i;
       }
       __syncthreads();
-    } else if (mine.live) {
-      for (int i = mine.first; i < mine.end; i += mine.stride)
-        for (int k = 0; k < 2 * (p + 1); ++k) acc += K[(size_t)((it * 2 * (p + 1) + k) % q) * q + i];
+    } else {
+      Rows rw{false, 0, 0, 0, 0};
+      if (warp == 1 && lane <= p) {
+        // the rows wait on the last iteration's sums, as the kernel's do
+        const int dep = (int)(s_f[0] * 0.f);
+        const int base = it * nt + 2 * lane + dep;
+        rw = Rows{true, base % q, (base + 1) % q, 2 * lane, 2 * lane + 1};
+      }
+      for (int c = 0; c < chunks; ++c) {
+        if (warp == 1) issue_chunk(rw, K, q, cw, c, stage, bar);
+        tpusvm::mbar_wait(bar, phase);
+        phase ^= 1;
+        if (mine.live) apply_chunk(mine, s_coef, nt, q, cw, c, stage, s_f);
+        __syncthreads();
+      }
     }
   }
-  out[tid] = acc + (float)s_seed;
+  __syncthreads();
+  out[tid] = (mode == 1 ? s_f[tid % q] : 0.f) + (float)s_seed;
 }
+
+// The stage's column width for (q, p): all of q where 2(p+1) rows fit in
+// the shared memory a block may use, else the widest multiple of 32 that
+// does; 0 if not even that fits.
+int stage_columns(int q, int p, int static_bytes, int* smem) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
+    return 0;
+  const int nt = 2 * (p + 1);
+  const int room = optin - static_bytes - stage_offset(q);
+  const int cw = min(q, room / (nt * (int)sizeof(float)) / 32 * 32);
+  *smem = stage_offset(q) + nt * cw * (int)sizeof(float);
+  return cw;
+}
+
+template <typename Kernel>
+int prepare(Kernel kernel, int q, int p, int* cw, int* smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *cw = stage_columns(q, p, (int)attr.sharedSizeBytes, smem);
+  if (*cw < 32) return static_cast<int>(cudaErrorInvalidValue);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem);
+  return static_cast<int>(err);
+}
+
+bool bad_shape(int q, int p) { return p < 2 || p > MAX_P || q % (2 * p) || q % 128; }
 
 }  // namespace
 
 extern "C" int tpusvm_inner_smo_multipair_floor_probe(const float* K, int q, int p, int iters,
                                                       int mode, float* out,
                                                       cudaStream_t stream) {
-  multipair_floor_probe<<<1, THREADS, 0, stream>>>(K, q, p, iters, mode, out);
+  if (bad_shape(q, p)) return static_cast<int>(cudaErrorInvalidValue);
+  int cw = 0, smem = 0;
+  const int rc = prepare(multipair_floor_probe, q, p, &cw, &smem);
+  if (rc) return rc;
+  multipair_floor_probe<<<1, THREADS, smem, stream>>>(K, q, p, cw, iters, mode, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -362,14 +522,11 @@ extern "C" int tpusvm_inner_smo_multipair(const float* K, const float* y, const 
                                           const float* f, const float* act, float C, float eps,
                                           float tau, int q, int max_inner, int p, float* a_out,
                                           int* stat, cudaStream_t stream) {
-  if (p < 2 || p > MAX_P || q % (2 * p)) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 5 * q * (int)sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        inner_smo_multipair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  if (bad_shape(q, p)) return static_cast<int>(cudaErrorInvalidValue);
+  int cw = 0, smem = 0;
+  const int rc = prepare(inner_smo_multipair_kernel, q, p, &cw, &smem);
+  if (rc) return rc;
   inner_smo_multipair_kernel<<<1, THREADS, smem, stream>>>(K, y, a, f, act, C, eps, tau, q,
-                                                           max_inner, p, a_out, stat);
+                                                           max_inner, p, cw, a_out, stat);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,8 +30,8 @@ _P = ctypes.c_void_p
 _INF = float("inf")
 _LANE = 128
 
-# dynamic shared memory a block may use on Hopper (232,448 B), less the
-# kernel's static reduction scratch
+# dynamic shared memory a block may use on Hopper (232,448 B), less room for
+# the kernels' static scratch
 _SMEM_LIMIT = 232448 - 1024
 
 
@@ -302,9 +302,9 @@ def _operands(K_BB, y_B, a_B, f_B, active_B):
         raise ValueError(f"K_BB must be square, got {tuple(K_BB.shape)}")
     if 5 * q * 4 > _SMEM_LIMIT:
         raise ValueError(
-            f"q={q} does not fit: the kernel keeps 5 vectors of q floats "
-            f"({5 * q * 4} bytes) in one block's shared memory, at most "
-            f"{_SMEM_LIMIT} bytes"
+            f"q={q} does not fit: the kernels take working sets of up to 5 "
+            f"vectors of q floats ({5 * q * 4} bytes) in one block's shared "
+            f"memory, at most {_SMEM_LIMIT} bytes"
         )
     dev = K_BB.device
 
@@ -422,8 +422,10 @@ def _bind_probe():
 def iteration_floor_probe(K_BB, iters: int, *, wss: int, mode: str):
     """Launch a floor of `iters` kernel iterations on a CUDA K_BB (q, q).
 
-    mode "chain": only the block-wide reductions and barriers an iteration
-    of the kernel waits on; "rows": only its two K_BB row reads. Timing it
+    mode "chain": only the block-wide reductions an iteration of the kernel
+    waits on (one barrier each); "rows": only its two K_BB row reads, into
+    registers as the kernel reads them (both at once at wss=1; at wss=2 the
+    second after the first, as the gain scan needs row_h first). Timing it
     gives a lower bound on the kernel's time per iteration. Not a kernel of
     the solver: it computes nothing and is not counted in `.launches`.
     """
@@ -452,7 +454,8 @@ def _bind_multipair_probe():
 def multipair_floor_probe(K_BB, iters: int, *, multipair: int, mode: str):
     """`iteration_floor_probe` for the multipair kernel: mode "chain" runs
     only its per-iteration reductions and barriers, "rows" only its
-    2(p+1) K_BB row reads. Not counted in `.launches`."""
+    2(p+1) K_BB row reads, copied into shared memory and applied by the
+    kernel's own bulk copies and f update. Not counted in `.launches`."""
     check_multipair(K_BB.shape[0], 1, multipair)
     if not K_BB.is_cuda:
         raise ValueError("multipair_floor_probe measures the card: pass a "
