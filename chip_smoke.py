@@ -20,7 +20,10 @@ Phases, in order (any failure raises and the script exits non-zero):
      be under a tenth of that one's, which it is only if the 3xTF32 lo terms
      apply), the f-update itself against f64 beside the plain f32 version's
      (within 3x of it), and its time beside its 3xTF32 bound on the tensor
-     cores;
+     cores; the pair solver's K-row refresh (pair_rows) against its plain
+     version at n=60000, d=784 for k=2 and k=20 in every exact family, its
+     skip path (no row flagged: the rows untouched) and its time beside its
+     byte bound and torch.matmul(X[idx], X.T) with the epilogue;
   4. the main path at mid size, trained on the card and on the CPU, held
      to the same SV-ID set, status and b (within 1e-4); 4b. the same for
      the multipair + fused-selection path;
@@ -30,7 +33,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      scored on rows [60000:], saved and reloaded; both kernels' launch
      counts are read around this run and must be > 0; the fit's host
      phases (scale, cast, copy, solve, copy back, SV extraction) and the
-     solver's time blocked at its host syncs are printed;
+     solver's time blocked at its host syncs are printed, and one
+     {"bench": ...} line records the run as a benchmark (workload, solver
+     configuration, train seconds, updates, SVs, accuracy, provenance);
   5b. the second path at full width: the same job with wss=1,
      multipair=4, fused_selection=True and max_iter=10^7; the multipair
      and fused-selection kernels' launch counts are read around it and
@@ -38,7 +43,24 @@ Phases, in order (any failure raises and the script exits non-zero):
      phase 5's;
   6. where the time goes: the fits of phases 5 and 5b once more under
      torch.profiler, device time by kernel and the device's busy share of
-     the wall time.
+     the wall time;
+  7. the pair solver at full width: phase 5's job with solver="pair" and
+     max_iter=10^6, counts set to 0 before it and read after (pair_rows
+     must have launched, at most one host sync a chunk plus one), CONVERGED,
+     accuracy within 0.002 of phase 5's, SV-ID difference and |db| printed;
+  8. one-vs-rest, 10 classes (benchmarks/ovr_10class.py's workload:
+     mnist_like_multiclass(n=70000, noise=300), train [:60000], gamma =
+     0.00125, f64 accumulators): (a) solver="blocked" (q=2048,
+     max_inner=4096, wss=2; kernels #1 and #2 launch for every head) and
+     (b) the batched pair solver; every head CONVERGED, accuracies within
+     0.005, the share of test rows where (a) and (b) agree printed;
+  9. tasks and families, cut: epsilon-SVR on svr_sine (20,000 train rows,
+     C=10, gamma=20, epsilon=0.1) with both solvers (R^2 > 0.9, held-out
+     predictions within 1e-3 of each other); linear and poly (degree 3,
+     coef0 1) with both solvers and sigmoid once, on phase 5's data cut to
+     10,000 rows; Platt calibration (3 folds) on that cut's RBF model,
+     predict_proba monotone in decision_function; a save and load round
+     trip of each kind.
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
@@ -49,6 +71,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -57,6 +80,10 @@ import numpy as np
 # the tensor cores
 _PEAKS = {"NVIDIA H100 80GB HBM3": (67.0e12, 3.35e12, 495.0e12)}
 C, GAMMA = 10.0, 0.00125
+# the depth cuts of phases 8 and 9 (PERF.md section 4): training rows of
+# the lockstep one-vs-rest pair fit and of the epsilon-SVR pair fit
+N_OVR_PAIR = 60000
+N_SVR_PAIR = 2000
 
 
 def log(msg):
@@ -155,6 +182,24 @@ def precision_errors(kernel, plain, X, XB, coef, gamma, sn):
     return fupdate, values, gammas
 
 
+def rows_by_matmul(family, X, idx, sn, kw):
+    """K(X[idx], X) by one torch.matmul(X[idx], X.T) and the family's
+    epilogue: pair_rows' library yardstick (no need flags, no fixed
+    per-row order)."""
+    import torch
+
+    dots = torch.matmul(X[idx], X.T)
+    g = kw.get("gamma", 0.0)
+    if family == "rbf":
+        return torch.exp(-g * (sn[idx][:, None] + sn[None, :] - 2.0 * dots)
+                         .clamp_min(0.0))
+    if family == "linear":
+        return dots
+    if family == "poly":
+        return (g * dots + kw["coef0"]) ** kw["degree"]
+    return torch.tanh(g * dots + kw["coef0"])
+
+
 def inner_working_sets(X, Y, sn, q, dev):
     """The inner kernels' inputs at full width: the first round's working
     set (the tie-heavy cold start f = -y) and the fourth round's (after three
@@ -191,6 +236,236 @@ def inner_working_sets(X, Y, sn, q, dev):
     return cold, round4, B, alpha3, f3
 
 
+def exact_b(model, X, Y, device):
+    """(b_high, b_low) of a fitted RBF BinarySVC recomputed in f64 from its
+    own SVs over the training rows X (raw) and labels Y: how far the
+    solver's incrementally updated f drifted from the f its alphas give."""
+    import torch
+
+    f64 = torch.float64
+    Xs = torch.as_tensor(model.scaler_.transform(np.asarray(X)), dtype=f64,
+                         device=device)
+    sv = torch.as_tensor(model.sv_X_, dtype=f64, device=device)
+    coef = torch.as_tensor(model.sv_alpha_ * model.sv_Y_, dtype=f64, device=device)
+    y = torch.as_tensor(Y, dtype=f64, device=device)
+    d2 = ((Xs * Xs).sum(1)[:, None] + (sv * sv).sum(1)[None, :]
+          - 2.0 * (Xs @ sv.T)).clamp_min(0.0)
+    f = torch.exp(-model.config.gamma * d2) @ coef - y
+    alpha = torch.zeros(len(Y), dtype=f64, device=device)
+    alpha[torch.as_tensor(model.sv_ids_, dtype=torch.int64, device=device)] = (
+        torch.as_tensor(model.sv_alpha_, dtype=f64, device=device))
+    C_, eps = model.config.C, model.config.eps
+    pos = y > 0
+    m_high = torch.where(pos, alpha < C_ - eps, alpha > eps)
+    m_low = torch.where(pos, alpha > eps, alpha < C_ - eps)
+    b_high = float(torch.where(m_high, f, float("inf")).min())
+    b_low = float(torch.where(m_low, f, -float("inf")).max())
+    return b_high, b_low
+
+
+def phase_pair(X_all, Y_all, n_tr, counters, m5, acc5, device):
+    """Phase 7: the binary pair solver on phase 5's job, the launch counts
+    set to 0 before it and read after. Returns (model, pair_rows
+    launches)."""
+    import torch
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.status import Status
+
+    for fn in counters.values():
+        fn.launches = 0
+    model = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6), solver="pair",
+                      device=device)
+    sync(device)
+    t = time.perf_counter()
+    model.fit(X_all[:n_tr], Y_all[:n_tr])
+    sync(device)
+    train_s = time.perf_counter() - t
+    counts = {k: fn.launches for k, fn in counters.items()}
+    res = model.result_
+    acc = float((model.predict(X_all[n_tr:]) == Y_all[n_tr:]).mean())
+    its = model.n_iter_
+    log(f"[7] pair solver, n={n_tr} d={X_all.shape[1]} C={C} gamma={GAMMA} "
+        f"max_iter=10^6: train {train_s:.3f} s, status {model.status_.name}, "
+        f"iterations {its} ({its / train_s:.0f}/s), row refreshes "
+        f"{res.row_refreshes}, host syncs {res.host_syncs} ({res.chunks} chunks "
+        f"of {res.chunk}, CUDA graph {res.graphed}), blocked at them "
+        f"{res.host_wait_s:.3f} s, SV count {model.n_support_}, b "
+        f"{model.b_:.15f}, accuracy {acc:.4f} on {len(Y_all) - n_tr}, launches "
+        f"{counts}")
+    log(f"[7] against phase 5's model: accuracy {acc:.4f} vs {acc5:.4f}, SV-ID "
+        f"symmetric difference {len(set(m5.sv_ids_) ^ set(model.sv_ids_))} of "
+        f"{m5.n_support_}, |db| {abs(m5.b_ - model.b_):.3e}")
+    for name, m in (("phase 5 (blocked)", m5), ("phase 7 (pair)", model)):
+        bh, bl = exact_b(m, X_all[:n_tr], Y_all[:n_tr], device)
+        log(f"[7] {name}: b from its own SVs in f64 {(bh + bl) / 2:.15f} (the "
+            f"solver's b {m.b_:.15f}, |diff| {abs((bh + bl) / 2 - m.b_):.3e}); "
+            f"f64 b_low - b_high {bl - bh:.3e} (2 tau = 2e-5)")
+    check(model.status_ == Status.CONVERGED, f"[7] {model.status_.name}")
+    check(counts["pair_rows"] > 0 or device == "cpu",
+          f"[7] pair_rows not launched: {counts}")
+    check(res.host_syncs <= res.chunks + 1, f"[7] {res.host_syncs} host syncs "
+          f"for {res.chunks} chunks")
+    check(abs(acc - acc5) <= 0.002, f"[7] accuracy {acc} vs phase 5 {acc5}")
+    return model, counts["pair_rows"]
+
+
+def phase_ovr(Xm, lm, n_tr, n_pair, counters, device):
+    """Phase 8: ten one-vs-rest heads, (a) blocked on the first n_tr rows
+    and (b) the batched pair solver on the first n_pair (with (a) again at
+    n_pair to compare with, when that is a cut); all scored on Xm[n_tr:].
+    Returns (b)'s model."""
+    import torch
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import OneVsRestSVC
+    from tpusvm_torch.status import Status
+
+    ovr = {}
+    blocked = dict(q=2048, max_inner=4096, wss=2)
+    runs = [("a", "blocked", blocked, n_tr), ("b", "pair", {}, n_pair)]
+    if n_pair < n_tr:
+        runs.insert(1, ("a'", "blocked", blocked, n_pair))
+    for label, solver, sopts, n_fit in runs:
+        for fn in counters.values():
+            fn.launches = 0
+        m = OneVsRestSVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
+                         solver=solver, solver_opts=sopts, device=device)
+        sync(device)
+        t = time.perf_counter()
+        m.fit(Xm[:n_fit], lm[:n_fit])
+        sync(device)
+        secs = time.perf_counter() - t
+        counts = {k: fn.launches for k, fn in counters.items()}
+        pred = m.predict(Xm[n_tr:])
+        acc = float((pred == lm[n_tr:]).mean())
+        ovr[label] = (m, pred, acc)
+        sts = [Status(int(v)).name for v in m.statuses_]
+        log(f"[8{label}] one-vs-rest {len(m.classes_)} classes n={n_fit} "
+            f"d={Xm.shape[1]} solver={solver} {json.dumps(sopts)}: train "
+            f"{secs:.3f} s, accuracy {acc:.4f} on {len(lm) - n_tr}, SV union "
+            f"{len(m.X_sv_)}, launches {counts}")
+        log(f"[8{label}] heads: status {sts}, SVs "
+            f"{[int((c != 0).sum()) for c in m.coef_]}, iterations "
+            f"{[int(v) for v in m.n_iter_]}")
+        if solver == "pair":
+            r = m.results_
+            log(f"[8b] lockstep: {r.chunks} chunks, host syncs {r.host_syncs}, "
+                f"row refreshes {r.row_refreshes.tolist()}, CUDA graph {r.graphed}")
+            check(counts["pair_rows"] > 0 or device == "cpu",
+                  f"[8b] pair_rows not launched {counts}")
+        else:
+            heads = len(m.classes_)
+            check(device == "cpu" or (counts["fused_fupdate"] >= heads
+                                      and counts["inner_smo"] >= heads),
+                  f"[8a] kernels #1 and #2 not launched for every head: {counts}")
+        check(all(v == "CONVERGED" for v in sts), f"[8{label}] heads {sts}")
+    ref = "a'" if n_pair < n_tr else "a"
+    (_, pa, acca), (mb, pb, accb) = ovr[ref], ovr["b"]
+    log(f"[8] blocked ({ref}) against pair (b), n={n_pair}: accuracy {acca:.4f} vs "
+        f"{accb:.4f}, test rows predicted alike {float((pa == pb).mean()):.4f}")
+    check(abs(acca - accb) <= 0.005, f"[8] accuracies {acca} vs {accb}")
+    return mb
+
+
+def phase_tasks(X_all, Y_all, n_tr, n_cut, Xr, tr, n_svr, n_svr_pair, Xm_test,
+                pair_model, ovr_model, device):
+    """Phase 9, cut in depth: epsilon-SVR, blocked on n_svr rows and both
+    solvers on n_svr_pair (when that is a cut), held out Xr[n_svr:]; linear
+    and poly with both solvers and sigmoid once on the first n_cut rows;
+    Platt calibration of that cut's RBF model; a save and load of each
+    kind."""
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC, EpsilonSVR, load_any
+    from tpusvm_torch.ops.cuda import _build
+    from tpusvm_torch.status import Status
+
+    blocked_opts = dict(q=2048, max_inner=4096, wss=2)
+    svr = {}
+    runs = [("blocked", blocked_opts, n_svr), ("pair", {}, n_svr_pair)]
+    if n_svr_pair < n_svr:
+        runs.insert(1, ("blocked", blocked_opts, n_svr_pair))
+    for solver, sopts, n_fit in runs:
+        t = time.perf_counter()
+        m = EpsilonSVR(SVMConfig(C=10.0, gamma=20.0, epsilon=0.1, max_iter=10**6),
+                       solver=solver, solver_opts=sopts,
+                       device=device).fit(Xr[:n_fit], tr[:n_fit])
+        secs = time.perf_counter() - t
+        r2 = m.score(Xr[n_svr:], tr[n_svr:])
+        svr[(solver, n_fit)] = (m, m.predict(Xr[n_svr:]))
+        log(f"[9] SVR svr_sine n={n_fit} (held out [{n_svr}:{len(tr)}]) d=1 C=10 "
+            f"gamma=20 epsilon=0.1 solver={solver}: train {secs:.3f} s, status "
+            f"{m.status_.name}, iterations {m.n_iter_}, SVs {m.n_support_}, "
+            f"R^2 {r2:.4f}")
+        check(m.status_ == Status.CONVERGED, f"[9] SVR {solver}: {m.status_.name}")
+        check(r2 > 0.9, f"[9] SVR {solver}: R^2 {r2}")
+    dsvr = float(np.abs(svr[("blocked", n_svr_pair)][1]
+                        - svr[("pair", n_svr_pair)][1]).max())
+    log(f"[9] SVR blocked against pair, n={n_svr_pair}: max |d prediction| "
+        f"{dsvr:.3e} on {len(tr) - n_svr} rows")
+    check(dsvr <= 1e-3, f"[9] SVR solvers differ by {dsvr}")
+
+    Xc, Yc = X_all[:n_cut], Y_all[:n_cut]
+    Xt, Yt = X_all[n_tr:], Y_all[n_tr:]
+    fam_models = {}
+    for fam, fkw, solvers in (("linear", {}, ("blocked", "pair")),
+                              ("poly", dict(degree=3, coef0=1.0), ("blocked", "pair")),
+                              ("sigmoid", dict(coef0=0.0), ("blocked",))):
+        for solver in solvers:
+            t = time.perf_counter()
+            m = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6, kernel=fam,
+                                    **fkw), solver=solver,
+                          solver_opts=blocked_opts if solver == "blocked" else {},
+                          device=device)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                m.fit(Xc, Yc)
+            secs = time.perf_counter() - t
+            fam_models[(fam, solver)] = m
+            log(f"[9] {fam} {json.dumps(fkw)} n={n_cut} (cut from {n_tr}) "
+                f"d={X_all.shape[1]} solver={solver}: train {secs:.3f} s, status "
+                f"{m.status_.name}, iterations {m.n_iter_}, SVs {m.n_support_}, "
+                f"b {m.b_:.9f}, accuracy {m.score(Xt, Yt):.4f} on {len(Yt)}")
+            if fam != "sigmoid":
+                check(m.status_ == Status.CONVERGED,
+                      f"[9] {fam} {solver}: {m.status_.name}")
+    rbf_cut = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
+                        solver_opts=blocked_opts, device=device).fit(Xc, Yc)
+    t = time.perf_counter()
+    rbf_cut.calibrate(Xc, Yc, folds=3)
+    secs = time.perf_counter() - t
+    proba = rbf_cut.predict_proba(Xt)
+    order = np.argsort(rbf_cut.decision_function(Xt), kind="stable")
+    monotone = bool(np.all(np.diff(proba[order, 1]) >= 0))
+    log(f"[9] Platt calibration, 3 folds, RBF n={n_cut}: {secs:.3f} s, A "
+        f"{rbf_cut.platt_[0]:.6f}, B {rbf_cut.platt_[1]:.6f}, predict_proba "
+        f"monotone in decision_function {monotone}, rows sum to 1 "
+        f"{bool(np.allclose(proba.sum(1), 1.0))}")
+    check(monotone and rbf_cut.platt_[0] < 0, "[9] Platt: not monotone increasing")
+
+    for name, m, Xq in (("binary_poly", fam_models[("poly", "blocked")], Xt),
+                        ("binary_pair", pair_model, Xt),
+                        ("calibrated", rbf_cut, Xt), ("ovr", ovr_model, Xm_test),
+                        ("svr", svr[("pair", n_svr_pair)][0], Xr[n_svr:])):
+        path = str(_build.BUILD_DIR / f"chip_smoke_{name}.npz")
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        m.save(path)
+        again = load_any(path, device=device)
+        same = np.array_equal(again.decision_function(Xq), m.decision_function(Xq))
+        log(f"[9] artifact {name}: saved and reloaded as {type(again).__name__}, "
+            f"scores equal {same}")
+        check(type(again) is type(m) and same, f"[9] artifact {name} differs")
+        if name == "calibrated":
+            check(np.array_equal(again.predict_proba(Xq), m.predict_proba(Xq)),
+                  "[9] reloaded probabilities differ")
+
+
+def sync(device):
+    import torch
+
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
 def main():
     import torch
 
@@ -209,9 +484,12 @@ def main():
             inner_smo_kernel, inner_smo_multipair_kernel,
             inner_smo_multipair_ref, inner_smo_ref, iteration_floor_probe,
             multipair_floor_probe)
+        from tpusvm_torch.ops.cuda.pair_rows import (pair_rows_kernel,
+                                                     pair_rows_ref)
         from tpusvm_torch.ops.rbf import rbf_cross, sq_norms
         from tpusvm_torch.config import SVMConfig
-        from tpusvm_torch.models.svm import BinarySVC
+        from tpusvm_torch.models import (BinarySVC, EpsilonSVR, OneVsRestSVC,
+                                         load_any)
         from tpusvm_torch.status import Status
     except ImportError as e:
         print(f"chip_smoke: tpusvm_torch is not importable here ({e})",
@@ -539,6 +817,85 @@ def main():
         "library_ms": lib_ms, "fupdate_alone_ms": f_ms, "epilogue_ms": e_ms,
         "shape": {"n": n, "d": d, "q": q, "block": blk, "k_cand": kc}})
 
+    # the pair solver's K-row refresh against its plain version, every
+    # exact family, k=2 (a binary fit) and k=20 (ten lockstep heads).
+    # Tolerance: max |kernel - plain| over the rows within rtol x the
+    # largest plain value (both are f32 dots of d terms in different
+    # orders, ~d * 2^-24 of the dot's scale; poly cubes its base)
+    pr_rtol = {"rbf": 1e-5, "linear": 1e-5, "poly": 3e-5, "sigmoid": 1e-5}
+    pr_kw = {"rbf": dict(gamma=GAMMA), "linear": dict(gamma=0.0),
+             "poly": dict(gamma=1.0 / d, coef0=1.0, degree=3),
+             "sigmoid": dict(gamma=1.0 / d, coef0=-1.0)}
+    gp = np.random.default_rng(4)
+    pr_runs = {}
+    for k in (2, 20):
+        idx = torch.as_tensor(gp.choice(n, k, replace=False), device=dev)
+        yes = torch.ones(k, dtype=torch.bool, device=dev)
+        no = torch.zeros(k, dtype=torch.bool, device=dev)
+        for fam, fkw in pr_kw.items():
+            kw = dict(family=fam, sn=sn, **fkw)
+            rows = torch.zeros(k, n, device=dev)
+            got = pair_rows_kernel(X, idx, yes, rows, **kw)
+            want = pair_rows_ref(X, idx, yes, torch.zeros(k, n, device=dev), **kw)
+            before = rows.clone()
+            pair_rows_kernel(X, idx, no, rows, **kw)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            untouched = torch.equal(rows, before)
+            check(torch.isfinite(got).all().item(), f"pair_rows {fam} k={k}: non-finite")
+            check(rel <= pr_rtol[fam], f"pair_rows {fam} k={k}: rel error {rel} over "
+                  f"{pr_rtol[fam]}")
+            check(untouched, f"pair_rows {fam} k={k}: the skip path changed the rows")
+            t_k = cuda_ms(lambda: pair_rows_kernel(X, idx, yes, rows, **kw))
+            t_skip = cuda_ms(lambda: pair_rows_kernel(X, idx, no, rows, **kw))
+            t_p = cuda_ms(lambda: pair_rows_ref(X, idx, yes, rows, **kw))
+            t_lib = cuda_ms(lambda: rows_by_matmul(fam, X, idx, sn, fkw))
+            pr_runs[(fam, k)] = dict(ms=t_k, skip_ms=t_skip, plain_ms=t_p,
+                                     library_ms=t_lib, max_abs_err=err)
+            log(f"[3] pair_rows {fam} k={k} n={n} d={d}: max_abs_err {err:.3e} "
+                f"(rel {rel:.2e}, tol {pr_rtol[fam]:.0e}), skip path untouched "
+                f"{untouched}; kernel {t_k:.4f} ms, all need clear {t_skip:.4f} ms, "
+                f"plain {t_p:.4f} ms, torch.matmul(X[idx], X.T) + epilogue "
+                f"{t_lib:.4f} ms")
+    # the skip's device cost: 100 launches with every need clear captured
+    # in one CUDA graph and replayed (the wrapper's host time drops out;
+    # measurement launches, not counted)
+    for k in (2, 20):
+        idx = torch.as_tensor(gp.choice(n, k, replace=False), device=dev)
+        no = torch.zeros(k, dtype=torch.bool, device=dev)
+        rows = torch.zeros(k, n, device=dev)
+        kw = dict(family="rbf", sn=sn, gamma=GAMMA)
+        pair_rows_kernel(X, idx, no, rows, **kw)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(100):
+                pair_rows_kernel(X, idx, no, rows, **kw)
+        skip_us = cuda_ms(g.replay) * 10.0
+        pr_runs[("rbf", k)]["skip_device_us"] = skip_us
+        log(f"[3] pair_rows rbf k={k}, every need clear, inside a CUDA graph: "
+            f"{skip_us:.2f} us a launch on the device")
+    # its bound at the pair solver's shape (k=2, RBF): X read once, sn read,
+    # two rows written; 2*k*n*d flops at the f32 FMA rate is far below
+    pr_bytes = 4.0 * (n * d + n + 2 * n)
+    pr_bound = max(pr_bytes / peak_bw, 2.0 * 2 * n * d / peak_flops) * 1e3
+    pr = pr_runs[("rbf", 2)]
+    log(f"[3] pair_rows rbf k=2: kernel {pr['ms']:.4f} ms against its byte bound "
+        f"{pr_bound:.4f} ms ({100 * pr_bound / pr['ms']:.1f}% of it reached); "
+        f"k=20: {pr_runs[('rbf', 20)]['ms']:.4f} ms")
+    kernels.append({
+        "name": "pair_rows", "route": "cuda",
+        "source": "tpusvm_torch/csrc/pair_rows.cu",
+        "replaces": "none: port only; the JAX package computes these rows in "
+                    "XLA (tpusvm/ops/rbf.py:140)",
+        "launches": None, "max_abs_err": pr["max_abs_err"], "ms": pr["ms"],
+        "kernel_ms": pr["ms"], "plain_ms": pr["plain_ms"], "bound_ms": pr_bound,
+        "bound_by": "bytes", "library_ms": pr["library_ms"],
+        "skip_ms": pr["skip_ms"], "skip_device_us": pr["skip_device_us"],
+        "k20_ms": pr_runs[("rbf", 20)]["ms"],
+        "shape": {"n": n, "d": d, "k": 2, "family": "rbf"}})
+
     # ---- 4. main path, mid size, card against CPU -------------------------
     Xm, Ym = mnist_like(n=2000, d=784, noise=30.0, label_noise=0.005, seed=587)
     opts = dict(q=256, wss=2, max_inner=512)
@@ -579,7 +936,8 @@ def main():
     counters = {"fused_fupdate": rbf_cross_matvec_kernel,
                 "inner_smo": inner_smo_kernel,
                 "inner_smo_multipair": inner_smo_multipair_kernel,
-                "fused_fupdate_select": fused_fupdate_select_kernel}
+                "fused_fupdate_select": fused_fupdate_select_kernel,
+                "pair_rows": pair_rows_kernel}
     full_opts = {
         "5": dict(q=2048, wss=2, max_inner=4096),
         "5b": dict(q=2048, wss=1, max_inner=4096, multipair=4,
@@ -636,6 +994,24 @@ def main():
             check(np.array_equal(again.predict(X_all[60000:]), pred),
                   "reloaded model predicts differently")
             log(f"[5] saved and reloaded {path}: predictions equal")
+            print(json.dumps({"bench": {
+                "metric": "mnist60k_smo_train_time", "value": train_s, "unit": "s",
+                "workload": {"generator": "mnist_like", "n": 70000, "d": 784,
+                             "noise": 30.0, "label_noise": 0.005, "seed": 587,
+                             "train_rows": "[:60000]", "test_rows": "[60000:]",
+                             "note": "bench.py draws mnist_like(n=60000) and "
+                                     "trains on all of it"},
+                "solver": {"name": "blocked", "C": C, "gamma": GAMMA,
+                           "eps": 1e-12, "tau": 1e-5, "max_iter": 10**6,
+                           "max_outer": 5000, **sopts, "accum_dtype": "float64"},
+                "train_s": train_s, "solve_s": model.fit_phases_["solve"],
+                "updates": updates, "outer_rounds": res.n_outer,
+                "n_sv": model.n_support_, "accuracy": acc,
+                "status": model.status_.name,
+                "provenance": {"torch": torch.__version__,
+                               "cuda": torch.version.cuda,
+                               "python": sys.version.split()[0],
+                               "device": kind, "nvidia_smi": smi}}}), flush=True)
     (m5, acc5), (m5b, acc5b) = models["5"], models["5b"]
     log(f"[5b] against phase 5's model: accuracy {acc5b:.4f} vs {acc5:.4f}, SV-ID "
         f"symmetric difference {len(set(m5.sv_ids_) ^ set(m5b.sv_ids_))} of "
@@ -672,6 +1048,18 @@ def main():
             + ", ".join(f"{k.split('(')[0].split('::')[-1]} {v:.1f} ms in "
                         f"{count[k]} launches" for k, v in sorted(fu.items())))
         check(busy > 0, "profiler saw no device time")
+
+    # ---- 7, 8, 9. the pair solver, one-vs-rest, tasks and families -------
+    from tpusvm_torch.data.synthetic import (BENCH_NOISE_MULTICLASS,
+                                             mnist_like_multiclass, svr_sine)
+
+    pair_model, launches["pair_rows"] = phase_pair(X_all, Y_all, 60000, counters,
+                                                   m5, acc5, "cuda")
+    Xm, lm = mnist_like_multiclass(n=70000, d=784, noise=BENCH_NOISE_MULTICLASS)
+    ovr_model = phase_ovr(Xm, lm, 60000, N_OVR_PAIR, counters, "cuda")
+    Xr, tr = svr_sine(n=24000, d=1, noise=0.05, seed=587)
+    phase_tasks(X_all, Y_all, 60000, 10000, Xr, tr, 20000, N_SVR_PAIR, Xm[60000:],
+                pair_model, ovr_model, "cuda")
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -243,3 +243,146 @@ def test_fit_launches_the_multipair_and_select_kernels(dev):
     assert m.status_.name == "CONVERGED"
     assert inner_smo_multipair_kernel.launches > 0
     assert fused_fupdate_select_kernel.launches > 0
+
+
+# ---------------------------------------------------------------------------
+# The pair solver's K-row refresh (csrc/pair_rows.cu) and the pair loop.
+
+# max |kernel - plain| per family, relative to the largest plain value of
+# the rows: both are f32 dots of d terms (the kernel's order fixed per lane
+# then a butterfly, the plain version's cuBLAS's), so they differ by f32
+# summation rounding, ~d * 2^-24 of the dot's scale at worst; poly cubes
+# its base (3x the relative error), RBF subtracts the dot from the norms
+# and scales the difference by gamma
+_PAIR_ROWS_RTOL = {"rbf": 1e-5, "linear": 1e-5, "poly": 3e-5, "sigmoid": 1e-5}
+_FAMILY_KW = {"rbf": dict(gamma=0.01), "linear": dict(gamma=0.0),
+              "poly": dict(gamma=1.0 / 784, coef0=1.0, degree=3),
+              "sigmoid": dict(gamma=1.0 / 784, coef0=-0.5)}
+
+
+def _pair_rows_inputs(dev, n, d, k, seed=0):
+    from tpusvm_torch.ops.rbf import sq_norms
+
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.random((n, d)), dtype=torch.float32, device=dev)
+    idx = torch.as_tensor(rng.choice(n, size=k, replace=False), device=dev)
+    return X, idx, sq_norms(X)
+
+
+@pytest.mark.parametrize("family", ["rbf", "linear", "poly", "sigmoid"])
+@pytest.mark.parametrize("n,d,k", [(4099, 784, 2), (4099, 784, 20),
+                                   (1001, 37, 2), (1001, 37, 20), (7, 3, 2)])
+def test_pair_rows_kernel_matches_plain(dev, family, n, d, k):
+    from tpusvm_torch.ops.cuda.pair_rows import pair_rows_kernel, pair_rows_ref
+
+    X, idx, sn = _pair_rows_inputs(dev, n, d, k)
+    need = torch.ones(k, dtype=torch.bool, device=dev)
+    kw = dict(family=family, sn=sn, **_FAMILY_KW[family])
+    got = pair_rows_kernel(X, idx, need, torch.zeros(k, n, device=dev), **kw)
+    want = pair_rows_ref(X, idx, need, torch.zeros(k, n, device=dev), **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= _PAIR_ROWS_RTOL[family] * scale
+    if family == "rbf":
+        # each value K(x_i, x_i) of a row's own index is exp(0) = 1 up to
+        # the cancellation of the dot form
+        own = got[torch.arange(k, device=dev), idx]
+        assert float((own - 1.0).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("family", ["rbf", "poly"])
+def test_pair_rows_kernel_skips_and_keeps_bits(dev, family):
+    """All need clear: the rows are untouched. Some set: those rows have
+    the bits of a full refresh of any k, the others are untouched."""
+    from tpusvm_torch.ops.cuda.pair_rows import pair_rows_kernel
+
+    n, d, k = 4099, 784, 20
+    X, idx, sn = _pair_rows_inputs(dev, n, d, k, seed=1)
+    kw = dict(family=family, sn=sn, **_FAMILY_KW[family])
+    rows = torch.randn(k, n, device=dev)
+    before = rows.clone()
+    launches = pair_rows_kernel.launches
+    pair_rows_kernel(X, idx, torch.zeros(k, dtype=torch.bool, device=dev), rows,
+                     **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, before)
+    assert pair_rows_kernel.launches == launches + 1
+    full = pair_rows_kernel(X, idx, torch.ones(k, dtype=torch.bool, device=dev),
+                            torch.zeros(k, n, device=dev), **kw)
+    need = torch.zeros(k, dtype=torch.bool, device=dev)
+    need[[1, 4, 19]] = True
+    pair_rows_kernel(X, idx, need, rows, **kw)
+    two = pair_rows_kernel(X, idx[[4, 1]], torch.ones(2, dtype=torch.bool,
+                                                      device=dev),
+                           torch.zeros(2, n, device=dev), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rows[need], full[need])
+    assert torch.equal(rows[~need], before[~need])
+    assert torch.equal(two, full[[4, 1]])
+
+
+def test_pair_solver_graph_chunk_equals_eager(dev):
+    """A captured chunk replayed against the same chunks run eagerly: the
+    same alpha, n_iter, status and row refreshes, bit for bit."""
+    from tpusvm_torch.data.synthetic import rings
+    from tpusvm_torch.solver.smo import smo_solve
+
+    X, Y = rings(n=2000, seed=3)
+    Xs = torch.as_tensor((X - X.min(0)) / (X.max(0) - X.min(0)),
+                         dtype=torch.float32, device=dev)
+    Yt = torch.as_tensor(Y, device=dev)
+    kw = dict(C=1.0, gamma=5.0, accum_dtype=torch.float64, max_iter=10**6,
+              chunk=64, device="cuda")
+    g = smo_solve(Xs, Yt, graph=True, **kw)
+    e = smo_solve(Xs, Yt, graph=False, **kw)
+    assert g.graphed and not e.graphed and g.chunks > 1
+    assert torch.equal(g.alpha, e.alpha)
+    assert (g.n_iter, g.status, g.row_refreshes, g.b) == (
+        e.n_iter, e.status, e.row_refreshes, e.b)
+    assert g.status.name == "CONVERGED"
+    assert g.host_syncs == g.chunks + 1
+
+
+@pytest.mark.parametrize("family", ["rbf", "linear", "poly", "sigmoid"])
+def test_pair_solver_on_the_card_matches_the_cpu(dev, family):
+    """The card's run (kernel rows, graph chunks) against the CPU's (plain
+    rows): the same status and SV-ID set, b in the cross-engine band."""
+    from tpusvm_torch.data.synthetic import rings
+    from tpusvm_torch.ops.cuda.pair_rows import pair_rows_kernel
+    from tpusvm_torch.solver.smo import smo_solve
+
+    X, Y = rings(n=600, seed=4)
+    Xs = ((X - X.min(0)) / (X.max(0) - X.min(0))).astype(np.float32)
+    kw = dict(C=1.0, accum_dtype=torch.float64, max_iter=10**6, kernel=family,
+              **{k: v for k, v in _FAMILY_KW[family].items() if k != "gamma"},
+              gamma=5.0 if family == "rbf" else 0.5)
+    launches = pair_rows_kernel.launches
+    c = smo_solve(torch.tensor(Xs), torch.tensor(Y), device="cuda", **kw)
+    h = smo_solve(torch.tensor(Xs), torch.tensor(Y), device="cpu", **kw)
+    assert pair_rows_kernel.launches > launches
+    assert c.status == h.status
+    if family != "sigmoid":
+        assert c.status.name == "CONVERGED"
+    sv = lambda r: set(np.nonzero(r.alpha.numpy() > 1e-8)[0])  # noqa: E731
+    assert len(sv(c) ^ sv(h)) <= max(2, len(sv(h)) // 25)
+    assert abs(c.b - h.b) <= 1e-3
+
+
+def test_batched_pair_solver_on_the_card_equals_solo_runs(dev):
+    from tpusvm_torch.data.synthetic import mnist_like_multiclass
+    from tpusvm_torch.solver.smo import smo_solve, smo_solve_batched
+
+    X, labels = mnist_like_multiclass(n=800, d=64, n_classes=4, noise=30.0)
+    Xs = torch.as_tensor((X - X.min(0)) / np.maximum(X.max(0) - X.min(0), 1e-12),
+                         dtype=torch.float32, device=dev)
+    Ys = np.stack([np.where(labels == c, 1, -1) for c in range(4)]).astype(np.int32)
+    kw = dict(C=10.0, gamma=0.05, accum_dtype=torch.float64, max_iter=10**6,
+              chunk=32, device="cuda")
+    batched = smo_solve_batched(Xs, torch.as_tensor(Ys, device=dev), **kw)
+    for k in range(4):
+        solo = smo_solve(Xs, torch.as_tensor(Ys[k], device=dev), **kw)
+        head = batched.head(k)
+        assert torch.equal(head.alpha, solo.alpha)
+        assert (head.n_iter, head.status, head.b) == (solo.n_iter, solo.status,
+                                                      solo.b)

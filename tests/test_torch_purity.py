@@ -83,6 +83,23 @@ def test_cuda_entry_points_raise_without_a_card():
         solver_state_from_numpy(np.zeros(20))
 
 
+def test_pair_and_task_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card path is not reachable")
+    from tpusvm_torch.models import BinarySVC, EpsilonSVR, OneVsRestSVC
+    from tpusvm_torch.solver.smo import smo_solve, smo_solve_batched
+
+    X = np.random.default_rng(0).random((20, 3)).astype(np.float32)
+    Y = np.tile([1, -1], 10).astype(np.int32)
+    for call in (lambda: smo_solve(X, Y),
+                 lambda: smo_solve_batched(X, Y[None]),
+                 lambda: EpsilonSVR().fit(X, Y.astype(float)),
+                 lambda: OneVsRestSVC().fit(X, np.arange(20) % 3),
+                 lambda: BinarySVC(solver="pair").fit(X, Y)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_chip_smoke_fails_without_a_card_or_alone(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -1,9 +1,11 @@
 """tpusvm_torch — the PyTorch/CUDA port of tpusvm for one NVIDIA H100.
 
-Slice 1: train and score a binary RBF C-SVC with the blocked SMO solver,
-with hand-written CUDA kernels for the fused f-update and the inner SMO
-subproblem (built from tpusvm_torch/csrc at first use). Imports torch and
-numpy only; the CUDA kernels are compiled on first call, never on import.
+Train and score SVMs on the card: binary C-SVC with the blocked or the
+pair SMO solver over the rbf, linear, poly and sigmoid kernels,
+one-vs-rest, epsilon-SVR and Platt calibration, with hand-written CUDA
+kernels (tpusvm_torch/csrc) for the f-update, the inner subproblem and
+the pair solver's K rows. Imports torch and numpy only; the CUDA kernels
+are compiled on first call, never on import.
 """
 
 __version__ = "0.1.0"

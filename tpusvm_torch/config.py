@@ -1,8 +1,9 @@
-"""Hyperparameters of the port's binary RBF C-SVC.
+"""Hyperparameters of the port's SVM estimators.
 
-Restricted to the fields this slice implements; the defaults are the
-reference's constants (C and gamma of its MNIST run, tau, eps, sv_tol,
-max_iter), so a zero-argument config is a parity config.
+The defaults are the reference's constants (C and gamma of its MNIST run,
+tau, eps, sv_tol, max_iter), so a zero-argument config is a parity
+config. The field names follow the JAX package's SVMConfig, so a config
+moves between the packages through the shared `.npz` artifact.
 """
 
 from __future__ import annotations
@@ -11,17 +12,32 @@ import dataclasses
 
 import torch
 
-# kernel families the JAX package knows; only "rbf" is ported so far
+# kernel families the JAX package knows; the approximate ones ("rff",
+# "nystrom") need the explicit feature maps, which are not ported yet
 KERNEL_FAMILIES = ("rbf", "linear", "poly", "sigmoid", "rff", "nystrom")
+APPROX_FAMILIES = ("rff", "nystrom")
+
+
+def refuse_approx(family: str) -> None:
+    """NotImplementedError for the approximate families at the model layer."""
+    if family in APPROX_FAMILIES:
+        raise NotImplementedError(
+            f"kernel={family!r} is an approximate-kernel family; its "
+            "feature maps are not ported yet (ROADMAP Queue 1 item 10). "
+            "The exact families rbf, linear, poly and sigmoid run"
+        )
 
 
 @dataclasses.dataclass(frozen=True)
 class SVMConfig:
-    """C: box constraint. gamma: RBF width, K(a, b) = exp(-gamma |a-b|^2).
-    tau: stopping tolerance (converged when b_low <= b_high + 2 tau).
-    eps: index-set tolerance, eta guard and [U, V] slack. sv_tol: alpha >
-    sv_tol defines a support vector. max_iter: cap on total alpha updates.
-    kernel: only "rbf"; the other families come with a later slice."""
+    """C: box constraint. gamma: kernel width (RBF exp(-gamma |a-b|^2)) or
+    scale (poly/sigmoid gamma a.b). tau: stopping tolerance (converged when
+    b_low <= b_high + 2 tau). eps: index-set tolerance, eta guard and
+    [U, V] slack. sv_tol: alpha > sv_tol defines a support vector.
+    max_iter: cap on total alpha updates. kernel: "rbf", "linear", "poly"
+    or "sigmoid" ("rff"/"nystrom" are refused). degree: poly degree.
+    coef0: poly/sigmoid additive term. epsilon: the epsilon-SVR tube
+    half-width (EpsilonSVR only)."""
 
     C: float = 10.0
     gamma: float = 0.00125
@@ -30,6 +46,9 @@ class SVMConfig:
     sv_tol: float = 1e-8
     max_iter: int = 100000
     kernel: str = "rbf"
+    degree: int = 3
+    coef0: float = 0.0
+    epsilon: float = 0.1
 
     def __post_init__(self):
         if self.kernel not in KERNEL_FAMILIES:
@@ -37,12 +56,11 @@ class SVMConfig:
                 f"unknown kernel family {self.kernel!r}; supported: "
                 f"{list(KERNEL_FAMILIES)}"
             )
-        if self.kernel != "rbf":
-            raise NotImplementedError(
-                f"kernel={self.kernel!r} is not ported yet: kernel families "
-                "and tasks come with slice 2 of the port (ROADMAP Queue 1 "
-                "item 6); this slice runs the RBF kernel only"
-            )
+        if self.degree < 1:
+            raise ValueError(f"degree must be >= 1, got {self.degree}")
+        if self.epsilon < 0:
+            raise ValueError(f"epsilon must be >= 0, got {self.epsilon}")
+        refuse_approx(self.kernel)
 
 
 def resolve_accum_dtype(accum_dtype):

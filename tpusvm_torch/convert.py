@@ -1,7 +1,8 @@
 """Carry state across from the JAX package, as numpy arrays.
 
 `from_jax_state` builds the port's estimator from a fitted JAX
-`BinarySVC`'s attributes; `solver_state_from_numpy` turns a JAX solve's
+estimator's attributes (BinarySVC, calibrated or not, OneVsRestSVC or
+EpsilonSVR); `solver_state_from_numpy` turns a JAX solve's
 alphas (and optionally its f) into the port's warm start. Neither imports
 anything of the JAX package: the caller hands over plain arrays.
 """
@@ -17,17 +18,20 @@ import torch
 from tpusvm_torch.config import SVMConfig
 from tpusvm_torch.data.scaler import MinMaxScaler
 from tpusvm_torch.device import resolve_device
-from tpusvm_torch.models.svm import BinarySVC
+from tpusvm_torch.models import BinarySVC, EpsilonSVR, OneVsRestSVC
 from tpusvm_torch.status import Status
 
 
-def from_jax_state(state: Dict[str, np.ndarray], device="cuda") -> BinarySVC:
-    """The port's BinarySVC from a fitted JAX BinarySVC's attributes.
+def from_jax_state(state: Dict[str, np.ndarray], device="cuda"):
+    """The port's estimator from a fitted JAX estimator's attributes.
 
-    state keys: sv_X_, sv_Y_, sv_alpha_, sv_ids_, b_ (the JAX attribute
-    names), scaler_min and scaler_max (absent for an unscaled model) and
-    config (a dict of hyperparameters, or any object with those
-    attributes; fields this port does not carry are ignored).
+    state keys are the JAX attribute names: a BinarySVC's sv_X_, sv_Y_,
+    sv_alpha_, sv_ids_, b_ (and platt_ = (A, B) when calibrated); a
+    OneVsRestSVC's classes_, X_sv_, coef_, sv_ids_, b_; an EpsilonSVR's
+    sv_X_, sv_coef_, sv_ids_, b_. Plus scaler_min and scaler_max (absent
+    for an unscaled model) and config (a dict of hyperparameters, or any
+    object with those attributes; fields this port does not carry are
+    ignored). Returns a BinarySVC, OneVsRestSVC or EpsilonSVR.
     """
     cfg = state.get("config", {})
     names = [f.name for f in dataclasses.fields(SVMConfig)]
@@ -35,16 +39,32 @@ def from_jax_state(state: Dict[str, np.ndarray], device="cuda") -> BinarySVC:
         cfg = {k: getattr(cfg, k) for k in names if hasattr(cfg, k)}
     config = SVMConfig(**{k: v for k, v in cfg.items() if k in names})
     scaled = state.get("scaler_min") is not None
-    model = BinarySVC(config=config, scale=scaled, device=device)
-    model.sv_X_ = np.asarray(state["sv_X_"])
-    model.sv_Y_ = np.asarray(state["sv_Y_"]).astype(np.int32)
-    model.sv_alpha_ = np.asarray(state["sv_alpha_"])
-    model.sv_ids_ = np.asarray(state["sv_ids_"]).astype(np.int32)
-    model.b_ = float(np.asarray(state["b_"]))
+    if "classes_" in state:
+        model = OneVsRestSVC(config=config, scale=scaled, device=device)
+        model.classes_ = np.asarray(state["classes_"])
+        model.X_sv_ = np.asarray(state["X_sv_"])
+        model.coef_ = np.asarray(state["coef_"])
+        model.b_ = np.asarray(state["b_"])
+    elif "sv_coef_" in state:
+        model = EpsilonSVR(config=config, scale=scaled, device=device)
+        model.sv_X_ = np.asarray(state["sv_X_"])
+        model.sv_coef_ = np.asarray(state["sv_coef_"])
+        model.b_ = float(np.asarray(state["b_"]))
+    else:
+        model = BinarySVC(config=config, scale=scaled, device=device)
+        model.sv_X_ = np.asarray(state["sv_X_"])
+        model.sv_Y_ = np.asarray(state["sv_Y_"]).astype(np.int32)
+        model.sv_alpha_ = np.asarray(state["sv_alpha_"])
+        model.b_ = float(np.asarray(state["b_"]))
+        if state.get("platt_") is not None:
+            model.platt_ = tuple(float(v) for v in state["platt_"])
+    if state.get("sv_ids_") is not None:
+        model.sv_ids_ = np.asarray(state["sv_ids_"]).astype(np.int32)
     if scaled:
         model.scaler_ = MinMaxScaler(min_val=np.asarray(state["scaler_min"]),
                                      max_val=np.asarray(state["scaler_max"]))
-    model.status_ = Status.CONVERGED
+    if not isinstance(model, OneVsRestSVC):
+        model.status_ = Status.CONVERGED
     return model
 
 

@@ -5,6 +5,7 @@ arrays bit for bit:
 
   - `blobs`: two Gaussian clusters;
   - `rings`: two concentric annuli (not linearly separable);
+  - `svr_sine`: continuous regression targets (epsilon-SVR);
   - `mnist_like`: an MNIST-shaped (n, 784) one-vs-rest problem with a
     low-rank "digit manifold" per class.
 """
@@ -19,6 +20,9 @@ import numpy as np
 # keep held-out accuracy off the 1.0 ceiling
 BENCH_NOISE = 330.0
 BENCH_LABEL_NOISE = 0.0
+# the 10-class recipe: every class overlaps every other under an argmax
+# decision, so the noise is a little lower
+BENCH_NOISE_MULTICLASS = 300.0
 
 
 def blobs(
@@ -55,6 +59,25 @@ def rings(
     Y = np.concatenate([np.ones(n_pos, np.int32), -np.ones(n_neg, np.int32)])
     perm = rng.permutation(n)
     return X[perm], Y[perm]
+
+
+def svr_sine(
+    n: int = 400, d: int = 2, noise: float = 0.05, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Smooth regression problem for epsilon-SVR: continuous targets.
+
+    X uniform on [-3, 3]^d; the target is a sine of the first coordinate
+    plus 0.25 times each other coordinate, plus gaussian target noise.
+    Returns (X, t) with t float64.
+    """
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-3.0, 3.0, size=(n, d))
+    t = np.sin(X[:, 0])
+    for j in range(1, d):
+        t = t + 0.25 * X[:, j]
+    if noise > 0:
+        t = t + rng.normal(0, noise, size=n)
+    return X, t
 
 
 def mnist_like_multiclass(

@@ -1,11 +1,20 @@
-"""Model persistence: the JAX package's v4 `.npz` artifact, both ways.
+"""Model persistence: the JAX package's `.npz` artifact (v1-v4), both ways.
 
-A binary exact-RBF state: sv_X, sv_Y, sv_alpha, sv_ids, b, scale,
-scaler_min/scaler_max (when scaled), the training-provenance fields
-train_precision/shrink_every/shrink_stable, and the hyperparameters as
-config_<field> entries, with format_version = 4. The same keys and dtypes
-are written and read, so a model saved by either package loads and scores
-in the other. Writes are atomic (temp file + os.replace).
+One `.npz` holds everything scoring needs, with format_version = 4:
+  - binary classifiers: sv_X, sv_Y, sv_alpha, sv_ids, b, scale,
+    scaler_min/scaler_max (when scaled), platt_a/platt_b (when
+    calibrated), and the provenance fields train_precision, shrink_every
+    and shrink_stable;
+  - one-vs-rest classifiers: classes, sv_X (the union of the heads'
+    SVs), coef (K, n_sv), b (K,), sv_ids, scale and the scaler;
+  - epsilon-SVR: task = "svr", sv_X, sv_coef (signed), sv_ids, b, scale
+    and the scaler;
+  - the hyperparameters as config_<field> entries (kernel, degree, coef0
+    and epsilon since v2).
+The same keys and dtypes are written and read, so a model saved by either
+package loads and scores in the other. Writes are atomic (temp file +
+os.replace). Artifacts of the approximate families (map_* keys) are
+refused: their feature maps are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,15 +25,13 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
-from tpusvm_torch.config import SVMConfig
+from tpusvm_torch.config import APPROX_FAMILIES, KERNEL_FAMILIES, SVMConfig
 
 FORMAT_VERSION = 4
 SUPPORTED_VERSIONS = (1, 2, 3, 4)
 
-# state keys of artifacts this slice cannot score
+# state keys of artifacts this port cannot score yet
 _LATER_SLICE_KEYS = {
-    "classes": "one-vs-rest models",
-    "task": "epsilon-SVR models",
     "map_n_features_in": "approximate-kernel models",
 }
 
@@ -32,6 +39,17 @@ _LATER_SLICE_KEYS = {
 def _norm(path: str) -> str:
     # np.savez appends ".npz" to suffix-less paths
     return path if path.endswith(".npz") else path + ".npz"
+
+
+def model_task(path: str) -> str:
+    """Artifact kind: "ovr" (carries `classes`), "svr" (a `task` marker)
+    or "svc" (everything else, every v1 file included)."""
+    with np.load(_norm(path), allow_pickle=False) as z:
+        if "classes" in z.files:
+            return "ovr"
+        if "task" in z.files:
+            return str(z["task"].item())
+    return "svc"
 
 
 def save_model(path: str, state: Dict[str, Any], config: SVMConfig) -> None:
@@ -47,11 +65,12 @@ def save_model(path: str, state: Dict[str, Any], config: SVMConfig) -> None:
 
 
 def load_model(path: str) -> Tuple[Dict[str, np.ndarray], SVMConfig]:
-    """(state dict, SVMConfig) of a binary exact-RBF artifact.
+    """(state dict, SVMConfig) of an artifact of any kind the port scores.
 
-    Config fields this port does not carry (degree, coef0, ...) are
-    ignored; an unknown version, or an artifact of a kind this slice does
-    not score, fails here with a specific error.
+    Config fields this port does not carry (rff_dim, map_seed, ...) are
+    ignored, and fields a v1 file predates take their defaults (the RBF
+    family). An unknown version or kernel family, or an approximate-kernel
+    artifact, fails here with a specific error.
     """
     with np.load(_norm(path), allow_pickle=False) as z:
         if "format_version" not in z.files:
@@ -81,10 +100,16 @@ def load_model(path: str) -> Tuple[Dict[str, np.ndarray], SVMConfig]:
                                  float(val) if ftype == "float" else str(val))
             else:
                 state[key] = z[key]
+    family = cfg.get("kernel", "rbf")
+    if family not in KERNEL_FAMILIES:
+        raise ValueError(
+            f"{_norm(path)!r} names kernel family {family!r}, which this "
+            f"build does not implement (supported: {list(KERNEL_FAMILIES)})"
+        )
     for key, what in _LATER_SLICE_KEYS.items():
-        if key in state:
+        if key in state or family in APPROX_FAMILIES:
             raise NotImplementedError(
-                f"{_norm(path)!r} holds one of the {what}; this slice of "
-                "the port scores binary exact-RBF classifiers only"
+                f"{_norm(path)!r} holds one of the {what}; their feature "
+                "maps are not ported yet (ROADMAP Queue 1 item 10)"
             )
     return state, SVMConfig(**cfg)

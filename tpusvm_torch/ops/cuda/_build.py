@@ -39,6 +39,7 @@ SOURCES = {
     "fused_select": ("fused_select.cu", ()),
     "inner_smo": ("inner_smo.cu", ("-fmad=false",)),
     "inner_smo_multipair": ("inner_smo_multipair.cu", ("-fmad=false",)),
+    "pair_rows": ("pair_rows.cu", ()),
 }
 
 _lock = threading.Lock()
@@ -124,6 +125,11 @@ def check(rc: int, what: str) -> None:
     if -3000 < rc <= -2000:
         raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused the "
                            f"layout (CUresult {-2000 - rc})")
+    if rc == -4000:
+        raise RuntimeError(f"{what}: the row count k must be in [1, 256]")
+    if rc == -4001:
+        raise RuntimeError(f"{what}: one row of X does not fit the kernel's "
+                           "shared-memory budget")
     if rc == -3000:
         raise RuntimeError(f"{what}: TMA operands need a row pitch that is a "
                            "multiple of 16 bytes and 16-byte aligned bases")

@@ -36,6 +36,21 @@ def coef_matvec(K: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
     return K @ coef
 
 
+def rbf_rows_at(X: torch.Tensor, idx: torch.Tensor, gamma,
+                sn: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K(X[idx[k]], X[j]) for a small index vector idx, shape (len(idx), n).
+
+    The dot form with the row norms: (sn_i + sn_j) - 2 x_i.x_j, clamped at
+    0 against cancellation, then exp(-gamma d2). Pass sn = sq_norms(X) to
+    skip re-reading X for the norms.
+    """
+    check_full_f32(X)
+    if sn is None:
+        sn = sq_norms(X)
+    d2 = sn[idx][:, None] + sn[None, :] - 2.0 * (X[idx] @ X.T)
+    return torch.exp(-gamma * torch.clamp_min(d2, 0.0))
+
+
 def rbf_cross(XA: torch.Tensor, XB: torch.Tensor, gamma,
               snA: Optional[torch.Tensor] = None,
               snB: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -70,3 +85,21 @@ def rbf_cross_matvec(X: torch.Tensor, XB: torch.Tensor, coef: torch.Tensor,
         K = rbf_cross(X[start:stop], XB, gamma, sn[start:stop], snB)
         out[start:stop] = coef_matvec(K, coef)
     return out
+
+
+def rbf_matvec(X: torch.Tensor, coef: torch.Tensor, gamma,
+               block: int = 1024) -> torch.Tensor:
+    """sum_j coef_j K(x_j, x_i) for all i, without the (n, n) matrix.
+
+    The warm-start f reconstruction: one (n, block) kernel slab per step
+    over blocks of j, accumulated in X's dtype. Shape (n,).
+    """
+    n = X.shape[0]
+    sn = sq_norms(X)
+    coef = coef.to(X.dtype)
+    acc = torch.zeros(n, dtype=X.dtype, device=X.device)
+    for start in range(0, n, block):
+        stop = min(start + block, n)
+        K = rbf_cross(X, X[start:stop], gamma, sn, sn[start:stop])
+        acc = acc + coef_matvec(K, coef[start:stop])
+    return acc

@@ -7,13 +7,14 @@ Each outer round:
      index (the order lax.top_k gives) -- over all n rows, or, with
      fused_selection, over the candidate pool the previous round's
      f-update kernel wrote;
-  3. K_BB = K(X_B, X_B), one matmul;
+  3. K_BB = K(X_B, X_B), one matmul (kernels.cross: any exact family);
   4. the inner subproblem on K_BB: the CUDA kernel (inner="kernel", one
      pair per iteration, or p slot pairs with multipair=p) or the
      accum-dtype eager loop (inner="loop");
   5. the f-update f += K(X, X_B) @ (dalpha * y_B): the fused CUDA kernel
-     (fused_fupdate=True; with fused_selection it also writes the next
-     round's candidates) or the blocked torch contraction.
+     (fused_fupdate=True, RBF only; with fused_selection it also writes
+     the next round's candidates) or the family's blocked torch
+     contraction (kernels.cross_matvec).
 
 The outer loop runs on the host with at most two host synchronisations per
 round: one reads the stop check, one reads the inner kernel's status. The
@@ -30,12 +31,13 @@ from typing import Optional
 
 import torch
 
+from tpusvm_torch import kernels
 from tpusvm_torch.device import resolve_device
 from tpusvm_torch.ops.cuda.fused_fupdate import (fused_fupdate_select_kernel,
                                                  rbf_cross_matvec_kernel,
                                                  selection_shape)
 from tpusvm_torch.ops.cuda.inner_smo import check_multipair, inner_smo_kernel
-from tpusvm_torch.ops.rbf import rbf_cross, rbf_cross_matvec, sq_norms
+from tpusvm_torch.ops.rbf import rbf_cross_matvec, sq_norms
 from tpusvm_torch.ops.selection import i_high_mask, i_low_mask
 from tpusvm_torch.solver.analytic import pair_update
 from tpusvm_torch.status import Status
@@ -63,12 +65,14 @@ def _clamp_q(n: int, q: int) -> int:
 
 
 def resolve_solver_config(n: int, q: int = 1024, inner: str = "auto",
-                          fused_fupdate="auto"):
+                          fused_fupdate="auto", kernel: str = "rbf"):
     """Effective (q, inner, fused_fupdate) blocked_smo_solve will run.
 
     q clamps to the even training-set size; "auto" resolves both engines
     to their kernels when q is a multiple of 128 ("kernel" / True), else to
-    the plain engines ("loop" / False). On a CPU device the kernels' plain
+    the plain engines ("loop" / False). The fused f-update computes the RBF
+    pipeline only: off RBF "auto" resolves to the family's contraction and
+    an explicit True is refused. On a CPU device the kernels' plain
     versions run in their place.
     """
     if inner not in ("auto", "kernel", "loop"):
@@ -76,12 +80,19 @@ def resolve_solver_config(n: int, q: int = 1024, inner: str = "auto",
     if fused_fupdate not in ("auto", True, False):
         raise ValueError(
             f"fused_fupdate must be True, False or 'auto', got {fused_fupdate!r}")
+    kernels.validate_family(kernel)
+    if kernel != "rbf" and fused_fupdate is True:
+        raise ValueError(
+            f"fused_fupdate=True implements the RBF pipeline only; "
+            f"kernel={kernel!r} uses its own contraction "
+            "(use fused_fupdate='auto')"
+        )
     q = _clamp_q(n, q)
     aligned = q % _LANE == 0
     if inner == "auto":
         inner = "kernel" if aligned else "loop"
     if fused_fupdate == "auto":
-        fused_fupdate = aligned
+        fused_fupdate = aligned and kernel == "rbf"
     return q, inner, bool(fused_fupdate)
 
 
@@ -254,6 +265,10 @@ def blocked_smo_solve(
     eta_exclude: bool = False,
     multipair: int = 1,
     fused_selection: bool = False,
+    kernel: str = "rbf",
+    degree: int = 3,
+    coef0: float = 0.0,
+    targets=None,
     device="cuda",
 ) -> SMOResult:
     """Train to the reference's stopping criterion with blocked working sets.
@@ -278,7 +293,18 @@ def blocked_smo_solve(
     f-update kernel also writes per-row-block candidates, and the next
     round selects from them instead of from all n rows; the stop check
     stays exact over the full f.
+
+    kernel, degree, coef0: the family (kernels/): K_BB and, off RBF, the
+    f-update and the warm start go through kernels.cross / cross_matvec /
+    matvec; the inner kernels read only K_BB, so they run for every
+    family. targets: pseudo-targets z replacing the labels in
+    f = K(alpha*y) - z (epsilon-SVR); they enter f0 only.
     """
+    kernels.validate_family(kernel)
+    if kernels.is_approx(kernel):
+        raise NotImplementedError(
+            f"kernel={kernel!r}: the approximate-kernel feature maps are not "
+            "ported yet (ROADMAP Queue 1 item 10)")
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
     if X.dtype != torch.float32:
@@ -288,7 +314,8 @@ def blocked_smo_solve(
     adt = X.dtype if accum_dtype is None else accum_dtype
     if wss not in (1, 2):
         raise ValueError(f"wss must be 1 or 2, got {wss}")
-    q, inner, fused = resolve_solver_config(n, q, inner, fused_fupdate)
+    q, inner, fused = resolve_solver_config(n, q, inner, fused_fupdate,
+                                            kernel)
     if inner == "kernel" and q % _LANE:
         raise ValueError(
             f"inner='kernel' needs the working-set size to be a multiple of "
@@ -321,16 +348,27 @@ def blocked_smo_solve(
              else torch.as_tensor(alpha0, device=dev).to(adt))
     alpha = torch.where(valid, alpha, torch.zeros((), dtype=adt, device=dev))
     yf = Y.to(adt)
-    if sn is None:
+    z = yf if targets is None else torch.as_tensor(targets, device=dev).to(adt)
+    if not kernels.needs_norms(kernel):
+        sn = None
+    elif sn is None:
         sn = sq_norms(X)
-    matvec = rbf_cross_matvec_kernel if fused else rbf_cross_matvec
+    kern = dict(gamma=gamma, coef0=coef0, degree=degree)
+    if kernel != "rbf":
+        def matvec(X, XB, coef, gamma, sn):
+            return kernels.cross_matvec(kernel, X, XB, coef, sn=sn, **kern)
+    else:
+        matvec = rbf_cross_matvec_kernel if fused else rbf_cross_matvec
     if f0 is not None:
         f = torch.as_tensor(f0, device=dev).to(adt)
     elif warm_start:
         coef = (alpha * yf).to(X.dtype)
-        f = matvec(X, X, coef, gamma, sn).to(adt) - yf
+        if kernel == "rbf":
+            f = matvec(X, X, coef, gamma, sn).to(adt) - z
+        else:
+            f = kernels.matvec(kernel, X, coef, **kern).to(adt) - z
     else:
-        f = -yf
+        f = -z
     f = torch.where(valid, f, torch.zeros((), dtype=adt, device=dev))
 
     if fused_selection:
@@ -380,7 +418,7 @@ def blocked_smo_solve(
         # must not take part in the subproblem
         active_B = valid[B] & is_first & (i_high_mask(a_B, y_B, C, eps)
                                           | i_low_mask(a_B, y_B, C, eps))
-        K_BB = rbf_cross(X_B, X_B, gamma)
+        K_BB = kernels.cross(kernel, X_B, X_B, **kern)
         if inner == "kernel":
             # the delta is taken against the f32-quantised baseline: the
             # kernel round-trips alpha through f32, so untouched lanes come
