@@ -22,8 +22,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      (within 3x of it), and its time beside its 3xTF32 bound on the tensor
      cores; the pair solver's K-row refresh (pair_rows) against its plain
      version at n=60000, d=784 for k=2 and k=20 in every exact family, its
-     skip path (no row flagged: the rows untouched) and its time beside its
-     byte bound and torch.matmul(X[idx], X.T) with the epilogue;
+     skip path (no row flagged: the rows untouched) and its time, at k=2
+     and at k=20, beside its bound and torch.matmul(X[idx], X.T) with the
+     epilogue;
   4. the main path at mid size, trained on the card and on the CPU, held
      to the same SV-ID set, status and b (within 1e-4); 4b. the same for
      the multipair + fused-selection path;
@@ -48,11 +49,13 @@ Phases, in order (any failure raises and the script exits non-zero):
      max_iter=10^6, counts set to 0 before it and read after (pair_rows
      must have launched, at most one host sync a chunk plus one), CONVERGED,
      accuracy within 0.002 of phase 5's, SV-ID difference and |db| printed;
+     the row refresh's share of the fit, from phase 3's kernel time;
   8. one-vs-rest, 10 classes (benchmarks/ovr_10class.py's workload:
      mnist_like_multiclass(n=70000, noise=300), train [:60000], gamma =
      0.00125, f64 accumulators): (a) solver="blocked" (q=2048,
      max_inner=4096, wss=2; kernels #1 and #2 launch for every head) and
-     (b) the batched pair solver; every head CONVERGED, accuracies within
+     (b) the batched pair solver (pair_rows must have launched; its share
+     of an iteration as in phase 7); every head CONVERGED, accuracies within
      0.005, the share of test rows where (a) and (b) agree printed;
   9. tasks and families, cut: epsilon-SVR on svr_sine (20,000 train rows,
      C=10, gamma=20, epsilon=0.1) with both solvers (R^2 > 0.9, held-out
@@ -60,7 +63,7 @@ Phases, in order (any failure raises and the script exits non-zero):
      coef0 1) with both solvers and sigmoid once, on phase 5's data cut to
      10,000 rows; Platt calibration (3 folds) on that cut's RBF model,
      predict_proba monotone in decision_function; a save and load round
-     trip of each kind.
+     trip of each kind; every pair fit must launch pair_rows.
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
@@ -88,6 +91,18 @@ N_SVR_PAIR = 2000
 
 def log(msg):
     print(msg, flush=True)
+
+
+class PhaseClock:
+    """Logs the wall seconds each phase took, so a slow run shows where."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def __call__(self, phases):
+        now = time.perf_counter()
+        log(f"[time] phases {phases}: {now - self.t:.1f} s")
+        self.t = now
 
 
 def check(cond, msg):
@@ -182,6 +197,43 @@ def precision_errors(kernel, plain, X, XB, coef, gamma, sn):
     return fupdate, values, gammas
 
 
+def pair_rows_bound_ms(n, d, k, peak_flops, peak_bw):
+    """pair_rows' bound in ms: X read once, sn read and k rows written at
+    the memory rate, against 2*k*n*d flops at the f32 FMA rate; the
+    larger."""
+    return max(4.0 * (n * d + n + k * n) / peak_bw,
+               2.0 * k * n * d / peak_flops) * 1e3
+
+
+def device_ms_by_kernel(fn):
+    """fn() under torch.profiler: ({kernel name: device ms}, {kernel name:
+    launches}, wall ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_kernel, count = {}, {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time / 1e3
+            count[e.name] = count.get(e.name, 0) + 1
+    return by_kernel, count, wall_ms
+
+
+def refresh_share(tag, kernel_ms, refreshes, train_s):
+    """The K-row refresh's share of a pair fit: refreshes x phase 3's
+    kernel time over the train time (a profiler over the fit would cost
+    more than the fit)."""
+    log(f"{tag} row refresh: {refreshes} refreshes x {kernel_ms:.4f} ms (phase "
+        f"3) = {refreshes * kernel_ms / 1e3:.3f} s of {train_s:.3f} s "
+        f"({100 * refreshes * kernel_ms / 1e3 / train_s:.1f}%)")
+
+
 def rows_by_matmul(family, X, idx, sn, kw):
     """K(X[idx], X) by one torch.matmul(X[idx], X.T) and the family's
     epilogue: pair_rows' library yardstick (no need flags, no fixed
@@ -263,10 +315,11 @@ def exact_b(model, X, Y, device):
     return b_high, b_low
 
 
-def phase_pair(X_all, Y_all, n_tr, counters, m5, acc5, device):
+def phase_pair(X_all, Y_all, n_tr, counters, m5, acc5, device, k2_ms=None):
     """Phase 7: the binary pair solver on phase 5's job, the launch counts
-    set to 0 before it and read after. Returns (model, pair_rows
-    launches)."""
+    set to 0 before it and read after; on the card, the row refresh's share
+    of an iteration (k2_ms: phase 3's pair_rows time at k=2). Returns
+    (model, pair_rows launches)."""
     import torch
     from tpusvm_torch.config import SVMConfig
     from tpusvm_torch.models import BinarySVC
@@ -301,6 +354,8 @@ def phase_pair(X_all, Y_all, n_tr, counters, m5, acc5, device):
         log(f"[7] {name}: b from its own SVs in f64 {(bh + bl) / 2:.15f} (the "
             f"solver's b {m.b_:.15f}, |diff| {abs((bh + bl) / 2 - m.b_):.3e}); "
             f"f64 b_low - b_high {bl - bh:.3e} (2 tau = 2e-5)")
+    if k2_ms is not None:
+        refresh_share("[7]", k2_ms, res.row_refreshes, train_s)
     check(model.status_ == Status.CONVERGED, f"[7] {model.status_.name}")
     check(counts["pair_rows"] > 0 or device == "cpu",
           f"[7] pair_rows not launched: {counts}")
@@ -310,11 +365,12 @@ def phase_pair(X_all, Y_all, n_tr, counters, m5, acc5, device):
     return model, counts["pair_rows"]
 
 
-def phase_ovr(Xm, lm, n_tr, n_pair, counters, device):
+def phase_ovr(Xm, lm, n_tr, n_pair, counters, device, k20_ms=None):
     """Phase 8: ten one-vs-rest heads, (a) blocked on the first n_tr rows
     and (b) the batched pair solver on the first n_pair (with (a) again at
-    n_pair to compare with, when that is a cut); all scored on Xm[n_tr:].
-    Returns (b)'s model."""
+    n_pair to compare with, when that is a cut); all scored on Xm[n_tr:];
+    on the card, (b)'s row refresh share of an iteration (k20_ms: phase 3's
+    pair_rows time at k=20). Returns (b)'s model."""
     import torch
     from tpusvm_torch.config import SVMConfig
     from tpusvm_torch.models import OneVsRestSVC
@@ -353,6 +409,10 @@ def phase_ovr(Xm, lm, n_tr, n_pair, counters, device):
                 f"row refreshes {r.row_refreshes.tolist()}, CUDA graph {r.graphed}")
             check(counts["pair_rows"] > 0 or device == "cpu",
                   f"[8b] pair_rows not launched {counts}")
+            if k20_ms is not None:
+                # the busiest head's refreshes: a launch makes an X pass
+                # when any head needs a row
+                refresh_share("[8b]", k20_ms, int(r.row_refreshes.max()), secs)
         else:
             heads = len(m.classes_)
             check(device == "cpu" or (counts["fused_fupdate"] >= heads
@@ -368,12 +428,13 @@ def phase_ovr(Xm, lm, n_tr, n_pair, counters, device):
 
 
 def phase_tasks(X_all, Y_all, n_tr, n_cut, Xr, tr, n_svr, n_svr_pair, Xm_test,
-                pair_model, ovr_model, device):
+                pair_model, ovr_model, device, counters):
     """Phase 9, cut in depth: epsilon-SVR, blocked on n_svr rows and both
     solvers on n_svr_pair (when that is a cut), held out Xr[n_svr:]; linear
     and poly with both solvers and sigmoid once on the first n_cut rows;
     Platt calibration of that cut's RBF model; a save and load of each
-    kind."""
+    kind. Every pair fit must launch pair_rows (counts set to 0 before it
+    and read after)."""
     from tpusvm_torch.config import SVMConfig
     from tpusvm_torch.models import BinarySVC, EpsilonSVR, load_any
     from tpusvm_torch.ops.cuda import _build
@@ -384,7 +445,15 @@ def phase_tasks(X_all, Y_all, n_tr, n_cut, Xr, tr, n_svr, n_svr_pair, Xm_test,
     runs = [("blocked", blocked_opts, n_svr), ("pair", {}, n_svr_pair)]
     if n_svr_pair < n_svr:
         runs.insert(1, ("blocked", blocked_opts, n_svr_pair))
+    def pair_launched(tag, solver):
+        launched = counters["pair_rows"].launches
+        check(solver != "pair" or device == "cpu" or launched > 0,
+              f"[9] {tag}: pair_rows not launched")
+        return launched
+
     for solver, sopts, n_fit in runs:
+        for fn in counters.values():
+            fn.launches = 0
         t = time.perf_counter()
         m = EpsilonSVR(SVMConfig(C=10.0, gamma=20.0, epsilon=0.1, max_iter=10**6),
                        solver=solver, solver_opts=sopts,
@@ -395,7 +464,7 @@ def phase_tasks(X_all, Y_all, n_tr, n_cut, Xr, tr, n_svr, n_svr_pair, Xm_test,
         log(f"[9] SVR svr_sine n={n_fit} (held out [{n_svr}:{len(tr)}]) d=1 C=10 "
             f"gamma=20 epsilon=0.1 solver={solver}: train {secs:.3f} s, status "
             f"{m.status_.name}, iterations {m.n_iter_}, SVs {m.n_support_}, "
-            f"R^2 {r2:.4f}")
+            f"R^2 {r2:.4f}, pair_rows launches {pair_launched('SVR', solver)}")
         check(m.status_ == Status.CONVERGED, f"[9] SVR {solver}: {m.status_.name}")
         check(r2 > 0.9, f"[9] SVR {solver}: R^2 {r2}")
     dsvr = float(np.abs(svr[("blocked", n_svr_pair)][1]
@@ -411,6 +480,8 @@ def phase_tasks(X_all, Y_all, n_tr, n_cut, Xr, tr, n_svr, n_svr_pair, Xm_test,
                               ("poly", dict(degree=3, coef0=1.0), ("blocked", "pair")),
                               ("sigmoid", dict(coef0=0.0), ("blocked",))):
         for solver in solvers:
+            for fn in counters.values():
+                fn.launches = 0
             t = time.perf_counter()
             m = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6, kernel=fam,
                                     **fkw), solver=solver,
@@ -424,7 +495,8 @@ def phase_tasks(X_all, Y_all, n_tr, n_cut, Xr, tr, n_svr, n_svr_pair, Xm_test,
             log(f"[9] {fam} {json.dumps(fkw)} n={n_cut} (cut from {n_tr}) "
                 f"d={X_all.shape[1]} solver={solver}: train {secs:.3f} s, status "
                 f"{m.status_.name}, iterations {m.n_iter_}, SVs {m.n_support_}, "
-                f"b {m.b_:.9f}, accuracy {m.score(Xt, Yt):.4f} on {len(Yt)}")
+                f"b {m.b_:.9f}, accuracy {m.score(Xt, Yt):.4f} on {len(Yt)}, "
+                f"pair_rows launches {pair_launched(fam, solver)}")
             if fam != "sigmoid":
                 check(m.status_ == Status.CONVERGED,
                       f"[9] {fam} {solver}: {m.status_.name}")
@@ -500,6 +572,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+
+    clock = PhaseClock()
 
     # ---- 1. provenance ----------------------------------------------------
     smi = subprocess.run(
@@ -876,14 +950,17 @@ def main():
         pr_runs[("rbf", k)]["skip_device_us"] = skip_us
         log(f"[3] pair_rows rbf k={k}, every need clear, inside a CUDA graph: "
             f"{skip_us:.2f} us a launch on the device")
-    # its bound at the pair solver's shape (k=2, RBF): X read once, sn read,
-    # two rows written; 2*k*n*d flops at the f32 FMA rate is far below
-    pr_bytes = 4.0 * (n * d + n + 2 * n)
-    pr_bound = max(pr_bytes / peak_bw, 2.0 * 2 * n * d / peak_flops) * 1e3
-    pr = pr_runs[("rbf", 2)]
-    log(f"[3] pair_rows rbf k=2: kernel {pr['ms']:.4f} ms against its byte bound "
-        f"{pr_bound:.4f} ms ({100 * pr_bound / pr['ms']:.1f}% of it reached); "
-        f"k=20: {pr_runs[('rbf', 20)]['ms']:.4f} ms")
+    # its bound at the binary pair solver's shape (k=2, RBF) and at ten
+    # lockstep heads' (k=20): X read once, sn read, k rows written; 2*k*n*d
+    # flops at the f32 FMA rate is below that at both
+    pr_bound = pair_rows_bound_ms(n, d, 2, peak_flops, peak_bw)
+    pr20_bound = pair_rows_bound_ms(n, d, 20, peak_flops, peak_bw)
+    pr, pr20 = pr_runs[("rbf", 2)], pr_runs[("rbf", 20)]
+    for k_, run, bound in ((2, pr, pr_bound), (20, pr20, pr20_bound)):
+        log(f"[3] pair_rows rbf k={k_}: kernel {run['ms']:.4f} ms against its bound "
+            f"{bound:.4f} ms ({100 * bound / run['ms']:.1f}% of it reached); "
+            f"torch.matmul(X[idx], X.T) + epilogue {run['library_ms']:.4f} ms; "
+            f"plain {run['plain_ms']:.4f} ms")
     kernels.append({
         "name": "pair_rows", "route": "cuda",
         "source": "tpusvm_torch/csrc/pair_rows.cu",
@@ -893,8 +970,12 @@ def main():
         "kernel_ms": pr["ms"], "plain_ms": pr["plain_ms"], "bound_ms": pr_bound,
         "bound_by": "bytes", "library_ms": pr["library_ms"],
         "skip_ms": pr["skip_ms"], "skip_device_us": pr["skip_device_us"],
-        "k20_ms": pr_runs[("rbf", 20)]["ms"],
+        "k20_ms": pr20["ms"], "k20_bound_ms": pr20_bound,
+        "k20_library_ms": pr20["library_ms"], "k20_plain_ms": pr20["plain_ms"],
+        "k20_max_abs_err": pr20["max_abs_err"],
         "shape": {"n": n, "d": d, "k": 2, "family": "rbf"}})
+
+    clock("1-3")
 
     # ---- 4. main path, mid size, card against CPU -------------------------
     Xm, Ym = mnist_like(n=2000, d=784, noise=30.0, label_noise=0.005, seed=587)
@@ -931,6 +1012,8 @@ def main():
     check(np.array_equal(mc.sv_ids_, mh.sv_ids_),
           f"mid 4b: SV-ID sets differ ({len(set(mc.sv_ids_) ^ set(mh.sv_ids_))} ids)")
     check(abs(mc.b_ - mh.b_) <= 1e-4, f"mid 4b: |db| = {abs(mc.b_ - mh.b_)}")
+
+    clock("4, 4b")
 
     # ---- 5. and 5b. both paths at full width ------------------------------
     counters = {"fused_fupdate": rbf_cross_matvec_kernel,
@@ -1018,23 +1101,14 @@ def main():
         f"{m5.n_support_}, |db| {abs(m5.b_ - m5b.b_):.3e}")
     check(abs(acc5b - acc5) <= 0.002, f"5b accuracy {acc5b} vs phase 5 {acc5}")
 
-    # ---- 6. where the time goes: each full-width fit again, profiled -----
-    from torch.profiler import ProfilerActivity, profile
+    clock("5, 5b")
 
+    # ---- 6. where the time goes: each full-width fit again, profiled -----
     for phase, sopts in full_opts.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=max_iter[phase]),
-                      solver_opts=sopts, device="cuda").fit(X_all[:60000],
-                                                            Y_all[:60000])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        by_kernel, count = {}, {}
-        for e in prof.events():
-            if str(getattr(e, "device_type", "")).endswith("CUDA"):
-                by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.device_time / 1e3
-                count[e.name] = count.get(e.name, 0) + 1
+        by_kernel, count, wall_ms = device_ms_by_kernel(
+            lambda: BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=max_iter[phase]),
+                              solver_opts=sopts, device="cuda").fit(X_all[:60000],
+                                                                    Y_all[:60000]))
         busy = sum(by_kernel.values())
         log(f"[6] profiled full-width fit of phase {phase}: wall {wall_ms:.1f} ms, "
             f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
@@ -1049,17 +1123,24 @@ def main():
                         f"{count[k]} launches" for k, v in sorted(fu.items())))
         check(busy > 0, "profiler saw no device time")
 
+    clock("6")
+
     # ---- 7, 8, 9. the pair solver, one-vs-rest, tasks and families -------
     from tpusvm_torch.data.synthetic import (BENCH_NOISE_MULTICLASS,
                                              mnist_like_multiclass, svr_sine)
 
-    pair_model, launches["pair_rows"] = phase_pair(X_all, Y_all, 60000, counters,
-                                                   m5, acc5, "cuda")
+    pair_model, launches["pair_rows"] = phase_pair(
+        X_all, Y_all, 60000, counters, m5, acc5, "cuda",
+        k2_ms=pr_runs[("rbf", 2)]["ms"])
+    clock("7")
     Xm, lm = mnist_like_multiclass(n=70000, d=784, noise=BENCH_NOISE_MULTICLASS)
-    ovr_model = phase_ovr(Xm, lm, 60000, N_OVR_PAIR, counters, "cuda")
+    ovr_model = phase_ovr(Xm, lm, 60000, N_OVR_PAIR, counters, "cuda",
+                          k20_ms=pr_runs[("rbf", 20)]["ms"])
+    clock("8")
     Xr, tr = svr_sine(n=24000, d=1, noise=0.05, seed=587)
     phase_tasks(X_all, Y_all, 60000, 10000, Xr, tr, 20000, N_SVR_PAIR, Xm[60000:],
-                pair_model, ovr_model, "cuda")
+                pair_model, ovr_model, "cuda", counters)
+    clock("9")
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

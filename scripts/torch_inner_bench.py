@@ -21,7 +21,6 @@ the exit code is 1 if any version's bits differ.
 
 import argparse
 import ctypes
-import importlib.util
 import json
 import subprocess
 import sys
@@ -40,14 +39,12 @@ MAX_INNER = 4096
 def load_tree(tree):
     """The two C entry points built from `tree`, by that tree's own
     tpusvm_torch/ops/cuda/_build.py."""
-    path = Path(tree).resolve() / "tpusvm_torch" / "ops" / "cuda" / "_build.py"
-    spec = importlib.util.spec_from_file_location(f"_build_of_{abs(hash(str(path)))}", path)
-    build = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(build)
-    build.build_all(["inner_smo", "inner_smo_multipair"])
-    single = build.load("inner_smo").tpusvm_inner_smo
+    from tpusvm_torch.ops.cuda import _build
+
+    libs = _build.load_tree(tree, ["inner_smo", "inner_smo_multipair"])
+    single = libs["inner_smo"].tpusvm_inner_smo
     single.argtypes = [_P] * 5 + [ctypes.c_float] * 3 + [ctypes.c_int] * 4 + [_P] * 3
-    multi = build.load("inner_smo_multipair").tpusvm_inner_smo_multipair
+    multi = libs["inner_smo_multipair"].tpusvm_inner_smo_multipair
     multi.argtypes = [_P] * 5 + [ctypes.c_float] * 3 + [ctypes.c_int] * 3 + [_P] * 3
     single.restype = multi.restype = ctypes.c_int
     return {"single": single, "multi": multi}

@@ -265,13 +265,18 @@ def _pair_rows_inputs(dev, n, d, k, seed=0):
 
     rng = np.random.default_rng(seed)
     X = torch.as_tensor(rng.random((n, d)), dtype=torch.float32, device=dev)
-    idx = torch.as_tensor(rng.choice(n, size=k, replace=False), device=dev)
+    idx = torch.as_tensor(rng.choice(n, size=k, replace=k > n), device=dev)
     return X, idx, sq_norms(X)
 
 
+# n: a ragged tail of 3 and 1 rows (n % 4 != 0) and fewer rows than one
+# task; d: 1 (the SVR path), 3 and 37 (n*d % 4 != 0: the producer stores
+# a slab's last floats itself), 784; k: every query-slot template (2, 4,
+# 8, 10), one and several subgroups, and k=64, two query groups at d=784
 @pytest.mark.parametrize("family", ["rbf", "linear", "poly", "sigmoid"])
-@pytest.mark.parametrize("n,d,k", [(4099, 784, 2), (4099, 784, 20),
-                                   (1001, 37, 2), (1001, 37, 20), (7, 3, 2)])
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 20, 33, 64])
+@pytest.mark.parametrize("d", [1, 3, 37, 784])
+@pytest.mark.parametrize("n", [4099, 4097, 7])
 def test_pair_rows_kernel_matches_plain(dev, family, n, d, k):
     from tpusvm_torch.ops.cuda.pair_rows import pair_rows_kernel, pair_rows_ref
 
@@ -320,6 +325,87 @@ def test_pair_rows_kernel_skips_and_keeps_bits(dev, family):
     assert torch.equal(rows[need], full[need])
     assert torch.equal(rows[~need], before[~need])
     assert torch.equal(two, full[[4, 1]])
+
+
+@pytest.mark.parametrize("family", ["rbf", "sigmoid"])
+@pytest.mark.parametrize("n,d,k", [(4099, 784, 20), (4099, 784, 33),
+                                   (4099, 784, 64), (999, 784, 256),
+                                   (1001, 5000, 2), (1001, 5000, 20)])
+def test_pair_rows_bits_do_not_depend_on_k_or_need(dev, family, n, d, k):
+    """Every row refreshed under a need pattern has the bits of a k=1
+    call for its index, and the other rows are untouched; the patterns are
+    all set, each flag alone, every other flag and random subsets, at
+    k=20 (two slot subgroups), k=33 (four), k=64 and k=256 (two and nine
+    query groups at d=784), and at d=5000, where no ring of bulk-copy
+    stages fits and X is read with plain loads."""
+    from tpusvm_torch.ops.cuda.pair_rows import pair_rows_kernel, pair_rows_ref
+
+    X, idx, sn = _pair_rows_inputs(dev, n, d, k, seed=2)
+    kw = dict(family=family, sn=sn, **_FAMILY_KW[family])
+    if d == 5000:
+        want = pair_rows_ref(X, idx, torch.ones(k, dtype=torch.bool, device=dev),
+                             torch.zeros(k, n, device=dev), **kw)
+        got = pair_rows_kernel(X, idx, torch.ones(k, dtype=torch.bool, device=dev),
+                               torch.zeros(k, n, device=dev), **kw)
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= _PAIR_ROWS_RTOL[family] * scale
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    solo = torch.cat([pair_rows_kernel(X, idx[r:r + 1], one,
+                                       torch.zeros(1, n, device=dev), **kw)
+                      for r in range(k)])
+    rng = np.random.default_rng(k)
+    patterns = [np.ones(k, bool), np.arange(k) % 2 == 0]
+    patterns += [np.arange(k) == r for r in range(k)]
+    patterns += [rng.random(k) < p for p in (0.1, 0.3, 0.5, 0.7, 0.9)]
+    for pat in patterns:
+        need = torch.as_tensor(pat, device=dev)
+        rows = torch.randn(k, n, device=dev)
+        before = rows.clone()
+        pair_rows_kernel(X, idx, need, rows, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(rows[need], solo[need])
+        assert torch.equal(rows[~need], before[~need])
+
+
+def test_pair_rows_kernel_refuses_a_misaligned_x(dev):
+    from tpusvm_torch.ops.cuda.pair_rows import pair_rows_kernel
+
+    n, d, k = 1000, 37, 2
+    buf = torch.rand(n * d + 1, device=dev)
+    X = buf[1:].view(n, d)  # contiguous, 4 bytes past an aligned start
+    assert X.is_contiguous() and X.data_ptr() % 16 == 4
+    idx = torch.tensor([3, 5], device=dev)
+    need = torch.ones(k, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pair_rows_kernel(X, idx, need, torch.zeros(k, n, device=dev),
+                         family="linear")
+
+
+@pytest.mark.parametrize("family", ["rbf", "linear", "poly", "sigmoid"])
+def test_pair_rows_equals_the_parent_kernel(dev, family):
+    """The kernel's rows against an earlier version's, bit for bit, when
+    TPUSVM_PARENT_TREE names that version's checkout (such as the parent
+    commit unpacked with `git archive` under build/); its pair_rows is
+    built there by its own _build.py."""
+    import os
+
+    from tpusvm_torch.ops.cuda import _build
+    from tpusvm_torch.ops.cuda.pair_rows import bind, launch, pair_rows_kernel
+
+    tree = os.environ.get("TPUSVM_PARENT_TREE")
+    if not tree:
+        pytest.skip("set TPUSVM_PARENT_TREE to an earlier checkout to compare")
+    parent = bind(_build.load_tree(tree, ["pair_rows"])["pair_rows"])
+    for n, d, k in [(4099, 784, 2), (4099, 784, 20), (4097, 1, 2), (7, 3, 3),
+                    (1001, 37, 8), (4099, 784, 33), (2003, 784, 64),
+                    (1001, 5000, 20)]:
+        X, idx, sn = _pair_rows_inputs(dev, n, d, k, seed=k)
+        kw = dict(family=family, sn=sn, **_FAMILY_KW[family])
+        need = torch.as_tensor(np.arange(k) % 3 != 1, device=dev)
+        ours = pair_rows_kernel(X, idx, need, torch.zeros(k, n, device=dev), **kw)
+        theirs = launch(parent, X, idx, need, torch.zeros(k, n, device=dev), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ours, theirs), (n, d, k)
 
 
 def test_pair_solver_graph_chunk_equals_eager(dev):

@@ -65,8 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--solver-opt", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="extra solver keyword (repeatable), e.g. "
-                    "multipair=4 or fused_selection=true (blocked), "
-                    "chunk=256 (pair)")
+                    "pallas_multipair=4 or pallas_fused_selection=true "
+                    "(blocked; the JAX CLI's names, or the short aliases "
+                    "multipair, fused_selection, eta_exclude), chunk=256 "
+                    "(pair)")
     tr.add_argument("--kernel", choices=KERNEL_FAMILIES, default="rbf",
                     help="kernel family: rbf (default), linear, poly = "
                     "(gamma*x.z + coef0)^degree, sigmoid = tanh(gamma*x.z "

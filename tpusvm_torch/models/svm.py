@@ -66,8 +66,9 @@ class BinarySVC:
     solver: "blocked" (the working-set solver, solver/blocked.py) or
     "pair" (one pair per iteration, solver/smo.py). solver_opts: that
     solver's knobs (blocked: q, max_outer, max_inner, wss, inner,
-    fused_fupdate, eta_exclude, multipair, fused_selection; pair: chunk,
-    graph). device: where fit and scoring run ("cuda" unless the caller
+    fused_fupdate, pallas_eta_exclude, pallas_multipair,
+    pallas_fused_selection and the JAX solver's other knobs, as
+    solver/blocked.py lists them; pair: chunk, graph). device: where fit and scoring run ("cuda" unless the caller
     asks for "cpu"). After calibrate(), platt_ = (A, B) and predict_proba
     is available.
     """

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -33,13 +34,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # per-source extra flags: the inner subproblems follow the reference's f32
-# rounding step by step, so no multiply-add contraction there
+# rounding step by step, and pair_rows keeps one order of operations per
+# (row, query row), so no multiply-add contraction there
 SOURCES = {
     "fused_fupdate": ("fused_fupdate.cu", ()),
     "fused_select": ("fused_select.cu", ()),
     "inner_smo": ("inner_smo.cu", ("-fmad=false",)),
     "inner_smo_multipair": ("inner_smo_multipair.cu", ("-fmad=false",)),
-    "pair_rows": ("pair_rows.cu", ()),
+    "pair_rows": ("pair_rows.cu", ("-fmad=false",)),
 }
 
 _lock = threading.Lock()
@@ -114,6 +116,20 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def load_tree(tree, names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
+    """The named kernel libraries of another checkout `tree` (such as a
+    parent commit unpacked with `git archive`), built in parallel by that
+    tree's own _build.py with its own flags into its own build/ directory."""
+    path = Path(tree).resolve() / "tpusvm_torch" / "ops" / "cuda" / "_build.py"
+    spec = importlib.util.spec_from_file_location(
+        f"_build_of_{hashlib.sha1(str(path).encode()).hexdigest()[:12]}", path)
+    build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(build)
+    names = list(names)
+    build.build_all(names)
+    return {n: build.load(n) for n in names}
+
+
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero code returned by a C entry point: a cudaError_t,
     or one of csrc/rbf_tile.cuh's tensor-map codes (negative)."""
@@ -130,6 +146,8 @@ def check(rc: int, what: str) -> None:
     if rc == -4001:
         raise RuntimeError(f"{what}: one row of X does not fit the kernel's "
                            "shared-memory budget")
+    if rc == -4002:
+        raise RuntimeError(f"{what}: X and sn must start 16-byte aligned")
     if rc == -3000:
         raise RuntimeError(f"{what}: TMA operands need a row pitch that is a "
                            "multiple of 16 bytes and 16-byte aligned bases")

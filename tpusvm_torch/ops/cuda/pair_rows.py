@@ -67,9 +67,9 @@ def pair_rows_ref(X, idx, need, rows, *, family: str = "rbf", gamma=0.00125,
     return rows
 
 
-@functools.cache
-def _bind():
-    fn = _build.load("pair_rows").tpusvm_pair_rows
+def bind(lib: ctypes.CDLL):
+    """The C entry point tpusvm_pair_rows of a built pair_rows library."""
+    fn = lib.tpusvm_pair_rows
     fn.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, _P,
                    _P, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                    ctypes.c_int, _P]
@@ -77,20 +77,15 @@ def _bind():
     return fn
 
 
-def pair_rows_kernel(X, idx, need, rows, *, family: str = "rbf",
-                     gamma=0.00125, coef0=0.0, degree: int = 3,
-                     sn=None) -> torch.Tensor:
-    """rows[r] <- K(X[idx[r]], X) where need[r], in place; returns rows.
+@functools.cache
+def _bind():
+    return bind(_build.load("pair_rows"))
 
-    X (n, d) float32 contiguous, idx (k,) int64, need (k,) bool, rows (k, n)
-    float32 contiguous, sn (n,) float32 = sq_norms(X) for RBF. CPU tensors
-    run `pair_rows_ref`; CUDA tensors launch csrc/pair_rows.cu, counted in
-    `.launches` (a launch recorded into a CUDA graph is counted when the
-    graph is replayed, by `replay`).
-    """
-    if not X.is_cuda:
-        return pair_rows_ref(X, idx, need, rows, family=family, gamma=gamma,
-                             coef0=coef0, degree=degree, sn=sn)
+
+def launch(fn, X, idx, need, rows, *, family: str = "rbf", gamma=0.00125,
+           coef0=0.0, degree: int = 3, sn=None) -> torch.Tensor:
+    """Check the operands and call the C entry point `fn` on CUDA tensors
+    (not counted: `pair_rows_kernel` is the path's wrapper)."""
     if family not in FAMILY_CODE:
         raise ValueError(f"pair_rows computes the exact families "
                          f"{sorted(FAMILY_CODE)}, not {family!r}")
@@ -113,11 +108,35 @@ def pair_rows_kernel(X, idx, need, rows, *, family: str = "rbf",
     for t in (idx, need, rows):
         if t.device != X.device:
             raise ValueError("all operands must be on X's device")
-    rc = _bind()(X.data_ptr(), n, d, idx.data_ptr(), need.data_ptr(), k,
-                 sn_ptr, rows.data_ptr(), FAMILY_CODE[family], float(gamma),
-                 float(coef0), int(degree),
-                 torch.cuda.current_stream(X.device).cuda_stream)
+    if X.data_ptr() % 16 or (sn_ptr is not None and sn_ptr % 16):
+        raise ValueError("pair_rows_kernel streams X and sn with 16-byte bulk "
+                         "copies: both must start 16-byte aligned (pass fresh "
+                         "tensors, not views at an odd offset)")
+    if not 1 <= k <= 256:
+        raise ValueError(f"pair_rows_kernel refreshes 1 to 256 rows, not {k}")
+    rc = fn(X.data_ptr(), n, d, idx.data_ptr(), need.data_ptr(), k, sn_ptr,
+            rows.data_ptr(), FAMILY_CODE[family], float(gamma), float(coef0),
+            int(degree), torch.cuda.current_stream(X.device).cuda_stream)
     _build.check(rc, "pair_rows kernel")
+    return rows
+
+
+def pair_rows_kernel(X, idx, need, rows, *, family: str = "rbf",
+                     gamma=0.00125, coef0=0.0, degree: int = 3,
+                     sn=None) -> torch.Tensor:
+    """rows[r] <- K(X[idx[r]], X) where need[r], in place; returns rows.
+
+    X (n, d) float32 contiguous and 16-byte aligned, idx (k,) int64 with
+    1 <= k <= 256, need (k,) bool, rows (k, n) float32 contiguous, sn (n,)
+    float32 = sq_norms(X), 16-byte aligned, for RBF. CPU tensors run
+    `pair_rows_ref`; CUDA tensors launch csrc/pair_rows.cu, counted in
+    `.launches` (a launch recorded into a CUDA graph is counted when the
+    graph is replayed, by `replay`).
+    """
+    kw = dict(family=family, gamma=gamma, coef0=coef0, degree=degree, sn=sn)
+    if not X.is_cuda:
+        return pair_rows_ref(X, idx, need, rows, **kw)
+    launch(_bind(), X, idx, need, rows, **kw)
     if not torch.cuda.is_current_stream_capturing():
         pair_rows_kernel.launches += 1
     return rows

@@ -59,6 +59,42 @@ class SMOResult:
     host_wait_s: float    # host seconds spent blocked at those syncs
 
 
+# The JAX solver's knobs that are not ported yet: (JAX default, ROADMAP
+# Queue 1 item, what the knob does). At its default a knob asks for what
+# the port already does, so a JAX solver_opts dict written out in full
+# carries over.
+_UNPORTED = {
+    "refine": (0, "7(a)", "the exact-f refine before a convergence claim"),
+    "max_refines": (2, "7(a)", "the exact-f refine before a convergence claim"),
+    "shrink_stable": (0, "7(b)", "active-set shrinking"),
+    "krow_cache": (0, "7(c)", "the K-row LRU cache"),
+    "matmul_precision": (None, "7(d)", "the bf16 contraction rungs"),
+    "resume_state": (None, "7(e)", "solver checkpoints"),
+    "pause_at": (None, "7(e)", "solver checkpoints"),
+    "return_state": (False, "7(e)", "solver checkpoints"),
+    "telemetry": (0, "12", "the convergence telemetry ring"),
+}
+
+# the JAX package's engine names for inner
+_JAX_INNER = {"pallas": "kernel", "xla": "loop"}
+
+
+def _unported(name: str, value) -> None:
+    default, item, what = _UNPORTED[name]
+    raise NotImplementedError(
+        f"{name}={value!r}: {what} is not ported yet (ROADMAP Queue 1 item "
+        f"{item}); the port runs {name}={default!r}")
+
+
+def _alias(name: str, value, short: str, short_value, default):
+    """The value of a JAX knob that also has a short alias."""
+    if value is not None and short_value is not None:
+        raise ValueError(f"{name} and {short} are one knob; give one of them")
+    if value is not None:
+        return value
+    return default if short_value is None else short_value
+
+
 def _clamp_q(n: int, q: int) -> int:
     """q clamps to the (even) training-set size; tiny n floors at 2."""
     return min(q, n if n % 2 == 0 else n - 1) if n >= 2 else 2
@@ -262,9 +298,24 @@ def blocked_smo_solve(
     inner: str = "auto",
     fused_fupdate="auto",
     wss: int = 1,
-    eta_exclude: bool = False,
-    multipair: int = 1,
-    fused_selection: bool = False,
+    pallas_eta_exclude: Optional[bool] = None,
+    pallas_multipair: Optional[int] = None,
+    pallas_fused_selection: Optional[bool] = None,
+    eta_exclude: Optional[bool] = None,
+    multipair: Optional[int] = None,
+    fused_selection: Optional[bool] = None,
+    selection: str = "auto",
+    pallas_layout: str = "packed",
+    kernel_fast: bool = True,
+    matmul_precision: Optional[str] = None,
+    refine: int = 0,
+    max_refines: int = 2,
+    shrink_stable: int = 0,
+    krow_cache: int = 0,
+    telemetry: int = 0,
+    resume_state=None,
+    pause_at=None,
+    return_state: bool = False,
     kernel: str = "rbf",
     degree: int = 3,
     coef0: float = 0.0,
@@ -282,17 +333,35 @@ def blocked_smo_solve(
 
     inner: "kernel" = the single-launch subproblem (CUDA on the card, its
     plain version on the CPU), "loop" = the accum-dtype eager loop, "auto"
-    = kernel when q % 128 == 0. A kernel round that makes no progress is
+    = kernel when q % 128 == 0; the JAX names "pallas" and "xla" mean
+    "kernel" and "loop". A kernel round that makes no progress is
     redone with the loop engine. fused_fupdate: the fused f-update kernel
     (True), the blocked torch contraction (False), "auto" = as inner.
-    wss: 1 = first-order partner, 2 = maximal-gain partner. eta_exclude
-    (kernel engine, wss=2): drop degenerate partners from the gain pick.
-    multipair (kernel engine, wss=1): p > 1 runs the multipair subproblem,
-    p slot pairs plus the global pair per iteration; needs
-    (q//128) % (2p) == 0. fused_selection (fused f-update only): the
+    wss: 1 = first-order partner, 2 = maximal-gain partner.
+    pallas_eta_exclude (kernel engine, wss=2; default False): drop
+    degenerate partners from the gain pick. pallas_multipair (kernel
+    engine, wss=1; default 1): p > 1 runs the multipair subproblem, p slot
+    pairs plus the global pair per iteration; needs (q//128) % (2p) == 0.
+    pallas_fused_selection (fused f-update only; default False): the
     f-update kernel also writes per-row-block candidates, and the next
     round selects from them instead of from all n rows; the stop check
-    stays exact over the full f.
+    stays exact over the full f. eta_exclude, multipair and
+    fused_selection are short aliases of these three; giving a name and
+    its alias together raises ValueError.
+
+    The JAX solver's other knobs, so that its solver_opts carry over:
+    selection ("auto", "exact" or "approx") always selects exactly, by
+    sorts: approx_min_k exists only on the TPU. pallas_layout ("packed"
+    or "flat") is accepted and ignored: it picks a vector layout in TPU
+    registers, which a CUDA kernel does not have. kernel_fast (linear
+    family only) picks the primal f-update (True) or the generic blocked
+    one (False), as in the JAX package. matmul_precision None, "float32"
+    and "highest" are the port's full-f32 contractions. The knobs that are
+    not ported yet raise NotImplementedError naming their ROADMAP Queue 1
+    item unless they are at their JAX default: refine and max_refines
+    (7(a)), shrink_stable (7(b)), krow_cache (7(c)), the bf16
+    matmul_precision rungs (7(d)), resume_state, pause_at and return_state
+    (7(e)), telemetry (12).
 
     kernel, degree, coef0: the family (kernels/): K_BB and, off RBF, the
     f-update and the warm start go through kernels.cross / cross_matvec /
@@ -305,6 +374,32 @@ def blocked_smo_solve(
         raise NotImplementedError(
             f"kernel={kernel!r}: the approximate-kernel feature maps are not "
             "ported yet (ROADMAP Queue 1 item 10)")
+    eta_exclude = _alias("pallas_eta_exclude", pallas_eta_exclude,
+                         "eta_exclude", eta_exclude, False)
+    multipair = _alias("pallas_multipair", pallas_multipair, "multipair",
+                       multipair, 1)
+    fused_selection = _alias("pallas_fused_selection",
+                             pallas_fused_selection, "fused_selection",
+                             fused_selection, False)
+    inner = _JAX_INNER.get(inner, inner)
+    if selection not in ("auto", "exact", "approx"):
+        raise ValueError(
+            f"selection must be auto|exact|approx, got {selection!r}")
+    if pallas_layout not in ("packed", "flat"):
+        raise ValueError(
+            f"pallas_layout must be packed|flat, got {pallas_layout!r}")
+    if matmul_precision not in (None, "float32", "highest"):
+        _unported("matmul_precision", matmul_precision)
+    for name, value in (("refine", refine), ("max_refines", max_refines),
+                        ("shrink_stable", shrink_stable),
+                        ("krow_cache", krow_cache), ("telemetry", telemetry),
+                        ("resume_state", resume_state),
+                        ("pause_at", pause_at),
+                        ("return_state", return_state)):
+        default = _UNPORTED[name][0]
+        at_default = value is None if default is None else value == default
+        if not at_default:
+            _unported(name, value)
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
     if X.dtype != torch.float32:
@@ -356,7 +451,8 @@ def blocked_smo_solve(
     kern = dict(gamma=gamma, coef0=coef0, degree=degree)
     if kernel != "rbf":
         def matvec(X, XB, coef, gamma, sn):
-            return kernels.cross_matvec(kernel, X, XB, coef, sn=sn, **kern)
+            return kernels.cross_matvec(kernel, X, XB, coef, sn=sn,
+                                        fast=kernel_fast, **kern)
     else:
         matvec = rbf_cross_matvec_kernel if fused else rbf_cross_matvec
     if f0 is not None:
