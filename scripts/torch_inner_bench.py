@@ -31,6 +31,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from chip_smoke import C, cuda_ms, inner_working_sets  # noqa: E402
+from kernel_trees import load_tree as load_libs  # noqa: E402
 
 _P = ctypes.c_void_p
 MAX_INNER = 4096
@@ -39,9 +40,7 @@ MAX_INNER = 4096
 def load_tree(tree):
     """The two C entry points built from `tree`, by that tree's own
     tpusvm_torch/ops/cuda/_build.py."""
-    from tpusvm_torch.ops.cuda import _build
-
-    libs = _build.load_tree(tree, ["inner_smo", "inner_smo_multipair"])
+    libs = load_libs(tree, ["inner_smo", "inner_smo_multipair"])
     single = libs["inner_smo"].tpusvm_inner_smo
     single.argtypes = [_P] * 5 + [ctypes.c_float] * 3 + [ctypes.c_int] * 4 + [_P] * 3
     multi = libs["inner_smo_multipair"].tpusvm_inner_smo_multipair

@@ -39,6 +39,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (C, GAMMA, cuda_ms, pair_rows_bound_ms, peaks,  # noqa: E402
                         rows_by_matmul)
+from kernel_trees import pair_rows_of  # noqa: E402
 
 
 def main():
@@ -55,9 +56,7 @@ def main():
     from tpusvm_torch.data.scaler import MinMaxScaler
     from tpusvm_torch.data.synthetic import (BENCH_NOISE_MULTICLASS, mnist_like,
                                              mnist_like_multiclass)
-    from tpusvm_torch.ops.cuda import _build
-    from tpusvm_torch.ops.cuda.pair_rows import (bind, launch, pair_rows_kernel,
-                                                 pair_rows_ref)
+    from tpusvm_torch.ops.cuda.pair_rows import pair_rows_kernel, pair_rows_ref
     from tpusvm_torch.ops.rbf import sq_norms
     from tpusvm_torch.solver.smo import smo_solve, smo_solve_batched
 
@@ -73,8 +72,7 @@ def main():
     peak_flops, peak_bw, _ = peaks(torch.cuda.get_device_name(0))
     out = {"device": smi, "tree": args.tree, "pair_rows": {}, "solve": {},
            "batched": {}}
-    other = (bind(_build.load_tree(args.tree, ["pair_rows"])["pair_rows"])
-             if args.tree else None)
+    other = pair_rows_of(args.tree) if args.tree else None
     bits_equal = True
 
     X_all, Y_all = mnist_like(n=70000, d=784, noise=30.0, label_noise=0.005,
@@ -101,14 +99,14 @@ def main():
             err = float((got - want).abs().max() / want.abs().max())
             rec = dict(bound_ms=bound, rel_err=err)
             if other is not None:
-                theirs = launch(other, X, idx, yes, torch.zeros(k, n, device=dev), **kw)
+                theirs = other(X, idx, yes, torch.zeros(k, n, device=dev), **kw)
                 torch.cuda.synchronize()
                 rec["bit_equal_to_tree"] = bool(torch.equal(theirs, got))
                 bits_equal = bits_equal and rec["bit_equal_to_tree"]
                 turns = {"this": [], "tree": []}
                 for who in ("this", "tree", "tree", "this"):
                     fn = (lambda: pair_rows_kernel(X, idx, yes, rows, **kw)) \
-                        if who == "this" else (lambda: launch(other, X, idx, yes, rows, **kw))
+                        if who == "this" else (lambda: other(X, idx, yes, rows, **kw))
                     turns[who].append(cuda_ms(fn))
                 rec["turns"] = turns
                 rec["tree_ms"] = float(np.mean(turns["tree"]))

@@ -330,19 +330,28 @@ def test_pair_rows_kernel_skips_and_keeps_bits(dev, family):
 @pytest.mark.parametrize("family", ["rbf", "sigmoid"])
 @pytest.mark.parametrize("n,d,k", [(4099, 784, 20), (4099, 784, 33),
                                    (4099, 784, 64), (999, 784, 256),
-                                   (1001, 5000, 2), (1001, 5000, 20)])
+                                   (1001, 5000, 2), (1001, 5000, 20),
+                                   (257, 6000, 20), (129, 40000, 2),
+                                   (65, 50000, 3)])
 def test_pair_rows_bits_do_not_depend_on_k_or_need(dev, family, n, d, k):
     """Every row refreshed under a need pattern has the bits of a k=1
     call for its index, and the other rows are untouched; the patterns are
     all set, each flag alone, every other flag and random subsets, at
     k=20 (two slot subgroups), k=33 (four), k=64 and k=256 (two and nine
-    query groups at d=784), and at d=5000, where no ring of bulk-copy
-    stages fits and X is read with plain loads."""
+    query groups at d=784), and at d >= 5000, where no ring of bulk-copy
+    stages fits and X and the query rows are read with plain loads, up to
+    d=50000, past where a query row would fit in shared memory. Past
+    d=5000 gamma shrinks as 784/d, so that gamma * |x - x'|^2 keeps the
+    d=784 cases' scale: at gamma=0.01 and d=40000 every RBF value off a
+    row's own index is below 1e-28, and the own index's is cancellation
+    in sn_i + sn_j - 2 dot alone."""
     from tpusvm_torch.ops.cuda.pair_rows import pair_rows_kernel, pair_rows_ref
 
     X, idx, sn = _pair_rows_inputs(dev, n, d, k, seed=2)
     kw = dict(family=family, sn=sn, **_FAMILY_KW[family])
-    if d == 5000:
+    if d > 5000:
+        kw["gamma"] *= 784 / d
+    if d >= 5000:
         want = pair_rows_ref(X, idx, torch.ones(k, dtype=torch.bool, device=dev),
                              torch.zeros(k, n, device=dev), **kw)
         got = pair_rows_kernel(X, idx, torch.ones(k, dtype=torch.bool, device=dev),
@@ -386,24 +395,28 @@ def test_pair_rows_equals_the_parent_kernel(dev, family):
     """The kernel's rows against an earlier version's, bit for bit, when
     TPUSVM_PARENT_TREE names that version's checkout (such as the parent
     commit unpacked with `git archive` under build/); its pair_rows is
-    built there by its own _build.py."""
+    built there by its own _build.py (scripts/kernel_trees.py)."""
     import os
+    import sys
+    from pathlib import Path
 
-    from tpusvm_torch.ops.cuda import _build
-    from tpusvm_torch.ops.cuda.pair_rows import bind, launch, pair_rows_kernel
+    from tpusvm_torch.ops.cuda.pair_rows import pair_rows_kernel
 
     tree = os.environ.get("TPUSVM_PARENT_TREE")
     if not tree:
         pytest.skip("set TPUSVM_PARENT_TREE to an earlier checkout to compare")
-    parent = bind(_build.load_tree(tree, ["pair_rows"])["pair_rows"])
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
+    from kernel_trees import pair_rows_of
+
+    parent = pair_rows_of(tree)
     for n, d, k in [(4099, 784, 2), (4099, 784, 20), (4097, 1, 2), (7, 3, 3),
                     (1001, 37, 8), (4099, 784, 33), (2003, 784, 64),
-                    (1001, 5000, 20)]:
+                    (1001, 5000, 20), (257, 6000, 20), (129, 40000, 2)]:
         X, idx, sn = _pair_rows_inputs(dev, n, d, k, seed=k)
         kw = dict(family=family, sn=sn, **_FAMILY_KW[family])
         need = torch.as_tensor(np.arange(k) % 3 != 1, device=dev)
         ours = pair_rows_kernel(X, idx, need, torch.zeros(k, n, device=dev), **kw)
-        theirs = launch(parent, X, idx, need, torch.zeros(k, n, device=dev), **kw)
+        theirs = parent(X, idx, need, torch.zeros(k, n, device=dev), **kw)
         torch.cuda.synchronize()
         assert torch.equal(ours, theirs), (n, d, k)
 
@@ -428,6 +441,29 @@ def test_pair_solver_graph_chunk_equals_eager(dev):
         e.n_iter, e.status, e.row_refreshes, e.b)
     assert g.status.name == "CONVERGED"
     assert g.host_syncs == g.chunks + 1
+
+
+def test_pair_solver_takes_a_misaligned_view(dev):
+    """X as a contiguous view 4 bytes past an aligned start (d=3): the
+    solver copies it for the kernel's bulk copies and fits as it does on
+    a fresh tensor, bit for bit."""
+    from tpusvm_torch.data.synthetic import rings
+    from tpusvm_torch.solver.smo import smo_solve
+
+    X, Y = rings(n=600, seed=5)
+    Xs = ((X - X.min(0)) / (X.max(0) - X.min(0))).astype(np.float32)
+    X3 = np.concatenate([Xs, Xs[:, :1]], axis=1)  # d=3
+    buf = torch.zeros(X3.size + 1, device=dev)
+    buf[1:] = torch.as_tensor(X3.ravel(), device=dev)
+    view = buf[1:].view(X3.shape)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    kw = dict(C=1.0, gamma=5.0, accum_dtype=torch.float64, max_iter=10**6,
+              device="cuda")
+    a = smo_solve(view, torch.as_tensor(Y, device=dev), **kw)
+    b = smo_solve(view.clone(), torch.as_tensor(Y, device=dev), **kw)
+    assert torch.equal(a.alpha, b.alpha)
+    assert (a.n_iter, a.status, a.b) == (b.n_iter, b.status, b.b)
+    assert a.status.name == "CONVERGED"
 
 
 @pytest.mark.parametrize("family", ["rbf", "linear", "poly", "sigmoid"])

@@ -39,7 +39,7 @@ _BASE = dict(C=1.0, gamma=5.0, tau=1e-5, q=128, max_inner=256,
 _NON_DEFAULT = {
     "inner": ("xla", {}, dict(inner="loop")),
     "refine": (64, {}, "refused"),
-    "max_refines": (4, {}, "refused"),
+    "max_refines": (4, {}, {}),
     "wss": (2, {}, "runs"),
     "matmul_precision": ("bf16_f32", {}, "refused"),
     "selection": ("approx", {}, {}),

@@ -47,8 +47,9 @@
 //   five, and ends on one lane pair with the butterfly's bits (fadd is
 //   commutative, so both lanes of a pair compute each node alike).
 // - When not even two stages of 8 rows fit beside one query row (d above
-//   about 3,400), consumers read X from device memory with plain loads in
-//   the same order (the direct path).
+//   about 2,100 at k > 8, 3,100 at k <= 2), consumers read X and the query
+//   rows from device memory with plain loads in the same order (the direct
+//   path), so no d is too large.
 // Measured on the card (PERF.md section 6): at k=2 the ring runs at the
 // rate of a plain read of X (torch's X.sum()); at k=20 the FMAs, their
 // shared-memory operands, the reduction and the epilogue take about as
@@ -67,7 +68,7 @@ constexpr int ROWS = 8;                         // rows of X a consumer task
 constexpr int MAX_K = 256;
 constexpr int MAX_STAGES = 8;
 constexpr int MIN_STAGES = 4;
-constexpr int QLOADS = 32;                      // query-row loads in flight a thread                   // preferred over a larger query group
+constexpr int QLOADS = 32;                      // query-row loads in flight a thread
 constexpr long long SMEM_BUDGET = 220 * 1024;   // dynamic shared memory a block
 constexpr long long STAGE_TARGET = 24 * 1024;
 constexpr unsigned FULL_MASK = 0xffffffffu;
@@ -156,12 +157,13 @@ __device__ __forceinline__ void consumer_sync() {
 }
 
 // Lane partials of ROWS rows of X (row r at xs + r*ldx; rows from
-// rows_valid on repeat the last valid one) against S query slots (column t
-// of slot s at qt[t*G + s0 + s]). acc[(h*ROWS + r)*S/2 + i] is row r
-// against slot h*S/2 + i.
-template <int S>
+// rows_valid on repeat the last valid one) against S query slots: column t
+// of slot s at qt[t*G + s0 + s], or with DIRECT at qr[s][t].
+// acc[(h*ROWS + r)*S/2 + i] is row r against slot h*S/2 + i.
+template <int S, bool DIRECT>
 __device__ __forceinline__ void tile_dots(const float* xs, long long ldx, int rows_valid,
-                                          const float* qt, int G, int s0, int d, int lane,
+                                          const float* qt, int G, int s0,
+                                          const float* const* qr, int d, int lane,
                                           float (&acc)[ROWS * S]) {
   constexpr int S2 = S / 2;
   const float* xr[ROWS];
@@ -174,13 +176,19 @@ __device__ __forceinline__ void tile_dots(const float* xs, long long ldx, int ro
     float x[ROWS];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) x[r] = xr[r][t];
-    const float2* qv = reinterpret_cast<const float2*>(qt + (long long)t * G + s0);
     float q[S];
+    if constexpr (DIRECT) {
 #pragma unroll
-    for (int p = 0; p < S2; ++p) {
-      const float2 v = qv[p];
-      q[2 * p] = v.x;
-      q[2 * p + 1] = v.y;
+      for (int s = 0; s < S; ++s) q[s] = qr[s][t];
+    } else {
+      // two slots with one 8-byte load
+      const float2* qv = reinterpret_cast<const float2*>(qt + (long long)t * G + s0);
+#pragma unroll
+      for (int p = 0; p < S2; ++p) {
+        const float2 v = qv[p];
+        q[2 * p] = v.x;
+        q[2 * p + 1] = v.y;
+      }
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -221,7 +229,9 @@ __device__ __forceinline__ void reduce_tile(float (&acc)[ROWS * S], int lane) {
   for (int i = 0; i < S / 2; ++i) acc[i] = __fadd_rn(acc[i], __shfl_xor_sync(FULL_MASK, acc[i], 1));
 }
 
-template <int S>
+// DIRECT: the direct path, a kernel of its own so that its registers do
+// not weigh on the ring's
+template <int S, bool DIRECT>
 __global__ void __launch_bounds__(THREADS, 1)
     pair_rows_kernel(const float* __restrict__ X, int n, int d, const long long* __restrict__ idx,
                      const unsigned char* __restrict__ need, int k, const float* __restrict__ sn,
@@ -273,7 +283,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (warp == CONSUMERS) {
     // ---- producer: one lane keeps the ring full, pass after pass -------
-    if (stages == 0 || lane != 0) return;
+    if (DIRECT || lane != 0) return;
     int st = 0;
     uint32_t phase = 0;   // of the stage's current use
     bool reuse = false;   // the ring has gone round once
@@ -319,27 +329,29 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int g0 = 0; g0 < m; g0 += group) {
     const int gm = min(group, m - g0);
     const int nsg = (gm + S - 1) / S;
-    consumer_sync();  // the previous pass's reads of qt are done
-    // the group's rows, transposed into qt: QLOADS loads in flight a
-    // thread before any of their stores (unconditional, at a clamped index,
-    // so that none waits on another)
-    const int total = gm * d;
-    for (int e0 = tid; e0 < total; e0 += QLOADS * CONSUMERS * 32) {
-      float v[QLOADS];
-      int at[QLOADS];
+    if constexpr (!DIRECT) {
+      consumer_sync();  // the previous pass's reads of qt are done
+      // the group's rows, transposed into qt: QLOADS loads in flight a
+      // thread before any of their stores (unconditional, at a clamped
+      // index, so that none waits on another)
+      const int total = gm * d;
+      for (int e0 = tid; e0 < total; e0 += QLOADS * CONSUMERS * 32) {
+        float v[QLOADS];
+        int at[QLOADS];
 #pragma unroll
-      for (int u = 0; u < QLOADS; ++u) {
-        const int e = min(e0 + u * CONSUMERS * 32, total - 1);
-        const int s = e / d;
-        const int t = e - s * d;
-        v[u] = X[src[g0 + s] * d + t];
-        at[u] = t * G + s;
+        for (int u = 0; u < QLOADS; ++u) {
+          const int e = min(e0 + u * CONSUMERS * 32, total - 1);
+          const int s = e / d;
+          const int t = e - s * d;
+          v[u] = X[src[g0 + s] * d + t];
+          at[u] = t * G + s;
+        }
+#pragma unroll
+        for (int u = 0; u < QLOADS; ++u)
+          if (e0 + u * CONSUMERS * 32 < total) qt[at[u]] = v[u];
       }
-#pragma unroll
-      for (int u = 0; u < QLOADS; ++u)
-        if (e0 + u * CONSUMERS * 32 < total) qt[at[u]] = v[u];
     }
-    consumer_sync();
+    consumer_sync();  // qt and snq are written
 
     // one task: 8 rows from j0 against the slots of subgroup sg, written
     // by the even lanes (lanes l and l^1 hold the same sums)
@@ -349,7 +361,14 @@ __global__ void __launch_bounds__(THREADS, 1)
       // before the dots: from device memory (the direct path) a load takes
       // microseconds under a saturated memory system
       const float snj = (rbf && writer && j < n) ? snx[r_out] : 0.f;
-      tile_dots<S>(xs, d, rows_valid, qt, G, sg * S, d, lane, acc);
+      // the direct path's query rows, from device memory; slots past the
+      // group repeat its last row, and their sums are never written
+      const float* qr[DIRECT ? S : 1];
+      if constexpr (DIRECT) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) qr[s] = X + src[g0 + min(sg * S + s, gm - 1)] * d;
+      }
+      tile_dots<S, DIRECT>(xs, d, rows_valid, qt, G, sg * S, qr, d, lane, acc);
       reduce_tile<S>(acc, lane);
       if (writer && j < n) {
 #pragma unroll
@@ -363,7 +382,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     };
 
-    if (stages > 0) {
+    if constexpr (!DIRECT) {
       for (int slab = blockIdx.x; slab < n_slabs; slab += gridDim.x) {
         mbar_wait(smem_u32(&full_bar[st]), phase);
         const long long j0 = (long long)slab * slab_rows;
@@ -418,6 +437,38 @@ int padded_group(int g) {
   return G % 4 == 0 ? G + 2 : G;
 }
 
+template <int S, bool DIRECT>
+int start_kernel(long long want, int smem, cudaStream_t stream, const float* X, int n, int d,
+                 const long long* idx, const unsigned char* need, int k, const float* sn,
+                 float* rows, int family, float gamma, float coef0, int degree, int group, int G,
+                 int slab_rows, int stages) {
+  // the attribute and the occupancy are set up once per process and shared-
+  // memory size, on the first call (the solver's eager first chunk, before
+  // any graph capture)
+  static bool raised = false;
+  static int sized_for = -1;
+  static int per_sm = 1;
+  auto kernel = pair_rows_kernel<S, DIRECT>;
+  if (!raised) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BUDGET);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised = true;
+  }
+  if (smem != sized_for) {
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    per_sm = std::max(per_sm, 1);
+    sized_for = smem;
+  }
+  const int blocks = (int)std::min<long long>(want, (long long)per_sm * sm_count());
+  kernel<<<std::max(blocks, 1), THREADS, smem, stream>>>(X, n, d, idx, need, k, sn, rows, family,
+                                                        gamma, coef0, degree, group, G,
+                                                        slab_rows, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int S>
 int launch(const float* X, int n, int d, const long long* idx, const unsigned char* need, int k,
            const float* sn, float* rows, int family, float gamma, float coef0, int degree,
@@ -432,7 +483,7 @@ int launch(const float* X, int n, int d, const long long* idx, const unsigned ch
   const int slab_rows = (int)(ROWS * std::min(by_bytes, by_count));
   const long long stage_bytes = slab_rows * (row_bytes + (family == RBF ? 4 : 0));
   // the largest query group that leaves MIN_STAGES stages, else 2 stages,
-  // else the direct path with the largest group that fits
+  // else the direct path, which holds no query row in shared memory
   int group = 0, stages = 0;
   for (int want = MIN_STAGES; want >= 2 && group == 0; want -= 2) {
     for (int g = k; g >= 1; --g) {
@@ -445,31 +496,9 @@ int launch(const float* X, int n, int d, const long long* idx, const unsigned ch
       }
     }
   }
-  for (int g = k; g >= 1 && group == 0; --g)
-    if (padded_group<S>(g) * row_bytes <= SMEM_BUDGET) group = g;
-  if (group == 0) return -4001;  // one row of X does not fit
-  const int G = padded_group<S>(group);
+  if (group == 0) group = k;
+  const int G = stages > 0 ? padded_group<S>(group) : 0;
   const int smem = (int)(stages * stage_bytes + G * row_bytes);
-  // the attribute and the occupancy are set up once per process and shared-
-  // memory size, on the first call (the solver's eager first chunk, before
-  // any graph capture)
-  static bool raised = false;
-  static int sized_for = -1;
-  static int per_sm = 1;
-  auto kernel = pair_rows_kernel<S>;
-  if (!raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BUDGET);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    raised = true;
-  }
-  if (smem != sized_for) {
-    const cudaError_t err =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    per_sm = std::max(per_sm, 1);
-    sized_for = smem;
-  }
   long long want;
   if (stages > 0) {
     want = ((long long)n + slab_rows - 1) / slab_rows;
@@ -477,11 +506,9 @@ int launch(const float* X, int n, int d, const long long* idx, const unsigned ch
     const long long tasks = ((long long)n + ROWS - 1) / ROWS * ((group + S - 1) / S);
     want = (tasks + CONSUMERS - 1) / CONSUMERS;
   }
-  const int blocks = (int)std::min<long long>(want, (long long)per_sm * sms);
-  kernel<<<std::max(blocks, 1), THREADS, smem, stream>>>(X, n, d, idx, need, k, sn, rows, family,
-                                                        gamma, coef0, degree, group, G,
-                                                        slab_rows, stages);
-  return static_cast<int>(cudaGetLastError());
+  auto start = stages > 0 ? start_kernel<S, false> : start_kernel<S, true>;
+  return start(want, smem, stream, X, n, d, idx, need, k, sn, rows, family, gamma, coef0, degree,
+               group, G, slab_rows, stages);
 }
 
 }  // namespace

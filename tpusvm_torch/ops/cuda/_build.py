@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import importlib.util
 import os
 import shutil
 import subprocess
@@ -116,20 +115,6 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def load_tree(tree, names: Iterable[str]) -> Dict[str, ctypes.CDLL]:
-    """The named kernel libraries of another checkout `tree` (such as a
-    parent commit unpacked with `git archive`), built in parallel by that
-    tree's own _build.py with its own flags into its own build/ directory."""
-    path = Path(tree).resolve() / "tpusvm_torch" / "ops" / "cuda" / "_build.py"
-    spec = importlib.util.spec_from_file_location(
-        f"_build_of_{hashlib.sha1(str(path).encode()).hexdigest()[:12]}", path)
-    build = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(build)
-    names = list(names)
-    build.build_all(names)
-    return {n: build.load(n) for n in names}
-
-
 def check(rc: int, what: str) -> None:
     """Raise on a non-zero code returned by a C entry point: a cudaError_t,
     or one of csrc/rbf_tile.cuh's tensor-map codes (negative)."""
@@ -143,9 +128,6 @@ def check(rc: int, what: str) -> None:
                            f"layout (CUresult {-2000 - rc})")
     if rc == -4000:
         raise RuntimeError(f"{what}: the row count k must be in [1, 256]")
-    if rc == -4001:
-        raise RuntimeError(f"{what}: one row of X does not fit the kernel's "
-                           "shared-memory budget")
     if rc == -4002:
         raise RuntimeError(f"{what}: X and sn must start 16-byte aligned")
     if rc == -3000:

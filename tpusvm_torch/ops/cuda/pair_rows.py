@@ -67,9 +67,9 @@ def pair_rows_ref(X, idx, need, rows, *, family: str = "rbf", gamma=0.00125,
     return rows
 
 
-def bind(lib: ctypes.CDLL):
-    """The C entry point tpusvm_pair_rows of a built pair_rows library."""
-    fn = lib.tpusvm_pair_rows
+@functools.cache
+def _bind():
+    fn = _build.load("pair_rows").tpusvm_pair_rows
     fn.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, _P,
                    _P, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                    ctypes.c_int, _P]
@@ -77,15 +77,9 @@ def bind(lib: ctypes.CDLL):
     return fn
 
 
-@functools.cache
-def _bind():
-    return bind(_build.load("pair_rows"))
-
-
-def launch(fn, X, idx, need, rows, *, family: str = "rbf", gamma=0.00125,
-           coef0=0.0, degree: int = 3, sn=None) -> torch.Tensor:
-    """Check the operands and call the C entry point `fn` on CUDA tensors
-    (not counted: `pair_rows_kernel` is the path's wrapper)."""
+def _operands(X, idx, need, rows, *, family, gamma, coef0, degree, sn):
+    """The C entry point's arguments but the stream, for CUDA tensors,
+    after the checks it relies on."""
     if family not in FAMILY_CODE:
         raise ValueError(f"pair_rows computes the exact families "
                          f"{sorted(FAMILY_CODE)}, not {family!r}")
@@ -114,11 +108,9 @@ def launch(fn, X, idx, need, rows, *, family: str = "rbf", gamma=0.00125,
                          "tensors, not views at an odd offset)")
     if not 1 <= k <= 256:
         raise ValueError(f"pair_rows_kernel refreshes 1 to 256 rows, not {k}")
-    rc = fn(X.data_ptr(), n, d, idx.data_ptr(), need.data_ptr(), k, sn_ptr,
+    return (X.data_ptr(), n, d, idx.data_ptr(), need.data_ptr(), k, sn_ptr,
             rows.data_ptr(), FAMILY_CODE[family], float(gamma), float(coef0),
-            int(degree), torch.cuda.current_stream(X.device).cuda_stream)
-    _build.check(rc, "pair_rows kernel")
-    return rows
+            int(degree))
 
 
 def pair_rows_kernel(X, idx, need, rows, *, family: str = "rbf",
@@ -136,7 +128,9 @@ def pair_rows_kernel(X, idx, need, rows, *, family: str = "rbf",
     kw = dict(family=family, gamma=gamma, coef0=coef0, degree=degree, sn=sn)
     if not X.is_cuda:
         return pair_rows_ref(X, idx, need, rows, **kw)
-    launch(_bind(), X, idx, need, rows, **kw)
+    rc = _bind()(*_operands(X, idx, need, rows, **kw),
+                 torch.cuda.current_stream(X.device).cuda_stream)
+    _build.check(rc, "pair_rows kernel")
     if not torch.cuda.is_current_stream_capturing():
         pair_rows_kernel.launches += 1
     return rows

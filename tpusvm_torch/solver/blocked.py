@@ -65,7 +65,6 @@ class SMOResult:
 # carries over.
 _UNPORTED = {
     "refine": (0, "7(a)", "the exact-f refine before a convergence claim"),
-    "max_refines": (2, "7(a)", "the exact-f refine before a convergence claim"),
     "shrink_stable": (0, "7(b)", "active-set shrinking"),
     "krow_cache": (0, "7(c)", "the K-row LRU cache"),
     "matmul_precision": (None, "7(d)", "the bf16 contraction rungs"),
@@ -356,10 +355,11 @@ def blocked_smo_solve(
     registers, which a CUDA kernel does not have. kernel_fast (linear
     family only) picks the primal f-update (True) or the generic blocked
     one (False), as in the JAX package. matmul_precision None, "float32"
-    and "highest" are the port's full-f32 contractions. The knobs that are
-    not ported yet raise NotImplementedError naming their ROADMAP Queue 1
-    item unless they are at their JAX default: refine and max_refines
-    (7(a)), shrink_stable (7(b)), krow_cache (7(c)), the bf16
+    and "highest" are the port's full-f32 contractions. max_refines caps
+    the refines, so, as in the JAX package, it does nothing while refine
+    is 0. The knobs that are not ported yet raise NotImplementedError
+    naming their ROADMAP Queue 1 item unless they are at their JAX
+    default: refine (7(a)), shrink_stable (7(b)), krow_cache (7(c)), the bf16
     matmul_precision rungs (7(d)), resume_state, pause_at and return_state
     (7(e)), telemetry (12).
 
@@ -390,7 +390,7 @@ def blocked_smo_solve(
             f"pallas_layout must be packed|flat, got {pallas_layout!r}")
     if matmul_precision not in (None, "float32", "highest"):
         _unported("matmul_precision", matmul_precision)
-    for name, value in (("refine", refine), ("max_refines", max_refines),
+    for name, value in (("refine", refine),
                         ("shrink_stable", shrink_stable),
                         ("krow_cache", krow_cache), ("telemetry", telemetry),
                         ("resume_state", resume_state),

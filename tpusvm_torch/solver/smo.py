@@ -239,6 +239,9 @@ def _prepare(X, Ys, valid, alpha0, *, warm_start, accum_dtype, kernel,
         raise ValueError(
             f"the card's K-row kernel takes float32 features, got {X.dtype}")
     X = X.contiguous()
+    if X.is_cuda and X.data_ptr() % 16:
+        # the K-row kernel streams X with 16-byte bulk copies
+        X = X.clone()
     Ys = torch.as_tensor(Ys, device=dev).to(torch.int32)
     B, n = Ys.shape
     adt = X.dtype if accum_dtype is None else accum_dtype
