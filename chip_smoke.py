@@ -63,7 +63,27 @@ Phases, in order (any failure raises and the script exits non-zero):
      coef0 1) with both solvers and sigmoid once, on phase 5's data cut to
      10,000 rows; Platt calibration (3 folds) on that cut's RBF model,
      predict_proba monotone in decision_function; a save and load round
-     trip of each kind; every pair fit must launch pair_rows.
+     trip of each kind; every pair fit must launch pair_rows;
+  10. the front door, cut in rows: phase 5's rows [:10000] and
+     [60000:62000] written as CSVs; `python -m tpusvm_torch train --train
+     ... --test ...` in a subprocess prints the SV count, b and accuracy of
+     an in-process fit on the rows it read, and so does the entry point's
+     main in this process with --n-limit 5000; --mode oracle on 2,000 rows
+     within the cross-engine band of the blocked
+     fit on them; `info` names the card and describes phase 5's artifact;
+  11. refine: phase 5's job with refine=4096, max_refines=2, CONVERGED with
+     n_refines >= 1, kernel #1 launched in every rebuild, the f64 exact-f
+     gap below phase 5's, accuracy within 0.002 of phase 5's;
+  12. checkpoints: phase 5's job through BinarySVC.fit(checkpoint_path,
+     checkpoint_every=4) stopped after round 8's checkpoint and resumed in
+     a fresh estimator, equal to the fit without one bit for bit; the
+     solver's carry (alpha and f) across a written checkpoint equal too;
+     the write timed;
+  13. phase 5's job (a) with shrink_every=2, shrink_stable=3 (kernels #1
+     and #2 launch; compactions, un-shrinks and buckets printed) and (b)
+     with krow_cache=2048 (#2 launches, the f-update takes cached or fresh
+     K rows; hit and miss counts printed), each CONVERGED with accuracy
+     within 0.002 of phase 5's, train seconds beside phase 5's.
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
@@ -87,6 +107,9 @@ C, GAMMA = 10.0, 0.00125
 # the lockstep one-vs-rest pair fit and of the epsilon-SVR pair fit
 N_OVR_PAIR = 60000
 N_SVR_PAIR = 2000
+# the row cuts of phase 10 (PERF.md section 4): the training CSV, its
+# --n-limit run, the --mode oracle run, and the held-out CSV
+N_CSV, N_CSV_LIMIT, N_ORACLE, N_CSV_TEST = 10000, 5000, 2000, 2000
 
 
 def log(msg):
@@ -529,6 +552,369 @@ def phase_tasks(X_all, Y_all, n_tr, n_cut, Xr, tr, n_svr, n_svr_pair, Xm_test,
         if name == "calibrated":
             check(np.array_equal(again.predict_proba(Xq), m.predict_proba(Xq)),
                   "[9] reloaded probabilities differ")
+
+
+# the blocked job of phases 5 and 10-13: q, wss and max_inner of phase 5
+FULL_OPTS = dict(q=2048, wss=2, max_inner=4096)
+
+
+def _cli(args, device, timeout=600):
+    """`python -m tpusvm_torch ARGS` in a subprocess from this checkout;
+    (stdout, seconds). Fails on a non-zero exit."""
+    import os
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root)
+    argv = [sys.executable, "-m", "tpusvm_torch", *args]
+    if device == "cpu" and args[0] != "info":
+        argv += ["--device", "cpu"]
+    t = time.perf_counter()
+    out = subprocess.run(argv, capture_output=True, text=True, cwd=root,
+                         env=env, timeout=timeout)
+    secs = time.perf_counter() - t
+    check(out.returncode == 0, f"{' '.join(args[:3])}: exit {out.returncode}\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    return out.stdout, secs
+
+
+def _cli_in_process(args, device):
+    """`python -m tpusvm_torch ARGS` run in this process (the entry point's
+    main, its stdout captured): (stdout, seconds)."""
+    import contextlib
+    import io
+
+    from tpusvm_torch.cli import main
+
+    if device == "cpu" and args[0] != "info":
+        args = [*args, "--device", "cpu"]
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(args)
+    check(rc == 0, f"{' '.join(args[:3])}: exit {rc}\n{buf.getvalue()[-2000:]}")
+    return buf.getvalue(), time.perf_counter() - t
+
+
+def _line(pattern, text):
+    import re
+
+    m = re.search(pattern, text)
+    check(m is not None, f"no {pattern!r} in:\n{text[-2000:]}")
+    return m.group(1)
+
+
+def _report(model, acc):
+    """The CLI's lines for a binary fit: SV count, b, accuracy."""
+    return (str(model.n_support_), f"{model.b_:.15f}", f"{acc:.4f}")
+
+
+def phase_front(X_all, Y_all, n_tr, n_cut, n_lim, n_oracle, n_test, device,
+                model_path):
+    """Phase 10, cut in rows: phase 5's rows [:n_cut] and [n_tr:n_tr+n_test]
+    as CSVs (the port's write_csv), then `python -m tpusvm_torch train
+    --train ... --test ...` in a subprocess, which must print the SV count,
+    b and accuracy of an in-process BinarySVC fit on the rows it read (the
+    same program, so the same bits); then, through the same entry point's
+    main in this process, again with --n-limit n_lim; --mode oracle on
+    n_oracle rows, within the cross-engine band of the blocked fit on those
+    rows (SV-ID symmetric difference <= 2, |db| <= 2.5e-4: PARITY.md);
+    `info`, which must name the card, and `info` on phase 5's artifact."""
+    import torch
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.data import read_csv, write_csv
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.ops.cuda import _build
+    from tpusvm_torch.status import Status
+
+    d = _build.BUILD_DIR / "chip_smoke_csv"
+    d.mkdir(parents=True, exist_ok=True)
+    train_csv, test_csv = str(d / "train.csv"), str(d / "test.csv")
+    t = time.perf_counter()
+    write_csv(train_csv, X_all[:n_cut], Y_all[:n_cut])
+    write_csv(test_csv, X_all[n_tr:n_tr + n_test], Y_all[n_tr:n_tr + n_test])
+    t_write = time.perf_counter() - t
+    t = time.perf_counter()
+    X, Y = read_csv(train_csv)
+    Xt, Yt = read_csv(test_csv)
+    t_read = time.perf_counter() - t
+    check(np.array_equal(X, X_all[:n_cut]) and np.array_equal(Y, Y_all[:n_cut]),
+          "[10] the CSV does not read back to the rows written")
+    log(f"[10] CSVs of {n_cut} + {n_test} rows x {X.shape[1]}: written in "
+        f"{t_write:.1f} s, read back in {t_read:.1f} s, "
+        f"{(d / 'train.csv').stat().st_size / 1e6:.0f} MB")
+    flags = ["--C", str(C), "--gamma", str(GAMMA), "--max-iter", "1000000",
+             "--q", str(FULL_OPTS["q"]), "--wss", str(FULL_OPTS["wss"]),
+             "--max-inner", str(FULL_OPTS["max_inner"])]
+
+    def in_process(n):
+        m = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
+                      solver_opts=FULL_OPTS, device=device).fit(X[:n], Y[:n])
+        return m, float((m.predict(Xt) == Yt).mean())
+
+    # the first run goes through `python -m` in a subprocess; the others
+    # call the same entry point's main here, which saves a process start
+    # (about 9 s on the card's machine) each
+    for n, extra, run in ((n_cut, [], _cli),
+                          (n_lim, ["--n-limit", str(n_lim)], _cli_in_process)):
+        out, secs = run(["train", "--train", train_csv, "--test", test_csv,
+                         *flags, *extra], device)
+        cli = (_line(r"SV count = (\d+)", out), _line(r"b = (-?[\d.]+)", out),
+               _line(r"accuracy = ([\d.]+)", out))
+        m, acc = in_process(n)
+        where = "a subprocess" if run is _cli else "this process"
+        log(f"[10] train --train CSV {' '.join(extra)}: {secs:.1f} s in "
+            f"{where}, n = {_line(r'n = (\d+),', out)}, status "
+            f"{_line(r'status = (\w+)', out)}, SV count / b / accuracy "
+            f"{cli}; in process {_report(m, acc)}")
+        check(_line(r"status = (\w+)", out) == "CONVERGED",
+              f"[10] CLI status {out[-500:]}")
+        check(m.status_ == Status.CONVERGED, f"[10] {m.status_.name}")
+        check(cli == _report(m, acc), f"[10] CLI {cli} vs in process "
+              f"{_report(m, acc)}")
+    oracle_path = str(d / "oracle.npz")
+    out, secs = _cli_in_process(
+        ["train", "--train", train_csv, "--test", test_csv, *flags[:6],
+         "--n-limit", str(n_oracle), "--mode", "oracle", "--save",
+         oracle_path], device)
+    orc = BinarySVC.load(oracle_path, device=device)
+    m, acc = in_process(n_oracle)
+    acc_o = float(_line(r"accuracy = ([\d.]+)", out))
+    diff = len(set(orc.sv_ids_) ^ set(m.sv_ids_))
+    log(f"[10] --mode oracle on {n_oracle} rows: {secs:.1f} s, "
+        f"iterations {_line(r'iterations = (\d+)', out)}, SV count "
+        f"{orc.n_support_}, b {orc.b_:.15f}, accuracy {acc_o:.4f}; the blocked "
+        f"fit on those rows: SV count {m.n_support_}, b {m.b_:.15f}, accuracy "
+        f"{acc:.4f}; SV-ID symmetric difference {diff}, |db| "
+        f"{abs(orc.b_ - m.b_):.3e}")
+    check(_line(r"status = (\w+)", out) == "CONVERGED", "[10] oracle status")
+    check(diff <= 2 and abs(orc.b_ - m.b_) <= 2.5e-4 and abs(acc_o - acc) <= 0.002,
+          "[10] oracle outside the cross-engine band of the blocked fit")
+    out, secs = _cli_in_process(["info"], device)
+    log(f"[10] info ({secs:.1f} s): " + " | ".join(out.strip().splitlines()))
+    if device != "cpu":
+        check(torch.cuda.get_device_name(0) in out, "[10] info names no card")
+    out, secs = _cli_in_process(["info", model_path], device)
+    log(f"[10] info {model_path} ({secs:.1f} s): "
+        + " | ".join(out.strip().splitlines()))
+    check("model: binary" in out, "[10] info does not describe the model")
+
+
+def phase_refine(X_all, Y_all, n_tr, m5, acc5, device, counters):
+    """Phase 11: phase 5's job with refine=4096, max_refines=2, kernel #1's
+    launches counted around each rebuild; it must end CONVERGED with
+    n_refines >= 1, its f64 exact-f gap below phase 5's, accuracy within
+    0.002 of phase 5's."""
+    import tpusvm_torch.solver.blocked as blk
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.status import Status
+
+    fupdate = counters["fused_fupdate"]
+    rebuilds = []
+    plain_refine_f = blk.refine_f
+
+    def counted(*args, **kw):
+        before = fupdate.launches
+        out = plain_refine_f(*args, **kw)
+        rebuilds.append(fupdate.launches - before)
+        return out
+
+    for fn in counters.values():
+        fn.launches = 0
+    blk.refine_f = counted
+    try:
+        model = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
+                          solver_opts=dict(FULL_OPTS, refine=4096,
+                                           max_refines=2), device=device)
+        sync(device)
+        t = time.perf_counter()
+        model.fit(X_all[:n_tr], Y_all[:n_tr])
+        sync(device)
+        train_s = time.perf_counter() - t
+    finally:
+        blk.refine_f = plain_refine_f
+    counts = {k: fn.launches for k, fn in counters.items()}
+    res = model.result_
+    acc = float((model.predict(X_all[n_tr:]) == Y_all[n_tr:]).mean())
+    gaps = {}
+    for name, m in (("phase 5", m5), ("phase 11 (refine)", model)):
+        bh, bl = exact_b(m, X_all[:n_tr], Y_all[:n_tr], device)
+        gaps[name] = bl - bh
+    log(f"[11] refine=4096 max_refines=2: train {train_s:.3f} s, status "
+        f"{model.status_.name}, refines {res.n_refines} (kernel #1 launches in "
+        f"each rebuild {rebuilds}), outer rounds {res.n_outer}, updates "
+        f"{model.n_iter_ - 1}, host syncs {res.n_host_syncs}, SV count "
+        f"{model.n_support_}, b {model.b_:.15f}, accuracy {acc:.4f}, launches "
+        f"{counts}")
+    floor = 4e-7 * float(model.sv_alpha_.sum())
+    log(f"[11] f64 exact-f gap b_low - b_high: phase 5 {gaps['phase 5']:.3e}, "
+        f"with refine {gaps['phase 11 (refine)']:.3e} (2 tau = 2e-5; the f32 "
+        f"evaluation floor 4e-7 * sum(alpha) = {floor:.3e}, "
+        f"tests/test_shrink.py's band); against "
+        f"phase 5: SV-ID symmetric difference "
+        f"{len(set(m5.sv_ids_) ^ set(model.sv_ids_))} of {m5.n_support_}, |db| "
+        f"{abs(m5.b_ - model.b_):.3e}, accuracy {acc:.4f} vs {acc5:.4f}")
+    check(model.status_ == Status.CONVERGED, f"[11] {model.status_.name}")
+    check(res.n_refines >= 1, "[11] no refine ran")
+    check(len(rebuilds) == res.n_refines and all(
+        k > 0 or device == "cpu" for k in rebuilds),
+        f"[11] kernel #1 did not launch in every rebuild: {rebuilds}")
+    check(counts["inner_smo"] > 0 or device == "cpu", f"[11] {counts}")
+    # (a CPU rehearsal's cut has no drift to remove)
+    check(gaps["phase 11 (refine)"] < gaps["phase 5"] or device == "cpu",
+          f"[11] exact-f gap {gaps} not below phase 5's")
+    check(abs(acc - acc5) <= 0.002, f"[11] accuracy {acc} vs phase 5 {acc5}")
+
+
+class _Stopped(Exception):
+    """Raised after a chosen checkpoint is on disk: the process 'dies'."""
+
+
+def phase_checkpoint(X_all, Y_all, n_tr, device, stop_round=8, every=4):
+    """Phase 12: phase 5's job through BinarySVC.fit(checkpoint_path,
+    checkpoint_every), stopped once the checkpoint of round `stop_round` is
+    on disk, then resumed in a fresh estimator: it must equal the run
+    without a checkpoint bit for bit (alpha with torch.equal, the same b,
+    n_iter and status). At the solver: a state paused at `stop_round`,
+    written, read back and resumed gives alpha and f equal (torch.equal)
+    to the uninterrupted solve's; the write is timed."""
+    import os
+
+    import torch
+    import tpusvm_torch.solver.checkpoint as ckmod
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.ops.cuda import _build
+    from tpusvm_torch.solver.blocked import blocked_smo_solve
+    from tpusvm_torch.status import Status
+
+    path = str(_build.BUILD_DIR / "chip_smoke_checkpoint.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    cfg = SVMConfig(C=C, gamma=GAMMA, max_iter=10**6)
+    X, Y = X_all[:n_tr], Y_all[:n_tr]
+    plain = BinarySVC(cfg, solver_opts=FULL_OPTS, device=device).fit(X, Y)
+    save = ckmod.save_solver_state
+
+    def save_then_stop(p, state, fp):
+        save(p, state, fp)
+        if state.n_outer >= stop_round:
+            raise _Stopped(state.n_outer)
+
+    ckmod.save_solver_state = save_then_stop
+    try:
+        BinarySVC(cfg, solver_opts=FULL_OPTS, device=device).fit(
+            X, Y, checkpoint_path=path, checkpoint_every=every)
+        check(False, "[12] the fit was not stopped")
+    except _Stopped as e:
+        stopped_at = e.args[0]
+    finally:
+        ckmod.save_solver_state = save
+    check(os.path.exists(path), "[12] no checkpoint on disk")
+    t = time.perf_counter()
+    resumed = BinarySVC(cfg, solver_opts=FULL_OPTS, device=device).fit(
+        X, Y, checkpoint_path=path, checkpoint_every=every, resume=True)
+    resume_s = time.perf_counter() - t
+    a, b = resumed.result_, plain.result_
+    same = (torch.equal(a.alpha, b.alpha) and (a.b, a.n_iter, a.status)
+            == (b.b, b.n_iter, b.status))
+    log(f"[12] fit stopped after the checkpoint of round {stopped_at} (every "
+        f"{every}), resumed in a fresh estimator in {resume_s:.3f} s: rounds "
+        f"{a.n_outer}, updates {a.n_iter - 1}, status {a.status.name}, b "
+        f"{a.b:.15f}; equal to the fit without a checkpoint bit for bit: "
+        f"{same}; checkpoint removed at the end: {not os.path.exists(path)}")
+    check(same, "[12] resumed fit differs from the uninterrupted one")
+    check(a.status == Status.CONVERGED, f"[12] {a.status.name}")
+    # the solver's carry itself: alpha and f across a written checkpoint
+    Xs = torch.as_tensor(plain.scaler_.transform(X).astype(np.float32),
+                         device=device)
+    Yd = torch.as_tensor(Y, device=device)
+    kw = dict(C=C, gamma=GAMMA, max_iter=10**6, accum_dtype=torch.float64,
+              device=device, **FULL_OPTS)
+    whole, st_whole = blocked_smo_solve(Xs, Yd, return_state=True, **kw)
+    _, st = blocked_smo_solve(Xs, Yd, pause_at=stop_round, return_state=True,
+                              **kw)
+    fp = ckmod.solve_fingerprint(Xs, Yd, torch.float64, FULL_OPTS)
+    sync(device)
+    t = time.perf_counter()
+    ckmod.save_solver_state(path, st, fp)
+    write_ms = (time.perf_counter() - t) * 1e3
+    size = os.path.getsize(path)
+    t = time.perf_counter()
+    back = ckmod.load_solver_state(path, fp)
+    read_ms = (time.perf_counter() - t) * 1e3
+    os.remove(path)
+    res, st_end = blocked_smo_solve(Xs, Yd, resume_state=back,
+                                    return_state=True, **kw)
+    same = (torch.equal(res.alpha, whole.alpha)
+            and torch.equal(st_end.f, st_whole.f)
+            and (res.b, res.n_iter, res.status) == (whole.b, whole.n_iter,
+                                                   whole.status))
+    log(f"[12] solver carry at round {stop_round}: checkpoint write "
+        f"{write_ms:.1f} ms ({size / 1e6:.2f} MB: alpha and f of {n_tr} rows "
+        f"in f64; device-to-host copy, savez, fsync, rename), read "
+        f"{read_ms:.1f} ms; resumed alpha and f equal to the uninterrupted "
+        f"solve's (torch.equal): {same}")
+    check(same, "[12] resumed solver carry differs")
+
+
+def phase_shrink_cache(X_all, Y_all, n_tr, acc5, m5, train5_s, device,
+                       counters):
+    """Phase 13: phase 5's job (a) with shrink_every=2, shrink_stable=3 and
+    (b) with krow_cache=2048; each CONVERGED, accuracy within 0.002 of phase
+    5's. (a) must launch kernels #1 and #2; (b) #2, its f-update taking the
+    rows path (kernel #1 resolved off, as in the JAX package)."""
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.solver.blocked import resolve_solver_config
+    from tpusvm_torch.status import Status
+
+    secs = {}
+    for tag, extra in (("13a", dict(shrink_every=2, shrink_stable=3)),
+                       ("13b", dict(krow_cache=2048))):
+        for fn in counters.values():
+            fn.launches = 0
+        model = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
+                          solver_opts=dict(FULL_OPTS, **extra), device=device)
+        sync(device)
+        t = time.perf_counter()
+        model.fit(X_all[:n_tr], Y_all[:n_tr])
+        sync(device)
+        secs[tag] = time.perf_counter() - t
+        counts = {k: fn.launches for k, fn in counters.items()}
+        res = model.result_
+        acc = float((model.predict(X_all[n_tr:]) == Y_all[n_tr:]).mean())
+        log(f"[{tag}] {json.dumps(extra)}: train {secs[tag]:.3f} s, status "
+            f"{model.status_.name}, outer rounds {res.n_outer}, updates "
+            f"{model.n_iter_ - 1}, host syncs {res.n_host_syncs}, SV count "
+            f"{model.n_support_}, b {model.b_:.15f}, accuracy {acc:.4f}; "
+            f"against phase 5: SV-ID symmetric difference "
+            f"{len(set(m5.sv_ids_) ^ set(model.sv_ids_))}, |db| "
+            f"{abs(m5.b_ - model.b_):.3e}; launches {counts}")
+        check(model.status_ == Status.CONVERGED, f"[{tag}] {model.status_.name}")
+        check(abs(acc - acc5) <= 0.002, f"[{tag}] accuracy {acc} vs {acc5}")
+        check(counts["inner_smo"] > 0 or device == "cpu", f"[{tag}] {counts}")
+        if tag == "13a":
+            hist = res.shrink_history
+            caps = [h["cap"] for h in hist if h["event"] == "shrink"]
+            log(f"[13a] compactions {len(caps)} (buckets {caps}, live rows "
+                f"{[h['active'] for h in hist if h['event'] == 'shrink']}), "
+                f"un-shrinks {sum(h['event'] == 'unshrink' for h in hist)}, "
+                f"events {[(h['event'], h['round']) for h in hist]}")
+            check(counts["fused_fupdate"] > 0 or device == "cpu",
+                  f"[13a] kernel #1 not launched: {counts}")
+        else:
+            q = resolve_solver_config(n_tr, FULL_OPTS["q"])[0]
+            log(f"[13b] K rows served from the cache {res.cache_hits}, "
+                f"computed fresh {res.cache_misses} ({res.n_outer} rounds of "
+                f"{q})")
+            check(res.cache_hits + res.cache_misses == q * res.n_outer,
+                  "[13b] cache accounting")
+            check(counts["fused_fupdate"] == 0, f"[13b] {counts}")
+    log(f"[13] train seconds: phase 5 {train5_s:.3f}, shrinking "
+        f"{secs['13a']:.3f}, K-row cache {secs['13b']:.3f} (a finding, not a "
+        f"claim: one run each)")
 
 
 def sync(device):
@@ -1033,6 +1419,7 @@ def main():
                     "5b": ("inner_smo_multipair", "fused_fupdate_select")}
     launches = {}
     models = {}
+    train_secs = {}
     for phase, sopts in full_opts.items():
         model = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=max_iter[phase]),
                           solver_opts=sopts, device="cuda")
@@ -1043,6 +1430,7 @@ def main():
         model.fit(X_all[:60000], Y_all[:60000])
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t
+        train_secs[phase] = train_s
         counts = {k: fn.launches for k, fn in counters.items()}
         for k in path_kernels[phase]:
             launches[k] = counts[k]
@@ -1071,7 +1459,7 @@ def main():
               f"full {phase}: non-finite model")
         check(acc > 0.9, f"full {phase}: accuracy {acc}")
         if phase == "5":
-            path = str(_build.BUILD_DIR / "chip_smoke_model.npz")
+            path = model5_path = str(_build.BUILD_DIR / "chip_smoke_model.npz")
             model.save(path)
             again = BinarySVC.load(path, device="cuda")
             check(np.array_equal(again.predict(X_all[60000:]), pred),
@@ -1141,6 +1529,18 @@ def main():
     phase_tasks(X_all, Y_all, 60000, 10000, Xr, tr, 20000, N_SVR_PAIR, Xm[60000:],
                 pair_model, ovr_model, "cuda", counters)
     clock("9")
+
+    # ---- 10-13. the front door, refine, checkpoints, shrinking, cache ----
+    phase_front(X_all, Y_all, 60000, N_CSV, N_CSV_LIMIT, N_ORACLE, N_CSV_TEST,
+                "cuda", model5_path)
+    clock("10")
+    phase_refine(X_all, Y_all, 60000, m5, acc5, "cuda", counters)
+    clock("11")
+    phase_checkpoint(X_all, Y_all, 60000, "cuda")
+    clock("12")
+    phase_shrink_cache(X_all, Y_all, 60000, acc5, m5, train_secs["5"], "cuda",
+                       counters)
+    clock("13")
 
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -508,3 +508,128 @@ def test_batched_pair_solver_on_the_card_equals_solo_runs(dev):
         assert torch.equal(head.alpha, solo.alpha)
         assert (head.n_iter, head.status, head.b) == (solo.n_iter, solo.status,
                                                       solo.b)
+
+
+# ---- slice 7: refine, shrinking, the K-row cache and the loop's carry ----
+
+def _rings_problem(dev, n=1024):
+    from tpusvm_torch.data import MinMaxScaler, rings
+
+    X, Y = rings(n=n, seed=11)
+    Xs = MinMaxScaler().fit_transform(X).astype(np.float32)
+    return (torch.as_tensor(Xs, device=dev), torch.as_tensor(Y, device=dev),
+            dict(C=10.0, gamma=10.0, q=256, max_inner=512,
+                 accum_dtype=torch.float64, device=dev))
+
+
+def test_refine_and_unshrink_rebuilds_run_kernel_1(dev):
+    """Both rebuilds of f launch the fused f-update on the card and agree
+    with its plain version within kernel #1's band, 1e-5 * sum|coef|."""
+    from tpusvm_torch.ops.rbf import sq_norms
+    from tpusvm_torch.solver.blocked import blocked_smo_solve, refine_f
+    from tpusvm_torch.solver.shrink import _rebuild_f
+
+    X, Y, kw = _rings_problem(dev)
+    r = blocked_smo_solve(X, Y, **kw)
+    yf = Y.double()
+    valid = torch.ones_like(Y, dtype=torch.bool)
+    sn = sq_norms(X)
+    kern = dict(gamma=10.0, coef0=0.0, degree=3)
+    tol = 1e-5 * float((r.alpha * yf).abs().sum())
+    rbf_cross_matvec_kernel.launches = 0
+    got = refine_f(X, r.alpha, yf, yf, valid, 1024, kernel="rbf", sn=sn,
+                   kern=kern)
+    assert rbf_cross_matvec_kernel.launches == 1
+    want = refine_f(X.cpu(), r.alpha.cpu(), yf.cpu(), yf.cpu(), valid.cpu(),
+                    1024, kernel="rbf", sn=sn.cpu(), kern=kern)
+    assert float((got.cpu() - want).abs().max()) <= tol
+    a = r.alpha.cpu().numpy()
+    kk = dict(kern, kernel="rbf", kernel_fast=True)
+    got = _rebuild_f(X, Y, valid, a, Y.float(), kk, sn)
+    assert rbf_cross_matvec_kernel.launches == 2
+    want = _rebuild_f(X.cpu(), Y.cpu(), valid.cpu(), a, Y.float().cpu(), kk,
+                      sn.cpu())
+    assert float((got.cpu() - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("extra", [
+    {}, dict(refine=1024), dict(krow_cache=512), dict(shrink_stable=3),
+    dict(fused_selection=True, wss=1), dict(multipair=2, q=512, wss=1)],
+    ids=["kernels", "refine", "krow_cache", "shrink_stable",
+         "fused_selection", "multipair"])
+def test_pause_and_resume_on_the_card_is_bit_identical(dev, extra):
+    from tpusvm_torch.solver.blocked import blocked_smo_solve
+
+    X, Y, kw = _rings_problem(dev)
+    kw.update(extra)
+    whole, st_whole = blocked_smo_solve(X, Y, return_state=True, **kw)
+    state, k = None, 0
+    while state is None or state.status == 0:
+        k += 1
+        res, state = blocked_smo_solve(X, Y, resume_state=state, pause_at=k,
+                                       return_state=True, **kw)
+    assert torch.equal(res.alpha, whole.alpha)
+    assert torch.equal(state.f, st_whole.f)
+    assert (res.b, res.n_iter, res.n_outer, res.status) == (
+        whole.b, whole.n_iter, whole.n_outer, whole.status)
+
+
+def test_checkpointed_fit_on_the_card_is_bit_identical(dev, tmp_path):
+    from tpusvm_torch.solver.blocked import blocked_smo_solve
+    from tpusvm_torch.solver.checkpoint import (WatchdogTimeout,
+                                                checkpointed_blocked_solve)
+
+    X, Y, kw = _rings_problem(dev)
+    plain = blocked_smo_solve(X, Y, **kw)
+    ck = str(tmp_path / "ck.npz")
+    with pytest.raises(WatchdogTimeout):
+        checkpointed_blocked_solve(X, Y, checkpoint_path=ck,
+                                   checkpoint_every=2, watchdog=lambda: True,
+                                   **kw)
+    res = checkpointed_blocked_solve(X, Y, checkpoint_path=ck,
+                                     checkpoint_every=2, resume=True, **kw)
+    assert torch.equal(res.alpha, plain.alpha) and res.b == plain.b
+
+
+def test_a_misaligned_x_view_solves_as_a_fresh_copy(dev):
+    """A compacted bucket's X need not start on a 16-byte boundary: the
+    solve on a view 4 bytes past one equals the solve on a fresh copy bit
+    for bit (kernel #1's wrapper copies it for its TMA loads)."""
+    from tpusvm_torch.solver.blocked import blocked_smo_solve
+
+    X, Y, kw = _rings_problem(dev, n=768)
+    X = torch.nn.functional.pad(X, (0, 2))  # d = 4, a 16-byte row pitch
+    buf = torch.empty(X.numel() + 1, device=dev)
+    Xm = buf[1:].view(X.shape)
+    Xm.copy_(X)
+    assert Xm.data_ptr() % 16 != 0
+    a = blocked_smo_solve(Xm, Y, **kw)
+    b = blocked_smo_solve(Xm.clone(), Y, **kw)
+    assert torch.equal(a.alpha, b.alpha) and a.b == b.b
+
+
+def test_shrinking_and_cache_on_the_card_launch_kernels_1_and_2(dev):
+    """A shrinking solve launches #1 (its f-updates and un-shrink rebuild)
+    and #2; a cached solve launches #2 and takes its f-update from rows.
+    Both match the CPU run's SV-ID set, status and b within 1e-4."""
+    from tpusvm_torch.solver.blocked import blocked_smo_solve
+    from tpusvm_torch.solver.shrink import shrinking_blocked_solve
+
+    X, Y, kw = _rings_problem(dev, n=2048)
+    cpu = dict(kw, device="cpu")
+    for fn, extra in ((shrinking_blocked_solve,
+                       dict(shrink_every=2, shrink_stable=2, shrink_min=256)),
+                      (blocked_smo_solve, dict(krow_cache=512))):
+        rbf_cross_matvec_kernel.launches = inner_smo_kernel.launches = 0
+        r = fn(X, Y, **kw, **extra)
+        assert inner_smo_kernel.launches > 0
+        if fn is shrinking_blocked_solve:
+            assert rbf_cross_matvec_kernel.launches > 0
+        else:
+            assert rbf_cross_matvec_kernel.launches == 0
+            assert r.cache_hits + r.cache_misses == 256 * r.n_outer
+        c = fn(X.cpu(), Y.cpu(), **cpu, **extra)
+        assert r.status == c.status == 1
+        sv = lambda a: set(torch.nonzero(a.cpu() > 1e-8).flatten().tolist())
+        assert sv(r.alpha) == sv(c.alpha)
+        assert abs(r.b - c.b) <= 1e-4

@@ -103,10 +103,18 @@ def test_binary_fits_not_ported_are_refused():
     X = np.random.default_rng(0).random((20, 3))
     Y = np.tile([1, -1], 10)
     m = BinarySVC(device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        m.fit(X, Y, checkpoint_path="ck.npz")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        BinarySVC(device="cpu", solver_opts=dict(shrink_every=8)).fit(X, Y)
+    # checkpoints and shrinking are ported (ROADMAP Queue 1 item 7): the
+    # pair solver refuses them as the JAX estimator does, and one-vs-rest
+    # does not route shrinking
+    with pytest.raises(ValueError, match="blocked solver"):
+        BinarySVC(device="cpu", solver="pair").fit(
+            X, Y, checkpoint_path="ck.npz")
+    with pytest.raises(ValueError, match="pair solver"):
+        BinarySVC(device="cpu", solver="pair",
+                  solver_opts=dict(shrink_every=8)).fit(X, Y)
+    with pytest.raises(ValueError, match="binary and svr"):
+        OneVsRestSVC(device="cpu", solver="blocked",
+                     solver_opts=dict(shrink_every=8)).fit(X, np.arange(20) % 3)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         m.fit_stream(None)
     for fit in (m.fit_cascade, m.fit_cascade_stream, m.fit_pod):

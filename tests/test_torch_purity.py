@@ -113,3 +113,28 @@ def test_chip_smoke_fails_without_a_card_or_alone(tmp_path):
                              text=True, cwd=cwd, env=env, timeout=120)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def test_checkpoint_shrink_and_csv_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card path is not reachable")
+    from tpusvm_torch.cli import main
+    from tpusvm_torch.data import write_csv
+    from tpusvm_torch.models.svm import BinarySVC
+    from tpusvm_torch.solver.checkpoint import checkpointed_blocked_solve
+    from tpusvm_torch.solver.shrink import shrinking_blocked_solve
+
+    X = np.random.default_rng(0).random((20, 3)).astype(np.float32)
+    Y = np.tile([1, -1], 10).astype(np.int32)
+    csv = str(tmp_path / "a.csv")
+    write_csv(csv, X, Y)
+    ck = str(tmp_path / "ck.npz")
+    for call in (lambda: checkpointed_blocked_solve(X, Y, checkpoint_path=ck),
+                 lambda: shrinking_blocked_solve(X, Y),
+                 lambda: BinarySVC().fit(X, Y, checkpoint_path=ck),
+                 lambda: BinarySVC(solver_opts=dict(shrink_every=2)).fit(X, Y),
+                 lambda: main(["train", "--train", csv, "--test", csv]),
+                 lambda: main(["train", "--train", csv, "--checkpoint", ck])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "ck.npz").exists()

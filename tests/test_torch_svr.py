@@ -71,7 +71,10 @@ def test_svr_duplicate_rows_do_not_stall(solver):
 
 def test_svr_refusals():
     X, t = jsyn.svr_sine(n=40, d=1, seed=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        EpsilonSVR(device="cpu", solver_opts=dict(shrink_every=4)).fit(X, t)
+    # shrinking is ported for the blocked solver (ROADMAP Queue 1 item 7);
+    # the pair solver refuses it, as in the JAX estimator
+    with pytest.raises(ValueError, match="pair solver"):
+        EpsilonSVR(device="cpu", solver="pair",
+                   solver_opts=dict(shrink_every=4)).fit(X, t)
     with pytest.raises(ValueError, match="unknown solver"):
         EpsilonSVR(solver="fleet", device="cpu")

@@ -1,14 +1,20 @@
-"""Command line: `python -m tpusvm_torch train|predict`.
+"""Command line: `python -m tpusvm_torch train|predict|info`.
 
-train fits a model on a synthetic dataset, scores its held-out slice and
-prints the reference's diagnostics (n and n_features, iterations, b to 15
+train fits a model on a CSV (--train, last column = label; --test scores a
+held-out CSV) or a synthetic dataset, scores the held-out rows and prints
+the reference's diagnostics (n and n_features, iterations, b to 15
 places, the half gap x 1e10, the SV count, accuracy, phase timings), with
-the JAX command line's flags and defaults for the solver (--solver
-blocked|pair), the kernel family (--kernel, --degree, --coef0), one-vs-rest
-(--multiclass), epsilon-SVR (--task svr, --epsilon) and Platt calibration
-(--calibrate K). predict scores a saved model of any kind (either
-package's `.npz`) on the same kind of synthetic held-out slice. Both run on
-the card unless --device cpu.
+the JAX command line's flags and defaults: the hyperparameters (--preset,
+--C, --gamma, --tau, --eps, --sv-tol), the numerics (--accum, --no-scale),
+the mode (--mode single, or oracle: the serial NumPy SMO), the solver
+(--solver blocked|pair), the kernel family (--kernel, --degree, --coef0),
+one-vs-rest (--multiclass), epsilon-SVR (--task svr, --epsilon), Platt
+calibration (--calibrate K), crash-safe checkpoints (--checkpoint,
+--resume, --checkpoint-every) and active-set shrinking (--shrink-every,
+--shrink-stable). predict scores a saved model of any kind (either
+package's `.npz`) on a CSV (--data) or the synthetic held-out slice. info
+prints the torch/CUDA versions and the visible devices, or describes a
+model artifact. train and predict run on the card unless --device cpu.
 """
 
 from __future__ import annotations
@@ -20,7 +26,10 @@ from typing import List, Optional
 
 import numpy as np
 
-from tpusvm_torch.config import KERNEL_FAMILIES, SVMConfig
+from tpusvm_torch.config import (DATASET_PRESETS, KERNEL_FAMILIES,
+                                 SVMConfig, preset)
+from tpusvm_torch.data.csv_reader import read_csv, read_csv_regression
+from tpusvm_torch.data.scaler import MinMaxScaler
 from tpusvm_torch.data.synthetic import (BENCH_LABEL_NOISE, BENCH_NOISE,
                                          BENCH_NOISE_MULTICLASS, blobs,
                                          mnist_like, mnist_like_multiclass,
@@ -31,16 +40,26 @@ _SYNTHETIC = ("mnist_like", "rings", "blobs", "mnist_like_multiclass",
               "svr_sine")
 
 
-def _add_data_args(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--synthetic", choices=_SYNTHETIC, required=True,
-                   help="deterministic synthetic dataset (svr_sine: "
-                   "continuous targets, --task svr only; "
+def _add_data_args(p: argparse.ArgumentParser, csv_flag: str,
+                   csv_help: str) -> None:
+    p.add_argument(csv_flag, metavar="CSV", help=csv_help)
+    p.add_argument("--synthetic", choices=_SYNTHETIC,
+                   help="deterministic synthetic dataset instead of a CSV "
+                   "(svr_sine: continuous targets, --task svr only; "
                    "mnist_like_multiclass: class ids, --multiclass)")
-    p.add_argument("--n", type=int, default=60000, help="train rows")
-    p.add_argument("--n-test", type=int, default=10000, help="test rows")
+    p.add_argument("--n", type=int, default=60000,
+                   help="synthetic train rows")
+    p.add_argument("--n-test", type=int, default=10000,
+                   help="synthetic test rows")
     p.add_argument("--d", type=int, default=784,
                    help="feature count (mnist_like, blobs, svr_sine)")
     p.add_argument("--seed", type=int, default=587, help="data seed")
+    p.add_argument("--n-limit", type=int, default=None, metavar="N",
+                   help="cap the rows read (the reference's gpu_svm_main4 "
+                   "argv[1]; train: the training rows)")
+    p.add_argument("--positive-label", type=int, default=1, metavar="K",
+                   help="CSV binary mode: the class mapped to +1 (label != "
+                   "K -> -1); default 1, the reference's digit")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
 
 
@@ -48,9 +67,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m tpusvm_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     tr = sub.add_parser("train", help="fit a model and score it")
-    _add_data_args(tr)
+    _add_data_args(tr, "--train", "training CSV (header line, last column "
+                   "= label)")
+    tr.add_argument("--test", metavar="CSV",
+                    help="held-out CSV to score (with --train)")
+    tr.add_argument("--mode", choices=("single", "oracle", "cascade", "pod"),
+                    default="single",
+                    help="single = on-device SMO; oracle = the serial NumPy "
+                    "SMO (binary; the reference's main3.cpp); cascade and "
+                    "pod are not ported yet")
+    tr.add_argument("--preset", choices=sorted(DATASET_PRESETS),
+                    default=None, help="named (C, gamma) preset (overrides "
+                    "--C and --gamma)")
     tr.add_argument("--C", type=float, default=10.0)
     tr.add_argument("--gamma", type=float, default=0.00125)
+    tr.add_argument("--tau", type=float, default=1e-5)
+    tr.add_argument("--eps", type=float, default=1e-12)
+    tr.add_argument("--sv-tol", type=float, default=1e-8)
+    tr.add_argument("--accum", choices=("none", "float64"), default="float64",
+                    help="solver accumulator dtype: float64 (default; f32 "
+                    "features, f64 alpha and f) or none (the features' f32)")
+    tr.add_argument("--no-scale", action="store_true",
+                    help="skip min-max feature scaling")
     tr.add_argument("--solver", choices=("blocked", "pair"), default=None,
                     help="blocked working-set solver (default; binary and "
                     "svr) or pair (one pair per iteration; the default with "
@@ -90,39 +128,94 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--calibrate", type=int, default=0, metavar="K",
                     help="fit Platt-scaled predict_proba on K held-out "
                     "folds after training (binary --task svc)")
+    tr.add_argument("--checkpoint", metavar="NPZ",
+                    help="crash-safe training (binary, blocked solver): "
+                    "write the solver's outer-loop carry here every "
+                    "--checkpoint-every rounds (atomic; a resumed run is "
+                    "bit-identical to an uninterrupted one)")
+    tr.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint if it exists (a missing "
+                    "file means a fresh run)")
+    tr.add_argument("--checkpoint-every", type=int, default=64, metavar="K",
+                    help="checkpoint cadence in outer rounds (default 64)")
+    tr.add_argument("--shrink-every", type=int, default=0, metavar="E",
+                    help="active-set shrinking (blocked solver, binary or "
+                    "svr): every E outer rounds, freeze the rows at a bound "
+                    "and Keerthi-safe for --shrink-stable rounds and compact "
+                    "the rest into a power-of-two bucket; an un-shrink "
+                    "rebuilds f and the unshrunk criterion decides. 0 = off")
+    tr.add_argument("--shrink-stable", type=int, default=3, metavar="S",
+                    help="rounds a row must stay at a bound and safe before "
+                    "--shrink-every may freeze it (default 3)")
     tr.add_argument("--save", metavar="PATH", help="write the model .npz")
     pr = sub.add_parser("predict", help="score a saved model")
-    _add_data_args(pr)
+    _add_data_args(pr, "--data", "CSV to score (header line, last column = "
+                   "label)")
     pr.add_argument("--model", metavar="PATH", required=True,
                     help="an artifact of either package (a one-vs-rest "
                     "model scores mnist_like as its 10-class draw)")
+    inf = sub.add_parser("info", help="print the torch/CUDA versions and the "
+                         "visible devices, or describe a model artifact")
+    inf.add_argument("path", nargs="?", default=None,
+                     help="a model .npz of either package")
     return ap
 
 
-def _data(args, multiclass: bool = False):
-    """(X_train, Y_train, X_test, Y_test): the test slice is the tail."""
+def _synthetic(args, multiclass: bool):
     total = args.n + args.n_test
     if args.synthetic == "mnist_like_multiclass" or (
             args.synthetic == "mnist_like" and multiclass):
-        X, Y = mnist_like_multiclass(n=total, d=args.d, seed=args.seed,
+        return mnist_like_multiclass(n=total, d=args.d, seed=args.seed,
                                      noise=BENCH_NOISE_MULTICLASS)
-    elif args.synthetic == "mnist_like":
-        X, Y = mnist_like(n=total, d=args.d, seed=args.seed,
+    if args.synthetic == "mnist_like":
+        return mnist_like(n=total, d=args.d, seed=args.seed,
                           noise=BENCH_NOISE, label_noise=BENCH_LABEL_NOISE)
-    elif args.synthetic == "blobs":
-        X, Y = blobs(n=total, d=args.d, seed=args.seed)
-    elif args.synthetic == "svr_sine":
-        X, Y = svr_sine(n=total, d=args.d, seed=args.seed)
-    else:
-        X, Y = rings(n=total, seed=args.seed)
-    return X[:args.n], Y[:args.n], X[args.n:], Y[args.n:]
+    if args.synthetic == "blobs":
+        return blobs(n=total, d=args.d, seed=args.seed)
+    if args.synthetic == "svr_sine":
+        return svr_sine(n=total, d=args.d, seed=args.seed)
+    return rings(n=total, seed=args.seed)
+
+
+def _read(path: str, args, task: str, n_limit=None):
+    """(X, Y) of a CSV: continuous targets for svr, raw labels for
+    one-vs-rest, else the binary `!= positive_label -> -1` mapping."""
+    if task == "svr":
+        return read_csv_regression(path, n_limit=n_limit)
+    return read_csv(path, n_limit=n_limit, binary=task != "ovr",
+                    positive_label=args.positive_label)
+
+
+def _data(args, task: str = "svc"):
+    """(X_train, Y_train, X_test, Y_test); the test side is None without
+    --test. A synthetic draw's test slice is its tail, so --n-limit cuts
+    the training rows without moving the test rows."""
+    if (args.train is None) == (args.synthetic is None):
+        raise SystemExit("pass exactly one of --train / --synthetic")
+    if args.train:
+        X, Y = _read(args.train, args, task, args.n_limit)
+        Xt = Yt = None
+        if args.test:
+            Xt, Yt = _read(args.test, args, task)
+        return X, Y, Xt, Yt
+    X, Y = _synthetic(args, task == "ovr")
+    total = args.n + args.n_test
+    n = args.n if args.n_limit is None else min(args.n, args.n_limit)
+    return X[:n], Y[:n], X[total - args.n_test:], Y[total - args.n_test:]
 
 
 def _check_train_args(args) -> None:
     """The JAX command line's refusals of flag combinations."""
     if args.task == "ovr":
         args.multiclass = True
+    if args.mode in ("cascade", "pod"):
+        raise SystemExit(f"--mode {args.mode} is not ported yet (ROADMAP "
+                         "Queue 1 item 9)")
+    if args.test and not args.train:
+        raise SystemExit("--test scores a held-out CSV; it needs --train")
     if args.task == "svr":
+        if args.mode != "single":
+            raise SystemExit("--task svr requires --mode single")
         if args.multiclass:
             raise SystemExit("--task svr is a regression task; "
                              "--multiclass does not apply")
@@ -135,10 +228,12 @@ def _check_train_args(args) -> None:
     if args.synthetic == "mnist_like_multiclass" and not args.multiclass:
         raise SystemExit("--synthetic mnist_like_multiclass generates class "
                          "ids; it requires --multiclass")
+    if args.multiclass and args.mode != "single":
+        raise SystemExit("--multiclass currently supports --mode single")
     if args.calibrate:
         if args.calibrate < 2:
             raise SystemExit("--calibrate needs >= 2 folds")
-        if args.multiclass:
+        if args.multiclass or args.mode != "single":
             raise SystemExit("--calibrate applies to binary --mode single "
                              "training (Platt scaling of the binary "
                              "decision function)")
@@ -146,6 +241,37 @@ def _check_train_args(args) -> None:
         raise SystemExit(f"--kernel {args.kernel}: the approximate-kernel "
                          "feature maps are not ported yet (ROADMAP Queue 1 "
                          "item 10)")
+    if args.mode == "oracle" and (args.solver_opt or args.shrink_every):
+        raise SystemExit("--solver-opt/--shrink-every have no effect on "
+                         "--mode oracle (the NumPy oracle has no solver "
+                         "knobs)")
+    solver = args.solver or ("pair" if args.multiclass else "blocked")
+    if args.resume and not args.checkpoint:
+        raise SystemExit("--resume requires --checkpoint")
+    if args.checkpoint:
+        if args.mode == "oracle":
+            raise SystemExit("--checkpoint applies to --mode single "
+                             "(solver-state checkpoints); the NumPy oracle "
+                             "has no checkpointable structure")
+        if args.multiclass or args.task == "svr" or solver != "blocked":
+            raise SystemExit(
+                "--checkpoint with --mode single needs the binary blocked "
+                "solver (the outer-loop carry is what gets persisted)")
+        if args.checkpoint_every < 1:
+            raise SystemExit("--checkpoint-every must be >= 1")
+    if args.shrink_every:
+        if args.shrink_every < 1:
+            raise SystemExit("--shrink-every must be >= 1")
+        if solver != "blocked":
+            raise SystemExit("--shrink-every needs the blocked solver "
+                             "(working-set rounds are what gets compacted)")
+        if args.checkpoint:
+            raise SystemExit(
+                "--shrink-every and --checkpoint both segment the outer "
+                "loop and cannot be combined yet")
+        if args.multiclass:
+            raise SystemExit("--shrink-every supports binary/svr --mode "
+                             "single training for now")
 
 
 def _parse_solver_opts(items) -> dict:
@@ -204,32 +330,76 @@ def _accuracy_line(model, Xt, Yt, timer, task: str = "svc") -> None:
         print(f"accuracy = {acc:.4f} ({round(acc * m)}/{m})")
 
 
+def _config(args) -> SVMConfig:
+    kw = dict(tau=args.tau, eps=args.eps, sv_tol=args.sv_tol,
+              max_iter=args.max_iter, kernel=args.kernel, degree=args.degree,
+              coef0=args.coef0, epsilon=args.epsilon)
+    try:
+        if args.preset:
+            return preset(args.preset, **kw)
+        return SVMConfig(C=args.C, gamma=args.gamma, **kw)
+    except ValueError as e:
+        raise SystemExit(f"train: {e}")
+
+
+def _fit_oracle(X, Y, cfg: SVMConfig, device):
+    """The serial NumPy SMO behind the BinarySVC surface, on min-max scaled
+    rows (as the JAX command line runs it, --no-scale or not)."""
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.oracle import get_sv_indices, smo_train
+
+    model = BinarySVC(config=cfg, device=device)
+    model.scaler_ = MinMaxScaler().fit(X)
+    Xs = model.scaler_.transform(X)
+    res = smo_train(Xs, Y, cfg)
+    sv = get_sv_indices(res.alpha, cfg.sv_tol)
+    model.sv_X_ = Xs[sv]
+    model.sv_Y_ = np.asarray(Y)[sv].astype(np.int32)
+    model.sv_alpha_ = res.alpha[sv]
+    model.sv_ids_ = sv.astype(np.int32)
+    model.b_ = res.b
+    model.b_high_ = res.b_high
+    model.b_low_ = res.b_low
+    model.n_iter_ = res.n_iter
+    model.status_ = res.status
+    return model
+
+
 def cmd_train(args) -> int:
     from tpusvm_torch.models import BinarySVC, EpsilonSVR, OneVsRestSVC
 
     _check_train_args(args)
+    cfg = _config(args)
+    task = "ovr" if args.multiclass else args.task
     timer = _Timer()
     t = time.perf_counter()
-    X, Y, Xt, Yt = _data(args, args.multiclass)
+    X, Y, Xt, Yt = _data(args, task)
     timer.add("data", t)
     print(f"n = {X.shape[0]}, n_features = {X.shape[1]}")
-    cfg = SVMConfig(C=args.C, gamma=args.gamma, max_iter=args.max_iter,
-                    kernel=args.kernel, degree=args.degree, coef0=args.coef0,
-                    epsilon=args.epsilon)
     solver = args.solver or ("pair" if args.multiclass else "blocked")
     opts = (dict(q=args.q, wss=args.wss, max_inner=args.max_inner)
             if solver == "blocked" else {})
     opts.update(_parse_solver_opts(args.solver_opt))
+    if args.shrink_every:
+        if "shrink_every" in opts:
+            raise SystemExit("--shrink-every and --solver-opt shrink_every= "
+                             "are the same knob; pass one")
+        opts["shrink_every"] = args.shrink_every
+        opts.setdefault("shrink_stable", args.shrink_stable)
     common = dict(config=cfg, device=args.device, solver=solver,
-                  solver_opts=opts)
-    if args.task == "svr":
-        model = EpsilonSVR(**common)
-    elif args.multiclass:
-        model = OneVsRestSVC(**common)
-    else:
-        model = BinarySVC(**common)
+                  solver_opts=opts, scale=not args.no_scale,
+                  accum_dtype="auto" if args.accum == "float64" else None)
     t = time.perf_counter()
-    model.fit(X, Y)
+    if args.mode == "oracle":
+        model = _fit_oracle(X, Y, cfg, args.device)
+    elif args.task == "svr":
+        model = EpsilonSVR(**common).fit(X, Y)
+    elif args.multiclass:
+        model = OneVsRestSVC(**common).fit(X, Y)
+    else:
+        model = BinarySVC(**common).fit(
+            X, Y, checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every, resume=args.resume)
     timer.add("training", t)
     if args.multiclass:
         print(f"classes = {[int(c) for c in model.classes_]}")
@@ -247,7 +417,8 @@ def cmd_train(args) -> int:
         model.calibrate(X, Y, folds=args.calibrate)
         timer.add("calibration", t)
         print("calibrated: Platt A=%.6f B=%.6f" % model.platt_)
-    _accuracy_line(model, Xt, Yt, timer, args.task)
+    if Xt is not None:
+        _accuracy_line(model, Xt, Yt, timer, task)
     if args.save:
         model.save(args.save)
         print(f"model saved to {args.save}")
@@ -261,7 +432,13 @@ def cmd_predict(args) -> int:
     timer = _Timer()
     kind = model_task(args.model)
     t = time.perf_counter()
-    _, _, Xt, Yt = _data(args, kind == "ovr")
+    if (args.data is None) == (args.synthetic is None):
+        raise SystemExit("pass exactly one of --data / --synthetic")
+    if args.data:
+        Xt, Yt = _read(args.data, args, kind, args.n_limit)
+    else:
+        _, _, Xt, Yt = _data(argparse.Namespace(**vars(args), train=None,
+                                                test=None), kind)
     timer.add("data", t)
     model = load_any(args.model, device=args.device)
     if kind == "ovr":
@@ -274,9 +451,103 @@ def cmd_predict(args) -> int:
     return 0
 
 
+def _info_devices() -> int:
+    import torch
+
+    print(f"torch {torch.__version__}")
+    print(f"cuda {torch.version.cuda}")
+    if not torch.cuda.is_available():
+        print("no CUDA device is visible (train and predict need "
+              "--device cpu here)")
+        return 0
+    for i in range(torch.cuda.device_count()):
+        p = torch.cuda.get_device_properties(i)
+        print(f"  cuda:{i} {p.name}, compute capability {p.major}.{p.minor}, "
+              f"{p.total_memory / 2 ** 30:.1f} GiB")
+    return 0
+
+
+def _info_artifact(path: str) -> int:
+    """The JAX command line's description of a model artifact. The other
+    artifact kinds it describes belong to modules not ported yet."""
+    import json
+    import os
+    import zipfile
+
+    from tpusvm_torch.models import load_model, model_task
+
+    if os.path.isdir(path):
+        raise SystemExit(f"info: {path!r} is a directory; sharded datasets "
+                         "are not ported yet (ROADMAP Queue 1 item 11)")
+    if not zipfile.is_zipfile(path):
+        try:
+            with open(path) as f:
+                json.load(f)
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"info: {path!r} is not a readable model "
+                             f"artifact ({e})")
+        raise SystemExit(f"info: {path!r} is a JSON file; tune results and "
+                         "tenant stores are not ported yet (ROADMAP Queue 1 "
+                         "item 11)")
+    try:
+        task = model_task(path)
+        state, config = load_model(path)
+    except NotImplementedError as e:
+        raise SystemExit(f"info: {e}")
+    except (OSError, ValueError, KeyError) as e:
+        raise SystemExit(f"info: {path!r} is not a readable model artifact "
+                         f"({e})")
+    kind = {"ovr": "multiclass (one-vs-rest)", "svr": "epsilon-SVR"}.get(
+        task, "binary")
+    print(f"model: {kind}")
+    n_feat = state["sv_X"].shape[1]
+    if task == "ovr":
+        print(f"classes: {state['classes'].tolist()}")
+        print(f"SV union: {state['sv_X'].shape[0]}")
+        print(f"n_features: {n_feat}")
+    else:
+        sv_key = "sv_coef" if task == "svr" else "sv_alpha"
+        print(f"SV count: {len(state[sv_key])}")
+        print(f"n_features: {n_feat}")
+        print(f"b = {float(state['b']):.15f}")
+    kern = f"kernel: {config.kernel}"
+    if config.kernel == "poly":
+        kern += f" (degree={config.degree} coef0={config.coef0:g})"
+    if config.kernel == "sigmoid":
+        kern += f" (coef0={config.coef0:g})"
+    print(kern)
+    print(f"config: C={config.C:g} gamma={config.gamma:g} "
+          f"tau={config.tau:g} sv_tol={config.sv_tol:g}"
+          + (f" epsilon={config.epsilon:g}" if task == "svr" else ""))
+    print(f"scaled: {bool(state.get('scale', False))}")
+    if task in ("svc", "svr"):
+        prec = (str(state["train_precision"])
+                if "train_precision" in state else "f32")
+        se = int(state["shrink_every"]) if "shrink_every" in state else 0
+        shrink = (f"every {se} rounds (stable {int(state['shrink_stable'])})"
+                  if se else "off")
+        print(f"trained: precision={prec} shrinking={shrink}")
+        if "cascade_topology" in state:
+            print(f"cascade: topology={str(state['cascade_topology'])} "
+                  f"leaves={int(state['cascade_leaves'])} "
+                  f"rounds={int(state['cascade_rounds'])}")
+    if task == "svc":
+        if "platt_a" in state:
+            print(f"calibrated: yes (Platt A={float(state['platt_a']):.6f} "
+                  f"B={float(state['platt_b']):.6f})")
+        else:
+            print("calibrated: no")
+    return 0
+
+
+def cmd_info(args) -> int:
+    return _info_artifact(args.path) if args.path else _info_devices()
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"train": cmd_train, "predict": cmd_predict}[args.cmd](args)
+    return {"train": cmd_train, "predict": cmd_predict,
+            "info": cmd_info}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -75,3 +75,22 @@ def resolve_accum_dtype(accum_dtype):
             )
         return torch.float64
     return accum_dtype
+
+
+# Named dataset presets mirroring the reference's edit-in-place dataset
+# switch (main3.cpp:308-313): each maps to (C, gamma). A copy of the JAX
+# package's DATASET_PRESETS.
+DATASET_PRESETS = {
+    "mnist": (10.0, 0.00125),
+    "banknote": (1.0, 0.125),
+    "debug": (1.0, 0.125),
+}
+
+
+def preset(name: str, **overrides) -> SVMConfig:
+    """An SVMConfig from a named dataset preset, with field overrides."""
+    if name not in DATASET_PRESETS:
+        raise ValueError(f"unknown preset {name!r}; known: "
+                         f"{sorted(DATASET_PRESETS)}")
+    C, gamma = DATASET_PRESETS[name]
+    return dataclasses.replace(SVMConfig(C=C, gamma=gamma), **overrides)

@@ -98,6 +98,10 @@ class OneVsRestSVC:
             Xs = self.scaler_.transform(X)
         else:
             Xs = X
+        if "shrink_every" in self.solver_opts:
+            raise ValueError(
+                "shrink_every supports binary and svr training; the JAX "
+                "package's one-vs-rest does not route it either")
         Xd = torch.as_tensor(np.asarray(Xs, np.float32), device=dev)
         if self.solver == "pair" and self.batched:
             res = smo_solve_batched(

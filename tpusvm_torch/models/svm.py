@@ -24,7 +24,9 @@ from tpusvm_torch.device import resolve_device
 from tpusvm_torch.kernels.platt import fit_platt, platt_proba
 from tpusvm_torch.models.serialization import load_model, save_model
 from tpusvm_torch.solver.blocked import blocked_smo_solve
+from tpusvm_torch.solver.checkpoint import checkpointed_blocked_solve
 from tpusvm_torch.solver.predict import decision_function as _decision
+from tpusvm_torch.solver.shrink import shrinking_blocked_solve
 from tpusvm_torch.solver.smo import smo_solve
 from tpusvm_torch.status import Status
 from tpusvm_torch.tune.folds import stratified_kfold
@@ -39,18 +41,54 @@ def check_solver(solver: str) -> None:
 
 
 def solve(solver: str, X, Y, cfg: SVMConfig, accum_dtype, opts: dict,
-          device, **kw):
+          device, *, checkpoint: Optional[dict] = None, **kw):
     """One solve of `solver` with the config's hyperparameters; kw adds
-    targets, sn or warm-start arguments."""
-    if "shrink_every" in opts:
-        raise NotImplementedError(
-            "shrink_every (active-set shrinking) is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
-    fn = blocked_smo_solve if solver == "blocked" else smo_solve
-    return fn(X, Y, C=cfg.C, gamma=cfg.gamma, eps=cfg.eps, tau=cfg.tau,
+    targets, sn or warm-start arguments. As the JAX estimators route it:
+    solver_opts' shrink_every (with shrink_min, shrink_gap_factor,
+    max_unshrinks; shrink_stable defaults to 3) runs
+    shrinking_blocked_solve, and `checkpoint` (checkpoint_path,
+    checkpoint_every, resume) checkpointed_blocked_solve, both on the
+    blocked solver only and not together."""
+    opts = dict(opts)
+    shrink_every = opts.pop("shrink_every", 0)
+    shrink_kw = {k: opts.pop(k) for k in
+                 ("shrink_min", "shrink_gap_factor", "max_unshrinks")
+                 if k in opts}
+    kw = dict(C=cfg.C, gamma=cfg.gamma, eps=cfg.eps, tau=cfg.tau,
               max_iter=cfg.max_iter, kernel=cfg.kernel, degree=cfg.degree,
               coef0=cfg.coef0, accum_dtype=resolve_accum_dtype(accum_dtype),
               device=device, **kw, **opts)
+    if shrink_every and solver != "blocked":
+        raise ValueError(
+            "shrink_every drives the blocked solver's outer loop in "
+            "compacted segments (solver/shrink.py); the pair solver has no "
+            "working-set rounds to shrink")
+    if checkpoint is not None:
+        if solver != "blocked":
+            raise ValueError(
+                "checkpoint_path requires the blocked solver (the outer-loop "
+                "carry is what gets persisted); the pair solver has no "
+                "checkpointable round structure")
+        if shrink_every:
+            raise ValueError(
+                "checkpoint_path and shrink_every both segment the outer "
+                "loop and cannot be combined yet (the checkpoint carry would "
+                "span changing compaction buckets)")
+        return checkpointed_blocked_solve(X, Y, **checkpoint, **kw)
+    if shrink_every:
+        kw.setdefault("shrink_stable", 3)
+        return shrinking_blocked_solve(
+            X, Y, shrink_every=shrink_every,
+            shrink_stable=kw.pop("shrink_stable"), **shrink_kw, **kw)
+    fn = blocked_smo_solve if solver == "blocked" else smo_solve
+    return fn(X, Y, **kw)
+
+
+def shrink_provenance(opts: dict):
+    """(shrink_every, shrink_stable) a fit with these solver_opts ran
+    under, as the JAX estimators record them."""
+    every = int(opts.get("shrink_every", 0))
+    return every, int(opts.get("shrink_stable", 3 if every else 0))
 
 
 def get_sv_indices(alpha: np.ndarray, tol: float = 1e-8) -> np.ndarray:
@@ -68,7 +106,9 @@ class BinarySVC:
     solver's knobs (blocked: q, max_outer, max_inner, wss, inner,
     fused_fupdate, pallas_eta_exclude, pallas_multipair,
     pallas_fused_selection and the JAX solver's other knobs, as
-    solver/blocked.py lists them; pair: chunk, graph). device: where fit and scoring run ("cuda" unless the caller
+    solver/blocked.py lists them, and shrinking_blocked_solve's
+    shrink_every, shrink_min, shrink_gap_factor and max_unshrinks; pair:
+    chunk, graph). device: where fit and scoring run ("cuda" unless the caller
     asks for "cpu"). After calibrate(), platt_ = (A, B) and predict_proba
     is available.
     """
@@ -100,6 +140,9 @@ class BinarySVC:
         self.fit_phases_: dict = {}
         self.result_ = None
         self.platt_: Optional[tuple] = None
+        # the shrinking cadence of the fit (artifact provenance)
+        self.shrink_every_: int = 0
+        self.shrink_stable_: int = 0
 
     def _scale_fit(self, X: np.ndarray) -> np.ndarray:
         if self.scale:
@@ -108,11 +151,16 @@ class BinarySVC:
         return X
 
     def fit(self, X: np.ndarray, Y: np.ndarray,
-            checkpoint_path: Optional[str] = None) -> "BinarySVC":
-        if checkpoint_path is not None:
-            raise NotImplementedError(
-                "checkpoint_path (crash-safe solver checkpoints) is not "
-                "ported yet (ROADMAP Queue 1 item 7)")
+            checkpoint_path: Optional[str] = None,
+            checkpoint_every: int = 64,
+            resume: bool = False) -> "BinarySVC":
+        """Scale, solve, extract the SVs.
+
+        checkpoint_path (blocked solver only): the solver's outer-loop
+        carry is written atomically every `checkpoint_every` outer rounds,
+        and resume=True restarts from the file, bit-identical to an
+        uninterrupted fit (solver/checkpoint.py; a missing file means a
+        fresh start)."""
         dev = resolve_device(self.device)
         phases = {}
         t0 = t = time.perf_counter()
@@ -132,13 +180,19 @@ class BinarySVC:
         Xd = torch.as_tensor(X32, device=dev)
         Yd = torch.as_tensor(np.asarray(Y), device=dev)
         span("to_device")
+        ckpt = None
+        if checkpoint_path is not None:
+            ckpt = dict(checkpoint_path=checkpoint_path,
+                        checkpoint_every=checkpoint_every, resume=resume)
         res = solve(self.solver, Xd, Yd, cfg, self.accum_dtype,
-                    self.solver_opts, dev)
+                    self.solver_opts, dev, checkpoint=ckpt)
         span("solve")
         alpha = res.alpha.cpu().numpy()  # device->host copy: completion
         span("to_host")
         self.train_time_s_ = time.perf_counter() - t0
         self.result_ = res
+        self.shrink_every_, self.shrink_stable_ = shrink_provenance(
+            self.solver_opts)
         sv = get_sv_indices(alpha, cfg.sv_tol)
         self.sv_X_ = Xs[sv]
         self.sv_Y_ = np.asarray(Y)[sv].astype(np.int32)
@@ -240,11 +294,11 @@ class BinarySVC:
             state["scaler_max"] = self.scaler_.max_val
         if self.platt_ is not None:
             state["platt_a"], state["platt_b"] = self.platt_
-        # training provenance of the v3+ format: this port trains at full
-        # f32 with no shrinking
+        # training provenance of the v3+ format: the port trains at full
+        # f32; the shrinking cadence it was trained under
         state["train_precision"] = "f32"
-        state["shrink_every"] = 0
-        state["shrink_stable"] = 0
+        state["shrink_every"] = self.shrink_every_
+        state["shrink_stable"] = self.shrink_stable_
         save_model(path, state, self.config)
 
     @classmethod
@@ -261,6 +315,9 @@ class BinarySVC:
                                          max_val=state["scaler_max"])
         if "platt_a" in state:
             model.platt_ = (float(state["platt_a"]), float(state["platt_b"]))
+        if "shrink_every" in state:
+            model.shrink_every_ = int(state["shrink_every"])
+            model.shrink_stable_ = int(state["shrink_stable"])
         model.status_ = Status.CONVERGED
         return model
 

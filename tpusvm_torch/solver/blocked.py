@@ -21,6 +21,14 @@ round: one reads the stop check, one reads the inner kernel's status. The
 inner loop never returns to the host on the kernel path (the "loop" engine
 is the eager port of the reference's while loop, used on unaligned q and for
 the zero-progress rescue).
+
+Around the rounds, as in the JAX package: refine (a convergence claim on
+the accumulated f is judged again on an f rebuilt from the live alphas),
+shrink_stable (per-row stability counters shrinking_blocked_solve reads),
+krow_cache (an LRU cache of K rows for the f-update), and the outer-loop
+carry `OuterState`, which holds everything the next round reads, so that a
+solve paused with pause_at and resumed with resume_state equals the
+uninterrupted solve bit for bit (solver/checkpoint.py, solver/shrink.py).
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import dataclasses
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tpusvm_torch import kernels
@@ -37,7 +46,7 @@ from tpusvm_torch.ops.cuda.fused_fupdate import (fused_fupdate_select_kernel,
                                                  rbf_cross_matvec_kernel,
                                                  selection_shape)
 from tpusvm_torch.ops.cuda.inner_smo import check_multipair, inner_smo_kernel
-from tpusvm_torch.ops.rbf import rbf_cross_matvec, sq_norms
+from tpusvm_torch.ops.rbf import coef_matvec, rbf_cross_matvec, sq_norms
 from tpusvm_torch.ops.selection import i_high_mask, i_low_mask
 from tpusvm_torch.solver.analytic import pair_update
 from tpusvm_torch.status import Status
@@ -57,6 +66,82 @@ class SMOResult:
     n_rescue: int         # kernel rounds redone with the loop engine
     n_host_syncs: int     # outer-loop host synchronisations
     host_wait_s: float    # host seconds spent blocked at those syncs
+    n_refines: int = 0    # f rebuilds before a convergence claim (refine)
+    cache_hits: Optional[int] = None    # K rows served by the cache
+    cache_misses: Optional[int] = None  # K rows computed fresh
+    # shrinking_blocked_solve's events (solver/shrink.py), None without it
+    shrink_history: Optional[list] = None
+
+
+@dataclasses.dataclass
+class OuterState:
+    """The outer loop's carry: everything the next round reads, so a solve
+    run in segments (pause_at, then resume_state) equals one run straight
+    through, bit for bit. The field names are the JAX package's _OuterState
+    names where the meaning is the same; n_rescue, n_host_syncs and
+    host_wait_s are the port's own counters. Tensors live on the solve's
+    device (numpy arrays after load_solver_state); scalars are python
+    numbers."""
+
+    alpha: torch.Tensor       # (n,) accum dtype
+    f: torch.Tensor           # (n,) accum dtype
+    b_high: float
+    b_low: float
+    n_updates: int
+    n_outer: int
+    n_rescue: int
+    n_host_syncs: int
+    host_wait_s: float
+    status: int
+    f_exact: bool             # f rebuilt from alpha, no deltas on top since
+    n_refines: int
+    stable: torch.Tensor      # (n,) int32 stability counters; (0,) when off
+    cache: torch.Tensor       # (slots, n) float32 K rows; (0, n) when off
+    cache_keys: torch.Tensor  # (slots,) int32 training-row index, -1 empty
+    cache_age: torch.Tensor   # (slots,) int32 rounds since last touch
+    cache_hits: int
+    cache_misses: int
+    cand_up_val: torch.Tensor   # fused-selection candidates; (0,) when off
+    cand_up_idx: torch.Tensor
+    cand_low_val: torch.Tensor
+    cand_low_idx: torch.Tensor
+
+    TENSORS = ("alpha", "f", "stable", "cache", "cache_keys", "cache_age",
+               "cand_up_val", "cand_up_idx", "cand_low_val", "cand_low_idx")
+
+    def to(self, device) -> "OuterState":
+        """A copy on `device`: tensors (or numpy arrays) copied, so that the
+        solve that resumes from it never writes into this one."""
+        out = dataclasses.replace(self)
+        for name in self.TENSORS:
+            v = getattr(self, name)
+            setattr(out, name, torch.as_tensor(v).to(device, copy=True))
+        return out
+
+    def arrays(self) -> dict:
+        """Every field as a numpy array (one device-to-host copy each)."""
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            out[f.name] = (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                           else np.asarray(v))
+        return out
+
+    @classmethod
+    def from_arrays(cls, arrays) -> "OuterState":
+        """The inverse of arrays(): tensors stay numpy until to(device)."""
+        kw = {}
+        for f in dataclasses.fields(cls):
+            v = np.asarray(arrays[f.name])
+            if f.name in cls.TENSORS:
+                kw[f.name] = v
+            elif f.name == "f_exact":
+                kw[f.name] = bool(v)
+            elif f.name in ("b_high", "b_low", "host_wait_s"):
+                kw[f.name] = float(v)
+            else:
+                kw[f.name] = int(v)
+        return cls(**kw)
 
 
 # The JAX solver's knobs that are not ported yet: (JAX default, ROADMAP
@@ -64,13 +149,7 @@ class SMOResult:
 # the port already does, so a JAX solver_opts dict written out in full
 # carries over.
 _UNPORTED = {
-    "refine": (0, "7(a)", "the exact-f refine before a convergence claim"),
-    "shrink_stable": (0, "7(b)", "active-set shrinking"),
-    "krow_cache": (0, "7(c)", "the K-row LRU cache"),
     "matmul_precision": (None, "7(d)", "the bf16 contraction rungs"),
-    "resume_state": (None, "7(e)", "solver checkpoints"),
-    "pause_at": (None, "7(e)", "solver checkpoints"),
-    "return_state": (False, "7(e)", "solver checkpoints"),
     "telemetry": (0, "12", "the convergence telemetry ring"),
 }
 
@@ -276,6 +355,68 @@ def select_from_candidates(cands, m_h, half: int):
     return B, ~earlier.any(dim=1)
 
 
+def _cache_lookup(keys, B, dcoef):
+    """(hit, slot_of, all_hit) of the K-row cache for working set B: hit
+    marks members with a cached row, slot_of is the first slot holding it,
+    all_hit (a 0-d tensor) says whether every member that moved is cached
+    (a member with dcoef == 0 contributes nothing to the f-update)."""
+    match = keys[None, :] == B[:, None]  # (q, slots)
+    hit = match.any(dim=1)
+    slot_of = match.to(torch.int8).argmax(dim=1)
+    return hit, slot_of, (hit | (dcoef == 0)).all()
+
+
+def _cache_fupdate(st, lookup, all_hit: bool, dcoef, B, rows_fn):
+    """df = K(X, X_B) @ dcoef served from the cache when every moved member
+    hits, else from all q rows computed fresh (rows_fn()), which then replace
+    the empty slots first and the oldest after them. Updates the cache,
+    keys, ages and hit/miss counts of `st` in place; returns df (n,) f32."""
+    hit, slot_of, _ = lookup
+    q = dcoef.shape[0]
+    dc32 = dcoef.to(torch.float32)
+    age = st.cache_age + 1
+    if all_hit:
+        # an unmoved member's slot_of is arbitrary: its coefficient is 0
+        dc = torch.where(hit, dc32, torch.zeros_like(dc32))
+        df = coef_matvec(st.cache[slot_of].T, dc)
+        age[slot_of[hit]] = 0
+        st.cache_hits += q
+    else:
+        rows = rows_fn().to(torch.float32)
+        df = coef_matvec(rows.T, dc32)
+        # empty slots first, then the oldest; ties to the lower slot, as
+        # lax.top_k orders them, so the q targets are distinct
+        score = torch.where(st.cache_keys < 0,
+                            torch.full_like(age, 2 ** 30), age)
+        tgt = torch.sort(score, descending=True, stable=True).indices[:q]
+        st.cache[tgt] = rows
+        st.cache_keys[tgt] = B.to(torch.int32)
+        age[tgt] = 0
+        st.cache_misses += q
+    st.cache_age = age
+    return df
+
+
+def refine_f(X, alpha, yf, z, valid, cap: int, *, kernel: str, sn, kern,
+             kernel_fast: bool = True):
+    """f rebuilt from scratch, K(X, X[idx]) @ (alpha*y)[idx] - z, over the
+    `cap` rows of largest |alpha*y| (every nonzero coefficient whenever the
+    live count fits the cap; the rest add exactly 0); invalid rows 0. RBF
+    runs the fused f-update (kernel #1 on the card, its plain version on the
+    CPU)."""
+    coef = alpha * yf
+    idx = _top_k(coef.abs().to(torch.float32), cap, largest=True)
+    c = coef[idx].to(X.dtype)
+    if kernel == "rbf":
+        df = rbf_cross_matvec_kernel(X, X[idx], c, kern["gamma"], sn)
+    else:
+        df = kernels.cross_matvec(kernel, X, X[idx], c, sn=sn,
+                                  fast=kernel_fast, **kern)
+    f = df.to(alpha.dtype) - z
+    return torch.where(valid, f, torch.zeros((), dtype=f.dtype,
+                                             device=f.device))
+
+
 def blocked_smo_solve(
     X,
     Y,
@@ -312,15 +453,15 @@ def blocked_smo_solve(
     shrink_stable: int = 0,
     krow_cache: int = 0,
     telemetry: int = 0,
-    resume_state=None,
-    pause_at=None,
+    resume_state: Optional[OuterState] = None,
+    pause_at: Optional[int] = None,
     return_state: bool = False,
     kernel: str = "rbf",
     degree: int = 3,
     coef0: float = 0.0,
     targets=None,
     device="cuda",
-) -> SMOResult:
+):
     """Train to the reference's stopping criterion with blocked working sets.
 
     X (n, d) float32 and Y (n,) in {+1, -1} (tensors or numpy arrays) are
@@ -348,6 +489,34 @@ def blocked_smo_solve(
     fused_selection are short aliases of these three; giving a name and
     its alias together raises ValueError.
 
+    refine (R > 0): a convergence claim on the accumulated f, while the
+    live count (alpha > 0) fits min(R, n) and fewer than max_refines
+    rebuilds have run, rebuilds f from the top-min(R, n) |alpha*y| rows
+    (`refine_f`) and is judged again on that f. The decision rides on the
+    stop check's host sync. Refused with fused selection, whose carried
+    candidates a rebuilt f would orphan.
+
+    shrink_stable (S > 0): per-row counters of consecutive rounds at a
+    bound and unable to join a violating pair at the round's band,
+    written every round and never read by the solve (so the solution is
+    bit-identical to S = 0); solver/shrink.py reads them between segments.
+
+    krow_cache (slots > 0, slots >= q): a (slots, n) float32 cache of K
+    rows keyed by training-row index. A round whose moved members are all
+    cached computes its f-update from the cached rows; any miss computes
+    all q rows (kernels.rows_at, full-f32 matmul), uses them, and stores
+    them in the empty, then oldest, slots. The f-update then takes the
+    rows path: fused_fupdate="auto" resolves to it, True is refused.
+    SMOResult.cache_hits / cache_misses count rows by source.
+
+    resume_state / pause_at / return_state: the loop in segments.
+    pause_at=k stops at the top of the round when n_outer has reached k
+    (or the solve ended); return_state=True returns (SMOResult,
+    OuterState); resume_state continues from such a state (alpha0,
+    warm_start, f0 and targets are then unused: the state is the solve).
+    A solve paused and resumed any number of times equals the
+    uninterrupted one bit for bit.
+
     The JAX solver's other knobs, so that its solver_opts carry over:
     selection ("auto", "exact" or "approx") always selects exactly, by
     sorts: approx_min_k exists only on the TPU. pallas_layout ("packed"
@@ -355,19 +524,17 @@ def blocked_smo_solve(
     registers, which a CUDA kernel does not have. kernel_fast (linear
     family only) picks the primal f-update (True) or the generic blocked
     one (False), as in the JAX package. matmul_precision None, "float32"
-    and "highest" are the port's full-f32 contractions. max_refines caps
-    the refines, so, as in the JAX package, it does nothing while refine
-    is 0. The knobs that are not ported yet raise NotImplementedError
-    naming their ROADMAP Queue 1 item unless they are at their JAX
-    default: refine (7(a)), shrink_stable (7(b)), krow_cache (7(c)), the bf16
-    matmul_precision rungs (7(d)), resume_state, pause_at and return_state
-    (7(e)), telemetry (12).
+    and "highest" are the port's full-f32 contractions. The knobs that
+    are not ported yet raise NotImplementedError naming their ROADMAP
+    Queue 1 item unless they are at their JAX default: the bf16
+    matmul_precision rungs (7(d)) and telemetry (12).
 
     kernel, degree, coef0: the family (kernels/): K_BB and, off RBF, the
     f-update and the warm start go through kernels.cross / cross_matvec /
     matvec; the inner kernels read only K_BB, so they run for every
     family. targets: pseudo-targets z replacing the labels in
-    f = K(alpha*y) - z (epsilon-SVR); they enter f0 only.
+    f = K(alpha*y) - z (epsilon-SVR); they enter f0 and the refine
+    rebuild only.
     """
     kernels.validate_family(kernel)
     if kernels.is_approx(kernel):
@@ -390,16 +557,18 @@ def blocked_smo_solve(
             f"pallas_layout must be packed|flat, got {pallas_layout!r}")
     if matmul_precision not in (None, "float32", "highest"):
         _unported("matmul_precision", matmul_precision)
-    for name, value in (("refine", refine),
-                        ("shrink_stable", shrink_stable),
-                        ("krow_cache", krow_cache), ("telemetry", telemetry),
-                        ("resume_state", resume_state),
-                        ("pause_at", pause_at),
-                        ("return_state", return_state)):
-        default = _UNPORTED[name][0]
-        at_default = value is None if default is None else value == default
-        if not at_default:
-            _unported(name, value)
+    if telemetry != 0:
+        _unported("telemetry", telemetry)
+    for name, value in (("refine", refine), ("shrink_stable", shrink_stable),
+                        ("krow_cache", krow_cache)):
+        if not isinstance(value, int) or value < 0:
+            raise ValueError(
+                f"{name} must be a non-negative int, got {value!r}")
+    if fused_selection and refine:
+        raise ValueError(
+            "fused_selection carries next-round candidates computed by the "
+            "f-update kernel; refine rebuilds f outside the kernel, which "
+            "would orphan them — use one or the other")
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
     if X.dtype != torch.float32:
@@ -409,8 +578,23 @@ def blocked_smo_solve(
     adt = X.dtype if accum_dtype is None else accum_dtype
     if wss not in (1, 2):
         raise ValueError(f"wss must be 1 or 2, got {wss}")
+    if krow_cache:
+        # the cache serves explicit K rows; the fused f-update never forms
+        # them, so the two are exclusive
+        if fused_fupdate is True:
+            raise ValueError(
+                "krow_cache consults explicit K rows before the f-update; "
+                "the fused f-update (fused_fupdate=True) never forms rows "
+                "to cache — pick one (fused_fupdate='auto' resolves to the "
+                "rows path)")
+        fused_fupdate = False
     q, inner, fused = resolve_solver_config(n, q, inner, fused_fupdate,
                                             kernel)
+    if krow_cache and krow_cache < q:
+        raise ValueError(
+            f"krow_cache={krow_cache} slots cannot hold a full working set "
+            f"(q={q} after clamping): a miss round stores all q fresh rows "
+            "at once — use krow_cache >= q or a smaller q")
     if inner == "kernel" and q % _LANE:
         raise ValueError(
             f"inner='kernel' needs the working-set size to be a multiple of "
@@ -439,9 +623,6 @@ def blocked_smo_solve(
     half = q // 2
     valid = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
              else torch.as_tensor(valid, device=dev).to(torch.bool))
-    alpha = (torch.zeros(n, dtype=adt, device=dev) if alpha0 is None
-             else torch.as_tensor(alpha0, device=dev).to(adt))
-    alpha = torch.where(valid, alpha, torch.zeros((), dtype=adt, device=dev))
     yf = Y.to(adt)
     z = yf if targets is None else torch.as_tensor(targets, device=dev).to(adt)
     if not kernels.needs_norms(kernel):
@@ -455,54 +636,124 @@ def blocked_smo_solve(
                                         fast=kernel_fast, **kern)
     else:
         matvec = rbf_cross_matvec_kernel if fused else rbf_cross_matvec
-    if f0 is not None:
-        f = torch.as_tensor(f0, device=dev).to(adt)
-    elif warm_start:
-        coef = (alpha * yf).to(X.dtype)
-        if kernel == "rbf":
-            f = matvec(X, X, coef, gamma, sn).to(adt) - z
-        else:
-            f = kernels.matvec(kernel, X, coef, **kern).to(adt) - z
-    else:
-        f = -z
-    f = torch.where(valid, f, torch.zeros((), dtype=adt, device=dev))
-
+    zero_a = torch.zeros((), dtype=adt, device=dev)
     if fused_selection:
         sel_block, _, k_cand, ncand = selection_shape(n, X.shape[1], q)
         # invalid rows enter the kernel with y=0, in neither index set
         y_eff = (Y * valid).to(torch.int32)
-        cands = bootstrap_candidates(f, alpha, Y, valid, C, eps, ncand)
 
-    nan = float("nan")
-    b_high = b_low = nan
-    n_updates = n_outer = n_rescue = n_syncs = 0
-    wait_s = 0.0
-    status = Status.RUNNING
+    if resume_state is not None:
+        if resume_state.alpha.shape[0] != n:
+            raise ValueError(
+                f"resume_state is for n={resume_state.alpha.shape[0]} rows, "
+                f"this solve has n={n}")
+        if resume_state.cache.shape[0] != krow_cache:
+            raise ValueError(
+                f"resume_state carries a {resume_state.cache.shape[0]}-slot "
+                f"K-row cache but this solve has krow_cache={krow_cache}; "
+                "resume with the state's setting")
+        if shrink_stable and resume_state.stable.shape[0] != n:
+            raise ValueError(
+                "resume_state carries no stability counters; resume with "
+                "the state's shrink_stable setting")
+        if fused_selection and resume_state.cand_up_val.shape[0] != ncand:
+            raise ValueError(
+                "resume_state carries no fused-selection candidates for "
+                f"this problem ({resume_state.cand_up_val.shape[0]} of "
+                f"{ncand}); resume with the state's fused_selection setting")
+        st = resume_state.to(dev)
+    else:
+        alpha = (torch.zeros(n, dtype=adt, device=dev) if alpha0 is None
+                 else torch.as_tensor(alpha0, device=dev).to(adt))
+        alpha = torch.where(valid, alpha, zero_a)
+        if f0 is not None:
+            f = torch.as_tensor(f0, device=dev).to(adt)
+        elif warm_start:
+            coef = (alpha * yf).to(X.dtype)
+            if kernel == "rbf":
+                f = matvec(X, X, coef, gamma, sn).to(adt) - z
+            else:
+                f = kernels.matvec(kernel, X, coef, **kern).to(adt) - z
+        else:
+            f = -z
+        f = torch.where(valid, f, zero_a)
+        i32, f32 = torch.int32, torch.float32
+        if fused_selection:
+            cands = bootstrap_candidates(f, alpha, Y, valid, C, eps, ncand)
+        else:
+            cands = (torch.zeros(0, dtype=f32, device=dev),
+                     torch.zeros(0, dtype=i32, device=dev)) * 2
+        nan = float("nan")
+        st = OuterState(
+            alpha=alpha, f=f, b_high=nan, b_low=nan, n_updates=0, n_outer=0,
+            n_rescue=0, n_host_syncs=0, host_wait_s=0.0,
+            status=int(Status.RUNNING),
+            # -z (cold start), a warm-start rebuild and a given f0 are all
+            # f as alpha0 gives it
+            f_exact=True, n_refines=0,
+            stable=torch.zeros(n if shrink_stable else 0, dtype=i32,
+                               device=dev),
+            cache=torch.zeros((krow_cache, n), dtype=f32, device=dev),
+            cache_keys=torch.full((krow_cache,), -1, dtype=i32, device=dev),
+            cache_age=torch.zeros(krow_cache, dtype=i32, device=dev),
+            cache_hits=0, cache_misses=0,
+            cand_up_val=cands[0], cand_up_idx=cands[1],
+            cand_low_val=cands[2], cand_low_idx=cands[3])
+
+    refine_cap = min(refine, n) if refine > 0 else 0
     inf = float("inf")
-    while status == Status.RUNNING:
+    while st.status == Status.RUNNING and (pause_at is None
+                                           or st.n_outer < pause_at):
+        alpha, f = st.alpha, st.f
         m_h = i_high_mask(alpha, Y, C, eps, valid)
         m_l = i_low_mask(alpha, Y, C, eps, valid)
         bh = torch.where(m_h, f, inf).min()
         bl = torch.where(m_l, f, -inf).max()
         found_t = m_h.any() & m_l.any()
         conv_t = found_t & (bl <= bh + 2.0 * tau)
-        # host sync 1: the stop check
+        flags = [found_t.to(adt), conv_t.to(adt), bh, bl]
+        if refine_cap:
+            # a rebuild from the top-cap rows is exact only while every
+            # live alpha is among them
+            live = ((alpha > 0) & valid).sum()
+            flags.append((live <= refine_cap).to(adt))
+        # host sync 1: the stop check (and whether a refine fits)
         t_wait = time.perf_counter()
-        found, converged, bh_v, bl_v = torch.stack(
-            [found_t.to(adt), conv_t.to(adt), bh, bl]).tolist()
-        wait_s += time.perf_counter() - t_wait
-        n_syncs += 1
+        found, converged, bh_v, bl_v, *fits = torch.stack(flags).tolist()
+        st.host_wait_s += time.perf_counter() - t_wait
+        st.n_host_syncs += 1
         found, converged = bool(found), bool(converged)
         if found:
-            b_high, b_low = bh_v, bl_v
+            st.b_high, st.b_low = bh_v, bl_v
+            if shrink_stable:
+                # at a bound and unable to join a violating pair at this
+                # round's band: written, never read, by the solve
+                at_bound = (alpha <= eps) | (alpha >= C - eps)
+                unsafe = ((m_h & (f < bl - 2.0 * tau))
+                          | (m_l & (f > bh + 2.0 * tau)))
+                keep = at_bound & ~unsafe & valid
+                st.stable = torch.where(keep, st.stable + 1,
+                                        torch.zeros_like(st.stable))
         if not found:
-            status = Status.NO_WORKING_SET
+            st.status = int(Status.NO_WORKING_SET)
             break
+        if (refine_cap and converged and not st.f_exact
+                and st.n_refines < max_refines and bool(fits[0])):
+            # the claim was made on the accumulated f: judge it again on f
+            # rebuilt from the alphas
+            st.f = refine_f(X, alpha, yf, z, valid, refine_cap,
+                            kernel=kernel, sn=sn, kern=kern,
+                            kernel_fast=kernel_fast)
+            st.f_exact = True
+            st.n_refines += 1
+            continue
         if converged:
-            status = Status.CONVERGED
+            st.status = int(Status.CONVERGED)
             break
 
         if fused_selection:
+            cands = (st.cand_up_val, st.cand_up_idx, st.cand_low_val,
+                     st.cand_low_idx)
             B, is_first = select_from_candidates(cands, m_h, half)
         else:
             B, is_first = select_working_set(f, m_h, m_l, half)
@@ -510,11 +761,13 @@ def blocked_smo_solve(
         y_B = Y[B]
         a_B = alpha[B]
         f_B = f[B]
+        y_Ba = y_B.to(adt)
         # members selected only as +-inf filler (sets smaller than q/2)
         # must not take part in the subproblem
         active_B = valid[B] & is_first & (i_high_mask(a_B, y_B, C, eps)
                                           | i_low_mask(a_B, y_B, C, eps))
         K_BB = kernels.cross(kernel, X_B, X_B, **kern)
+        lookup = None
         if inner == "kernel":
             # the delta is taken against the f32-quantised baseline: the
             # kernel round-trips alpha through f32, so untouched lanes come
@@ -525,11 +778,14 @@ def blocked_smo_solve(
                 max_inner=max_inner, wss=wss, eta_exclude=eta_exclude,
                 multipair=multipair)
             da_B = a_new.to(adt) - a_B_q
-            # host sync 2: the kernel's status
+            if krow_cache:
+                lookup = _cache_lookup(st.cache_keys, B, da_B * y_Ba)
+                stat = torch.cat([stat, lookup[2].to(stat.dtype).view(1)])
+            # host sync 2: the kernel's status (and the cache's verdict)
             t_wait = time.perf_counter()
-            upd, progress, reason, _ = stat.tolist()
-            wait_s += time.perf_counter() - t_wait
-            n_syncs += 1
+            upd, progress, reason, _, *all_hit = stat.tolist()
+            st.host_wait_s += time.perf_counter() - t_wait
+            st.n_host_syncs += 1
             if reason < 0:
                 raise RuntimeError(
                     "inner_smo kernel tripped its iteration guard "
@@ -541,46 +797,64 @@ def blocked_smo_solve(
                     K_BB, y_B, a_B, f_B, active_B, C, eps, tau, max_inner,
                     wss=wss)
                 da_B = a_new - a_B
-                n_rescue += 1
+                st.n_rescue += 1
+                lookup = None
         else:
             a_new, upd, progress, reason = _inner_smo(
                 K_BB, y_B, a_B, f_B, active_B, C, eps, tau, max_inner,
                 wss=wss)
             da_B = a_new - a_B
 
-        dcoef = da_B * y_B.to(adt)
+        dcoef = da_B * y_Ba
+        if krow_cache and lookup is None:
+            # the loop engine or a rescue set da_B: one more sync
+            lookup = _cache_lookup(st.cache_keys, B, dcoef)
+            all_hit = [bool(lookup[2])]
+            st.n_host_syncs += 1
         # index_add_, not a scatter-set: an inactive duplicate carries a
         # zero delta, so a doubly-indexed row stays right
         alpha.index_add_(0, B, da_B)
-        if fused_selection:
+        if krow_cache:
+            df = _cache_fupdate(
+                st, lookup, bool(all_hit[0]), dcoef, B,
+                lambda: kernels.rows_at(kernel, X, B, sn=sn, **kern))
+        elif fused_selection:
             # the epilogue masks with the post-round alphas, and keys on
             # f32(f) + df
             df, *cands = fused_fupdate_select_kernel(
                 X, X_B, dcoef.to(X.dtype), gamma, sn, f.to(torch.float32),
                 alpha.to(torch.float32), y_eff, C, eps, block=sel_block,
                 k_cand=k_cand)
+            (st.cand_up_val, st.cand_up_idx, st.cand_low_val,
+             st.cand_low_idx) = cands
         else:
             df = matvec(X, X_B, dcoef.to(X.dtype), gamma, sn)
-        f = f + df.to(adt)
-        n_outer += 1
-        n_updates += int(upd)
+        st.f = f + df.to(adt)
+        st.f_exact = False
+        st.n_outer += 1
+        st.n_updates += int(upd)
         if not progress:
             # surface the loop engine's numerical bail-out, STALLED otherwise
-            status = (Status(reason) if reason in (Status.INFEASIBLE_UV,
-                                                   Status.NONPOS_ETA)
-                      else Status.STALLED)
-        elif n_updates >= max_iter or n_outer >= max_outer:
-            status = Status.MAX_ITER
+            st.status = int(Status(reason) if reason in (
+                Status.INFEASIBLE_UV, Status.NONPOS_ETA) else Status.STALLED)
+        elif st.n_updates >= max_iter or st.n_outer >= max_outer:
+            st.status = int(Status.MAX_ITER)
 
-    return SMOResult(
-        alpha=alpha,
-        b=(b_high + b_low) / 2.0,
-        b_high=b_high,
-        b_low=b_low,
-        n_iter=n_updates + 1,
-        status=status,
-        n_outer=n_outer,
-        n_rescue=n_rescue,
-        n_host_syncs=n_syncs,
-        host_wait_s=wait_s,
+    result = SMOResult(
+        alpha=st.alpha,
+        b=(st.b_high + st.b_low) / 2.0,
+        b_high=st.b_high,
+        b_low=st.b_low,
+        n_iter=st.n_updates + 1,
+        status=Status(st.status),
+        n_outer=st.n_outer,
+        n_rescue=st.n_rescue,
+        n_host_syncs=st.n_host_syncs,
+        host_wait_s=st.host_wait_s,
+        n_refines=st.n_refines,
+        cache_hits=st.cache_hits if krow_cache else None,
+        cache_misses=st.cache_misses if krow_cache else None,
     )
+    if return_state:
+        return result, st
+    return result
