@@ -42,9 +42,9 @@ Phases, in order (any failure raises and the script exits non-zero):
      and fused-selection kernels' launch counts are read around it and
      must be > 0, it must end CONVERGED with accuracy within 0.002 of
      phase 5's;
-  6. where the time goes: the fits of phases 5 and 5b once more under
-     torch.profiler, device time by kernel and the device's busy share of
-     the wall time;
+  6. where the time goes: the fits of phases 5 and 5b (5b's first 500
+     rounds) once more under torch.profiler, device time by kernel and the
+     device's busy share of the wall time;
   7. the pair solver at full width: phase 5's job with solver="pair" and
      max_iter=10^6, counts set to 0 before it and read after (pair_rows
      must have launched, at most one host sync a chunk plus one), CONVERGED,
@@ -83,7 +83,21 @@ Phases, in order (any failure raises and the script exits non-zero):
      and #2 launch; compactions, un-shrinks and buckets printed) and (b)
      with krow_cache=2048 (#2 launches, the f-update takes cached or fresh
      K rows; hit and miss counts printed), each CONVERGED with accuracy
-     within 0.002 of phase 5's, train seconds beside phase 5's.
+     within 0.002 of phase 5's, train seconds beside phase 5's;
+  14. the cascade on phase 5's job and rows, P=4, sv_capacity 4096, in one
+     process: (a) the tree with blocked leaves (phase 5's q, wss and
+     max_inner), (b) the star with blocked leaves (layer 2 at 16,384 rows),
+     (c) the star with pair leaves; each CONVERGED, accuracy within 0.002 of
+     phase 5's, SV-ID Jaccard with phase 5 >= 0.85, every round and every
+     leaf solve printed (rows, merged rows, SVs, iterations, status,
+     seconds), kernel #1 launched in every blocked leaf solve and #2 (or
+     pair_rows) in every leaf solve that updated, and the fit stopped by
+     max_rounds with a round checkpoint and resumed equal to it bit for bit;
+     (a) also holds #1 at q = the leaf's size (the warm-start rebuild)
+     against its plain version; (d) four rank processes of `python -m
+     tpusvm_torch train --mode cascade --distributed ...` on CSVs of (a)'s
+     rows share the card, and rank 0 prints (a)'s SV count, b, accuracy and
+     rounds and writes the only artifact, which `info` describes.
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
@@ -107,6 +121,9 @@ C, GAMMA = 10.0, 0.00125
 # the lockstep one-vs-rest pair fit and of the epsilon-SVR pair fit
 N_OVR_PAIR = 60000
 N_SVR_PAIR = 2000
+# the depth cut of phase 6 (PERF.md section 4): the profiled 5b fit stops
+# after this many of its 2,183 rounds
+PROFILE_5B_ROUNDS = 500
 # the row cuts of phase 10 (PERF.md section 4): the training CSV, its
 # --n-limit run, the --mode oracle run, and the held-out CSV
 N_CSV, N_CSV_LIMIT, N_ORACLE, N_CSV_TEST = 10000, 5000, 2000, 2000
@@ -917,6 +934,369 @@ def phase_shrink_cache(X_all, Y_all, n_tr, acc5, m5, train5_s, device,
         f"claim: one run each)")
 
 
+class LeafLog:
+    """Stands in for tpusvm_torch.parallel.cascade._solve while a cascade
+    fits: per leaf solve, its rows, merged (valid) rows, SVs, iterations,
+    status, synchronised seconds and the launches of each counted kernel."""
+
+    def __init__(self, counters, device, sv_tol):
+        import tpusvm_torch.parallel.cascade as cmod
+
+        self.cmod, self.orig = cmod, cmod._solve
+        self.counters, self.device, self.sv_tol = counters, device, sv_tol
+        self.solves = []
+
+    def __enter__(self):
+        self.cmod._solve = self
+        return self
+
+    def __exit__(self, *exc):
+        self.cmod._solve = self.orig
+
+    def __call__(self, train, *args, **kw):
+        from tpusvm_torch.status import Status
+
+        before = {k: fn.launches for k, fn in self.counters.items()}
+        sync(self.device)
+        t = time.perf_counter()
+        res = self.orig(train, *args, **kw)
+        sync(self.device)
+        secs = time.perf_counter() - t
+        valid = train.valid
+        alpha = res.alpha.to(valid.device)
+        self.solves.append(dict(
+            rows=train.X.shape[0], merged=int(valid.sum()),
+            svs=int((valid & (alpha > self.sv_tol)).sum()),
+            iters=int(res.n_iter), status=Status(int(res.status)).name, s=secs,
+            rescue=getattr(res, "n_rescue", 0),
+            launches={k: fn.launches - before[k]
+                      for k, fn in self.counters.items()}))
+        return res
+
+
+# phase 14's cases: (tag, topology, leaf solver, training rows); 14(c)'s
+# pair leaves are cut in rows (PERF.md section 4): at 60,000 rows the star
+# does not reach its ID-set fixed point (scripts/torch_cascade_probe.py:
+# 34 rounds in 720 s on an H100, the global set moving by 1 to 9 IDs every
+# round from round 5, each warm leaf about 17,700 iterations)
+N_CASCADE_PAIR = 10000
+CASCADE_CASES = (("14a", "tree", "blocked", 60000),
+                 ("14b", "star", "blocked", 60000),
+                 ("14c", "star", "pair", N_CASCADE_PAIR))
+CASCADE_P, CASCADE_SV_CAP = 4, 4096
+
+
+def _cascade_model(solver, device, max_rounds=50):
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC
+
+    return BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6,
+                               max_rounds=max_rounds), solver=solver,
+                     solver_opts=FULL_OPTS if solver == "blocked" else {},
+                     device=device)
+
+
+def leaf_rebuild_check(model, X, Y, sv_cap, device):
+    """Kernel #1 at q = the leaf's size: the warm-start rebuild of f over
+    rank 0's first leaf (its partition chunk merged under the fit's final
+    SVs, padded to chunk + sv_cap rows), X_B = X, coef = alpha*y in f32 as
+    the blocked solver forms it, held against rbf_cross_matvec_ref in
+    phase 3's band (1e-5 x sum |coef|) and timed. Returns (rows, err, tol,
+    kernel ms, plain ms)."""
+    import torch
+    from tpusvm_torch.data.partition import partition
+    from tpusvm_torch.ops.cuda.fused_fupdate import (rbf_cross_matvec_kernel,
+                                                     rbf_cross_matvec_ref)
+    from tpusvm_torch.ops.rbf import sq_norms
+    from tpusvm_torch.parallel.cascade import _leaf
+    from tpusvm_torch.parallel.svbuffer import empty, merge_dedup
+
+    f32 = torch.float32
+    part = partition(model.scaler_.transform(np.asarray(X)), np.asarray(Y),
+                     CASCADE_P)
+    leaf = _leaf(part, 0, f32, device)
+    g = empty(sv_cap, X.shape[1], f32, device)
+    k = len(model.sv_ids_)
+    for field, vals in ((g.X, model.sv_X_), (g.Y, model.sv_Y_),
+                        (g.alpha, model.sv_alpha_), (g.ids, model.sv_ids_)):
+        field[:k] = torch.as_tensor(vals).to(device=device, dtype=field.dtype)
+    g.valid[:k] = True
+    train, _ = merge_dedup(g, leaf, part.X.shape[1] + sv_cap)
+    coef = (torch.where(train.valid, train.alpha.double(), 0.0)
+            * train.Y.double()).to(f32)
+    sn = sq_norms(train.X)
+    got = rbf_cross_matvec_kernel(train.X, train.X, coef, GAMMA, sn)
+    want = rbf_cross_matvec_ref(train.X, train.X, coef, GAMMA, sn)
+    sync(device)
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float(coef.abs().sum())
+    check(bool(torch.isfinite(got).all()), "[14a] #1 at the leaf's size: "
+          "non-finite")
+    k_ms = p_ms = float("nan")
+    if device != "cpu":
+        k_ms = cuda_ms(lambda: rbf_cross_matvec_kernel(train.X, train.X, coef,
+                                                       GAMMA, sn))
+        p_ms = cuda_ms(lambda: rbf_cross_matvec_ref(train.X, train.X, coef,
+                                                    GAMMA, sn), reps=3)
+    return train.X.shape[0], err, tol, k_ms, p_ms
+
+
+def cascade_case(tag, topology, solver, X, Y, Xt, Yt, m5, acc5, device,
+                 counters, ckpt, ref="phase 5"):
+    """One of phase 14's one-process fits: the fit with its kernels' launches
+    counted around it and per leaf solve, its rounds printed, CONVERGED,
+    accuracy within 0.002 of the direct blocked fit m5's on the same rows
+    (acc5), the SV-ID Jaccard with m5 at least 0.85; then the same fit
+    stopped by max_rounds after round min(3, rounds - 1) with a round
+    checkpoint and resumed with max_rounds=50, equal to it bit for bit.
+    Returns (model, accuracy, train s, main-path launches, the leaf
+    solves)."""
+    import os
+
+    from tpusvm_torch.config import CascadeConfig
+    from tpusvm_torch.status import Status
+
+    sv_cap = CASCADE_SV_CAP
+    cc = CascadeConfig(n_shards=CASCADE_P, sv_capacity=sv_cap,
+                       topology=topology)
+    model = _cascade_model(solver, device)
+    for fn in counters.values():
+        fn.launches = 0
+    with LeafLog(counters, device, model.config.sv_tol) as leaves:
+        sync(device)
+        t = time.perf_counter()
+        model.fit_cascade(X, Y, cc)
+        sync(device)
+        train_s = time.perf_counter() - t
+    counts = {k: fn.launches for k, fn in counters.items()}
+    acc = float((model.predict(Xt) == Yt).mean())
+    a, b = set(m5.sv_ids_.tolist()), set(model.sv_ids_.tolist())
+    jac = len(a & b) / len(a | b)
+    # solves a round: the tree's P leaves, P/2, ..., 1; the star's P and
+    # its layer 2 (neither retries: merged_cap is P * sv_capacity)
+    per_round = 2 * CASCADE_P - 1 if topology == "tree" else CASCADE_P + 1
+    leaf_s = sum(s["s"] for s in leaves.solves)
+    log(f"[{tag}] {topology} P={CASCADE_P} {solver} leaves, sv_capacity "
+        f"{sv_cap}, n={len(Y)} d={X.shape[1]}: train {train_s:.3f} s, "
+        f"{model.cascade_rounds_} rounds, status {model.status_.name}, "
+        f"iterations {model.n_iter_}, SV count {model.n_support_}, b "
+        f"{model.b_:.15f}, accuracy {acc:.4f} ({ref} {acc5:.4f}); leaf "
+        f"solves {len(leaves.solves)} in {leaf_s:.3f} s, the rest (merges, "
+        f"extraction, host) {train_s - leaf_s:.3f} s; launches {counts}")
+    for i, h in enumerate(model.cascade_history_):
+        rows = leaves.solves[i * per_round:(i + 1) * per_round]
+        log(f"[{tag}]   round {h['round']}: global SVs {h['sv_count']}, b "
+            f"{h['b']:.15f}, {h['time_s']:.3f} s (leaf solves "
+            f"{sum(s['s'] for s in rows):.3f} s); leaves [rows, merged, SVs, "
+            f"iterations, status, s(, rescue rounds)]: "
+            + ", ".join(f"[{s['rows']}, {s['merged']}, {s['svs']}, "
+                        f"{s['iters']}, {s['status']}, {s['s']:.3f}"
+                        + (f", {s['rescue']}" if s["rescue"] else "") + "]"
+                        for s in rows))
+    log(f"[{tag}] against {ref}: SV-ID symmetric difference {len(a ^ b)} "
+        f"({ref} {len(a)}, cascade {len(b)}), Jaccard {jac:.4f}, |db| "
+        f"{abs(m5.b_ - model.b_):.3e}")
+    check(model.status_ == Status.CONVERGED, f"[{tag}] {model.status_.name}")
+    check(abs(acc - acc5) <= 0.002, f"[{tag}] accuracy {acc} vs {ref} {acc5}")
+    check(jac >= 0.85, f"[{tag}] SV-ID Jaccard {jac} with {ref}")
+    # before any per-solve check: a hook that saw no solve passes them all
+    check(len(leaves.solves) > 0
+          and per_round * model.cascade_rounds_ == len(leaves.solves),
+          f"[{tag}] {len(leaves.solves)} leaf solves seen in "
+          f"{model.cascade_rounds_} rounds, {per_round} a round expected")
+    kernels = (("fused_fupdate",) if solver == "blocked" else ()) + (
+        ("inner_smo",) if solver == "blocked" else ("pair_rows",))
+    if device != "cpu":
+        for s in leaves.solves:
+            # the warm-start rebuild launches #1 in every blocked solve; the
+            # inner kernel (or pair_rows) in every solve that updated
+            need = [k for k in kernels
+                    if k == "fused_fupdate" or s["iters"] > 1]
+            check(all(s["launches"][k] > 0 for k in need),
+                  f"[{tag}] a leaf solve launched no {need}: {s}")
+        check(all(counts[k] > 0 for k in kernels), f"[{tag}] {counts}")
+
+    stop = min(3, model.cascade_rounds_ - 1)
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    first = _cascade_model(solver, device, max_rounds=stop).fit_cascade(
+        X, Y, cc, checkpoint_path=ckpt)
+    t = time.perf_counter()
+    again = _cascade_model(solver, device).fit_cascade(
+        X, Y, cc, checkpoint_path=ckpt, resume=True)
+    resume_s = time.perf_counter() - t
+    os.remove(ckpt)
+    same = (np.array_equal(again.sv_ids_, model.sv_ids_)
+            and again.sv_alpha_.tobytes() == model.sv_alpha_.tobytes()
+            and again.b_ == model.b_
+            and again.cascade_rounds_ == model.cascade_rounds_)
+    times = [h["time_s"] for h in again.cascade_history_]
+    log(f"[{tag}] stopped by max_rounds={stop} ({first.cascade_rounds_} rounds, "
+        f"{first.status_.name}) with a round checkpoint, resumed with "
+        f"max_rounds=50 in {resume_s:.3f} s ({len(times)} rounds, "
+        f"{sum(times):.3f} s in them, the longest {max(times):.3f} s): "
+        f"{again.cascade_rounds_} rounds, equal to the uninterrupted fit bit "
+        f"for bit (SV IDs, alpha bits, b, rounds): {same}")
+    check(same, f"[{tag}] the resumed fit differs from the uninterrupted one")
+    return model, acc, train_s, {k: counts[k] for k in kernels}, leaves.solves
+
+
+def start_cascade_csvs(n, n_tr, d, out_dir):
+    """Writes phase 5's rows (mnist_like(n, d), seed 587, as phase 3 draws
+    them) [:n_tr] and [n_tr:] as CSVs for phase 14(d) in a background
+    process (the CSV writer is a Python loop: about 20 s for 70,000 rows of
+    784), so it overlaps phases 14(a)-(c). Returns the process and the two
+    paths."""
+    import os
+    from pathlib import Path
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    train, test = str(out_dir / "train.csv"), str(out_dir / "test.csv")
+    code = ("import sys; from tpusvm_torch.data import mnist_like, write_csv; "
+            "n, n_tr, d = map(int, sys.argv[1:4]); "
+            "X, Y = mnist_like(n=n, d=d, noise=30.0, label_noise=0.005, "
+            "seed=587); write_csv(sys.argv[4], X[:n_tr], Y[:n_tr]); "
+            "write_csv(sys.argv[5], X[n_tr:], Y[n_tr:])")
+    root = str(Path(__file__).resolve().parent)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, str(n), str(n_tr), str(d), train, test],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root))
+    return proc, train, test
+
+
+def phase_cascade_ranks(writer, train_csv, test_csv, model_a, acc_a, train_a_s,
+                        out_dir, device, deadline_s=600):
+    """Phase 14(d): four rank processes of `python -m tpusvm_torch train
+    --mode cascade --shards 4 --topology tree --distributed ...` on the CSVs
+    of phase 5's rows, sharing the card; each is waited on with a deadline
+    (all killed on expiry) and must exit 0. Rank 0 must print 14(a)'s SV
+    count, accuracy, b to every printed digit and rounds, and write the only
+    artifact, which `info` describes with 14(a)'s cascade line."""
+    import os
+    import socket
+    from pathlib import Path
+
+    t = time.perf_counter()
+    check(writer.wait(timeout=deadline_s) == 0, "[14d] the CSV writer failed")
+    wait_s = time.perf_counter() - t
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(__file__).resolve().parent)
+    flags = ["train", "--train", train_csv, "--test", test_csv, "--C", str(C),
+             "--gamma", str(GAMMA), "--max-iter", "1000000",
+             "--q", str(FULL_OPTS["q"]), "--wss", str(FULL_OPTS["wss"]),
+             "--max-inner", str(FULL_OPTS["max_inner"]), "--mode", "cascade",
+             "--shards", str(CASCADE_P), "--topology", "tree", "--sv-capacity",
+             str(CASCADE_SV_CAP), "--distributed", "--coordinator-address",
+             f"127.0.0.1:{port}", "--num-processes", str(CASCADE_P)]
+    if device == "cpu":
+        flags += ["--device", "cpu"]
+    paths = [out_dir / f"rank{r}.npz" for r in range(CASCADE_P)]
+    for p in paths:
+        if p.exists():
+            p.unlink()
+    procs = []
+    t = time.perf_counter()
+    for r in range(CASCADE_P):
+        with open(out_dir / f"rank{r}.out", "w") as o, \
+                open(out_dir / f"rank{r}.err", "w") as e:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "tpusvm_torch", *flags, "--process-id",
+                 str(r), "--save", str(paths[r])], cwd=root, stdout=o, stderr=e,
+                env=dict(os.environ, PYTHONPATH=root)))
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline_s - (time.perf_counter() - t)))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+        check(False, f"[14d] the ranks did not finish within {deadline_s} s")
+    wall_s = time.perf_counter() - t
+    outs = [(out_dir / f"rank{r}.out").read_text() for r in range(CASCADE_P)]
+    errs = [(out_dir / f"rank{r}.err").read_text() for r in range(CASCADE_P)]
+    rcs = [p.returncode for p in procs]
+    check(rcs == [0] * CASCADE_P, f"[14d] rank exits {rcs}:\n"
+          + "\n".join(f"rank {r}: {outs[r][-1500:]}\n{errs[r][-1500:]}"
+                      for r in range(CASCADE_P) if rcs[r]))
+    out = outs[0]
+    got = (_line(r"(?m)^SV count = (\d+)", out), _line(r"(?m)^b = (-?[\d.]+)", out),
+           _line(r"accuracy = ([\d.]+)", out),
+           _line(r"cascade: (\d+) rounds", out))
+    want = (*_report(model_a, acc_a), str(model_a.cascade_rounds_))
+    rounds = [ln for ln in out.splitlines() if ln.startswith("=== Round")]
+    log(f"[14d] {CASCADE_P} rank processes on one card: {wall_s:.1f} s wall "
+        f"(after {wait_s:.1f} s waiting for the CSVs); rank 0: data "
+        f"{_line(r'data time: ([\d.]+) s', out)} s, training "
+        f"{_line(r'training time: ([\d.]+) s', out)} s (14(a) in one process "
+        f"{train_a_s:.3f} s); SV count / b / accuracy / rounds {got}, 14(a) "
+        f"{want}; rounds: " + " | ".join(rounds))
+    check(got == want, f"[14d] rank 0 printed {got}, 14(a) {want}")
+    check(all(not o.strip() for o in outs[1:]), "[14d] a rank other than 0 "
+          "printed")
+    check([p.exists() for p in paths] == [True] + [False] * (CASCADE_P - 1),
+          "[14d] the artifact was not written by rank 0 alone")
+    info, _ = _cli_in_process(["info", str(paths[0])], device)
+    line = (f"cascade: topology=tree leaves={CASCADE_P} "
+            f"rounds={model_a.cascade_rounds_}")
+    log(f"[14d] info {paths[0].name}: " + " | ".join(info.strip().splitlines()))
+    check(line in info, f"[14d] info lacks {line!r}")
+    return wall_s
+
+
+def phase_cascade(X_all, Y_all, n_tr, m5, acc5, device, counters, launches,
+                  out_dir, clock):
+    """Phase 14: the one-process fits of CASCADE_CASES (cascade_case; a case
+    cut in rows is held to the direct blocked fit on its rows), kernel #1 at
+    the leaf's size after 14(a), then 14(d)'s rank processes on CSVs written
+    in the background meanwhile. Adds each case's launches to `launches`."""
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC
+
+    writer, train_csv, test_csv = start_cascade_csvs(
+        len(Y_all), n_tr, X_all.shape[1], out_dir)
+    Xt, Yt = X_all[n_tr:], Y_all[n_tr:]
+    try:
+        fits = {}
+        for tag, topology, solver, n_c in CASCADE_CASES:
+            ref, ref_acc, ref_name = m5, acc5, "phase 5"
+            if n_c < n_tr:
+                # the cut: held to the direct blocked fit on the same rows
+                ref = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
+                                solver_opts=FULL_OPTS, device=device).fit(
+                                    X_all[:n_c], Y_all[:n_c])
+                ref_acc = float((ref.predict(Xt) == Yt).mean())
+                ref_name = f"the blocked fit on rows [:{n_c}]"
+            n_c = min(n_c, n_tr)
+            fits[tag] = cascade_case(
+                tag, topology, solver, X_all[:n_c], Y_all[:n_c], Xt, Yt, ref,
+                ref_acc, device, counters, str(out_dir / f"{tag}_rounds.npz"),
+                ref=ref_name)
+            for k, v in fits[tag][3].items():
+                launches.setdefault(k, {})[tag] = v
+            if tag == "14a":
+                rows, err, tol, r_ms, rp_ms = leaf_rebuild_check(
+                    fits[tag][0], X_all[:n_c], Y_all[:n_c], CASCADE_SV_CAP,
+                    device)
+                log(f"[14a] kernel #1 at q = the leaf's size (the warm-start "
+                    f"rebuild, X_B = X, {rows} x {X_all.shape[1]}): max_abs_err "
+                    f"{err:.3e} (tol {tol:.3e}); kernel {r_ms:.3f} ms, plain "
+                    f"{rp_ms:.3f} ms")
+                check(err <= tol, f"[14a] #1 at the leaf's size: error {err} "
+                      f"over {tol}")
+            clock(tag)
+        model_a, acc_a, train_a_s = fits["14a"][:3]
+        phase_cascade_ranks(writer, train_csv, test_csv, model_a, acc_a,
+                            train_a_s, out_dir, device)
+    finally:
+        if writer.poll() is None:
+            writer.kill()
+            writer.wait()
+    clock("14d")
+
+
 def sync(device):
     import torch
 
@@ -1433,7 +1813,7 @@ def main():
         train_secs[phase] = train_s
         counts = {k: fn.launches for k, fn in counters.items()}
         for k in path_kernels[phase]:
-            launches[k] = counts[k]
+            launches[k] = {phase: counts[k]}
         res = model.result_
         t = time.perf_counter()
         pred = model.predict(X_all[60000:])
@@ -1492,13 +1872,24 @@ def main():
     clock("5, 5b")
 
     # ---- 6. where the time goes: each full-width fit again, profiled -----
+    # (5b cut in depth to its first PROFILE_5B_ROUNDS rounds)
     for phase, sopts in full_opts.items():
-        by_kernel, count, wall_ms = device_ms_by_kernel(
-            lambda: BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=max_iter[phase]),
-                              solver_opts=sopts, device="cuda").fit(X_all[:60000],
-                                                                    Y_all[:60000]))
+        if phase == "5b":
+            sopts = dict(sopts, max_outer=PROFILE_5B_ROUNDS)
+        with warnings.catch_warnings():
+            if phase == "5b":
+                # the cut fit's own warning (its max_outer ends it as
+                # MAX_ITER), and no other
+                warnings.filterwarnings(
+                    "ignore", r"SMO terminated with MAX_ITER ", RuntimeWarning)
+            by_kernel, count, wall_ms = device_ms_by_kernel(
+                lambda: BinarySVC(SVMConfig(C=C, gamma=GAMMA,
+                                            max_iter=max_iter[phase]),
+                                  solver_opts=sopts, device="cuda").fit(
+                                      X_all[:60000], Y_all[:60000]))
         busy = sum(by_kernel.values())
-        log(f"[6] profiled full-width fit of phase {phase}: wall {wall_ms:.1f} ms, "
+        log(f"[6] profiled full-width fit of phase {phase} {json.dumps(sopts)}: "
+            f"wall {wall_ms:.1f} ms, "
             f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
             f"{100 * (1 - busy / wall_ms):.1f}%")
         for name, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
@@ -1517,9 +1908,10 @@ def main():
     from tpusvm_torch.data.synthetic import (BENCH_NOISE_MULTICLASS,
                                              mnist_like_multiclass, svr_sine)
 
-    pair_model, launches["pair_rows"] = phase_pair(
+    pair_model, pair_launches = phase_pair(
         X_all, Y_all, 60000, counters, m5, acc5, "cuda",
         k2_ms=pr_runs[("rbf", 2)]["ms"])
+    launches["pair_rows"] = {"7": pair_launches}
     clock("7")
     Xm, lm = mnist_like_multiclass(n=70000, d=784, noise=BENCH_NOISE_MULTICLASS)
     ovr_model = phase_ovr(Xm, lm, 60000, N_OVR_PAIR, counters, "cuda",
@@ -1542,8 +1934,13 @@ def main():
                        counters)
     clock("13")
 
+    # ---- 14. the cascade: tree and star, blocked and pair leaves ---------
+    phase_cascade(X_all, Y_all, 60000, m5, acc5, "cuda", counters, launches,
+                  _build.BUILD_DIR / "chip_smoke_cascade", clock)
+
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches_by_phase"] = launches[k["name"]]
+        k["launches"] = sum(launches[k["name"]].values())
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -131,7 +131,8 @@ def test_checkpoint_and_shrink_flags(csvs, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "cascade"], "item 9"),
+    (["--mode", "cascade", "--solver", "pair", "--shrink-every", "2"],
+     "blocked solver"),
     (["--mode", "pod"], "item 9"),
     (["--solver", "pair", "--checkpoint", "c.npz"], "blocked solver"),
     (["--mode", "oracle", "--checkpoint", "c.npz"], "oracle"),

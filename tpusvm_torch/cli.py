@@ -6,7 +6,12 @@ the reference's diagnostics (n and n_features, iterations, b to 15
 places, the half gap x 1e10, the SV count, accuracy, phase timings), with
 the JAX command line's flags and defaults: the hyperparameters (--preset,
 --C, --gamma, --tau, --eps, --sv-tol), the numerics (--accum, --no-scale),
-the mode (--mode single, or oracle: the serial NumPy SMO), the solver
+the mode (--mode single; oracle: the serial NumPy SMO; cascade: the tree or
+star cascade over --shards leaves, with --topology, --sv-capacity,
+--stratify, --max-rounds and per-round --checkpoint/--resume, in this
+process or as one rank process each with --distributed
+--coordinator-address --num-processes --process-id over torch.distributed
+gloo, where rank 0 alone prints the result and saves), the solver
 (--solver blocked|pair), the kernel family (--kernel, --degree, --coef0),
 one-vs-rest (--multiclass), epsilon-SVR (--task svr, --epsilon), Platt
 calibration (--calibrate K), crash-safe checkpoints (--checkpoint,
@@ -27,7 +32,7 @@ from typing import List, Optional
 import numpy as np
 
 from tpusvm_torch.config import (DATASET_PRESETS, KERNEL_FAMILIES,
-                                 SVMConfig, preset)
+                                 CascadeConfig, SVMConfig, preset)
 from tpusvm_torch.data.csv_reader import read_csv, read_csv_regression
 from tpusvm_torch.data.scaler import MinMaxScaler
 from tpusvm_torch.data.synthetic import (BENCH_LABEL_NOISE, BENCH_NOISE,
@@ -74,8 +79,34 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--mode", choices=("single", "oracle", "cascade", "pod"),
                     default="single",
                     help="single = on-device SMO; oracle = the serial NumPy "
-                    "SMO (binary; the reference's main3.cpp); cascade and "
-                    "pod are not ported yet")
+                    "SMO (binary; the reference's main3.cpp); cascade = the "
+                    "cascade over --shards leaves (the reference's MPI "
+                    "programs); pod is not ported yet")
+    tr.add_argument("--topology", choices=("tree", "star"), default="tree",
+                    help="cascade merge topology (tree = mpi_svm_main3, "
+                    "star = mpi_svm_main2)")
+    tr.add_argument("--shards", type=int, default=None,
+                    help="cascade shard count P (default: the world size "
+                    "with --distributed, else the visible cards; 1 with "
+                    "--device cpu)")
+    tr.add_argument("--stratify", action="store_true",
+                    help="cascade: per-class round-robin sharding instead "
+                    "of the reference's contiguous scatter (safe on "
+                    "label-sorted input)")
+    tr.add_argument("--sv-capacity", type=int, default=4096,
+                    help="padded SV buffer capacity per shard")
+    tr.add_argument("--distributed", action="store_true",
+                    help="run this process as one rank of the cascade "
+                    "(--mode cascade): torch.distributed over gloo, with "
+                    "--coordinator-address, --num-processes and "
+                    "--process-id; launch the same command once per rank")
+    tr.add_argument("--coordinator-address", default=None,
+                    metavar="HOST:PORT",
+                    help="with --distributed: the process group's address")
+    tr.add_argument("--num-processes", type=int, default=None,
+                    help="with --distributed: world size")
+    tr.add_argument("--process-id", type=int, default=None,
+                    help="with --distributed: this process's rank")
     tr.add_argument("--preset", choices=sorted(DATASET_PRESETS),
                     default=None, help="named (C, gamma) preset (overrides "
                     "--C and --gamma)")
@@ -100,6 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--max-inner", type=int, default=1024,
                     help="inner updates per round (blocked)")
     tr.add_argument("--max-iter", type=int, default=100000)
+    tr.add_argument("--max-rounds", type=int, default=50,
+                    help="cascade round cap")
     tr.add_argument("--solver-opt", action="append", default=[],
                     metavar="KEY=VALUE",
                     help="extra solver keyword (repeatable), e.g. "
@@ -129,8 +162,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fit Platt-scaled predict_proba on K held-out "
                     "folds after training (binary --task svc)")
     tr.add_argument("--checkpoint", metavar="NPZ",
-                    help="crash-safe training (binary, blocked solver): "
-                    "write the solver's outer-loop carry here every "
+                    help="crash-safe training: --mode cascade writes the "
+                    "per-round state here; --mode single (binary, blocked "
+                    "solver) the solver's outer-loop carry every "
                     "--checkpoint-every rounds (atomic; a resumed run is "
                     "bit-identical to an uninterrupted one)")
     tr.add_argument("--resume", action="store_true",
@@ -208,9 +242,25 @@ def _check_train_args(args) -> None:
     """The JAX command line's refusals of flag combinations."""
     if args.task == "ovr":
         args.multiclass = True
-    if args.mode in ("cascade", "pod"):
-        raise SystemExit(f"--mode {args.mode} is not ported yet (ROADMAP "
-                         "Queue 1 item 9)")
+    if args.mode == "pod":
+        raise SystemExit("--mode pod is not ported yet (ROADMAP Queue 1 "
+                         "item 9(i): the pod leaves)")
+    if not args.distributed and (
+            args.coordinator_address or args.num_processes is not None
+            or args.process_id is not None):
+        raise SystemExit("--coordinator-address/--num-processes/--process-id "
+                         "require --distributed")
+    if args.distributed:
+        if args.mode != "cascade":
+            raise SystemExit("--distributed runs the cascade's ranks as "
+                             "processes; it needs --mode cascade")
+        if (not args.coordinator_address or args.num_processes is None
+                or args.process_id is None):
+            raise SystemExit("--distributed needs --coordinator-address, "
+                             "--num-processes and --process-id")
+    if args.stratify and args.mode != "cascade":
+        raise SystemExit("--stratify only applies to --mode cascade (it "
+                         "changes how rows are dealt over the leaves)")
     if args.test and not args.train:
         raise SystemExit("--test scores a held-out CSV; it needs --train")
     if args.task == "svr":
@@ -251,9 +301,11 @@ def _check_train_args(args) -> None:
     if args.checkpoint:
         if args.mode == "oracle":
             raise SystemExit("--checkpoint applies to --mode single "
-                             "(solver-state checkpoints); the NumPy oracle "
-                             "has no checkpointable structure")
-        if args.multiclass or args.task == "svr" or solver != "blocked":
+                             "(solver-state checkpoints) or cascade "
+                             "(per-round state); the NumPy oracle has no "
+                             "checkpointable structure")
+        if args.mode == "single" and (args.multiclass or args.task == "svr"
+                                      or solver != "blocked"):
             raise SystemExit(
                 "--checkpoint with --mode single needs the binary blocked "
                 "solver (the outer-loop carry is what gets persisted)")
@@ -265,6 +317,10 @@ def _check_train_args(args) -> None:
         if solver != "blocked":
             raise SystemExit("--shrink-every needs the blocked solver "
                              "(working-set rounds are what gets compacted)")
+        if args.mode != "single":
+            raise SystemExit("--shrink-every needs --mode single: the "
+                             "shrinking driver segments the solve on the "
+                             "host, which the cascade's leaves do not")
         if args.checkpoint:
             raise SystemExit(
                 "--shrink-every and --checkpoint both segment the outer "
@@ -332,7 +388,8 @@ def _accuracy_line(model, Xt, Yt, timer, task: str = "svc") -> None:
 
 def _config(args) -> SVMConfig:
     kw = dict(tau=args.tau, eps=args.eps, sv_tol=args.sv_tol,
-              max_iter=args.max_iter, kernel=args.kernel, degree=args.degree,
+              max_iter=args.max_iter, max_rounds=args.max_rounds,
+              kernel=args.kernel, degree=args.degree,
               coef0=args.coef0, epsilon=args.epsilon)
     try:
         if args.preset:
@@ -365,10 +422,60 @@ def _fit_oracle(X, Y, cfg: SVMConfig, device):
     return model
 
 
+def _fit_cascade(model, X, Y, args, group):
+    """--mode cascade: the cascade over --shards leaves (default: the world
+    size under --distributed, else the visible cards, 1 on the CPU), in
+    this process or as this rank of `group`."""
+    import torch
+
+    if args.shards is not None:
+        shards = args.shards
+    elif group is not None:
+        shards = args.num_processes
+    elif args.device == "cpu":
+        shards = 1
+    else:
+        shards = torch.cuda.device_count() or 1
+    try:
+        cc = CascadeConfig(n_shards=shards, sv_capacity=args.sv_capacity,
+                           topology=args.topology)
+    except ValueError as e:
+        raise SystemExit(f"train: {e}")
+    model.fit_cascade(X, Y, cc, group=group, verbose=True,
+                      checkpoint_path=args.checkpoint, resume=args.resume,
+                      stratified=args.stratify)
+    print(f"cascade: {model.cascade_rounds_} rounds, converged = "
+          f"{model.status_.name == 'CONVERGED'}")
+    return model
+
+
 def cmd_train(args) -> int:
+    _check_train_args(args)
+    if not args.distributed:
+        return _train(args, None)
+    import contextlib
+    import io
+
+    import torch.distributed as dist
+
+    from tpusvm_torch.parallel.group import init_group
+
+    group = init_group(args.coordinator_address, args.num_processes,
+                       args.process_id)
+    try:
+        if args.process_id == 0:
+            return _train(args, group)
+        # the other ranks train their leaves and print nothing
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _train(args, group)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, group) -> int:
     from tpusvm_torch.models import BinarySVC, EpsilonSVR, OneVsRestSVC
 
-    _check_train_args(args)
+    rank0 = group is None or args.process_id == 0
     cfg = _config(args)
     task = "ovr" if args.multiclass else args.task
     timer = _Timer()
@@ -392,6 +499,8 @@ def cmd_train(args) -> int:
     t = time.perf_counter()
     if args.mode == "oracle":
         model = _fit_oracle(X, Y, cfg, args.device)
+    elif args.mode == "cascade":
+        model = _fit_cascade(BinarySVC(**common), X, Y, args, group)
     elif args.task == "svr":
         model = EpsilonSVR(**common).fit(X, Y)
     elif args.multiclass:
@@ -417,9 +526,9 @@ def cmd_train(args) -> int:
         model.calibrate(X, Y, folds=args.calibrate)
         timer.add("calibration", t)
         print("calibrated: Platt A=%.6f B=%.6f" % model.platt_)
-    if Xt is not None:
+    if Xt is not None and rank0:
         _accuracy_line(model, Xt, Yt, timer, task)
-    if args.save:
+    if args.save and rank0:
         model.save(args.save)
         print(f"model saved to {args.save}")
     print(timer.report())

@@ -9,6 +9,7 @@ moves between the packages through the shared `.npz` artifact.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -34,7 +35,8 @@ class SVMConfig:
     scale (poly/sigmoid gamma a.b). tau: stopping tolerance (converged when
     b_low <= b_high + 2 tau). eps: index-set tolerance, eta guard and
     [U, V] slack. sv_tol: alpha > sv_tol defines a support vector.
-    max_iter: cap on total alpha updates. kernel: "rbf", "linear", "poly"
+    max_iter: cap on total alpha updates. max_rounds: cascade round cap
+    (mpi_svm_main3.cpp:544). kernel: "rbf", "linear", "poly"
     or "sigmoid" ("rff"/"nystrom" are refused). degree: poly degree.
     coef0: poly/sigmoid additive term. epsilon: the epsilon-SVR tube
     half-width (EpsilonSVR only)."""
@@ -45,6 +47,7 @@ class SVMConfig:
     eps: float = 1e-12
     sv_tol: float = 1e-8
     max_iter: int = 100000
+    max_rounds: int = 50
     kernel: str = "rbf"
     degree: int = 3
     coef0: float = 0.0
@@ -61,6 +64,60 @@ class SVMConfig:
         if self.epsilon < 0:
             raise ValueError(f"epsilon must be >= 0, got {self.epsilon}")
         refuse_approx(self.kernel)
+
+
+@dataclasses.dataclass(frozen=True)
+class CascadeConfig:
+    """Shapes and topology of the cascade (a copy of the JAX package's).
+
+    SV sets travel as fixed-capacity padded buffers with validity masks.
+
+    n_shards: the leaf count P (the reference's `mpirun -np P`).
+    sv_capacity: the most support vectors one merged model may hold; must
+      be >= the true global SV count, and overflow raises at run time.
+    topology: "tree" = the classical binary-reduction cascade
+      (mpi_svm_main3.cpp), "star" = the modified two-layer cascade
+      (mpi_svm_main2.cpp).
+    star_merge_capacity: the capacity of the star's layer-2 merged solve
+      (rank 0's retrain over the union of the leaves' SV sets). None =
+      n_shards * sv_capacity, the structural bound, which cannot overflow.
+      A tighter value makes the layer-2 solve smaller; a round whose union
+      overflows it is re-run at the full bound with a RuntimeWarning, and
+      the fit stays there. Star only: setting it with "tree" raises.
+    """
+
+    n_shards: int = 8
+    sv_capacity: int = 4096
+    topology: str = "tree"
+    star_merge_capacity: Optional[int] = None
+
+    def __post_init__(self):
+        if self.topology not in ("tree", "star"):
+            raise ValueError(f"unknown cascade topology: {self.topology!r}")
+        if self.topology == "tree" and (self.n_shards & (self.n_shards - 1)) != 0:
+            # mpi_svm_main3.cpp:420-428 aborts on a non-power-of-two world
+            raise ValueError(
+                f"tree cascade requires a power-of-two shard count, got {self.n_shards}"
+            )
+        if self.star_merge_capacity is not None:
+            if self.topology != "star":
+                raise ValueError(
+                    "star_merge_capacity only applies to the star topology; "
+                    f"got topology={self.topology!r}"
+                )
+            if self.star_merge_capacity < 1:
+                raise ValueError(
+                    f"star_merge_capacity must be >= 1, "
+                    f"got {self.star_merge_capacity}"
+                )
+
+    def resolved_star_merge_capacity(self) -> int:
+        """star_merge_capacity, or the concatenation bound P * sv_capacity
+        when it is None."""
+        cap = self.star_merge_capacity
+        if cap is None:
+            cap = self.n_shards * self.sv_capacity
+        return cap
 
 
 def resolve_accum_dtype(accum_dtype):

@@ -55,7 +55,7 @@ class OneVsRestSVC:
         if class_parallel:
             raise NotImplementedError(
                 "class_parallel=True (the class axis sharded over a device "
-                "mesh) is not ported yet (ROADMAP Queue 1 item 9)")
+                "mesh) is not ported yet (ROADMAP Queue 1 item 9(ii))")
         if solver == "blocked" and batched:
             warnings.warn(
                 "batched=True has no effect with solver='blocked' "

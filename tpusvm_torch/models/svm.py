@@ -18,7 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpusvm_torch.config import SVMConfig, refuse_approx, resolve_accum_dtype
+from tpusvm_torch.config import (CascadeConfig, SVMConfig, refuse_approx,
+                                 resolve_accum_dtype)
 from tpusvm_torch.data.scaler import MinMaxScaler
 from tpusvm_torch.device import resolve_device
 from tpusvm_torch.kernels.platt import fit_platt, platt_proba
@@ -143,6 +144,11 @@ class BinarySVC:
         # the shrinking cadence of the fit (artifact provenance)
         self.shrink_every_: int = 0
         self.shrink_stable_: int = 0
+        # cascade provenance (fit_cascade): None/0 for a single solve
+        self.cascade_history_: Optional[list] = None
+        self.cascade_rounds_: int = 0
+        self.cascade_topology_: Optional[str] = None
+        self.cascade_leaves_: int = 0
 
     def _scale_fit(self, X: np.ndarray) -> np.ndarray:
         if self.scale:
@@ -220,15 +226,64 @@ class BinarySVC:
             "the streaming fit over a sharded dataset is not ported yet "
             "(ROADMAP Queue 1 item 11)")
 
-    def fit_cascade(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the cascade fit is not ported yet (ROADMAP Queue 1 item 9)")
+    def fit_cascade(self, X: np.ndarray, Y: np.ndarray,
+                    cascade_config: CascadeConfig = CascadeConfig(),
+                    group=None, verbose: bool = False,
+                    checkpoint_path: Optional[str] = None,
+                    resume: bool = False, stratified: bool = False,
+                    tracer=None) -> "BinarySVC":
+        """Cascade training (parallel/cascade.py): min-max scale on the full
+        array, then every leaf solves with this estimator's solver
+        ("blocked" by default; "pair" for the reference-faithful
+        trajectory) and solver_opts, on this estimator's device.
 
-    fit_cascade_stream = fit_cascade
+        group: None runs every rank in this process; a torch.distributed
+        group (parallel.init_group) makes this process one rank of
+        n_shards, and every rank calls fit_cascade with the same data.
+        checkpoint_path/resume: per-round cascade state. stratified:
+        per-class round-robin sharding instead of the contiguous scatter.
+        tracer: not ported yet (ROADMAP Queue 1 item 12)."""
+        from tpusvm_torch.parallel.cascade import cascade_fit
+
+        t0 = time.perf_counter()
+        Xs = self._scale_fit(np.asarray(X))
+        res = cascade_fit(
+            Xs, Y, self.config, cascade_config, group=group,
+            accum_dtype=self.accum_dtype, verbose=verbose,
+            checkpoint_path=checkpoint_path, resume=resume,
+            solver=self.solver, solver_opts=self.solver_opts,
+            stratified=stratified, tracer=tracer, device=self.device,
+        )
+        return self._finish_cascade(res, t0, cascade_config)
+
+    def _finish_cascade(self, res, t0: float,
+                        cascade_config: CascadeConfig) -> "BinarySVC":
+        self.train_time_s_ = time.perf_counter() - t0
+        self.sv_X_ = res.sv_X
+        self.sv_Y_ = res.sv_Y
+        self.sv_alpha_ = res.sv_alpha
+        self.sv_ids_ = res.sv_ids
+        self.b_ = res.b
+        self.n_iter_ = int(sum(h["iters"].sum() for h in res.history))
+        self.status_ = (
+            Status.CONVERGED if res.converged else Status.MAX_ITER
+        )
+        self.cascade_history_ = res.history
+        self.cascade_rounds_ = res.rounds
+        self.cascade_topology_ = cascade_config.topology
+        self.cascade_leaves_ = int(cascade_config.n_shards)
+        return self
+
+    def fit_cascade_stream(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the cascade fit from a sharded dataset is not ported yet "
+            "(ROADMAP Queue 1 item 11: the stream tier); fit_cascade trains "
+            "the same cascade from an in-memory array")
 
     def fit_pod(self, *args, **kwargs):
         raise NotImplementedError(
-            "the pod fit is not ported yet (ROADMAP Queue 1 item 9)")
+            "the pod fit is not ported yet (ROADMAP Queue 1 item 9(i): the "
+            "pod leaves)")
 
     def _check_fitted(self):
         if self.sv_X_ is None:
@@ -299,6 +354,12 @@ class BinarySVC:
         state["train_precision"] = "f32"
         state["shrink_every"] = self.shrink_every_
         state["shrink_stable"] = self.shrink_stable_
+        # cascade provenance (format v4, additive): absent for a single
+        # solve
+        if self.cascade_topology_ is not None:
+            state["cascade_topology"] = self.cascade_topology_
+            state["cascade_leaves"] = int(self.cascade_leaves_)
+            state["cascade_rounds"] = int(self.cascade_rounds_)
         save_model(path, state, self.config)
 
     @classmethod
@@ -318,6 +379,10 @@ class BinarySVC:
         if "shrink_every" in state:
             model.shrink_every_ = int(state["shrink_every"])
             model.shrink_stable_ = int(state["shrink_stable"])
+        if "cascade_topology" in state:
+            model.cascade_topology_ = str(state["cascade_topology"])
+            model.cascade_leaves_ = int(state["cascade_leaves"])
+            model.cascade_rounds_ = int(state["cascade_rounds"])
         model.status_ = Status.CONVERGED
         return model
 
