@@ -24,7 +24,11 @@ Phases, in order (any failure raises and the script exits non-zero):
      version at n=60000, d=784 for k=2 and k=20 in every exact family, its
      skip path (no row flagged: the rows untouched) and its time, at k=2
      and at k=20, beside its bound and torch.matmul(X[idx], X.T) with the
-     epilogue;
+     epilogue; the fleet's problem-axis launches of #2 and #1 at B=16 lanes
+     (mixed gammas and Cs), each lane bit for bit against a solo launch on
+     its operands and against the plain versions, timed beside the lanes'
+     solo launches and B times the solo bound; the fleet round's K_BB by
+     the per-lane solo call beside one torch.bmm (time, bits);
   4. the main path at mid size, trained on the card and on the CPU, held
      to the same SV-ID set, status and b (within 1e-4); 4b. the same for
      the multipair + fused-selection path;
@@ -98,6 +102,31 @@ Phases, in order (any failure raises and the script exits non-zero):
      tpusvm_torch train --mode cascade --distributed ...` on CSVs of (a)'s
      rows share the card, and rank 0 prints (a)'s SV count, b, accuracy and
      rounds and writes the only artifact, which `info` describes.
+  15. (a) phase 5's job with telemetry=128, equal to phase 5 bit for bit
+     (alpha, b, updates, rounds) with no host sync added, its ring's gap
+     table printed; (b) phase 5's job at bf16_f32 and at bf16_f32c with
+     refine=4096, max_refines=2: CONVERGED, within benchmarks/
+     solver_ladder.py's gates (SV flips <= max(2, |SV|/25), |db| <= 1e-3)
+     against phase 11, the f32 fit with the same refine (phase 5's own b
+     is 1.5e-3 from phase 11's: over the gate), its b within 1e-3 of the
+     f64 b of its alphas and that within 1e-3 of phase 11's (a second
+     baseline computed in f64 torch, not by the rebuilds' kernel #1), its
+     f64 exact-f gap
+     within phase 11's f32 evaluation floor max(2 tau, 4e-7 sum(alpha)),
+     within 0.002 of phase 5's accuracy, #1
+     launched only in the refine rebuilds and #4 never; (c) phase 13(a)'s shrinking job at
+     bf16_f32 (the drift guard): CONVERGED, its rebuilds, anneal round,
+     un-shrinks and gates against 13(a) printed;
+  16. the fleet: phase 8's ten heads at full width with solver="fleet"
+     (q=2048, max_inner=4096, wss=2), once with compact_every=0 and once
+     with 4: every head CONVERGED with 8(a)'s SV-ID set, status and held-out
+     accuracy, |db| <= 1e-4; the problem-axis #1 and #2 launched and no solo
+     #2; host syncs <= 2 a round; each head's bits unchanged with the heads
+     in reverse order in the same bucket; compact_every=4 (accepted for the
+     JAX signature, inert in the port, where a finished lane already runs
+     nothing) changes no bit, round or launch; train seconds beside 8(a)'s
+     and lane-rounds printed.
+  (Phases 15 and 16 run after 13, before 14.)
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
@@ -405,22 +434,26 @@ def phase_pair(X_all, Y_all, n_tr, counters, m5, acc5, device, k2_ms=None):
     return model, counts["pair_rows"]
 
 
+# the blocked one-vs-rest heads of phases 8(a) and 16
+OVR_OPTS = dict(q=2048, max_inner=4096, wss=2)
+
+
 def phase_ovr(Xm, lm, n_tr, n_pair, counters, device, k20_ms=None):
     """Phase 8: ten one-vs-rest heads, (a) blocked on the first n_tr rows
     and (b) the batched pair solver on the first n_pair (with (a) again at
     n_pair to compare with, when that is a cut); all scored on Xm[n_tr:];
     on the card, (b)'s row refresh share of an iteration (k20_ms: phase 3's
-    pair_rows time at k=20). Returns (b)'s model."""
+    pair_rows time at k=20). Returns (b)'s model and (a)'s (model,
+    held-out predictions, accuracy)."""
     import torch
     from tpusvm_torch.config import SVMConfig
     from tpusvm_torch.models import OneVsRestSVC
     from tpusvm_torch.status import Status
 
     ovr = {}
-    blocked = dict(q=2048, max_inner=4096, wss=2)
-    runs = [("a", "blocked", blocked, n_tr), ("b", "pair", {}, n_pair)]
+    runs = [("a", "blocked", OVR_OPTS, n_tr), ("b", "pair", {}, n_pair)]
     if n_pair < n_tr:
-        runs.insert(1, ("a'", "blocked", blocked, n_pair))
+        runs.insert(1, ("a'", "blocked", OVR_OPTS, n_pair))
     for label, solver, sopts, n_fit in runs:
         for fn in counters.values():
             fn.launches = 0
@@ -464,7 +497,7 @@ def phase_ovr(Xm, lm, n_tr, n_pair, counters, device, k20_ms=None):
     log(f"[8] blocked ({ref}) against pair (b), n={n_pair}: accuracy {acca:.4f} vs "
         f"{accb:.4f}, test rows predicted alike {float((pa == pb).mean()):.4f}")
     check(abs(acca - accb) <= 0.005, f"[8] accuracies {acca} vs {accb}")
-    return mb
+    return mb, ovr["a"]
 
 
 def phase_tasks(X_all, Y_all, n_tr, n_cut, Xr, tr, n_svr, n_svr_pair, Xm_test,
@@ -721,7 +754,7 @@ def phase_refine(X_all, Y_all, n_tr, m5, acc5, device, counters):
     """Phase 11: phase 5's job with refine=4096, max_refines=2, kernel #1's
     launches counted around each rebuild; it must end CONVERGED with
     n_refines >= 1, its f64 exact-f gap below phase 5's, accuracy within
-    0.002 of phase 5's."""
+    0.002 of phase 5's. Returns the model and the two exact-f gaps."""
     import tpusvm_torch.solver.blocked as blk
     from tpusvm_torch.config import SVMConfig
     from tpusvm_torch.models import BinarySVC
@@ -782,6 +815,7 @@ def phase_refine(X_all, Y_all, n_tr, m5, acc5, device, counters):
     check(gaps["phase 11 (refine)"] < gaps["phase 5"] or device == "cpu",
           f"[11] exact-f gap {gaps} not below phase 5's")
     check(abs(acc - acc5) <= 0.002, f"[11] accuracy {acc} vs phase 5 {acc5}")
+    return model, gaps
 
 
 class _Stopped(Exception):
@@ -881,13 +915,15 @@ def phase_shrink_cache(X_all, Y_all, n_tr, acc5, m5, train5_s, device,
     """Phase 13: phase 5's job (a) with shrink_every=2, shrink_stable=3 and
     (b) with krow_cache=2048; each CONVERGED, accuracy within 0.002 of phase
     5's. (a) must launch kernels #1 and #2; (b) #2, its f-update taking the
-    rows path (kernel #1 resolved off, as in the JAX package)."""
+    rows path (kernel #1 resolved off, as in the JAX package). Returns 13(a)'s
+    (model, accuracy) and train seconds."""
     from tpusvm_torch.config import SVMConfig
     from tpusvm_torch.models import BinarySVC
     from tpusvm_torch.solver.blocked import resolve_solver_config
     from tpusvm_torch.status import Status
 
     secs = {}
+    models = {}
     for tag, extra in (("13a", dict(shrink_every=2, shrink_stable=3)),
                        ("13b", dict(krow_cache=2048))):
         for fn in counters.values():
@@ -902,6 +938,7 @@ def phase_shrink_cache(X_all, Y_all, n_tr, acc5, m5, train5_s, device,
         counts = {k: fn.launches for k, fn in counters.items()}
         res = model.result_
         acc = float((model.predict(X_all[n_tr:]) == Y_all[n_tr:]).mean())
+        models[tag] = (model, acc)
         log(f"[{tag}] {json.dumps(extra)}: train {secs[tag]:.3f} s, status "
             f"{model.status_.name}, outer rounds {res.n_outer}, updates "
             f"{model.n_iter_ - 1}, host syncs {res.n_host_syncs}, SV count "
@@ -932,6 +969,7 @@ def phase_shrink_cache(X_all, Y_all, n_tr, acc5, m5, train5_s, device,
     log(f"[13] train seconds: phase 5 {train5_s:.3f}, shrinking "
         f"{secs['13a']:.3f}, K-row cache {secs['13b']:.3f} (a finding, not a "
         f"claim: one run each)")
+    return models["13a"], secs["13a"]
 
 
 class LeafLog:
@@ -1297,6 +1335,427 @@ def phase_cascade(X_all, Y_all, n_tr, m5, acc5, device, counters, launches,
     clock("14d")
 
 
+# phase 3's problem-axis lanes: B working sets of phase 5's q over phase 5's
+# rows, with these gammas and Cs (lanes 0 and 1 are the cold-start and
+# round-4 sets of phase 5's own solve). Every lane runs: the fleet stacks
+# only the lanes that solve a subproblem in a round.
+FLEET_B = 16
+
+
+def problem_axis_lanes(X, Y, cold, round4, B_cold, q, dev):
+    """The 16 lanes of phase 3's problem-axis checks: (inner, fupdate,
+    gammas, Cs). inner = (K_BB, y, a, f, active), stacked on the lane axis
+    in f32: lane 0 phase 5's cold-start set, lane 1 its round-4 set, the
+    others cold starts on random sets of q rows at their gamma. fupdate =
+    (XB (B, q, d), coef (B, q)): lane 0 the cold-start rows, the others
+    random rows."""
+    import torch
+    from tpusvm_torch.ops.rbf import rbf_cross
+
+    n = X.shape[0]
+    rng = np.random.default_rng(16)
+    gammas = [GAMMA, GAMMA] + [GAMMA * (0.5, 1.0, 2.0, 4.0)[b % 4]
+                               for b in range(2, FLEET_B)]
+    Cs = [C, C] + [(1.0, 10.0, 100.0)[b % 3] for b in range(2, FLEET_B)]
+    idx = [B_cold] + [torch.as_tensor(rng.choice(n, q, replace=False),
+                                      device=dev) for _ in range(1, FLEET_B)]
+    lanes = [cold, round4]
+    for b in range(2, FLEET_B):
+        XB = X[idx[b]].contiguous()
+        y = Y[idx[b]]
+        lanes.append((rbf_cross(XB, XB, gammas[b]), y,
+                      torch.zeros(q, device=dev), -y.float(),
+                      torch.ones(q, dtype=torch.bool, device=dev)))
+    inner = tuple(torch.stack([ln[i].to(torch.float32) for ln in lanes])
+                  for i in range(5))
+    XB = torch.stack([X[i] for i in idx]).contiguous()
+    gen = torch.Generator(device="cpu").manual_seed(16)
+    coef = (torch.randn(FLEET_B, q, generator=gen) * 0.5).to(dev)
+    return inner, (XB, coef), gammas, Cs
+
+
+def kbb_by_bmm(XB, g_t):
+    """The fleet round's K_BB for every lane in one batched product:
+    exp(-gamma_b max(0, sn_i + sn_j - 2 (XB_b XB_b^T)_ij)), (B, q, q)."""
+    import torch
+
+    snB = (XB * XB).sum(dim=2)
+    d2 = snB[:, :, None] + snB[:, None, :] - 2.0 * torch.bmm(
+        XB, XB.transpose(1, 2))
+    return torch.exp(-g_t[:, None, None] * torch.clamp_min(d2, 0.0))
+
+
+def phase_problem_axis(X, Y, sn, cold, round4, B_cold, q, dev, peak_bw,
+                       peak_tf32, peak_flops, solo_fu_ms, solo_inner_ms):
+    """Phase 3, the fleet's problem-axis launches at B = 16: #2 and #1,
+    each lane held bit for bit against a solo launch of the same kernel on
+    its operands and against the plain versions (#2 bit for bit, #1 within
+    1e-5 sum|coef|), timed beside the lanes' solo launches one after
+    another and beside B times the solo bound; and the fleet round's K_BB
+    by one torch.bmm against the per-lane solo call that the fleet makes
+    (time, and whether the bits are the solo call's). Returns the two
+    kernels' JSON entries."""
+    import torch
+    from tpusvm_torch.ops.cuda.fused_fupdate import (
+        rbf_cross_matvec_batched_kernel, rbf_cross_matvec_batched_ref,
+        rbf_cross_matvec_kernel)
+    from tpusvm_torch.ops.cuda.inner_smo import (inner_smo_batched_kernel,
+                                                 inner_smo_batched_ref,
+                                                 inner_smo_kernel)
+    from tpusvm_torch.ops.rbf import rbf_cross
+
+    n, d = X.shape
+    inner, (XB, coef), gammas, Cs = problem_axis_lanes(
+        X, Y, cold, round4, B_cold, q, dev)
+    lanes = range(FLEET_B)
+    K, y, a, f, act = inner
+    Cs_t = torch.tensor(Cs, dtype=torch.float32, device=dev)
+    kw = dict(max_inner=4096, wss=2)
+
+    def batched2():
+        return inner_smo_batched_kernel(K, y, a, f, act, Cs_t, 1e-12, 1e-5,
+                                        **kw)
+
+    def solo2(b):
+        return inner_smo_kernel(K[b], y[b], a[b], f[b], act[b], Cs[b], 1e-12,
+                                1e-5, **kw)
+
+    a_out, stat = batched2()
+    t = time.perf_counter()
+    a_ref, st_ref = inner_smo_batched_ref(K, y, a, f, act, Cs, 1e-12, 1e-5,
+                                          **kw)
+    torch.cuda.synchronize()
+    p2_ms = (time.perf_counter() - t) * 1e3
+    stats = stat.tolist()
+    same_solo = []
+    for b in lanes:
+        a1, s1 = solo2(b)
+        same_solo.append(torch.equal(a_out[b], a1) and stats[b] == s1.tolist())
+    same_plain = torch.equal(a_out, a_ref) and stats == st_ref.tolist()
+    k2_ms = cuda_ms(batched2)
+    s2_ms = cuda_ms(lambda: [solo2(b) for b in lanes])
+    iters = [stats[b][3] for b in lanes]
+    b2_bytes = sum(it * 2.0 * q * 4 + 6.0 * q * 4 for it in iters)
+    b2_bound = b2_bytes / peak_bw * 1e3
+    log(f"[3] inner_smo problem axis B={FLEET_B} q={q} wss=2 (gammas "
+        f"{sorted(set(round(g, 6) for g in gammas))}, Cs {sorted(set(Cs))}): "
+        f"every lane bit-equal to its solo launch {all(same_solo)}, to the "
+        f"plain version {same_plain}; updates {[st[0] for st in stats]}, "
+        f"iterations {iters}")
+    log(f"[3] inner_smo problem axis: kernel {k2_ms:.3f} ms for {FLEET_B} "
+        f"lanes; their {FLEET_B} solo launches one after another "
+        f"{s2_ms:.3f} ms ({s2_ms / k2_ms:.2f}x); plain {p2_ms:.1f} ms (one "
+        f"run); bound {b2_bound:.4f} ms (bytes: the lanes' row reads, "
+        f"{FLEET_B} x the solo bound's form); solo cold-start launch "
+        f"{solo_inner_ms:.3f} ms")
+    check(all(same_solo), f"inner_smo problem axis: lanes differ from solo "
+          f"launches {same_solo}")
+    check(same_plain, "inner_smo problem axis differs from its plain version")
+    err2 = float((a_out - a_ref).abs().max())
+
+    # #1: the f-update with a problem axis
+    g_t = torch.tensor(gammas, dtype=torch.float32, device=dev)
+
+    def batched1():
+        return rbf_cross_matvec_batched_kernel(X, XB, coef, g_t, sn)
+
+    def solo1(b):
+        return rbf_cross_matvec_kernel(X, XB[b], coef[b], gammas[b], sn)
+
+    out = batched1()
+    want = rbf_cross_matvec_batched_ref(X, XB, coef, gammas, sn)
+    torch.cuda.synchronize()
+    bits = [torch.equal(out[b], solo1(b)) for b in lanes]
+    errs = [float((out[b] - want[b]).abs().max()) for b in lanes]
+    tols = [1e-5 * float(coef[b].abs().sum()) for b in lanes]
+    k1_ms = cuda_ms(batched1)
+    s1_ms = cuda_ms(lambda: [solo1(b) for b in lanes])
+    p1_ms = cuda_ms(lambda: rbf_cross_matvec_batched_ref(
+        X, XB, coef, gammas, sn), reps=3, warmup=1)
+    lib1_ms = cuda_ms(lambda: torch.matmul(X, XB.transpose(1, 2)),
+                      reps=3, warmup=1)
+    flops = 2.0 * n * d * q
+    b1_ops = FLEET_B * 3 * flops / peak_tf32 * 1e3
+    b1_bytes = 4.0 * (n * d + FLEET_B * (q * d + q + n) + n) / peak_bw * 1e3
+    log(f"[3] fused_fupdate problem axis B={FLEET_B} n={n} d={d} q={q}: every "
+        f"row bit-equal to its solo launch {all(bits)}; max_abs_err to the "
+        f"plain version {max(errs):.3e} (largest tol {max(tols):.3e})")
+    log(f"[3] fused_fupdate problem axis: kernel {k1_ms:.3f} ms for "
+        f"{FLEET_B} lanes ({k1_ms / FLEET_B:.3f} a lane); their solo launches "
+        f"one after another {s1_ms:.3f} ms ({s1_ms / k1_ms:.2f}x); plain "
+        f"{p1_ms:.3f} ms; torch.matmul(X, XB^T) batched {lib1_ms:.3f} ms; "
+        f"bound {b1_ops:.3f} ms ({FLEET_B} x 3xTF32 {b1_ops / FLEET_B:.3f}, "
+        f"{100 * b1_ops / k1_ms:.1f}% reached; bytes {b1_bytes:.4f} ms); solo "
+        f"launch {solo_fu_ms:.3f} ms")
+    check(all(bits), f"fused_fupdate problem axis: rows differ from solo "
+          f"launches {bits}")
+    check(all(e <= t for e, t in zip(errs, tols)),
+          f"fused_fupdate problem axis: errors {errs} over {tols}")
+
+    # K_BB of a fleet round: the per-lane solo call (what the fleet runs)
+    # against one batched product
+    def kbb_loop():
+        return torch.stack([rbf_cross(XB[b], XB[b], gammas[b]) for b in lanes])
+
+    loop = kbb_loop()
+    bmm = kbb_by_bmm(XB, g_t)
+    torch.cuda.synchronize()
+    bmm_bits = [torch.equal(loop[b], bmm[b]) for b in lanes]
+    bmm_err = float((loop - bmm).abs().max())
+    # the fleet's batch count falls as lanes finish: the bmm's bits at
+    # every count from 1 to B
+    bmm_counts = [c for c in range(1, FLEET_B + 1)
+                  if torch.equal(kbb_by_bmm(XB[:c], g_t[:c]), loop[:c])]
+    del loop, bmm
+    kloop_ms = cuda_ms(kbb_loop)
+    kbmm_ms = cuda_ms(lambda: kbb_by_bmm(XB, g_t))
+    kbb_bound = max(FLEET_B * 2.0 * q * q * d / peak_flops,
+                    4.0 * FLEET_B * (q * d + q * q) / peak_bw) * 1e3
+    log(f"[3] K_BB for B={FLEET_B} lanes of q={q}, d={d}: per-lane solo "
+        f"call (the fleet's) {kloop_ms:.3f} ms, one torch.bmm {kbmm_ms:.3f} "
+        f"ms ({kloop_ms / kbmm_ms:.2f}x); bmm lanes bit-equal to the solo "
+        f"call {sum(bmm_bits)} of {FLEET_B}, max |diff| {bmm_err:.3e}; batch "
+        f"counts at which every bmm lane is: {bmm_counts}; f32 bound "
+        f"{kbb_bound:.3f} ms")
+    shape = {"B": FLEET_B, "q": q}
+    return [{
+        "name": "inner_smo_batched", "route": "cuda",
+        "source": "tpusvm_torch/csrc/inner_smo.cu",
+        "replaces": "tpusvm/ops/pallas/inner_smo.py:545",
+        "launches": None, "max_abs_err": err2, "ms": k2_ms, "kernel_ms": k2_ms,
+        "plain_ms": p2_ms, "bound_ms": b2_bound, "bound_by": "bytes",
+        "library_ms": None, "solo_launches_ms": s2_ms,
+        "shape": dict(shape, max_inner=4096, wss=2, iterations=iters)}, {
+        "name": "fused_fupdate_batched", "route": "cuda",
+        "source": "tpusvm_torch/csrc/fused_fupdate.cu",
+        "replaces": "tpusvm/ops/pallas/fused_fupdate.py:150",
+        "launches": None, "max_abs_err": max(errs), "ms": k1_ms,
+        "kernel_ms": k1_ms, "plain_ms": p1_ms,
+        "bound_ms": max(b1_ops, b1_bytes),
+        "bound_by": "operations" if b1_ops >= b1_bytes else "bytes",
+        "library_ms": lib1_ms, "solo_launches_ms": s1_ms,
+        "kbb_loop_ms": kloop_ms, "kbb_bmm_ms": kbmm_ms,
+        "kbb_bmm_bits_equal": sum(bmm_bits), "kbb_bmm_equal_counts": bmm_counts,
+        "shape": dict(shape, n=n, d=d)}]
+
+
+def _gates(model, ref):
+    """benchmarks/solver_ladder.py's gates of a fit against `ref`: (SV-set
+    flips, |b - b_ref|, whether flips <= max(2, |SV|/25) and |db| <=
+    1e-3)."""
+    flips = len(set(model.sv_ids_) ^ set(ref.sv_ids_))
+    db = abs(model.b_ - ref.b_)
+    return flips, db, flips <= max(2, len(ref.sv_ids_) // 25) and db <= 1e-3
+
+
+def phase_ring_and_rungs(X_all, Y_all, n_tr, m5, acc5, train5_s, m11, gaps11,
+                         m13a, acc13a, train13a_s, device, counters):
+    """Phase 15: (a) phase 5's job with telemetry=128, equal to phase 5 bit
+    for bit (alpha, b, updates, rounds), its ring's table printed; (b) phase
+    5's job at bf16_f32 and bf16_f32c with refine=4096, max_refines=2:
+    CONVERGED, within the ladder gates against phase 11 (the f32 fit with
+    the same refine: phase 5's own b sits 1.5e-3 from it, over the gate,
+    PERF.md section 6, PR 9), its b and the f64 b of its alphas (exact_b,
+    independent of the refine rebuilds) within 1e-3 of each other and the
+    latter within 1e-3 of phase 11's f64 b, its f64 exact-f gap within the
+    f32 evaluation floor max(2 tau, 4e-7 sum(alpha)) (phase 11's band),
+    within 0.002 of phase 5's accuracy, kernel #1 launched only in the
+    refine rebuilds and #4 never; the gates against phase 5 printed too;
+    (c) phase 13(a)'s shrinking job at bf16_f32: CONVERGED within the
+    ladder gates against 13(a), its rebuilds (#1 launches), anneal round,
+    un-shrinks and exact-f gap printed."""
+    import torch
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.obs.convergence import format_gap_table
+    from tpusvm_torch.status import Status
+
+    def fit(extra):
+        for fn in counters.values():
+            fn.launches = 0
+        model = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
+                          solver_opts=dict(FULL_OPTS, **extra), device=device)
+        sync(device)
+        t = time.perf_counter()
+        model.fit(X_all[:n_tr], Y_all[:n_tr])
+        sync(device)
+        secs = time.perf_counter() - t
+        acc = float((model.predict(X_all[n_tr:]) == Y_all[n_tr:]).mean())
+        return model, acc, secs, {k: fn.launches for k, fn in counters.items()}
+
+    # (a) the ring
+    m, acc, secs, counts = fit(dict(telemetry=128))
+    r, r5 = m.result_, m5.result_
+    same = (torch.equal(r.alpha, r5.alpha) and r.b == r5.b
+            and r.n_iter == r5.n_iter and r.n_outer == r5.n_outer)
+    conv = m.convergence_
+    log(f"[15a] phase 5's job with telemetry=128: train {secs:.3f} s (phase 5 "
+        f"{train5_s:.3f}), equal to phase 5 bit for bit {same} (alpha, b "
+        f"{r.b:.15f}, updates {r.n_iter - 1}, rounds {r.n_outer}); ring: "
+        f"{conv['rounds_recorded']} rounds recorded, host syncs "
+        f"{r.n_host_syncs} (phase 5 {r5.n_host_syncs})")
+    for line in format_gap_table(conv, max_rows=12).splitlines():
+        log(f"    {line}")
+    check(same, "[15a] the ring changed the trajectory")
+    check(r.n_host_syncs == r5.n_host_syncs, "[15a] the ring added host syncs")
+    check(conv["rounds_recorded"] == r.n_outer + r.n_refines + 1,
+          f"[15a] ring count {conv['rounds_recorded']}")
+
+    # (b) the bf16 rungs with refine; the second baseline is the f64 b
+    # (b_high + b_low) / 2 that each fit's alphas give on f rebuilt in f64
+    # (exact_b: torch f64, not kernel #1, so a bias of the refine rebuilds
+    # that the rungs share with phase 11 shows there)
+    b64_of = {}
+    for tag, ref in (("5", m5), ("11", m11)):
+        bh_r, bl_r = exact_b(ref, X_all[:n_tr], Y_all[:n_tr], device)
+        b64_of[tag] = (bh_r + bl_r) / 2
+    for rung in ("bf16_f32", "bf16_f32c"):
+        m, acc, secs, counts = fit(dict(matmul_precision=rung, refine=4096,
+                                        max_refines=2))
+        r = m.result_
+        flips, db, ok = _gates(m, m11)
+        flips5, db5, ok5 = _gates(m, m5)
+        bh, bl = exact_b(m, X_all[:n_tr], Y_all[:n_tr], device)
+        b64 = (bh + bl) / 2
+        db64_own, db64_11 = abs(m.b_ - b64), abs(b64 - b64_of["11"])
+        log(f"[15b] {rung}, refine=4096: train {secs:.3f} s (phase 5 "
+            f"{train5_s:.3f}), status {m.status_.name}, rounds {r.n_outer}, "
+            f"updates {m.n_iter_ - 1}, refines {r.n_refines}, SVs "
+            f"{m.n_support_}, b {m.b_:.15f}; against phase 11 (f32, the same "
+            f"refine): SV flips {flips}, |db| {db:.3e}, within the gates {ok}; "
+            f"against phase 5: SV flips {flips5}, |db| {db5:.3e}, within the "
+            f"gates {ok5}; f64 exact-f gap {bl - bh:.3e} (the f32 evaluation "
+            f"floor 4e-7 * sum(alpha) "
+            f"{4e-7 * float(m.sv_alpha_.sum()):.3e}; phase 5 "
+            f"{gaps11['phase 5']:.3e}, phase 11 "
+            f"{gaps11['phase 11 (refine)']:.3e}); accuracy {acc:.4f} vs "
+            f"{acc5:.4f}; launches {counts}")
+        log(f"[15b] {rung}, f64 b: {b64:.15f}, |b - f64 b| {db64_own:.3e}; "
+            f"against phase 11's f64 b {b64_of['11']:.15f}: {db64_11:.3e}; "
+            f"phase 5's f64 b {b64_of['5']:.15f} (its b {m5.b_:.15f}): "
+            f"{abs(b64 - b64_of['5']):.3e}")
+        check(ok, f"[15b] {rung}: outside the ladder gates against phase 11 "
+              f"(flips {flips}, |db| {db})")
+        check(db64_own <= 1e-3 and db64_11 <= 1e-3,
+              f"[15b] {rung}: b {m.b_} is {db64_own} from the f64 b of its "
+              f"alphas, which is {db64_11} from phase 11's (gate 1e-3)")
+        floor = max(2e-5, 4e-7 * float(m.sv_alpha_.sum()))
+        check(bl - bh <= floor, f"[15b] {rung}: exact-f gap {bl - bh} over "
+              f"the f32 evaluation floor {floor}")
+        check(m.status_ == Status.CONVERGED, f"[15b] {rung}: {m.status_.name}")
+        check(abs(acc - acc5) <= 0.002, f"[15b] {rung}: accuracy {acc}")
+        check(device == "cpu" or counts["fused_fupdate"] == r.n_refines,
+              f"[15b] {rung}: #1 launched outside the rebuilds {counts}")
+        check(counts["fused_fupdate_select"] == 0, f"[15b] #4 launched {counts}")
+        check(device == "cpu" or counts["inner_smo"] > 0, f"[15b] {counts}")
+
+    # (c) the drift guard on the shrinking job
+    m, acc, secs, counts = fit(dict(shrink_every=2, shrink_stable=3,
+                                    matmul_precision="bf16_f32"))
+    r = m.result_
+    hist = r.shrink_history
+    flips, db, ok = _gates(m, m13a)
+    bh, bl = exact_b(m, X_all[:n_tr], Y_all[:n_tr], device)
+    bh13, bl13 = exact_b(m13a, X_all[:n_tr], Y_all[:n_tr], device)
+    anneal = [h["round"] for h in hist if h["event"] == "anneal"]
+    log(f"[15c] phase 13(a)'s shrinking job at bf16_f32: train {secs:.3f} s "
+        f"(13(a) {train13a_s:.3f}), status {m.status_.name}, rounds {r.n_outer}, "
+        f"updates {m.n_iter_ - 1}; f rebuilt at the trust tier by #1 "
+        f"{counts['fused_fupdate']} times (every bf16 pause, un-shrink and "
+        f"verify), anneal to f32 at round {anneal or 'none'}, un-shrinks "
+        f"{sum(h['event'] == 'unshrink' for h in hist)}, verifies "
+        f"{sum(h['event'] == 'verify' for h in hist)}, compactions "
+        f"{sum(h['event'] == 'shrink' for h in hist)}; against 13(a): SV flips "
+        f"{flips}, |db| {db:.3e}, within the gates {ok}, accuracy {acc:.4f} "
+        f"vs {acc13a:.4f}; f64 exact-f gap {bl - bh:.3e} (13(a) "
+        f"{bl13 - bh13:.3e})")
+    check(ok, f"[15c] outside the ladder gates (flips {flips}, |db| {db})")
+    check(m.status_ == Status.CONVERGED, f"[15c] {m.status_.name}")
+    check(device == "cpu" or counts["fused_fupdate"] > 0, f"[15c] {counts}")
+
+
+def phase_fleet(Xm, lm, n_tr, ovr_a, device, counters, launches):
+    """Phase 16: phase 8's ten heads at full width with solver="fleet"
+    (q=2048, max_inner=4096, wss=2), with compact_every=0 and 4: every head
+    CONVERGED with 8(a)'s SV-ID set, status and held-out accuracy, |db|
+    within 1e-4; the problem-axis #1 and #2 launched and no solo #2; host
+    syncs <= 2 a round; on the card, each head's bits the same with the
+    heads in reverse order in the same bucket; compact_every=4 (inert in
+    the port) changes no bit and no lane-round. Adds the fleet's launches
+    to `launches`."""
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import OneVsRestSVC
+    from tpusvm_torch.status import Status
+
+    ma, _, acc_a = ovr_a
+    fits = {}
+    for tag, extra, labels in (("16", {}, lm), ("16c", dict(compact_every=4), lm),
+                               ("16r", {}, 9 - lm)):
+        for fn in counters.values():
+            fn.launches = 0
+        m = OneVsRestSVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
+                         solver="fleet",
+                         solver_opts=dict(OVR_OPTS, **extra), device=device)
+        sync(device)
+        t = time.perf_counter()
+        m.fit(Xm[:n_tr], labels[:n_tr])
+        sync(device)
+        secs = time.perf_counter() - t
+        counts = {k: fn.launches for k, fn in counters.items()}
+        fits[tag] = (m, counts)
+        if tag == "16r":
+            break
+        acc = float((m.predict(Xm[n_tr:]) == lm[n_tr:]).mean())
+        st = m.fleet_stats_
+        sts = [Status(int(v)).name for v in m.statuses_]
+        same_sv = [np.array_equal(np.nonzero(ra.alpha.cpu().numpy() > 1e-8)[0],
+                                  np.nonzero(rb.alpha.cpu().numpy() > 1e-8)[0])
+                   for ra, rb in zip(m.results_, ma.results_)]
+        dbs = [abs(float(x) - float(y)) for x, y in zip(m.b_, ma.b_)]
+        bitwise = [bool((ra.alpha == rb.alpha).all())
+                   for ra, rb in zip(m.results_, ma.results_)]
+        log(f"[{tag}] fleet of {len(m.classes_)} heads n={n_tr} "
+            f"{json.dumps(dict(OVR_OPTS, **extra))}: train {secs:.3f} s (8(a)'s "
+            f"sequential heads {ma.train_time_s_:.3f} s), accuracy {acc:.4f} "
+            f"(8(a) {acc_a:.4f}); statuses {sts}; per-head SV-ID sets equal to "
+            f"8(a)'s {same_sv}, alphas bit-equal to 8(a)'s {bitwise}; |db| "
+            f"{[f'{x:.1e}' for x in dbs]}")
+        log(f"[{tag}] lockstep rounds {st['rounds']}, lane-rounds "
+            f"{st['lane_rounds']} (a program that runs frozen lanes: "
+            f"{st['bucket_rounds']}), host syncs "
+            f"{st['host_syncs']} ({st['host_syncs'] / st['rounds']:.2f} a round), "
+            f"blocked at them {st['host_wait_s'] * 1e3:.1f} ms; launches {counts}")
+        check(all(s == "CONVERGED" for s in sts), f"[{tag}] heads {sts}")
+        check(all(same_sv), f"[{tag}] SV-ID sets differ from 8(a) {same_sv}")
+        check(np.array_equal(m.statuses_, ma.statuses_), f"[{tag}] statuses")
+        check(acc == acc_a, f"[{tag}] accuracy {acc} vs 8(a) {acc_a}")
+        check(max(dbs) <= 1e-4, f"[{tag}] |db| {max(dbs)}")
+        check(st["host_syncs"] <= 2 * st["rounds"], f"[{tag}] host syncs {st}")
+        check(device == "cpu" or (counts["inner_smo_batched"] > 0
+                                  and counts["fused_fupdate_batched"] > 0
+                                  and counts["inner_smo"] == 0),
+              f"[{tag}] launches {counts}")
+        if tag == "16":
+            for k in ("inner_smo_batched", "fused_fupdate_batched"):
+                launches[k] = {"16": counts[k]}
+    # lane invariance: the reversed heads in the same bucket of 16
+    (mr, _), (m16, c16), (m16c, c16c) = fits["16r"], fits["16"], fits["16c"]
+    K = len(m16.classes_)
+    inv = [bool((ra.alpha == rb.alpha).all()) and float(ra.b) == float(rb.b)
+           for ra, rb in zip(m16.results_, reversed(mr.results_))]
+    same_comp = [bool((ra.alpha == rb.alpha).all())
+                 for ra, rb in zip(m16.results_, m16c.results_)]
+    rounds = {t: (m.fleet_stats_["rounds"], m.fleet_stats_["lane_rounds"])
+              for t, m in (("16", m16), ("16c", m16c))}
+    log(f"[16] lane invariance: each of the {K} heads bit-equal with the heads "
+        f"in reverse order {inv}; compact_every=4 (inert): heads bit-equal to "
+        f"compact_every=0's {same_comp}, (rounds, lane-rounds) {rounds}, "
+        f"launches equal {c16 == c16c}")
+    check(all(inv), f"[16] lanes depend on their companions {inv}")
+    check(all(same_comp) and rounds["16"] == rounds["16c"] and c16 == c16c,
+          f"[16] compact_every changed the solve {same_comp} {rounds}")
+
+
 def sync(device):
     import torch
 
@@ -1318,10 +1777,12 @@ def main():
             fused_fupdate_select_kernel, fused_fupdate_select_ref,
             rbf_cross_matvec_kernel, rbf_cross_matvec_ref,
             select_candidates_ref, select_epilogue_probe, selection_shape)
+        from tpusvm_torch.ops.cuda.fused_fupdate import (
+            rbf_cross_matvec_batched_kernel)
         from tpusvm_torch.ops.cuda.inner_smo import (
-            inner_smo_kernel, inner_smo_multipair_kernel,
-            inner_smo_multipair_ref, inner_smo_ref, iteration_floor_probe,
-            multipair_floor_probe)
+            inner_smo_batched_kernel, inner_smo_kernel,
+            inner_smo_multipair_kernel, inner_smo_multipair_ref, inner_smo_ref,
+            iteration_floor_probe, multipair_floor_probe)
         from tpusvm_torch.ops.cuda.pair_rows import (pair_rows_kernel,
                                                      pair_rows_ref)
         from tpusvm_torch.ops.rbf import rbf_cross, sq_norms
@@ -1741,6 +2202,11 @@ def main():
         "k20_max_abs_err": pr20["max_abs_err"],
         "shape": {"n": n, "d": d, "k": 2, "family": "rbf"}})
 
+    solo_ms = {k["name"]: k["ms"] for k in kernels}
+    kernels.extend(phase_problem_axis(
+        X, Y, sn, cold, round4, B, q, dev, peak_bw, peak_tf32, peak_flops,
+        solo_ms["fused_fupdate"], solo_ms["inner_smo"]))
+
     clock("1-3")
 
     # ---- 4. main path, mid size, card against CPU -------------------------
@@ -1786,7 +2252,9 @@ def main():
                 "inner_smo": inner_smo_kernel,
                 "inner_smo_multipair": inner_smo_multipair_kernel,
                 "fused_fupdate_select": fused_fupdate_select_kernel,
-                "pair_rows": pair_rows_kernel}
+                "pair_rows": pair_rows_kernel,
+                "inner_smo_batched": inner_smo_batched_kernel,
+                "fused_fupdate_batched": rbf_cross_matvec_batched_kernel}
     full_opts = {
         "5": dict(q=2048, wss=2, max_inner=4096),
         "5b": dict(q=2048, wss=1, max_inner=4096, multipair=4,
@@ -1914,7 +2382,7 @@ def main():
     launches["pair_rows"] = {"7": pair_launches}
     clock("7")
     Xm, lm = mnist_like_multiclass(n=70000, d=784, noise=BENCH_NOISE_MULTICLASS)
-    ovr_model = phase_ovr(Xm, lm, 60000, N_OVR_PAIR, counters, "cuda",
+    ovr_model, ovr_a = phase_ovr(Xm, lm, 60000, N_OVR_PAIR, counters, "cuda",
                           k20_ms=pr_runs[("rbf", 20)]["ms"])
     clock("8")
     Xr, tr = svr_sine(n=24000, d=1, noise=0.05, seed=587)
@@ -1926,13 +2394,20 @@ def main():
     phase_front(X_all, Y_all, 60000, N_CSV, N_CSV_LIMIT, N_ORACLE, N_CSV_TEST,
                 "cuda", model5_path)
     clock("10")
-    phase_refine(X_all, Y_all, 60000, m5, acc5, "cuda", counters)
+    m11, gaps11 = phase_refine(X_all, Y_all, 60000, m5, acc5, "cuda", counters)
     clock("11")
     phase_checkpoint(X_all, Y_all, 60000, "cuda")
     clock("12")
-    phase_shrink_cache(X_all, Y_all, 60000, acc5, m5, train_secs["5"], "cuda",
-                       counters)
+    (m13a, acc13a), train13a_s = phase_shrink_cache(
+        X_all, Y_all, 60000, acc5, m5, train_secs["5"], "cuda", counters)
     clock("13")
+
+    # ---- 15, 16. the ring, the bf16 rungs, the fleet ----------------------
+    phase_ring_and_rungs(X_all, Y_all, 60000, m5, acc5, train_secs["5"], m11,
+                         gaps11, m13a, acc13a, train13a_s, "cuda", counters)
+    clock("15")
+    phase_fleet(Xm, lm, 60000, ovr_a, "cuda", counters, launches)
+    clock("16")
 
     # ---- 14. the cascade: tree and star, blocked and pair leaves ---------
     phase_cascade(X_all, Y_all, 60000, m5, acc5, "cuda", counters, launches,

@@ -309,11 +309,10 @@ def test_estimator_fit_checkpoint_and_resume(tmp_path):
 
 
 def test_outer_state_fields_cover_the_jax_carry():
-    """Every JAX _OuterState field the port carries keeps its JAX name;
-    the rest are the telemetry ring (ROADMAP Queue 1 item 12)."""
+    """Every JAX _OuterState field is in the port's carry under its JAX
+    name, the telemetry ring's included."""
     from tpusvm.solver.blocked import _OuterState
 
     port = {f for f in OuterState.__dataclass_fields__}
     missing = set(_OuterState._fields) - port
-    assert missing == {"tele_gap", "tele_upd", "tele_status", "tele_i",
-                       "tele_active"}
+    assert missing == set()

@@ -545,9 +545,10 @@ def test_refine_and_unshrink_rebuilds_run_kernel_1(dev):
     assert float((got.cpu() - want).abs().max()) <= tol
     a = r.alpha.cpu().numpy()
     kk = dict(kern, kernel="rbf", kernel_fast=True)
-    got = _rebuild_f(X, Y, valid, a, Y.float(), kk, sn)
+    got = _rebuild_f(X, X, Y, valid, a, Y.float(), kk, sn)
     assert rbf_cross_matvec_kernel.launches == 2
-    want = _rebuild_f(X.cpu(), Y.cpu(), valid.cpu(), a, Y.float().cpu(), kk,
+    want = _rebuild_f(X.cpu(), X.cpu(), Y.cpu(), valid.cpu(), a,
+                      Y.float().cpu(), kk,
                       sn.cpu())
     assert float((got.cpu() - want).abs().max()) <= tol
 
@@ -633,3 +634,124 @@ def test_shrinking_and_cache_on_the_card_launch_kernels_1_and_2(dev):
         sv = lambda a: set(torch.nonzero(a.cpu() > 1e-8).flatten().tolist())
         assert sv(r.alpha) == sv(c.alpha)
         assert abs(r.b - c.b) <= 1e-4
+
+
+# ---- the fleet's problem-axis launches of #1 and #2 -------------------------
+
+def _lanes_case(dev, B, n, d, q, seed):
+    """B working sets over one X: distinct index sets, gammas and Cs, mixed
+    cold and mid-solve alphas, inactive members."""
+    rng = np.random.default_rng(seed)
+    X = torch.as_tensor(rng.random((n, d)), dtype=torch.float32, device=dev)
+    idx = torch.as_tensor(np.stack([rng.choice(n, q, replace=False)
+                                    for _ in range(B)]), device=dev)
+    XB = X[idx]
+    gammas = 0.5 + rng.random(B)
+    Cs = rng.choice([1.0, 2.5, 10.0], size=B)
+    y = torch.as_tensor(np.where(rng.random((B, q)) < 0.5, 1.0, -1.0),
+                        dtype=torch.float32, device=dev)
+    a = torch.as_tensor(np.where(rng.random((B, q)) < 0.3,
+                                 rng.random((B, q)) * Cs[:, None], 0.0),
+                        dtype=torch.float32, device=dev)
+    f = torch.as_tensor(rng.standard_normal((B, q)), dtype=torch.float32,
+                        device=dev) - y
+    act = torch.as_tensor(rng.random((B, q)) < 0.95, device=dev)
+    K = torch.stack([rbf_cross(XB[b], XB[b], float(gammas[b]))
+                     for b in range(B)])
+    return X, XB, gammas, Cs, y, a, f, act, K
+
+
+@pytest.mark.parametrize("B,q,wss,ex", [(4, 256, 1, False), (5, 512, 2, False),
+                                        (16, 2048, 2, False), (3, 256, 2, True)])
+def test_inner_smo_batched_equals_solo_launches(dev, B, q, wss, ex):
+    from tpusvm_torch.ops.cuda.inner_smo import (inner_smo_batched_kernel,
+                                                 inner_smo_batched_ref)
+
+    X, XB, gammas, Cs, y, a, f, act, K = _lanes_case(dev, B, 3000, 16, q, B + q)
+    args = (K, y, a, f, act, torch.as_tensor(Cs), 1e-12, 1e-5)
+    kw = dict(max_inner=1024, wss=wss, eta_exclude=ex)
+    a_out, stat = inner_smo_batched_kernel(*args, **kw)
+    a_ref, st_ref = inner_smo_batched_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a_out, a_ref) and torch.equal(stat, st_ref)
+    for b in range(B):
+        a1, s1 = inner_smo_kernel(K[b], y[b], a[b], f[b], act[b],
+                                  float(Cs[b]), 1e-12, 1e-5, **kw)
+        assert torch.equal(a_out[b], a1) and torch.equal(stat[b], s1)
+
+
+@pytest.mark.parametrize("B,n,d,q", [(4, 4099, 784, 512), (3, 1000, 37, 200),
+                                     (16, 4000, 64, 2048)])
+def test_fused_fupdate_batched_equals_solo_launches(dev, B, n, d, q):
+    from tpusvm_torch.ops.cuda.fused_fupdate import (
+        rbf_cross_matvec_batched_kernel, rbf_cross_matvec_batched_ref)
+    from tpusvm_torch.ops.rbf import sq_norms
+
+    X, XB, gammas, *_ = _lanes_case(dev, B, n, d, q, n + q)
+    gammas = gammas * 0.01
+    rng = np.random.default_rng(q)
+    coef = torch.as_tensor(rng.standard_normal((B, q)), dtype=torch.float32,
+                           device=dev)
+    sn = sq_norms(X)
+    got = rbf_cross_matvec_batched_kernel(X, XB, coef, torch.as_tensor(gammas),
+                                          sn)
+    want = rbf_cross_matvec_batched_ref(X, XB, coef, gammas, sn)
+    torch.cuda.synchronize()
+    for b in range(B):
+        solo = rbf_cross_matvec_kernel(X, XB[b].contiguous(), coef[b],
+                                       float(gammas[b]), sn)
+        assert torch.equal(got[b], solo)
+        assert float((got[b] - want[b]).abs().max()) <= \
+            1e-5 * float(coef[b].abs().sum())
+
+
+@pytest.mark.parametrize("precision", ["bf16_f32", "bf16_f32c", "raw_bf16"])
+def test_matmul_p_on_the_card_matches_the_cpu(dev, precision):
+    """The rungs on the card against their CPU version (bf16 operands
+    upcast and multiplied at full f32) within 2^-9 sum|a||b|, and the
+    backend flags restored after each call."""
+    from tpusvm_torch.ops.rbf import matmul_p
+
+    rng = np.random.default_rng(5)
+    A = torch.as_tensor(rng.random((513, 784)), dtype=torch.float32)
+    B = torch.as_tensor(rng.random((784, 300)), dtype=torch.float32)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    got = matmul_p(A.to(dev), B.to(dev), precision).cpu()
+    want = matmul_p(A, B, precision)
+    band = 2.0 ** -9 * (A.abs() @ B.abs())
+    assert got.dtype == torch.float32
+    assert bool(((got - want).abs() <= band).all())
+    assert flags == (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+
+
+def test_fleet_on_the_card_equals_solo_solves_and_launches_the_problem_axis(dev):
+    """Each fleet lane equals the solo blocked solve on the card (the kernel
+    engine, the fused f-update) bit for bit; the fleet launches the
+    problem-axis #2 and #1 and no solo #2; lanes are bit-identical with
+    their companions reordered."""
+    from tpusvm_torch.fleet import fleet_train
+    from tpusvm_torch.ops.cuda.fused_fupdate import (
+        rbf_cross_matvec_batched_kernel)
+    from tpusvm_torch.ops.cuda.inner_smo import inner_smo_batched_kernel
+    from tpusvm_torch.solver.blocked import blocked_smo_solve
+
+    X, Y, kw = _rings_problem(dev, n=1024)
+    Ys = [Y, -Y, torch.where(torch.arange(1024, device=dev) % 3 == 0, 1, -1)]
+    Cs, gs = [10.0, 1.0, 2.0], [10.0, 5.0, 2.0]
+    opts = dict(q=256, max_inner=512, accum_dtype=torch.float64, wss=2)
+    for fn in (inner_smo_batched_kernel, rbf_cross_matvec_batched_kernel,
+               inner_smo_kernel):
+        fn.launches = 0
+    fl = fleet_train(X, Ys, Cs, gs, device=dev, **opts)
+    assert inner_smo_batched_kernel.launches > 0
+    assert rbf_cross_matvec_batched_kernel.launches > 0
+    assert inner_smo_kernel.launches == 0
+    for r, y, C, g in zip(fl, Ys, Cs, gs):
+        solo = blocked_smo_solve(X, y, C=C, gamma=g, device=dev, inner="kernel",
+                                 fused_fupdate=True, **opts)
+        assert torch.equal(r.alpha, solo.alpha) and float(r.b) == solo.b
+    rev = fleet_train(X, Ys[::-1], Cs[::-1], gs[::-1], device=dev, **opts)
+    for a, b in zip(fl, rev[::-1]):
+        assert torch.equal(a.alpha, b.alpha)

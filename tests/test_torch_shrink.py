@@ -131,9 +131,10 @@ def test_shrink_validation():
     for k in ("pause_at", "resume_state", "return_state"):
         with pytest.raises(ValueError, match="segmenting"):
             shrinking_blocked_solve(X, Y, device="cpu", **{k: 3})
-    with pytest.raises(NotImplementedError, match=r"7\(d\)"):
-        shrinking_blocked_solve(X, Y, matmul_precision="bf16_f32",
-                                device="cpu")
+    # raw single pass needs refine, which compacted segments cannot run
+    with pytest.raises(ValueError, match="raw single pass"):
+        shrinking_blocked_solve(X, Y, matmul_precision="default",
+                                refine=16, device="cpu")
 
 
 @pytest.mark.parametrize("n_live,lo,hi,cap", [
@@ -160,7 +161,7 @@ def test_rebuild_f_over_a_padded_bucket():
     valid = torch.ones(300, dtype=torch.bool)
     kern = dict(kernel="rbf", gamma=10.0, coef0=0.0, degree=3,
                 kernel_fast=True)
-    f = _rebuild_f(X, Yt, valid, a, z, kern, sq_norms(X))
+    f = _rebuild_f(X, X, Yt, valid, a, z, kern, sq_norms(X))
     full = rbf_cross_matvec(X, X, torch.tensor(a * Y, dtype=torch.float32),
                             10.0) - z
     torch.testing.assert_close(f, full, rtol=0, atol=1e-5)

@@ -6,11 +6,15 @@ JAX default goes to both packages on a small rings fit, held to the repo's
 cross-engine criterion: the same status, SV-ID set and training accuracy,
 |db| <= 1e-4. Each knob at a non-default value goes to the port: it runs
 as the port's mapped behaviour (bit for bit where the knob only renames or
-cannot change the port's arithmetic), runs beside the JAX solver at the
-same value and does what JAX's does there (refine, krow_cache and the
-pause/resume surface), or raises NotImplementedError naming its ROADMAP
-Queue 1 item (the bf16 matmul_precision rungs and telemetry). A JAX knob
-never ends in a TypeError.
+cannot change the port's arithmetic), or runs beside the JAX solver at the
+same value and does what JAX's does there (refine, krow_cache, the
+pause/resume surface, the bf16 matmul_precision rung with refine, and the
+telemetry ring). A JAX knob never ends in a TypeError.
+
+The fleet's counterpart reads the JAX fleet solver's static surface
+(_FLEET_STATIC) and signature: every knob is accepted by the port's
+fleet_smo_solve, and each at its JAX default gives the JAX fleet's SV sets,
+statuses and b within 1e-4.
 """
 
 import inspect
@@ -39,14 +43,13 @@ _BASE = dict(C=1.0, gamma=5.0, tau=1e-5, q=128, max_inner=256,
 # "runs" = a knob the port has under the same name; a dict = the port's
 # run with those options instead, which it must equal bit for bit;
 # "jax" = the knob runs in both packages and does there what
-# _AS_JAX[knob] checks; "refused" = NotImplementedError naming a ROADMAP
-# Queue 1 item
+# _AS_JAX[knob] checks
 _NON_DEFAULT = {
     "inner": ("xla", {}, dict(inner="loop")),
     "refine": (600, {}, "jax"),
     "max_refines": (4, {}, {}),
     "wss": (2, {}, "runs"),
-    "matmul_precision": ("bf16_f32", {}, "refused"),
+    "matmul_precision": ("bf16_f32", {}, "jax"),
     "selection": ("approx", {}, {}),
     "fused_fupdate": (False, {}, "runs"),
     "pallas_layout": ("flat", {}, {}),
@@ -57,7 +60,7 @@ _NON_DEFAULT = {
     "pallas_fused_selection": (True, dict(fused_fupdate=True),
                                dict(fused_fupdate=True,
                                     fused_selection=True)),
-    "telemetry": (8, {}, "refused"),
+    "telemetry": (8, {}, "jax"),
     "kernel_fast": (False, dict(kernel="linear", C=0.5), "runs"),
     # the stability counters are written, never read: bit-transparent
     "shrink_stable": (3, {}, {}),
@@ -139,9 +142,34 @@ def _resume_state(pause):
     _in_band(r_t, r_j)
 
 
+def _matmul_precision(value):
+    """bf16_f32 with its drift guard (refine) in both packages; without one
+    both refuse."""
+    with pytest.raises(ValueError, match="bf16_f32"):
+        _port(matmul_precision=value)
+    with pytest.raises(ValueError, match="bf16_f32"):
+        _jax(matmul_precision=value)
+    r_t = _port(matmul_precision=value, refine=600)
+    r_j = _jax(matmul_precision=value, refine=600)
+    _in_band(r_t, r_j)
+    assert r_t.n_refines >= 1 and int(r_j.n_refines) >= 1
+
+
+def _telemetry(value):
+    """The ring in both packages: the port's solve bit for bit the solve
+    without it, one entry per body execution in each package."""
+    r_t, r_j = _port(telemetry=value), _jax(telemetry=value)
+    _in_band(r_t, r_j)
+    plain = _port()
+    assert torch.equal(r_t.alpha, plain.alpha) and r_t.b == plain.b
+    assert r_t.telemetry.count == r_t.n_outer + 1
+    assert int(r_j.telemetry.count) == int(r_j.n_outer) + 1
+
+
 _AS_JAX = {"refine": _refine, "krow_cache": _krow_cache,
            "pause_at": _pause_at, "return_state": _return_state,
-           "resume_state": _resume_state}
+           "resume_state": _resume_state,
+           "matmul_precision": _matmul_precision, "telemetry": _telemetry}
 
 
 def test_knob_list_follows_the_jax_signature():
@@ -173,10 +201,6 @@ def test_knob_at_a_non_default_value(knob):
     value, needs, does = _NON_DEFAULT[knob]
     if does == "jax":
         _AS_JAX[knob](value)
-        return
-    if does == "refused":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item"):
-            _port(**needs, **{knob: value})
         return
     r = _port(**needs, **{knob: value})
     assert r.status == Status.CONVERGED
@@ -236,8 +260,52 @@ def test_jax_solver_opts_carry_over_through_the_estimator():
     refined = BinarySVC(cfg, solver_opts=dict(q=128, refine=600),
                         device="cpu").fit(Xs, Y)
     assert refined.result_.n_refines >= 1
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 7\(d\)"):
+    with pytest.raises(ValueError, match="bf16_f32"):
         BinarySVC(cfg, solver_opts=dict(matmul_precision="bf16_f32"),
                   device="cpu").fit(Xs, Y)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 12"):
-        BinarySVC(cfg, solver_opts=dict(telemetry=8), device="cpu").fit(Xs, Y)
+    bf16 = BinarySVC(cfg, solver_opts=dict(q=128, matmul_precision="bf16_f32",
+                                           refine=600), device="cpu").fit(Xs, Y)
+    assert bf16.train_precision_ == "bf16_f32"
+    ringed = BinarySVC(cfg, solver_opts=dict(q=128, telemetry=8),
+                       device="cpu").fit(Xs, Y)
+    assert ringed.convergence_["rounds_recorded"] == \
+        ringed.result_.n_outer + 1
+    assert np.array_equal(ringed.sv_ids_, plain.sv_ids_)
+
+
+# ---- the fleet's knobs ------------------------------------------------------
+
+from tpusvm.fleet import fleet_train as j_fleet_train  # noqa: E402
+from tpusvm.fleet.solve import _FLEET_STATIC as J_FLEET_STATIC  # noqa: E402
+from tpusvm.fleet.solve import fleet_smo_solve as j_fleet_solve  # noqa: E402
+from tpusvm_torch.fleet import fleet_smo_solve, fleet_train  # noqa: E402
+from tpusvm_torch.fleet.solve import _FLEET_STATIC  # noqa: E402
+
+_J_FLEET_PARAMS = inspect.signature(j_fleet_solve).parameters
+
+
+def test_fleet_knob_list_follows_the_jax_signature():
+    assert tuple(_FLEET_STATIC) == tuple(J_FLEET_STATIC)
+    port = inspect.signature(fleet_smo_solve).parameters
+    assert all(name in port for name in _J_FLEET_PARAMS)
+    assert all(name in port for name in J_FLEET_STATIC)
+
+
+@pytest.mark.parametrize("knob", J_FLEET_STATIC)
+def test_fleet_knob_at_its_jax_default_matches_jax(knob):
+    """Two lanes (the labels and their flip, at _BASE's C and gamma)
+    through both packages' fleet_train with the knob at its JAX default
+    (the accumulator dtype is f64 in both, as everywhere in this file)."""
+    Xs, Y = _data()
+    base = dict(q=128, max_inner=256, max_iter=10**6)
+    default = _J_FLEET_PARAMS[knob].default
+    extra = {} if knob in ("accum_dtype", "q", "max_inner") else {knob: default}
+    lanes = ([Y, -Y], [_BASE["C"]] * 2, [_BASE["gamma"]] * 2)
+    r_t = fleet_train(torch.tensor(Xs), *lanes, device="cpu",
+                      accum_dtype=torch.float64, **base, **extra)
+    r_j = j_fleet_train(jnp.asarray(Xs), *lanes, accum_dtype=jnp.float64,
+                        **base, **extra)
+    for a, b in zip(r_t, r_j):
+        assert int(a.status) == int(b.status) == Status.CONVERGED
+        np.testing.assert_array_equal(_sv(a.alpha.numpy()), _sv(b.alpha))
+        assert abs(float(a.b) - float(b.b)) <= 1e-4

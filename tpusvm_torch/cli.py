@@ -115,15 +115,43 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--tau", type=float, default=1e-5)
     tr.add_argument("--eps", type=float, default=1e-12)
     tr.add_argument("--sv-tol", type=float, default=1e-8)
+    tr.add_argument(
+        "--precision", choices=("f32", "bf16_f32", "bf16_f32c"), default="f32",
+        help="precision rung of the blocked solver's f-update contraction: "
+        "f32 = full-f32 trust anchor (default); bf16_f32 = bfloat16 "
+        "operands with exact f32 accumulation (pair with --shrink-every, "
+        "whose un-shrink rebuild re-validates claims, or --solver-opt "
+        "refine=N); bf16_f32c adds a compensated residual pass. Raw single "
+        "pass stays solver-opt-only (matmul_precision=default, "
+        "refine-gated)")
+    tr.add_argument(
+        "--convergence", type=int, default=0, metavar="T",
+        help="carry a T-slot convergence ring through the blocked solver's "
+        "outer loop (per-round Keerthi gap, update count, live rows and "
+        "status; no host syncs, bit-transparent to the solution) and print "
+        "its gap table; 0 = off. Requires --mode single with the blocked "
+        "solver")
     tr.add_argument("--accum", choices=("none", "float64"), default="float64",
                     help="solver accumulator dtype: float64 (default; f32 "
                     "features, f64 alpha and f) or none (the features' f32)")
     tr.add_argument("--no-scale", action="store_true",
                     help="skip min-max feature scaling")
-    tr.add_argument("--solver", choices=("blocked", "pair"), default=None,
+    tr.add_argument("--solver", choices=("blocked", "pair", "fleet"),
+                    default=None,
                     help="blocked working-set solver (default; binary and "
-                    "svr) or pair (one pair per iteration; the default with "
-                    "--multiclass, where the heads run in lockstep)")
+                    "svr), pair (one pair per iteration; the default with "
+                    "--multiclass, where the heads run in lockstep) or fleet "
+                    "(--multiclass only: every one-vs-rest head in one "
+                    "lockstep blocked fleet, tpusvm_torch.fleet; --fleet is "
+                    "shorthand)")
+    tr.add_argument("--fleet", action="store_true",
+                    help="with --multiclass/--task ovr: train all "
+                    "one-vs-rest heads as one fleet (shorthand for --solver "
+                    "fleet)")
+    tr.add_argument("--fleet-compact", type=int, default=0, metavar="R",
+                    help="fleet: the JAX CLI's problem-axis compaction every "
+                    "R outer rounds; accepted and inert here, where a "
+                    "finished problem already runs nothing (R >= 0)")
     tr.add_argument("--q", type=int, default=1024,
                     help="working-set size (blocked)")
     tr.add_argument("--wss", type=int, choices=(1, 2), default=1,
@@ -242,6 +270,24 @@ def _check_train_args(args) -> None:
     """The JAX command line's refusals of flag combinations."""
     if args.task == "ovr":
         args.multiclass = True
+    if args.fleet:
+        if not args.multiclass:
+            raise SystemExit("--fleet trains one-vs-rest heads as one "
+                             "batched program; it requires "
+                             "--multiclass/--task ovr")
+        if args.solver not in (None, "fleet"):
+            raise SystemExit(f"--fleet and --solver {args.solver} "
+                             "conflict (--fleet means --solver fleet)")
+        args.solver = "fleet"
+    if args.solver == "fleet" and not args.multiclass:
+        raise SystemExit("--solver fleet requires --multiclass/--task "
+                         "ovr (the fleet batches the one-vs-rest heads)")
+    if args.fleet_compact:
+        if args.fleet_compact < 0:
+            raise SystemExit("--fleet-compact must be >= 0")
+        if args.solver != "fleet":
+            raise SystemExit("--fleet-compact needs --fleet/--solver "
+                             "fleet")
     if args.mode == "pod":
         raise SystemExit("--mode pod is not ported yet (ROADMAP Queue 1 "
                          "item 9(i): the pod leaves)")
@@ -291,11 +337,24 @@ def _check_train_args(args) -> None:
         raise SystemExit(f"--kernel {args.kernel}: the approximate-kernel "
                          "feature maps are not ported yet (ROADMAP Queue 1 "
                          "item 10)")
-    if args.mode == "oracle" and (args.solver_opt or args.shrink_every):
-        raise SystemExit("--solver-opt/--shrink-every have no effect on "
-                         "--mode oracle (the NumPy oracle has no solver "
-                         "knobs)")
+    if args.mode == "oracle" and (args.solver_opt or args.shrink_every
+                                  or args.precision != "f32"):
+        raise SystemExit("--solver-opt/--precision/--shrink-every have no "
+                         "effect on --mode oracle (the NumPy oracle has no "
+                         "solver knobs)")
     solver = args.solver or ("pair" if args.multiclass else "blocked")
+    if args.precision != "f32" and solver != "blocked":
+        raise SystemExit("--precision/matmul_precision is a blocked-solver "
+                         "ladder knob; the pair solver has no laddered "
+                         "contraction")
+    if args.convergence:
+        if args.convergence < 0:
+            raise SystemExit("--convergence must be >= 0")
+        if args.mode != "single" or args.multiclass or solver != "blocked":
+            raise SystemExit(
+                "--convergence needs --mode single with the blocked solver "
+                "(the ring is carried through blocked_smo_solve's outer "
+                "loop)")
     if args.resume and not args.checkpoint:
         raise SystemExit("--resume requires --checkpoint")
     if args.checkpoint:
@@ -328,6 +387,31 @@ def _check_train_args(args) -> None:
         if args.multiclass:
             raise SystemExit("--shrink-every supports binary/svr --mode "
                              "single training for now")
+
+
+def _check_fleet_opts(opts: dict) -> None:
+    """--solver-opt names of the fleet: fleet_smo_solve's knobs (less its
+    arrays, the flagged hyperparameters and the resume surface), the
+    driver's bucket and compact_every, and the solo knob names the fleet
+    refuses by name at a non-inert value (fleet/batch.py)."""
+    import inspect
+
+    from tpusvm_torch.fleet import fleet_smo_solve
+    from tpusvm_torch.fleet.batch import UNSUPPORTED_FLEET_OPTS
+
+    flagged = {"C", "gamma", "eps", "tau", "max_iter", "accum_dtype",
+               "kernel", "degree", "coef0"}
+    reserved = {"X", "Ys", "valids", "alpha0s", "Cs", "gammas", "sn",
+                "resume_states", "pause_at", "return_state", "device"} | flagged
+    known = (set(inspect.signature(fleet_smo_solve).parameters) - reserved
+             | {"bucket", "compact_every"} | set(UNSUPPORTED_FLEET_OPTS))
+    bad = sorted(set(opts) - known)
+    if bad:
+        hint = [k for k in bad if k in flagged]
+        raise SystemExit(
+            f"--solver-opt: unknown 'fleet'-solver knob(s) {bad}; known: "
+            f"{sorted(known)}"
+            + (f" (use the dedicated flags for {hint})" if hint else ""))
 
 
 def _parse_solver_opts(items) -> dict:
@@ -485,8 +569,29 @@ def _train(args, group) -> int:
     print(f"n = {X.shape[0]}, n_features = {X.shape[1]}")
     solver = args.solver or ("pair" if args.multiclass else "blocked")
     opts = (dict(q=args.q, wss=args.wss, max_inner=args.max_inner)
-            if solver == "blocked" else {})
+            if solver in ("blocked", "fleet") else {})
     opts.update(_parse_solver_opts(args.solver_opt))
+    if solver == "fleet":
+        _check_fleet_opts(opts)
+        if args.fleet_compact:
+            if "compact_every" in opts:
+                raise SystemExit("--fleet-compact and --solver-opt "
+                                 "compact_every= are the same knob; pass one")
+            opts["compact_every"] = args.fleet_compact
+    if args.precision != "f32":
+        if "matmul_precision" in opts:
+            raise SystemExit("--precision and --solver-opt matmul_precision= "
+                             "are the same knob; pass one")
+        opts["matmul_precision"] = args.precision
+    if "matmul_precision" in opts and solver != "blocked":
+        raise SystemExit("--precision/matmul_precision is a blocked-solver "
+                         "ladder knob; the pair solver has no laddered "
+                         "contraction")
+    if args.convergence:
+        if "telemetry" in opts:
+            raise SystemExit("--convergence and --solver-opt telemetry= are "
+                             "the same knob; pass one")
+        opts["telemetry"] = args.convergence
     if args.shrink_every:
         if "shrink_every" in opts:
             raise SystemExit("--shrink-every and --solver-opt shrink_every= "
@@ -531,6 +636,12 @@ def _train(args, group) -> int:
     if args.save and rank0:
         model.save(args.save)
         print(f"model saved to {args.save}")
+    conv = getattr(model, "convergence_", None)
+    if conv is not None:
+        from tpusvm_torch.obs.convergence import format_gap_table
+
+        print("convergence (b_low - b_high per outer round):")
+        print(format_gap_table(conv))
     print(timer.report())
     return 0
 

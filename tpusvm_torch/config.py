@@ -120,6 +120,50 @@ class CascadeConfig:
         return cap
 
 
+# ---------------------------------------------------------------- precision
+# The contraction-precision rungs of the blocked solver's f-update and K-row
+# refresh (ops/rbf.py:matmul_p), as the JAX package names them:
+#   "float32" / "highest": full f32 (the trust tier);
+#   "bf16_f32":  operands rounded to bfloat16, products accumulated in f32;
+#   "bf16_f32c": the same plus one compensated pass, (A - bf16(A)) @ bf16(B);
+#   RAW_BF16:    the backend's single-pass product: TF32 on a CUDA card,
+#                plain f32 on the CPU (as XLA's CPU "default" is).
+# RAW_BF16 is reached only by this token: the string "default" raises here,
+# and the blocked solver translates its own matmul_precision="default" to
+# RAW_BF16 after checking the refine pairing that keeps it safe.
+RAW_BF16 = "raw_bf16"
+
+MATMUL_PRECISIONS = ("float32", "highest", "bf16_f32", "bf16_f32c",
+                     RAW_BF16)
+
+BF16_RUNGS = ("bf16_f32", "bf16_f32c")
+
+
+def resolve_matmul_precision(precision):
+    """The knob -> a MATMUL_PRECISIONS token: None -> "float32"; the tokens
+    to themselves; "default" always raises ValueError (jax's name for raw
+    single-pass bf16 reads like "no preference")."""
+    if precision is None:
+        return "float32"
+    if precision == "default":
+        raise ValueError(
+            "precision='default' is jax's name for RAW SINGLE-PASS "
+            "products (bf16 on a TPU, TF32 on a CUDA card), not 'the "
+            "default precision'. Request it explicitly as "
+            "tpusvm_torch.config.RAW_BF16, use the solver knob "
+            "matmul_precision='default' (which validates the refine "
+            "pairing first), or pick a ladder rung: 'float32' (trust "
+            "anchor), 'bf16_f32' (bf16 operands, f32 accumulation), "
+            "'bf16_f32c' (compensated)."
+        )
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(
+            f"unknown matmul precision {precision!r}; supported: "
+            f"{list(MATMUL_PRECISIONS)} (None = 'float32')"
+        )
+    return precision
+
+
 def resolve_accum_dtype(accum_dtype):
     """"auto" -> torch.float64 (f32 features, f64 O(n) accumulators: f32
     accumulators alone can stall SMO near convergence); None stays None

@@ -32,3 +32,16 @@ extern "C" int tpusvm_rbf_cross_matvec(const float* X, const float* XB, const fl
   return tpusvm::launch_rbf_cross_matvec(X, XB, coef, sn, snB, gamma, n, d, ld, q, scratch, out,
                                          stream);
 }
+
+// The fleet's problem-axis launch: B problems over one X, X_B (B*q, d), coef
+// and snB (B*q), gammas (B,), out (B, n); problem b's row of out equals
+// tpusvm_rbf_cross_matvec on its slices bit for bit.
+extern "C" int tpusvm_rbf_cross_matvec_batched(const float* X, const float* XB,
+                                               const float* coef, const float* sn,
+                                               const float* snB, const float* gammas,
+                                               int n, int d, int ld, int q,
+                                               int B, float* scratch, float* out,
+                                               cudaStream_t stream) {
+  return tpusvm::launch_rbf_cross_matvec_batched(X, XB, coef, sn, snB, gammas, n, d, ld, q, B,
+                                                 scratch, out, stream);
+}

@@ -40,6 +40,13 @@
 // with -fmad=false: each product and sum rounds as the reference's separate
 // f32 operations do, except the f row update, which is two explicit FMAs
 // because the reference's compiled update is.
+//
+// The fleet's problem-axis launch (tpusvm_inner_smo_batched): B working sets
+// of one q, stacked, one block each, <<<B, THREADS>>>. Block b reads only
+// lane b's K_BB, y, alpha, f and active slices and its own C, and writes only
+// its a_out slice and its four stat entries; its arithmetic is the solo
+// kernel's, so a lane's outputs equal a solo launch on its operands bit for
+// bit. The caller stacks only the lanes that run a subproblem this round.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -108,12 +115,26 @@ __device__ __forceinline__ void block_best(Arg& h, Arg& l, Partials& part, int& 
   buf ^= 1;
 }
 
+template <bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
                  const float* __restrict__ a_in, const float* __restrict__ f_in,
-                 const float* __restrict__ act_in, float C, float eps, float tau, int q,
-                 int max_inner, int wss, int eta_exclude, float* __restrict__ a_out,
-                 int* __restrict__ stat) {
+                 const float* __restrict__ act_in, float C, const float* __restrict__ Cs,
+                 float eps, float tau, int q, int max_inner, int wss, int eta_exclude,
+                 float* __restrict__ a_out, int* __restrict__ stat) {
+  if (BATCHED) {
+    // lane blockIdx.x: its own slices and C
+    const int b = blockIdx.x;
+    C = Cs[b];
+    const size_t v = static_cast<size_t>(b) * q;
+    K += v * q;
+    y_in += v;
+    a_in += v;
+    f_in += v;
+    act_in += v;
+    a_out += v;
+    stat += 4 * b;
+  }
   extern __shared__ float smem[];
   const int nover = overflow_lanes(q);
   float* o_a = smem;
@@ -373,10 +394,30 @@ extern "C" int tpusvm_inner_smo(const float* K, const float* y, const float* a, 
   const int smem = tpusvm_inner_smo_smem_bytes(q);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        inner_smo_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        inner_smo_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  inner_smo_kernel<<<1, THREADS, smem, stream>>>(K, y, a, f, act, C, eps, tau, q, max_inner,
-                                                 wss, eta_exclude, a_out, stat);
+  inner_smo_kernel<false><<<1, THREADS, smem, stream>>>(K, y, a, f, act, C, nullptr, eps, tau,
+                                                        q, max_inner, wss, eta_exclude, a_out,
+                                                        stat);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B stacked working sets: K (B, q, q), y/a/f/act/a_out (B, q), Cs (B,),
+// stat (B, 4); one block a lane.
+extern "C" int tpusvm_inner_smo_batched(const float* K, const float* y, const float* a,
+                                        const float* f, const float* act, const float* Cs,
+                                        float eps, float tau, int q, int max_inner, int wss,
+                                        int eta_exclude, int B, float* a_out, int* stat,
+                                        cudaStream_t stream) {
+  if (B <= 0) return static_cast<int>(cudaGetLastError());
+  const int smem = tpusvm_inner_smo_smem_bytes(q);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        inner_smo_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  inner_smo_kernel<true><<<B, THREADS, smem, stream>>>(K, y, a, f, act, 0.f, Cs, eps, tau, q,
+                                                       max_inner, wss, eta_exclude, a_out, stat);
   return static_cast<int>(cudaGetLastError());
 }

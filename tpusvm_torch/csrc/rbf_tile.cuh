@@ -54,6 +54,18 @@
 //     thread's 32 columns of the unit, a shuffle across the four lanes that
 //     share a row, one partial per (column tile, row) in memory, and a last
 //     launch that adds each row's partials in column-tile order.
+//
+// The fleet's problem-axis launch (launch_rbf_cross_matvec_batched): B
+// problems share X, each with its own X_B (q rows), coefficients, snB and
+// gamma. The problem is the outermost index of the work unit (problem, row
+// block, column tile); X_B's TF32 split covers the stacked (B * q, d) rows
+// in one map, a problem's column tile j reading rows b*q + j*BN on (a tile
+// reaching past q reads the next problem's rows, whose columns the
+// epilogue drops, as it drops the solo launch's zero fill); each problem
+// has its own partials, summed in the solo order. So a problem's output
+// equals the solo launch's on its operands bit for bit. The caller stacks
+// only the problems that run a subproblem this round. Each problem still
+// streams X once; one X pass for all problems is a later design.
 
 #pragma once
 
@@ -168,10 +180,11 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
-// X_B (q, d) -> its TF32 hi and lo parts (q, ld), columns d..ld-1 zero
-__global__ void tf32_split_kernel(const float* __restrict__ XB, int q, int d, int ld,
+// X_B (rows, d) -> its TF32 hi and lo parts (rows, ld), columns d..ld-1
+// zero
+__global__ void tf32_split_kernel(const float* __restrict__ XB, int rows, int d, int ld,
                                   float* __restrict__ hi, float* __restrict__ lo) {
-  const size_t total = static_cast<size_t>(q) * ld;
+  const size_t total = static_cast<size_t>(rows) * ld;
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
     const size_t r = i / ld;
@@ -186,13 +199,18 @@ __global__ void tf32_split_kernel(const float* __restrict__ XB, int q, int d, in
 // One work unit is a (row block, column tile) pair, BM x BN outputs; units are
 // numbered row block major, so the blocks running at one time share a few row
 // blocks of X (L2-resident) and all of X_B. Each unit writes the per-row
-// partial sum of its column tile to partial[j * n + row].
+// partial sum of its column tile to partial[j * n + row]. BATCHED: `nprob`
+// problems, the problem the outermost index of the unit; problem b's X_B
+// rows start at b*q of the maps, its coef, snB at b*q, its gamma is
+// gammas[b], its partials at (b * nj + j) * n.
+template <bool BATCHED>
 __global__ void __launch_bounds__(THREADS, 1)
 rbf_cross_matvec_kernel(const __grid_constant__ CUtensorMap map_x,
                         const __grid_constant__ CUtensorMap map_bhi,
                         const __grid_constant__ CUtensorMap map_blo,
                         const float* __restrict__ coef, const float* __restrict__ sn,
-                        const float* __restrict__ snB, float gamma, int n, int ld, int q,
+                        const float* __restrict__ snB, float gamma,
+                        const float* __restrict__ gammas, int n, int ld, int q, int nprob,
                         float* __restrict__ partial) {
   extern __shared__ unsigned char smem_raw[];
   // TMA's 128-byte swizzle repeats every 1024 bytes: align the ring to it
@@ -204,7 +222,8 @@ rbf_cross_matvec_kernel(const __grid_constant__ CUtensorMap map_x,
   const int wg = tid / 128;
   const int nk = (ld + BK - 1) / BK;
   const int nj = (q + BN - 1) / BN;
-  const int units = ((n + BM - 1) / BM) * nj;
+  const int per_prob = ((n + BM - 1) / BM) * nj;
+  const int units = (BATCHED ? nprob : 1) * per_prob;
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -222,8 +241,10 @@ rbf_cross_matvec_kernel(const __grid_constant__ CUtensorMap map_x,
       int s = 0;
       uint32_t parity = 1;  // the ring starts empty: the first waits pass
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
-        const int row0 = (u / nj) * BM;
-        const int col0 = (u % nj) * BN;
+        const int b = BATCHED ? u / per_prob : 0;
+        const int ur = BATCHED ? u % per_prob : u;
+        const int row0 = (ur / nj) * BM;
+        const int col0 = b * q + (ur % nj) * BN;
         for (int kb = 0; kb < nk; ++kb) {
           mbar_wait(smem_u32(&empty[s]), parity);
           const uint32_t bar = smem_u32(&full[s]);
@@ -258,8 +279,13 @@ rbf_cross_matvec_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
-    const int row0 = (u / nj) * BM;
-    const int j = u % nj;
+    const int b = BATCHED ? u / per_prob : 0;
+    const int ur = BATCHED ? u % per_prob : u;
+    const int row0 = (ur / nj) * BM;
+    const int j = ur % nj;
+    const float* coef_b = coef + static_cast<size_t>(b) * q;
+    const float* snB_b = snB + static_cast<size_t>(b) * q;
+    const float gamma_b = BATCHED ? __ldg(gammas + b) : gamma;
 #pragma unroll
     for (int i = 0; i < 64; ++i) tot[i] = 0.f;
 
@@ -324,13 +350,13 @@ rbf_cross_matvec_kernel(const __grid_constant__ CUtensorMap map_x,
       for (int c = 0; c < 2; ++c) {
         const int gj = col0 + 8 * i + 2 * t + c;
         if (gj < q) {
-          const float sb = __ldg(snB + gj);
-          const float cj = __ldg(coef + gj);
+          const float sb = __ldg(snB_b + gj);
+          const float cj = __ldg(coef_b + gj);
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             float d2 = (sn_r[h] + sb) - 2.f * tot[4 * i + 2 * h + c];
             d2 = fmaxf(d2, 0.f);  // dot-form cancellation guard
-            sum[h] += expf(-gamma * d2) * cj;
+            sum[h] += expf(-gamma_b * d2) * cj;
           }
         }
       }
@@ -340,19 +366,25 @@ rbf_cross_matvec_kernel(const __grid_constant__ CUtensorMap map_x,
       v += __shfl_xor_sync(0xffffffffu, v, 1);
       v += __shfl_xor_sync(0xffffffffu, v, 2);
       const int r = row0 + rbase + 8 * h;
-      if (t == 0 && r < n) partial[static_cast<size_t>(j) * n + r] = v;
+      if (t == 0 && r < n) partial[(static_cast<size_t>(b) * nj + j) * n + r] = v;
     }
   }
 }
 
 // out_r = sum over column tiles j = 0, 1, ... of partial[j * n + r], in that
-// order, in f32
+// order, in f32; for each of nprob problems (partials and out at b * nj * n
+// and b * n)
 __global__ void sum_partials_kernel(const float* __restrict__ partial, int n, int nj,
-                                    float* __restrict__ out) {
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n; r += gridDim.x * blockDim.x) {
+                                    float* __restrict__ out, int nprob) {
+  const size_t total = static_cast<size_t>(nprob) * n;
+  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const size_t b = i / n;
+    const size_t r = i % n;
+    const float* pb = partial + b * nj * n;
     float v = 0.f;
-    for (int j = 0; j < nj; ++j) v += partial[static_cast<size_t>(j) * n + r];
-    out[r] = v;
+    for (int j = 0; j < nj; ++j) v += pb[static_cast<size_t>(j) * n + r];
+    out[b * n + r] = v;
   }
 }
 
@@ -434,7 +466,7 @@ static int launch_rbf_cross_matvec(const float* X, const float* XB, const float*
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   // set on every call: the attribute is held per device
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(rbf::rbf_cross_matvec_kernel,
+    err = cudaFuncSetAttribute(rbf::rbf_cross_matvec_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, rbf::SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -445,12 +477,60 @@ static int launch_rbf_cross_matvec(const float* X, const float* XB, const float*
   // persistent blocks, one per SM, each walking units blockIdx.x + k * grid
   const int nj = (q + rbf::BN - 1) / rbf::BN;
   const int units = ((n + rbf::BM - 1) / rbf::BM) * nj;
-  rbf::rbf_cross_matvec_kernel<<<units < sms ? units : sms, rbf::THREADS, rbf::SMEM_BYTES,
-                                 stream>>>(map_x, map_bhi, map_blo, coef, sn, snB, gamma, n, ld,
-                                           q, partial);
+  rbf::rbf_cross_matvec_kernel<false>
+      <<<units < sms ? units : sms, rbf::THREADS, rbf::SMEM_BYTES, stream>>>(
+          map_x, map_bhi, map_blo, coef, sn, snB, gamma, nullptr, n, ld, q, 1, partial);
   const int sum_blocks = (n + 255) / 256;
   rbf::sum_partials_kernel<<<sum_blocks < 1024 ? sum_blocks : 1024, 256, 0, stream>>>(
-      partial, n, nj, out);
+      partial, n, nj, out, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The problem-axis launch: B problems over one X (n, ld), X_B (B * q, d)
+// stacked, coef and snB (B * q), gammas (B,), out (B, n). Problem b's out
+// row equals launch_rbf_cross_matvec on its slices bit for bit.
+// scratch holds 2 * B * q * ld + B * ceil(q / BN) * n floats. Returns as
+// launch_rbf_cross_matvec does.
+static int launch_rbf_cross_matvec_batched(const float* X, const float* XB, const float* coef,
+                                           const float* sn, const float* snB,
+                                           const float* gammas, int n, int d,
+                                           int ld, int q, int B, float* scratch, float* out,
+                                           cudaStream_t stream) {
+  if (n <= 0 || q <= 0 || B <= 0) return static_cast<int>(cudaGetLastError());
+  if (ld % 4 != 0 || ld < d || reinterpret_cast<uintptr_t>(X) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return rbf::ERR_LAYOUT;
+  const size_t rows = static_cast<size_t>(B) * q;
+  float* XB_hi = scratch;
+  float* XB_lo = XB_hi + rows * ld;
+  float* partial = XB_lo + rows * ld;
+  CUtensorMap map_x, map_bhi, map_blo;
+  int rc = rbf::encode(&map_x, X, n, ld, rbf::BM);
+  if (rc == 0) rc = rbf::encode(&map_bhi, XB_hi, static_cast<int>(rows), ld, rbf::BN);
+  if (rc == 0) rc = rbf::encode(&map_blo, XB_lo, static_cast<int>(rows), ld, rbf::BN);
+  if (rc != 0) return rc;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(rbf::rbf_cross_matvec_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, rbf::SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t total = rows * ld;
+  const size_t split_blocks = (total + 255) / 256;
+  rbf::tf32_split_kernel<<<static_cast<int>(split_blocks < 8192 ? split_blocks : 8192), 256, 0,
+                           stream>>>(XB, static_cast<int>(rows), d, ld, XB_hi, XB_lo);
+  const int nj = (q + rbf::BN - 1) / rbf::BN;
+  const int units = B * ((n + rbf::BM - 1) / rbf::BM) * nj;
+  rbf::rbf_cross_matvec_kernel<true>
+      <<<units < sms ? units : sms, rbf::THREADS, rbf::SMEM_BYTES, stream>>>(
+          map_x, map_bhi, map_blo, coef, sn, snB, 0.f, gammas, n, ld, q, B, partial);
+  const size_t sum_total = static_cast<size_t>(B) * n;
+  const size_t sum_blocks = (sum_total + 255) / 256;
+  rbf::sum_partials_kernel<<<static_cast<int>(sum_blocks < 4096 ? sum_blocks : 4096), 256, 0,
+                             stream>>>(partial, n, nj, out, B);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,3 +17,15 @@ def resolve_device(device="cuda") -> torch.device:
             "run on the CPU"
         )
     return dev
+
+
+def host_to_device(data, dtype, device) -> torch.Tensor:
+    """A tensor of host data (a list or numpy array) on `device`, copied
+    without a host synchronisation: on a CUDA device through pinned memory
+    with non_blocking=True (the caching host allocator keeps the pinned
+    buffer until the copy has run), so a per-round index list costs no
+    stall of the host."""
+    t = torch.as_tensor(data, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -1,6 +1,7 @@
 """The dot-plus-epilogue structure the poly and sigmoid families share:
-one full-f32 matmul forms the dots, a pointwise epilogue maps them to
-kernel values. No primal collapse exists for a nonlinear epilogue, so
+one matmul forms the dots (full f32, or the rung `precision` names for the
+K-row refresh and the f-update), a pointwise epilogue maps them to kernel
+values. No primal collapse exists for a nonlinear epilogue, so
 the f-update is the generic blocked path: a (block, q) tile a step, never
 the (n, q) slab."""
 
@@ -10,14 +11,14 @@ from typing import Callable
 
 import torch
 
-from tpusvm_torch.ops.rbf import check_full_f32, coef_matvec
+from tpusvm_torch.ops.rbf import check_full_f32, coef_matvec, matmul_p
 
 Epilogue = Callable[[torch.Tensor], torch.Tensor]
 
 
-def rows_at(X: torch.Tensor, idx: torch.Tensor, epi: Epilogue) -> torch.Tensor:
-    check_full_f32(X)
-    return epi(X[idx] @ X.T)
+def rows_at(X: torch.Tensor, idx: torch.Tensor, epi: Epilogue,
+            precision=None) -> torch.Tensor:
+    return epi(matmul_p(X[idx], X.T, precision))
 
 
 def cross(XA: torch.Tensor, XB: torch.Tensor, epi: Epilogue) -> torch.Tensor:
@@ -26,12 +27,12 @@ def cross(XA: torch.Tensor, XB: torch.Tensor, epi: Epilogue) -> torch.Tensor:
 
 
 def cross_matvec(X: torch.Tensor, XB: torch.Tensor, coef: torch.Tensor,
-                 epi: Epilogue, block: int) -> torch.Tensor:
-    check_full_f32(X)
+                 epi: Epilogue, block: int, precision=None) -> torch.Tensor:
     n = X.shape[0]
     coef = coef.to(X.dtype)
     out = torch.empty(n, dtype=X.dtype, device=X.device)
     for start in range(0, n, block):
         stop = min(start + block, n)
-        out[start:stop] = coef_matvec(epi(X[start:stop] @ XB.T), coef)
+        out[start:stop] = coef_matvec(
+            epi(matmul_p(X[start:stop], XB.T, precision)), coef, precision)
     return out

@@ -57,17 +57,18 @@ def _linear_like(family: str) -> bool:
 
 
 def rows_at(family: str, X: torch.Tensor, idx: torch.Tensor, *, gamma,
-            coef0=0.0, degree: int = 3,
-            sn: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K(X[idx[k]], X[j]) for a small index vector. Shape (k, n)."""
+            coef0=0.0, degree: int = 3, sn: Optional[torch.Tensor] = None,
+            precision=None) -> torch.Tensor:
+    """K(X[idx[k]], X[j]) for a small index vector. Shape (k, n).
+    precision: the dots' rung (ops/rbf.py:matmul_p)."""
     if family == "rbf":
-        return _rbf.rbf_rows_at(X, idx, gamma, sn)
+        return _rbf.rbf_rows_at(X, idx, gamma, sn, precision)
     if _linear_like(family):
-        return _lin.linear_rows_at(X, idx)
+        return _lin.linear_rows_at(X, idx, precision)
     if family == "sigmoid":
-        return _sig.sigmoid_rows_at(X, idx, gamma, coef0)
+        return _sig.sigmoid_rows_at(X, idx, gamma, coef0, precision)
     validate_family(family)
-    return _poly.poly_rows_at(X, idx, gamma, coef0, degree)
+    return _poly.poly_rows_at(X, idx, gamma, coef0, degree, precision)
 
 
 def cross(family: str, XA: torch.Tensor, XB: torch.Tensor, *, gamma,
@@ -87,22 +88,25 @@ def cross(family: str, XA: torch.Tensor, XB: torch.Tensor, *, gamma,
 def cross_matvec(family: str, X: torch.Tensor, XB: torch.Tensor,
                  coef: torch.Tensor, *, gamma, coef0=0.0, degree: int = 3,
                  sn: Optional[torch.Tensor] = None, block: int = 8192,
-                 fast: bool = True) -> torch.Tensor:
+                 fast: bool = True, precision=None) -> torch.Tensor:
     """sum_k coef_k K(x_i, xb_k) for all i: the blocked f-update. (n,).
 
     `fast` selects the linear families' primal form (True) or their
-    generic blocked path (False); other families ignore it.
+    generic blocked path (False); other families ignore it. precision:
+    the contraction's rung (ops/rbf.py:matmul_p).
     """
     if family == "rbf":
-        return _rbf.rbf_cross_matvec(X, XB, coef, gamma, sn, block)
+        return _rbf.rbf_cross_matvec(X, XB, coef, gamma, sn, block,
+                                     precision)
     if _linear_like(family):
-        return _lin.linear_cross_matvec(X, XB, coef, block=block, fast=fast)
+        return _lin.linear_cross_matvec(X, XB, coef, block=block, fast=fast,
+                                        precision=precision)
     if family == "sigmoid":
         return _sig.sigmoid_cross_matvec(X, XB, coef, gamma, coef0,
-                                         block=block)
+                                         block=block, precision=precision)
     validate_family(family)
     return _poly.poly_cross_matvec(X, XB, coef, gamma, coef0, degree,
-                                   block=block)
+                                   block=block, precision=precision)
 
 
 def matvec(family: str, X: torch.Tensor, coef: torch.Tensor, *, gamma,

@@ -40,9 +40,10 @@ def poly_row(X: torch.Tensor, x: torch.Tensor, gamma, coef0,
 
 
 def poly_rows_at(X: torch.Tensor, idx: torch.Tensor, gamma, coef0,
-                 degree: int) -> torch.Tensor:
+                 degree: int, precision=None) -> torch.Tensor:
     """K(X[idx[k]], X[j]) via one (k, d) x (d, n) matmul. Shape (k, n)."""
-    return _generic.rows_at(X, idx, _epilogue(gamma, coef0, degree))
+    return _generic.rows_at(X, idx, _epilogue(gamma, coef0, degree),
+                            precision)
 
 
 def poly_cross(XA: torch.Tensor, XB: torch.Tensor, gamma, coef0,
@@ -53,10 +54,10 @@ def poly_cross(XA: torch.Tensor, XB: torch.Tensor, gamma, coef0,
 
 def poly_cross_matvec(X: torch.Tensor, XB: torch.Tensor, coef: torch.Tensor,
                       gamma, coef0, degree: int, *,
-                      block: int = 8192) -> torch.Tensor:
+                      block: int = 8192, precision=None) -> torch.Tensor:
     """sum_k coef_k K(x_i, xb_k) for all i, blocked over i. Shape (n,)."""
     return _generic.cross_matvec(X, XB, coef, _epilogue(gamma, coef0, degree),
-                                 block)
+                                 block, precision)
 
 
 def poly_matvec(X: torch.Tensor, coef: torch.Tensor, gamma, coef0,

@@ -24,9 +24,9 @@ def sigmoid_row(X: torch.Tensor, x: torch.Tensor, gamma, coef0) -> torch.Tensor:
 
 
 def sigmoid_rows_at(X: torch.Tensor, idx: torch.Tensor, gamma,
-                    coef0) -> torch.Tensor:
+                    coef0, precision=None) -> torch.Tensor:
     """K(X[idx[k]], X[j]) via one (k, d) x (d, n) matmul. Shape (k, n)."""
-    return _generic.rows_at(X, idx, _epilogue(gamma, coef0))
+    return _generic.rows_at(X, idx, _epilogue(gamma, coef0), precision)
 
 
 def sigmoid_cross(XA: torch.Tensor, XB: torch.Tensor, gamma,
@@ -36,9 +36,11 @@ def sigmoid_cross(XA: torch.Tensor, XB: torch.Tensor, gamma,
 
 
 def sigmoid_cross_matvec(X: torch.Tensor, XB: torch.Tensor, coef: torch.Tensor,
-                         gamma, coef0, *, block: int = 8192) -> torch.Tensor:
+                         gamma, coef0, *, block: int = 8192,
+                         precision=None) -> torch.Tensor:
     """sum_k coef_k K(x_i, xb_k) for all i, blocked over i. Shape (n,)."""
-    return _generic.cross_matvec(X, XB, coef, _epilogue(gamma, coef0), block)
+    return _generic.cross_matvec(X, XB, coef, _epilogue(gamma, coef0), block,
+                                 precision)
 
 
 def sigmoid_matvec(X: torch.Tensor, coef: torch.Tensor, gamma, coef0, *,

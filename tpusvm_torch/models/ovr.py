@@ -9,9 +9,13 @@ The port of `tpusvm/models/ovr.py`:
   - solver="pair", batched=False: the heads one after another;
   - solver="blocked": each head's blocked solve in turn, sharing one
     sq_norms pass over X;
+  - solver="fleet": every head in one lockstep fleet solve
+    (fleet/solve.py:fleet_train, the problem-axis launches of kernels #2
+    and #1), sharing the sq_norms pass; each head's result equals its
+    solo blocked solve's on the same knobs;
   - prediction: one K(test, SV union) matrix times the (K, n_sv)
     coefficients; the class is the argmax of the K scores.
-The fleet solver and the class-parallel mesh are not ported yet.
+The class-parallel mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -38,18 +42,16 @@ class OneVsRestSVC:
 
     Attributes after fit: classes_, X_sv_ (the union of the heads' SVs),
     coef_ (K, n_sv) alpha*y, sv_ids_, b_ (K,), n_iter_ (K,), statuses_
-    (K,), train_time_s_, results_ (the solver results).
+    (K,), train_time_s_, results_ (the solver results), fleet_stats_
+    (solver="fleet": the fleet's rounds, lane rounds, bucket rounds and
+    host syncs, fleet/solve.py:fleet_train).
     """
 
     def __init__(self, config: SVMConfig = SVMConfig(), scale: bool = True,
                  batched: Optional[bool] = None, accum_dtype="auto",
                  solver: str = "pair", solver_opts: Optional[dict] = None,
                  class_parallel: bool = False, device="cuda"):
-        if solver == "fleet":
-            raise NotImplementedError(
-                "solver='fleet' (every head in one batched blocked launch) "
-                "is not ported yet (ROADMAP Queue 1 item 8)")
-        if solver not in ("pair", "blocked"):
+        if solver not in ("pair", "blocked", "fleet"):
             raise ValueError(f"solver must be pair|blocked|fleet, got "
                              f"{solver!r}")
         if class_parallel:
@@ -78,6 +80,7 @@ class OneVsRestSVC:
         self.statuses_: Optional[np.ndarray] = None
         self.train_time_s_: float = 0.0
         self.results_ = None
+        self.fleet_stats_: dict = {}
 
     @property
     def sv_X_(self):
@@ -103,7 +106,26 @@ class OneVsRestSVC:
                 "shrink_every supports binary and svr training; the JAX "
                 "package's one-vs-rest does not route it either")
         Xd = torch.as_tensor(np.asarray(Xs, np.float32), device=dev)
-        if self.solver == "pair" and self.batched:
+        if self.solver == "fleet":
+            self.fleet_stats_ = {}
+            # one lockstep fleet trains every head: the K problems share X
+            # (and the hoisted norms) and differ only in labels
+            from tpusvm_torch.fleet import fleet_train
+
+            K = Ys.shape[0]
+            outs = fleet_train(
+                Xd, list(Ys), [cfg.C] * K, [cfg.gamma] * K,
+                sn=kernels.sq_norms_for(cfg.kernel, Xd), eps=cfg.eps,
+                tau=cfg.tau, max_iter=cfg.max_iter, kernel=cfg.kernel,
+                degree=cfg.degree, coef0=cfg.coef0,
+                accum_dtype=resolve_accum_dtype(self.accum_dtype),
+                stats=self.fleet_stats_, device=dev, **self.solver_opts)
+            self.results_ = outs
+            alphas = np.stack([o.alpha.cpu().numpy() for o in outs])
+            bs = np.asarray([float(o.b) for o in outs])
+            iters = np.asarray([int(o.n_iter) for o in outs])
+            statuses = np.asarray([int(o.status) for o in outs])
+        elif self.solver == "pair" and self.batched:
             res = smo_solve_batched(
                 Xd, torch.as_tensor(Ys, device=dev), C=cfg.C, gamma=cfg.gamma,
                 eps=cfg.eps, tau=cfg.tau, max_iter=cfg.max_iter,

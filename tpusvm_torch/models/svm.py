@@ -24,6 +24,7 @@ from tpusvm_torch.data.scaler import MinMaxScaler
 from tpusvm_torch.device import resolve_device
 from tpusvm_torch.kernels.platt import fit_platt, platt_proba
 from tpusvm_torch.models.serialization import load_model, save_model
+from tpusvm_torch.obs.convergence import materialize
 from tpusvm_torch.solver.blocked import blocked_smo_solve
 from tpusvm_torch.solver.checkpoint import checkpointed_blocked_solve
 from tpusvm_torch.solver.predict import decision_function as _decision
@@ -92,6 +93,13 @@ def shrink_provenance(opts: dict):
     return every, int(opts.get("shrink_stable", 3 if every else 0))
 
 
+def convergence_of(res) -> Optional[dict]:
+    """The materialized convergence ring of a solve (obs/convergence.py),
+    None when the solve carried none."""
+    tele = getattr(res, "telemetry", None)
+    return None if tele is None else materialize(tele)
+
+
 def get_sv_indices(alpha: np.ndarray, tol: float = 1e-8) -> np.ndarray:
     """Indices with alpha > tol."""
     return np.nonzero(alpha > tol)[0]
@@ -141,9 +149,13 @@ class BinarySVC:
         self.fit_phases_: dict = {}
         self.result_ = None
         self.platt_: Optional[tuple] = None
-        # the shrinking cadence of the fit (artifact provenance)
+        # the precision rung and shrinking cadence of the fit (artifact
+        # provenance)
+        self.train_precision_: str = "f32"
         self.shrink_every_: int = 0
         self.shrink_stable_: int = 0
+        # the materialized convergence ring (solver_opts telemetry=T)
+        self.convergence_: Optional[dict] = None
         # cascade provenance (fit_cascade): None/0 for a single solve
         self.cascade_history_: Optional[list] = None
         self.cascade_rounds_: int = 0
@@ -197,8 +209,11 @@ class BinarySVC:
         span("to_host")
         self.train_time_s_ = time.perf_counter() - t0
         self.result_ = res
+        self.train_precision_ = self.solver_opts.get("matmul_precision") \
+            or "f32"
         self.shrink_every_, self.shrink_stable_ = shrink_provenance(
             self.solver_opts)
+        self.convergence_ = convergence_of(res)
         sv = get_sv_indices(alpha, cfg.sv_tol)
         self.sv_X_ = Xs[sv]
         self.sv_Y_ = np.asarray(Y)[sv].astype(np.int32)
@@ -349,9 +364,9 @@ class BinarySVC:
             state["scaler_max"] = self.scaler_.max_val
         if self.platt_ is not None:
             state["platt_a"], state["platt_b"] = self.platt_
-        # training provenance of the v3+ format: the port trains at full
-        # f32; the shrinking cadence it was trained under
-        state["train_precision"] = "f32"
+        # training provenance of the v3+ format: the precision rung and
+        # the shrinking cadence it was trained under
+        state["train_precision"] = self.train_precision_
         state["shrink_every"] = self.shrink_every_
         state["shrink_stable"] = self.shrink_stable_
         # cascade provenance (format v4, additive): absent for a single
@@ -376,6 +391,8 @@ class BinarySVC:
                                          max_val=state["scaler_max"])
         if "platt_a" in state:
             model.platt_ = (float(state["platt_a"]), float(state["platt_b"]))
+        if "train_precision" in state:
+            model.train_precision_ = str(state["train_precision"])
         if "shrink_every" in state:
             model.shrink_every_ = int(state["shrink_every"])
             model.shrink_stable_ = int(state["shrink_stable"])

@@ -25,7 +25,7 @@ from tpusvm_torch.data.scaler import MinMaxScaler
 from tpusvm_torch.device import resolve_device
 from tpusvm_torch.kernels.svr import collapse_duals, doubled_problem
 from tpusvm_torch.models.serialization import load_model, save_model
-from tpusvm_torch.models.svm import check_solver, scores, solve
+from tpusvm_torch.models.svm import check_solver, convergence_of, scores, solve
 from tpusvm_torch.status import Status
 
 
@@ -58,6 +58,8 @@ class EpsilonSVR:
         self.status_: Status = Status.RUNNING
         self.train_time_s_: float = 0.0
         self.result_ = None
+        # the materialized convergence ring (solver_opts telemetry=T)
+        self.convergence_: Optional[dict] = None
 
     def fit(self, X: np.ndarray, t: np.ndarray) -> "EpsilonSVR":
         """Fit on features X and CONTINUOUS targets t (not labels)."""
@@ -80,6 +82,7 @@ class EpsilonSVR:
         beta = res.alpha.cpu().numpy()  # device->host copy: completion
         self.train_time_s_ = time.perf_counter() - t0
         self.result_ = res
+        self.convergence_ = convergence_of(res)
         coef = collapse_duals(beta)
         sv = np.nonzero(np.abs(coef) > cfg.sv_tol)[0]
         self.sv_X_ = Xs[sv]

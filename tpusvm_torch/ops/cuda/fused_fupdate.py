@@ -17,6 +17,12 @@ adds. `rbf_cross_matvec_3xtf32` is a plain-torch model of that precision,
 not of the card's rounding: the same split and the same three products,
 each a full-depth f32 matmul, so that the CPU tests can show the solver
 tolerates a contraction with the lo.lo term dropped.
+
+`rbf_cross_matvec_batched_kernel` is the fleet's problem-axis launch of the
+f-update: B problems over one X, each with its own X_B, coefficients and
+gamma, in one launch whose rows equal solo launches bit for bit (plain
+version `rbf_cross_matvec_batched_ref`, the solo plain version lane by
+lane).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from tpusvm_torch.device import host_to_device
 from tpusvm_torch.ops.cuda import _build
 from tpusvm_torch.ops.rbf import (check_full_f32, rbf_cross_matvec,
                                   sq_norms)
@@ -174,6 +181,73 @@ def rbf_cross_matvec_kernel(X: torch.Tensor, XB: torch.Tensor,
 
 
 rbf_cross_matvec_kernel.launches = 0
+
+
+def rbf_cross_matvec_batched_ref(X, XB, coef, gammas, sn):
+    """Plain version of the problem-axis f-update: `rbf_cross_matvec_ref`
+    for each problem b (XB[b], coef[b], gammas[b]). Returns (B, n) f32."""
+    g = gammas.tolist() if hasattr(gammas, "tolist") else list(gammas)
+    return torch.stack([rbf_cross_matvec_ref(X, XB[b], coef[b], g[b], sn)
+                        for b in range(XB.shape[0])])
+
+
+@functools.cache
+def _bind_batched():
+    fn = _build.load("fused_fupdate").tpusvm_rbf_cross_matvec_batched
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def rbf_cross_matvec_batched_kernel(X: torch.Tensor, XB: torch.Tensor,
+                                    coef: torch.Tensor, gammas,
+                                    sn) -> torch.Tensor:
+    """sum_k coef[b, k] exp(-gammas[b] max(0, sn_i + snB[b, k] - 2 x_i.xb[b, k]))
+    for every problem b: (B, n) f32.
+
+    X (n, d) float32 shared; XB (B, q, d) float32 (problem b's gathered
+    X[B_b]); coef (B, q); gammas (B,) (rounded to f32, as the solo launch
+    rounds its gamma); sn = sq_norms(X) or None. CPU tensors run
+    `rbf_cross_matvec_batched_ref`; CUDA tensors launch
+    csrc/fused_fupdate.cu's problem-axis kernel (counted in `.launches`),
+    whose row b equals `rbf_cross_matvec_kernel` on problem b's operands
+    bit for bit: snB is taken lane by lane with the solo wrapper's own
+    call.
+    """
+    if XB.dim() != 3:
+        raise ValueError(f"XB must be (B, q, d), got {tuple(XB.shape)}")
+    B, q, d = XB.shape
+    if not X.is_cuda:
+        return rbf_cross_matvec_batched_ref(X, XB, coef, gammas, sn)
+    n = X.shape[0]
+    X = _f32(X, "X", (n, d))
+    XB = _f32(XB, "XB", (B, q, d))
+    coef = _f32(coef, "coef", (B, q))
+    sn = sq_norms(X) if sn is None else _f32(sn, "sn", (n,))
+    dev = X.device
+    g_t = (gammas if isinstance(gammas, torch.Tensor)
+           else host_to_device(gammas, torch.float32, dev))
+    g_t = g_t.to(device=dev, dtype=torch.float32).reshape(B).contiguous()
+    # each problem's norms by the solo wrapper's call, so that its bits are
+    # the solo launch's
+    snB = torch.stack([sq_norms(XB[b]) for b in range(B)])
+    Xt = _tma_rows(X)
+    ld = Xt.shape[1]
+    scratch = torch.empty(B * (2 * q * ld + -(-q // _TILE_N) * n),
+                          dtype=torch.float32, device=dev)
+    out = torch.empty((B, n), dtype=torch.float32, device=dev)
+    rc = _bind_batched()(
+        Xt.data_ptr(), XB.data_ptr(), coef.data_ptr(), sn.data_ptr(),
+        snB.data_ptr(), g_t.data_ptr(), n, d, ld, q, B,
+        scratch.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    rbf_cross_matvec_batched_kernel.launches += 1
+    _build.check(rc, "rbf_cross_matvec batched kernel")
+    return out
+
+
+rbf_cross_matvec_batched_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------

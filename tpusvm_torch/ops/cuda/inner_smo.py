@@ -13,6 +13,11 @@ Both return (a_B_new (q,) f32, stat), stat an int32 tensor
 caller decides when to synchronise. reason -1 means the kernel's iteration
 guard tripped (every iteration updates, shrinks one index or ends, so it
 cannot in exact arithmetic); callers raise on it.
+
+`inner_smo_batched_kernel` is the fleet's problem-axis launch: B stacked
+working sets, one thread block each (plain version
+`inner_smo_batched_ref`, the solo plain version lane by lane); a lane's
+outputs equal a solo launch on its operands bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import functools
 
 import torch
 
+from tpusvm_torch.device import host_to_device
 from tpusvm_torch.ops.cuda import _build
 from tpusvm_torch.solver.analytic import pair_update
 from tpusvm_torch.status import Status
@@ -354,6 +360,81 @@ def inner_smo_kernel(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
 
 
 inner_smo_kernel.launches = 0
+
+
+def inner_smo_batched_ref(K_BB, y_B, a_B, f_B, active_B, Cs, eps, tau, *,
+                          max_inner: int, wss: int = 1,
+                          eta_exclude: bool = False):
+    """Plain version of the problem-axis launch: `inner_smo_ref` on each
+    lane (lane b's C is Cs[b]). Returns (a_out (B, q) f32, stat (B, 4))."""
+    C_list = Cs.tolist() if hasattr(Cs, "tolist") else list(Cs)
+    outs = [inner_smo_ref(K_BB[b], y_B[b], a_B[b], f_B[b], active_B[b],
+                          C_list[b], eps, tau, max_inner=max_inner, wss=wss,
+                          eta_exclude=eta_exclude)
+            for b in range(a_B.shape[0])]
+    return (torch.stack([a for a, _ in outs]),
+            torch.stack([st for _, st in outs]))
+
+
+@functools.cache
+def _bind_batched():
+    fn = _build.load("inner_smo").tpusvm_inner_smo_batched
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, _P, _P, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def inner_smo_batched_kernel(K_BB, y_B, a_B, f_B, active_B, Cs, eps, tau, *,
+                             max_inner: int, wss: int = 1,
+                             eta_exclude: bool = False):
+    """B subproblems in one launch: K_BB (B, q, q), y_B/a_B/f_B/active_B
+    (B, q), Cs (B,) (lane b's C, rounded to f32 as the solo launch rounds
+    its C). Returns (a_out (B, q) f32, stat (B, 4) int32). CPU tensors run
+    `inner_smo_batched_ref`; CUDA tensors launch
+    csrc/inner_smo.cu's problem-axis kernel, <<<B, 512>>> (counted in
+    `.launches`, apart from the solo launch's count)."""
+    _check_args(wss, eta_exclude)
+    if K_BB.dim() != 3 or K_BB.shape[1] != K_BB.shape[2]:
+        raise ValueError(f"K_BB must be (B, q, q), got {tuple(K_BB.shape)}")
+    B, q = K_BB.shape[0], K_BB.shape[1]
+    if not K_BB.is_cuda:
+        return inner_smo_batched_ref(K_BB, y_B, a_B, f_B, active_B, Cs, eps,
+                                     tau, max_inner=max_inner, wss=wss,
+                                     eta_exclude=eta_exclude)
+    if 5 * q * 4 > _SMEM_LIMIT:
+        raise ValueError(f"q={q} does not fit one block's shared memory")
+    dev = K_BB.device
+
+    def lanes(t, name):
+        t = t.to(device=dev, dtype=torch.float32).contiguous()
+        if tuple(t.shape) != (B, q):
+            raise ValueError(f"{name} must have shape ({B}, {q})")
+        return t
+
+    K = K_BB.to(torch.float32).contiguous()
+    y, f, act = lanes(y_B, "y_B"), lanes(f_B, "f_B"), lanes(active_B, "active_B")
+    a_in = lanes(a_B, "a_B")
+    a_out = torch.empty_like(a_in)
+    Cs_t = (Cs if isinstance(Cs, torch.Tensor)
+            else host_to_device(Cs, torch.float32, dev))
+    Cs_t = Cs_t.to(device=dev, dtype=torch.float32).contiguous()
+    if tuple(Cs_t.shape) != (B,):
+        raise ValueError(f"Cs must have shape ({B},)")
+    stat = torch.empty((B, 4), dtype=torch.int32, device=dev)
+    rc = _bind_batched()(
+        K.data_ptr(), y.data_ptr(), a_in.data_ptr(), f.data_ptr(),
+        act.data_ptr(), Cs_t.data_ptr(), float(eps),
+        float(tau), q, int(max_inner), int(wss), int(bool(eta_exclude)), B,
+        a_out.data_ptr(), stat.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    inner_smo_batched_kernel.launches += 1
+    _build.check(rc, "inner_smo batched kernel")
+    return a_out, stat
+
+
+inner_smo_batched_kernel.launches = 0
 
 # the CUDA multipair kernel reduces each of the 2p slot halves with its own
 # warps of one 32-warp block

@@ -25,8 +25,11 @@ the zero-progress rescue).
 Around the rounds, as in the JAX package: refine (a convergence claim on
 the accumulated f is judged again on an f rebuilt from the live alphas),
 shrink_stable (per-row stability counters shrinking_blocked_solve reads),
-krow_cache (an LRU cache of K rows for the f-update), and the outer-loop
-carry `OuterState`, which holds everything the next round reads, so that a
+krow_cache (an LRU cache of K rows for the f-update), matmul_precision (the
+f-update's and the K-row refresh's contraction rung, ops/rbf.py:matmul_p),
+telemetry (a ring of per-round gap, updates, status and live rows, written
+on the device and never read by the solve), and the outer-loop carry
+`OuterState`, which holds everything the next round reads, so that a
 solve paused with pause_at and resumed with resume_state equals the
 uninterrupted solve bit for bit (solver/checkpoint.py, solver/shrink.py).
 """
@@ -41,10 +44,12 @@ import numpy as np
 import torch
 
 from tpusvm_torch import kernels
+from tpusvm_torch.config import BF16_RUNGS, RAW_BF16
 from tpusvm_torch.device import resolve_device
 from tpusvm_torch.ops.cuda.fused_fupdate import (fused_fupdate_select_kernel,
                                                  rbf_cross_matvec_kernel,
                                                  selection_shape)
+from tpusvm_torch.obs.convergence import ConvergenceTelemetry
 from tpusvm_torch.ops.cuda.inner_smo import check_multipair, inner_smo_kernel
 from tpusvm_torch.ops.rbf import coef_matvec, rbf_cross_matvec, sq_norms
 from tpusvm_torch.ops.selection import i_high_mask, i_low_mask
@@ -71,6 +76,8 @@ class SMOResult:
     cache_misses: Optional[int] = None  # K rows computed fresh
     # shrinking_blocked_solve's events (solver/shrink.py), None without it
     shrink_history: Optional[list] = None
+    # the convergence ring (telemetry=T > 0), None without it
+    telemetry: Optional[ConvergenceTelemetry] = None
 
 
 @dataclasses.dataclass
@@ -105,9 +112,18 @@ class OuterState:
     cand_up_idx: torch.Tensor
     cand_low_val: torch.Tensor
     cand_low_idx: torch.Tensor
+    # the convergence ring (telemetry=T; (0,) when off): slot i % T of each
+    # holds round i's gap b_low - b_high (accum dtype, NaN without a
+    # working set), inner updates, end-of-round status and live rows
+    tele_gap: torch.Tensor
+    tele_upd: torch.Tensor
+    tele_status: torch.Tensor
+    tele_active: torch.Tensor
+    tele_i: int               # rounds recorded so far
 
     TENSORS = ("alpha", "f", "stable", "cache", "cache_keys", "cache_age",
-               "cand_up_val", "cand_up_idx", "cand_low_val", "cand_low_idx")
+               "cand_up_val", "cand_up_idx", "cand_low_val", "cand_low_idx",
+               "tele_gap", "tele_upd", "tele_status", "tele_active")
 
     def to(self, device) -> "OuterState":
         """A copy on `device`: tensors (or numpy arrays) copied, so that the
@@ -132,6 +148,12 @@ class OuterState:
         """The inverse of arrays(): tensors stay numpy until to(device)."""
         kw = {}
         for f in dataclasses.fields(cls):
+            if f.name.startswith("tele_") and f.name not in arrays:
+                # a carry written before the ring existed: the ring off
+                kw[f.name] = (0 if f.name == "tele_i" else
+                              np.zeros(0, np.float64 if f.name == "tele_gap"
+                                       else np.int32))
+                continue
             v = np.asarray(arrays[f.name])
             if f.name in cls.TENSORS:
                 kw[f.name] = v
@@ -144,24 +166,46 @@ class OuterState:
         return cls(**kw)
 
 
-# The JAX solver's knobs that are not ported yet: (JAX default, ROADMAP
-# Queue 1 item, what the knob does). At its default a knob asks for what
-# the port already does, so a JAX solver_opts dict written out in full
-# carries over.
-_UNPORTED = {
-    "matmul_precision": (None, "7(d)", "the bf16 contraction rungs"),
-    "telemetry": (0, "12", "the convergence telemetry ring"),
-}
-
 # the JAX package's engine names for inner
 _JAX_INNER = {"pallas": "kernel", "xla": "loop"}
 
+# the solver's matmul_precision values; "default" is raw single pass
+_SOLVER_PRECISIONS = (None, "float32", "default", "highest", "bf16_f32",
+                     "bf16_f32c")
+_REDUCED = ("default",) + BF16_RUNGS
 
-def _unported(name: str, value) -> None:
-    default, item, what = _UNPORTED[name]
-    raise NotImplementedError(
-        f"{name}={value!r}: {what} is not ported yet (ROADMAP Queue 1 item "
-        f"{item}); the port runs {name}={default!r}")
+
+def check_precision_pairing(matmul_precision, refine: int, max_refines: int,
+                            shrink_stable: int) -> None:
+    """The JAX solver's pairing rules for the reduced rungs: raw single pass
+    ("default") needs refine > 0 and max_refines >= 1; the bf16 rungs need
+    those or shrink_stable > 0 (the shrinking driver re-checks every claim
+    on a rebuilt f)."""
+    if matmul_precision not in _SOLVER_PRECISIONS:
+        raise ValueError(
+            f"matmul_precision must be None, 'float32', 'default', "
+            f"'highest', 'bf16_f32' or 'bf16_f32c', got {matmul_precision!r}")
+    if matmul_precision == "default" and (refine <= 0 or max_refines < 1):
+        raise ValueError(
+            "matmul_precision='default' (raw single-pass products) "
+            "accumulates f drift and must be paired with refine > 0 and "
+            "max_refines >= 1 so convergence claims are re-validated on a "
+            "full-precision reconstruction")
+    if matmul_precision in BF16_RUNGS and (refine <= 0 or max_refines < 1) \
+            and shrink_stable <= 0:
+        raise ValueError(
+            f"matmul_precision={matmul_precision!r} rounds the f-update "
+            "operands to bfloat16; accumulated convergence claims need a "
+            "full-precision revalidation — pair with refine > 0 and "
+            "max_refines >= 1, or run under the shrinking driver "
+            "(shrink_stable > 0: solver/shrink.py re-checks every claim on "
+            "a rebuilt f at un-shrink)")
+
+
+def ops_precision(matmul_precision):
+    """The ops-layer token of a solver matmul_precision: "default" is
+    RAW_BF16, None and the rest pass through."""
+    return RAW_BF16 if matmul_precision == "default" else matmul_precision
 
 
 def _alias(name: str, value, short: str, short_value, default):
@@ -179,14 +223,18 @@ def _clamp_q(n: int, q: int) -> int:
 
 
 def resolve_solver_config(n: int, q: int = 1024, inner: str = "auto",
-                          fused_fupdate="auto", kernel: str = "rbf"):
+                          fused_fupdate="auto", kernel: str = "rbf",
+                          matmul_precision=None):
     """Effective (q, inner, fused_fupdate) blocked_smo_solve will run.
 
     q clamps to the even training-set size; "auto" resolves both engines
     to their kernels when q is a multiple of 128 ("kernel" / True), else to
     the plain engines ("loop" / False). The fused f-update computes the RBF
     pipeline only: off RBF "auto" resolves to the family's contraction and
-    an explicit True is refused. On a CPU device the kernels' plain
+    an explicit True is refused. It runs at the trust tier only, so on the
+    reduced rungs ("default", "bf16_f32", "bf16_f32c") "auto" resolves to
+    the laddered contraction and an explicit True is refused, as in the
+    JAX package's resolve_fused_fupdate. On a CPU device the kernels' plain
     versions run in their place.
     """
     if inner not in ("auto", "kernel", "loop"):
@@ -201,12 +249,18 @@ def resolve_solver_config(n: int, q: int = 1024, inner: str = "auto",
             f"kernel={kernel!r} uses its own contraction "
             "(use fused_fupdate='auto')"
         )
+    if fused_fupdate is True and matmul_precision in _REDUCED:
+        raise ValueError(
+            "fused_fupdate=True cannot honour matmul_precision="
+            f"{matmul_precision!r} (the fused kernel runs at the full-f32 "
+            "trust tier); use fused_fupdate='auto' or False")
     q = _clamp_q(n, q)
     aligned = q % _LANE == 0
     if inner == "auto":
         inner = "kernel" if aligned else "loop"
     if fused_fupdate == "auto":
-        fused_fupdate = aligned and kernel == "rbf"
+        fused_fupdate = (aligned and kernel == "rbf"
+                         and matmul_precision not in _REDUCED)
     return q, inner, bool(fused_fupdate)
 
 
@@ -366,11 +420,13 @@ def _cache_lookup(keys, B, dcoef):
     return hit, slot_of, (hit | (dcoef == 0)).all()
 
 
-def _cache_fupdate(st, lookup, all_hit: bool, dcoef, B, rows_fn):
+def _cache_fupdate(st, lookup, all_hit: bool, dcoef, B, rows_fn,
+                   precision=None):
     """df = K(X, X_B) @ dcoef served from the cache when every moved member
     hits, else from all q rows computed fresh (rows_fn()), which then replace
     the empty slots first and the oldest after them. Updates the cache,
-    keys, ages and hit/miss counts of `st` in place; returns df (n,) f32."""
+    keys, ages and hit/miss counts of `st` in place; returns df (n,) f32.
+    precision: the coefficient matvec's rung (coef_matvec)."""
     hit, slot_of, _ = lookup
     q = dcoef.shape[0]
     dc32 = dcoef.to(torch.float32)
@@ -378,12 +434,12 @@ def _cache_fupdate(st, lookup, all_hit: bool, dcoef, B, rows_fn):
     if all_hit:
         # an unmoved member's slot_of is arbitrary: its coefficient is 0
         dc = torch.where(hit, dc32, torch.zeros_like(dc32))
-        df = coef_matvec(st.cache[slot_of].T, dc)
+        df = coef_matvec(st.cache[slot_of].T, dc, precision)
         age[slot_of[hit]] = 0
         st.cache_hits += q
     else:
         rows = rows_fn().to(torch.float32)
-        df = coef_matvec(rows.T, dc32)
+        df = coef_matvec(rows.T, dc32, precision)
         # empty slots first, then the oldest; ties to the lower slot, as
         # lax.top_k orders them, so the q targets are distinct
         score = torch.where(st.cache_keys < 0,
@@ -517,17 +573,35 @@ def blocked_smo_solve(
     A solve paused and resumed any number of times equals the
     uninterrupted one bit for bit.
 
+    matmul_precision: the rung of the in-loop f-update's contraction and
+    of the K-row cache's refresh (ops/rbf.py:matmul_p). None, "float32"
+    and "highest" are full f32; "bf16_f32" rounds the operands to
+    bfloat16 and sums in f32, "bf16_f32c" adds a compensated pass;
+    "default" is the backend's raw single pass (TF32 on a CUDA card, f32
+    on the CPU). K_BB, the warm start, the refine rebuilds (kernel #1 for
+    RBF) and the row norms stay at full f32, so on a reduced rung #1
+    launches in rebuilds only. The fused f-update runs at full f32: on a
+    reduced rung fused_fupdate="auto" resolves to the laddered
+    contraction and True raises. The pairings are the JAX solver's:
+    "default" needs refine > 0 and max_refines >= 1, the bf16 rungs those
+    or shrink_stable > 0 (the shrinking driver re-checks each claim).
+
+    telemetry (T > 0): a T-slot ring carried in OuterState; each body
+    execution of the outer loop (a round, a refine rebuild, the final
+    check) writes its gap b_low - b_high (NaN without a working set), its
+    inner updates, its end-of-round status and the live rows (valid rows
+    not yet stable for shrink_stable rounds, or all valid rows) into slot
+    (round mod T). Written on the device and never read, so the
+    trajectory is bit-identical with it on or off and no host sync is
+    added; SMOResult.telemetry holds it (obs/convergence.py).
+
     The JAX solver's other knobs, so that its solver_opts carry over:
     selection ("auto", "exact" or "approx") always selects exactly, by
     sorts: approx_min_k exists only on the TPU. pallas_layout ("packed"
     or "flat") is accepted and ignored: it picks a vector layout in TPU
     registers, which a CUDA kernel does not have. kernel_fast (linear
     family only) picks the primal f-update (True) or the generic blocked
-    one (False), as in the JAX package. matmul_precision None, "float32"
-    and "highest" are the port's full-f32 contractions. The knobs that
-    are not ported yet raise NotImplementedError naming their ROADMAP
-    Queue 1 item unless they are at their JAX default: the bf16
-    matmul_precision rungs (7(d)) and telemetry (12).
+    one (False), as in the JAX package.
 
     kernel, degree, coef0: the family (kernels/): K_BB and, off RBF, the
     f-update and the warm start go through kernels.cross / cross_matvec /
@@ -555,15 +629,14 @@ def blocked_smo_solve(
     if pallas_layout not in ("packed", "flat"):
         raise ValueError(
             f"pallas_layout must be packed|flat, got {pallas_layout!r}")
-    if matmul_precision not in (None, "float32", "highest"):
-        _unported("matmul_precision", matmul_precision)
-    if telemetry != 0:
-        _unported("telemetry", telemetry)
     for name, value in (("refine", refine), ("shrink_stable", shrink_stable),
-                        ("krow_cache", krow_cache)):
+                        ("krow_cache", krow_cache), ("telemetry", telemetry)):
         if not isinstance(value, int) or value < 0:
             raise ValueError(
                 f"{name} must be a non-negative int, got {value!r}")
+    check_precision_pairing(matmul_precision, refine, max_refines,
+                            shrink_stable)
+    prec = ops_precision(matmul_precision)
     if fused_selection and refine:
         raise ValueError(
             "fused_selection carries next-round candidates computed by the "
@@ -589,7 +662,7 @@ def blocked_smo_solve(
                 "rows path)")
         fused_fupdate = False
     q, inner, fused = resolve_solver_config(n, q, inner, fused_fupdate,
-                                            kernel)
+                                            kernel, matmul_precision)
     if krow_cache and krow_cache < q:
         raise ValueError(
             f"krow_cache={krow_cache} slots cannot hold a full working set "
@@ -633,9 +706,13 @@ def blocked_smo_solve(
     if kernel != "rbf":
         def matvec(X, XB, coef, gamma, sn):
             return kernels.cross_matvec(kernel, X, XB, coef, sn=sn,
-                                        fast=kernel_fast, **kern)
+                                        fast=kernel_fast, precision=prec,
+                                        **kern)
+    elif fused:
+        matvec = rbf_cross_matvec_kernel
     else:
-        matvec = rbf_cross_matvec_kernel if fused else rbf_cross_matvec
+        def matvec(X, XB, coef, gamma, sn):
+            return rbf_cross_matvec(X, XB, coef, gamma, sn, precision=prec)
     zero_a = torch.zeros((), dtype=adt, device=dev)
     if fused_selection:
         sel_block, _, k_cand, ncand = selection_shape(n, X.shape[1], q)
@@ -661,6 +738,12 @@ def blocked_smo_solve(
                 "resume_state carries no fused-selection candidates for "
                 f"this problem ({resume_state.cand_up_val.shape[0]} of "
                 f"{ncand}); resume with the state's fused_selection setting")
+        if resume_state.tele_gap.shape[0] != telemetry:
+            raise ValueError(
+                f"resume_state carries a {resume_state.tele_gap.shape[0]}-"
+                "slot telemetry ring but this solve was configured with "
+                f"telemetry={telemetry}; resume with the state's telemetry "
+                "setting")
         st = resume_state.to(dev)
     else:
         alpha = (torch.zeros(n, dtype=adt, device=dev) if alpha0 is None
@@ -671,7 +754,9 @@ def blocked_smo_solve(
         elif warm_start:
             coef = (alpha * yf).to(X.dtype)
             if kernel == "rbf":
-                f = matvec(X, X, coef, gamma, sn).to(adt) - z
+                # at full f32 on every rung
+                f = (rbf_cross_matvec_kernel if fused else rbf_cross_matvec)(
+                    X, X, coef, gamma, sn).to(adt) - z
             else:
                 f = kernels.matvec(kernel, X, coef, **kern).to(adt) - z
         else:
@@ -698,10 +783,30 @@ def blocked_smo_solve(
             cache_age=torch.zeros(krow_cache, dtype=i32, device=dev),
             cache_hits=0, cache_misses=0,
             cand_up_val=cands[0], cand_up_idx=cands[1],
-            cand_low_val=cands[2], cand_low_idx=cands[3])
+            cand_low_val=cands[2], cand_low_idx=cands[3],
+            # NaN gaps tell slots never written from real gaps
+            tele_gap=torch.full((telemetry,), float("nan"), dtype=adt,
+                                device=dev),
+            tele_upd=torch.zeros(telemetry, dtype=i32, device=dev),
+            tele_status=torch.zeros(telemetry, dtype=i32, device=dev),
+            tele_active=torch.zeros(telemetry, dtype=i32, device=dev),
+            tele_i=0)
 
     refine_cap = min(refine, n) if refine > 0 else 0
     inf = float("inf")
+
+    def record(gap_t, upd: int, status: int) -> None:
+        """One ring slot: device writes only, no host sync."""
+        if not telemetry:
+            return
+        t = st.tele_i % telemetry
+        st.tele_gap[t] = gap_t
+        st.tele_upd[t] = upd
+        st.tele_status[t] = status
+        live = valid & (st.stable < shrink_stable) if shrink_stable else valid
+        st.tele_active[t] = live.sum()
+        st.tele_i += 1
+
     while st.status == Status.RUNNING and (pause_at is None
                                            or st.n_outer < pause_at):
         alpha, f = st.alpha, st.f
@@ -723,6 +828,8 @@ def blocked_smo_solve(
         st.host_wait_s += time.perf_counter() - t_wait
         st.n_host_syncs += 1
         found, converged = bool(found), bool(converged)
+        gap_t = torch.where(found_t, bl - bh, float("nan")) if telemetry \
+            else None
         if found:
             st.b_high, st.b_low = bh_v, bl_v
             if shrink_stable:
@@ -736,6 +843,7 @@ def blocked_smo_solve(
                                         torch.zeros_like(st.stable))
         if not found:
             st.status = int(Status.NO_WORKING_SET)
+            record(gap_t, 0, st.status)
             break
         if (refine_cap and converged and not st.f_exact
                 and st.n_refines < max_refines and bool(fits[0])):
@@ -746,9 +854,11 @@ def blocked_smo_solve(
                             kernel_fast=kernel_fast)
             st.f_exact = True
             st.n_refines += 1
+            record(gap_t, 0, st.status)
             continue
         if converged:
             st.status = int(Status.CONVERGED)
+            record(gap_t, 0, st.status)
             break
 
         if fused_selection:
@@ -817,7 +927,8 @@ def blocked_smo_solve(
         if krow_cache:
             df = _cache_fupdate(
                 st, lookup, bool(all_hit[0]), dcoef, B,
-                lambda: kernels.rows_at(kernel, X, B, sn=sn, **kern))
+                lambda: kernels.rows_at(kernel, X, B, sn=sn, precision=prec,
+                                        **kern), prec)
         elif fused_selection:
             # the epilogue masks with the post-round alphas, and keys on
             # f32(f) + df
@@ -839,6 +950,7 @@ def blocked_smo_solve(
                 Status.INFEASIBLE_UV, Status.NONPOS_ETA) else Status.STALLED)
         elif st.n_updates >= max_iter or st.n_outer >= max_outer:
             st.status = int(Status.MAX_ITER)
+        record(gap_t, int(upd), st.status)
 
     result = SMOResult(
         alpha=st.alpha,
@@ -854,6 +966,9 @@ def blocked_smo_solve(
         n_refines=st.n_refines,
         cache_hits=st.cache_hits if krow_cache else None,
         cache_misses=st.cache_misses if krow_cache else None,
+        telemetry=(ConvergenceTelemetry(
+            gap=st.tele_gap, n_upd=st.tele_upd, status=st.tele_status,
+            count=st.tele_i, active=st.tele_active) if telemetry else None),
     )
     if return_state:
         return result, st

@@ -23,10 +23,18 @@ resume_state surface:
      and resume on the full problem, whose own Keerthi check then decides,
      so a wrongly frozen alpha is revived, never dropped.
 
-The counters, the host-sync count and the K-row cache's hit counts carry
-across compactions; per-row state is gathered with the rows. The JAX
-shrinking solve's bf16 drift guard is not ported with it: the bf16 rungs are not
-ported yet (ROADMAP Queue 1 item 7(d)).
+The counters, the host-sync count, the K-row cache's hit counts and the
+convergence ring carry across compactions; per-row state is gathered with
+the rows.
+
+The bf16 drift guard (matmul_precision "bf16_f32"/"bf16_f32c" with
+refine=0, as in the JAX package): bf16 f-update deltas leave a lasting
+bias in the accumulated f, so at every pause f is rebuilt at the trust
+tier from the alphas (`_rebuild_f`, kernel #1 for RBF), and once the
+rebuilt gap is within bf16_anneal_factor x 2 tau the rest of the solve
+runs at full f32; a convergence claim of the full problem made at a bf16
+rung is judged once more on a rebuilt f (the "verify" event) before it is
+accepted.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 
 from tpusvm_torch import kernels
+from tpusvm_torch.config import BF16_RUNGS
 from tpusvm_torch.device import resolve_device
 from tpusvm_torch.ops.cuda.fused_fupdate import (rbf_cross_matvec_kernel,
                                                  selection_shape)
@@ -56,12 +65,15 @@ def _bucket(n_live: int, lo: int, hi: int) -> int:
     return min(cap, hi)
 
 
-def _rebuild_f(X, Y, valid, alpha_np, z, kern_kw, sn):
-    """f over all rows from scratch, K(X, X[nz]) @ coef - z, over a padded
-    bucket of the nonzero alphas (a power of two, at least 64; the padding
-    coefficients are 0). coef is formed in f64 and rounded to X's dtype,
-    and z is in X's dtype, as in the JAX package's shrinking solve. RBF runs the fused
-    f-update (kernel #1 on the card, its plain version on the CPU)."""
+def _rebuild_f(X_eval, X, Y, valid_eval, alpha_np, z_eval, kern_kw, sn_eval):
+    """f at the rows of X_eval from scratch, K(X_eval, X[nz]) @ coef - z,
+    over a padded bucket of the nonzero alphas of the FULL problem (a power
+    of two, at least 64; the padding coefficients are 0), always at the
+    trust tier. X_eval is X itself (un-shrink, verify) or a compacted
+    bucket (the bf16 rebuild at a pause). coef is formed in f64 and rounded
+    to X's dtype, and z is in X's dtype, as in the JAX package's shrinking
+    solve. RBF runs the fused f-update (kernel #1 on the card, its plain
+    version on the CPU)."""
     n = X.shape[0]
     nz = np.flatnonzero(alpha_np != 0.0)
     cap = min(n, max(64, 1 << max(0, int(len(nz) - 1).bit_length())))
@@ -73,15 +85,30 @@ def _rebuild_f(X, Y, valid, alpha_np, z, kern_kw, sn):
     coef_t = torch.as_tensor(coef, device=X.device).to(X.dtype)
     kernel = kern_kw["kernel"]
     if kernel == "rbf":
-        f = rbf_cross_matvec_kernel(X, X[idx_t], coef_t, kern_kw["gamma"], sn)
+        f = rbf_cross_matvec_kernel(X_eval, X[idx_t], coef_t,
+                                    kern_kw["gamma"], sn_eval)
     else:
         f = kernels.cross_matvec(
-            kernel, X, X[idx_t], coef_t, gamma=kern_kw["gamma"],
-            coef0=kern_kw["coef0"], degree=kern_kw["degree"], sn=sn,
+            kernel, X_eval, X[idx_t], coef_t, gamma=kern_kw["gamma"],
+            coef0=kern_kw["coef0"], degree=kern_kw["degree"], sn=sn_eval,
             fast=kern_kw["kernel_fast"])
-    f = f.to(z.dtype) - z
-    return torch.where(valid, f, torch.zeros((), dtype=f.dtype,
-                                             device=f.device))
+    f = f.to(z_eval.dtype) - z_eval
+    return torch.where(valid_eval, f, torch.zeros((), dtype=f.dtype,
+                                                  device=f.device))
+
+
+def _host_gap(f, alpha, Y, valid, C: float, eps: float):
+    """b_low - b_high of (f, alpha) on the host, None without a working
+    set."""
+    f_np = f.cpu().numpy().astype(np.float64)
+    a_np = alpha.cpu().numpy().astype(np.float64)
+    y_np = Y.cpu().numpy()
+    v_np = valid.cpu().numpy()
+    m_h = np.where(y_np == 1, a_np < C - eps, (y_np == -1) & (a_np > eps)) & v_np
+    m_l = np.where(y_np == 1, a_np > eps, (y_np == -1) & (a_np < C - eps)) & v_np
+    if not (m_h.any() and m_l.any()):
+        return None
+    return float(f_np[m_l].max() - f_np[m_h].min())
 
 
 def shrinking_blocked_solve(X, Y, valid=None, alpha0=None, *,
@@ -101,14 +128,19 @@ def shrinking_blocked_solve(X, Y, valid=None, alpha0=None, *,
     convergence, and re-freezing after each un-shrink can oscillate).
     max_unshrinks: the backstop on re-shrink cycles; after it the solve
     runs unshrunk to the end. Each un-shrink that revealed wrongly frozen
-    rows doubles the stability a row needs.
+    rows doubles the stability a row needs. matmul_precision="bf16_f32" or
+    "bf16_f32c" without refine runs the drift guard (module docstring);
+    "default" (raw single pass) is refused: it needs refine, which the
+    compacted segments cannot run.
 
     Takes every blocked_smo_solve kwarg but the segmenting surface
     (resume_state, pause_at, return_state). refine applies to full-problem
     segments only (a compacted rebuild would drop the frozen rows' terms);
     fused_selection composes (its candidates are seeded again on every
     compaction). The result's shrink_history lists its events,
-    {"event": "shrink"|"unshrink", "round", "active", "cap"};
+    {"event": "shrink"|"unshrink"|"verify"|"anneal", "round", "active",
+    "cap"} ("anneal", the port's own, marks the pause at which a bf16 rung
+    gave way to full f32);
     return_history=True also returns it, as (SMOResult, history).
     """
     for k in _SEGMENT_KWARGS:
@@ -122,6 +154,13 @@ def shrinking_blocked_solve(X, Y, valid=None, alpha0=None, *,
     if shrink_every < 1:
         raise ValueError(
             f"shrink_every must be >= 1 outer round, got {shrink_every}")
+    if kw.get("matmul_precision") == "default":
+        raise ValueError(
+            "matmul_precision='default' (raw single pass) requires refine-"
+            "mode drift control, which compacted segments cannot run (a "
+            "reconstruction would drop the frozen rows' contributions); use "
+            "matmul_precision='bf16_f32' with shrinking — its f32 "
+            "accumulation is covered by the un-shrink revalidation")
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
     if X.dtype != torch.float32:
@@ -143,6 +182,15 @@ def shrinking_blocked_solve(X, Y, valid=None, alpha0=None, *,
         "degree": kw.get("degree", 3),
         "kernel_fast": kw.get("kernel_fast", True),
     }
+    # the bf16 rungs anneal: once the rebuilt (trust-tier) gap is within
+    # this factor of the stopping band, the tail runs at full f32 (below it
+    # the bf16 operand noise outweighs a round's progress)
+    bf16_anneal_factor = 50.0
+    cur_precision = kw.pop("matmul_precision", None)
+
+    def is_bf16(p) -> bool:
+        return p in BF16_RUNGS and refine_user <= 0
+
     valid_full = (torch.ones(n, dtype=torch.bool, device=dev) if valid is None
                   else torch.as_tensor(valid, device=dev).to(torch.bool))
     z_full = (Y if targets is None
@@ -154,7 +202,8 @@ def shrinking_blocked_solve(X, Y, valid=None, alpha0=None, *,
     history = []
 
     def seg_kw(refine_on: bool) -> dict:
-        out = dict(kw, shrink_stable=shrink_stable, device=dev)
+        out = dict(kw, shrink_stable=shrink_stable, device=dev,
+                   matmul_precision=cur_precision)
         if refine_on and refine_user > 0:
             out["refine"] = refine_user
             out["max_refines"] = max_refines
@@ -185,8 +234,10 @@ def shrinking_blocked_solve(X, Y, valid=None, alpha0=None, *,
     alpha_full = np.zeros(n, np.float64)
     is_full = True
     n_unshrinks = 0
+    last_verified = -1  # n_updates at the last bf16 claim's verification
 
     # first segment: the plain entry (alpha0 / warm_start honoured)
+    seg_precision = cur_precision
     res, state = blocked_smo_solve(
         X_c, Y_c, valid=valid_c, alpha0=alpha0, targets=targets, sn=sn_c,
         pause_at=shrink_every, return_state=True, **seg_kw(True))
@@ -198,16 +249,21 @@ def shrinking_blocked_solve(X, Y, valid=None, alpha0=None, *,
             # ---- terminal segment: done, or un-shrink -------------------
             alpha_np = state.alpha.cpu().numpy().astype(np.float64)
             alpha_full[gids[valid_np]] = alpha_np[valid_np]
-            if is_full:
+            unverified = (is_bf16(seg_precision) and status == Status.CONVERGED
+                          and last_verified != state.n_updates)
+            if is_full and not unverified:
                 res.shrink_history = history
                 return (res, history) if return_history else res
-            # rebuild the full f from the scattered-back alphas and let the
-            # solver's own global check decide
+            # un-shrink (or verify a bf16 claim): rebuild the full f from
+            # the scattered-back alphas and let the solver's own global
+            # check decide
+            event = "verify" if is_full else "unshrink"
+            last_verified = state.n_updates
             alpha_dev = torch.as_tensor(alpha_full, device=dev).to(
                 state.alpha.dtype)
             alpha_dev = torch.where(valid_full, alpha_dev,
                                     torch.zeros_like(alpha_dev))
-            f_dev = _rebuild_f(X, Y, valid_full, alpha_full, z_full,
+            f_dev = _rebuild_f(X, X, Y, valid_full, alpha_full, z_full,
                                kern_kw, sn_full).to(state.f.dtype)
             state = seeded(state, f_dev, alpha_dev, Y, valid_full, n,
                            f_exact=True,
@@ -216,11 +272,30 @@ def shrinking_blocked_solve(X, Y, valid=None, alpha0=None, *,
             X_c, Y_c, valid_c, z_c, sn_c = (X, Y, valid_full, z_full,
                                             sn_full)
             is_full = True
-            n_unshrinks += 1
-            history.append({"event": "unshrink", "round": state.n_outer,
+            if event == "unshrink":
+                n_unshrinks += 1
+            history.append({"event": event, "round": state.n_outer,
                             "active": int(valid_full.sum()), "cap": n})
         else:
             # ---- paused: freeze and compact? ----------------------------
+            if is_bf16(cur_precision):
+                # the drift guard's cadence half: rebuild f at the trust
+                # tier at every pause, so the bf16 bias spans one segment
+                alpha_np = state.alpha.cpu().numpy().astype(np.float64)
+                alpha_full[gids[valid_np]] = alpha_np[valid_np]
+                f_c = _rebuild_f(X_c, X, Y, valid_c, alpha_full, z_c,
+                                 kern_kw, sn_c)
+                state = dataclasses.replace(
+                    state, f=f_c.to(state.f.dtype), f_exact=True)
+                gap_now = _host_gap(state.f, state.alpha, Y_c, valid_c,
+                                    float(C), eps)
+                if gap_now is not None and \
+                        gap_now <= bf16_anneal_factor * 2.0 * tau:
+                    cur_precision = None
+                    history.append({"event": "anneal",
+                                    "round": state.n_outer,
+                                    "active": int(valid_np.sum()),
+                                    "cap": len(gids)})
             stable_np = state.stable.cpu().numpy()
             # every un-shrink that revealed wrongly frozen rows doubles the
             # stability a row needs before it may freeze again
@@ -266,6 +341,7 @@ def shrinking_blocked_solve(X, Y, valid=None, alpha0=None, *,
         # compacted segments run 4x longer between pauses: a pause there
         # only checks for further shrinkage, and each costs host syncs
         stride = shrink_every if is_full else 4 * shrink_every
+        seg_precision = cur_precision
         res, state = blocked_smo_solve(
             X_c, Y_c, valid=valid_c, targets=z_c, sn=sn_c,
             resume_state=state, pause_at=state.n_outer + stride,
