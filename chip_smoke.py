@@ -126,7 +126,29 @@ Phases, in order (any failure raises and the script exits non-zero):
      JAX signature, inert in the port, where a finished lane already runs
      nothing) changes no bit, round or launch; train seconds beside 8(a)'s
      and lane-rounds printed.
-  (Phases 15 and 16 run after 13, before 14.)
+  17. the out-of-core tier on phase 5's rows: (a) the training rows
+     ingested at 16,384 rows a shard (four shards) and the held-out rows,
+     every shard validating OK, the manifest scaler equal to phase 5's
+     bits, the ingest, validation and read rates in MB/s; (b) fit_stream
+     equal to phase 5 bit for bit (SV IDs, alphas, b, rounds, updates),
+     kernels #1 and #2 launched; (c) evaluate_stream's accuracy equal to
+     phase 5's, predict_stream's scores within 1e-5 x sum(alpha) of its
+     decision_function; (d) fit_cascade_stream with 14(b)'s star and
+     blocked leaves equal to 14(b) bit for bit; (e) `ingest`, `train
+     --data` and `predict --data` as subprocesses on phase 10's 10,000-row
+     CSV, printing the in-process fit's bits;
+  18. the approximate families on phase 5's job: (a) kernel="rff" at
+     rff_dim 2048 and (b) kernel="nystrom" at 1,024 landmarks, each the
+     blocked solver over the mapped rows on the card (#2 launched, #1 not:
+     the linear path); (c) the streamed rff primal fit from 17(a)'s shards
+     (batch 256, at most 64 epochs, tol 0.05), live shards <= 3 and at most
+     one synchronizing call an epoch plus one outside the reader's thread
+     (the reader's printed); each CONVERGED, within 0.055
+     of phase 5's accuracy (benchmarks/approx_scale.py's gates), its
+     artifact reloaded with the same scores; the rff probe error
+     non-increasing over D = 512, 1024, 2048 (5% slack); train seconds and
+     the map's share printed.
+  (Phases 15 and 16 run after 13, before 14; 17 and 18 after 14.)
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
@@ -617,7 +639,7 @@ def _cli(args, device, timeout=600):
     root = str(Path(__file__).resolve().parent)
     env = dict(os.environ, PYTHONPATH=root)
     argv = [sys.executable, "-m", "tpusvm_torch", *args]
-    if device == "cpu" and args[0] != "info":
+    if device == "cpu" and args[0] not in ("info", "ingest"):
         argv += ["--device", "cpu"]
     t = time.perf_counter()
     out = subprocess.run(argv, capture_output=True, text=True, cwd=root,
@@ -669,7 +691,9 @@ def phase_front(X_all, Y_all, n_tr, n_cut, n_lim, n_oracle, n_test, device,
     main in this process, again with --n-limit n_lim; --mode oracle on
     n_oracle rows, within the cross-engine band of the blocked fit on those
     rows (SV-ID symmetric difference <= 2, |db| <= 2.5e-4: PARITY.md);
-    `info`, which must name the card, and `info` on phase 5's artifact."""
+    `info`, which must name the card, and `info` on phase 5's artifact.
+    Returns (train CSV, held-out CSV, the in-process fit on the n_cut
+    rows, n_cut) for phase 17(e)."""
     import torch
     from tpusvm_torch.config import SVMConfig
     from tpusvm_torch.data import read_csv, write_csv
@@ -705,13 +729,14 @@ def phase_front(X_all, Y_all, n_tr, n_cut, n_lim, n_oracle, n_test, device,
     # the first run goes through `python -m` in a subprocess; the others
     # call the same entry point's main here, which saves a process start
     # (about 9 s on the card's machine) each
+    fits = {}
     for n, extra, run in ((n_cut, [], _cli),
                           (n_lim, ["--n-limit", str(n_lim)], _cli_in_process)):
         out, secs = run(["train", "--train", train_csv, "--test", test_csv,
                          *flags, *extra], device)
         cli = (_line(r"SV count = (\d+)", out), _line(r"b = (-?[\d.]+)", out),
                _line(r"accuracy = ([\d.]+)", out))
-        m, acc = in_process(n)
+        m, acc = fits[n] = in_process(n)
         where = "a subprocess" if run is _cli else "this process"
         log(f"[10] train --train CSV {' '.join(extra)}: {secs:.1f} s in "
             f"{where}, n = {_line(r'n = (\d+),', out)}, status "
@@ -748,6 +773,7 @@ def phase_front(X_all, Y_all, n_tr, n_cut, n_lim, n_oracle, n_test, device,
     log(f"[10] info {model_path} ({secs:.1f} s): "
         + " | ".join(out.strip().splitlines()))
     check("model: binary" in out, "[10] info does not describe the model")
+    return train_csv, test_csv, fits[n_cut][0], n_cut
 
 
 def phase_refine(X_all, Y_all, n_tr, m5, acc5, device, counters):
@@ -818,14 +844,12 @@ def phase_refine(X_all, Y_all, n_tr, m5, acc5, device, counters):
     return model, gaps
 
 
-class _Stopped(Exception):
-    """Raised after a chosen checkpoint is on disk: the process 'dies'."""
-
-
 def phase_checkpoint(X_all, Y_all, n_tr, device, stop_round=8, every=4):
     """Phase 12: phase 5's job through BinarySVC.fit(checkpoint_path,
-    checkpoint_every), stopped once the checkpoint of round `stop_round` is
-    on disk, then resumed in a fresh estimator: it must equal the run
+    checkpoint_every), killed by a fault plan (a simulated kill at the
+    `solver.outer_checkpoint` point, faults/) at the write after round
+    `stop_round`'s, so round `stop_round`'s checkpoint is on disk, then
+    resumed in a fresh estimator: it must equal the run
     without a checkpoint bit for bit (alpha with torch.equal, the same b,
     n_iter and status). At the solver: a state paused at `stop_round`,
     written, read back and resumed gives alpha and f equal (torch.equal)
@@ -834,6 +858,7 @@ def phase_checkpoint(X_all, Y_all, n_tr, device, stop_round=8, every=4):
 
     import torch
     import tpusvm_torch.solver.checkpoint as ckmod
+    from tpusvm_torch import faults
     from tpusvm_torch.config import SVMConfig
     from tpusvm_torch.models import BinarySVC
     from tpusvm_torch.ops.cuda import _build
@@ -846,23 +871,20 @@ def phase_checkpoint(X_all, Y_all, n_tr, device, stop_round=8, every=4):
     cfg = SVMConfig(C=C, gamma=GAMMA, max_iter=10**6)
     X, Y = X_all[:n_tr], Y_all[:n_tr]
     plain = BinarySVC(cfg, solver_opts=FULL_OPTS, device=device).fit(X, Y)
-    save = ckmod.save_solver_state
-
-    def save_then_stop(p, state, fp):
-        save(p, state, fp)
-        if state.n_outer >= stop_round:
-            raise _Stopped(state.n_outer)
-
-    ckmod.save_solver_state = save_then_stop
+    plan = faults.FaultPlan([faults.FaultRule(
+        point="solver.outer_checkpoint", kind="kill",
+        at_hit=stop_round // every + 1)])
     try:
-        BinarySVC(cfg, solver_opts=FULL_OPTS, device=device).fit(
-            X, Y, checkpoint_path=path, checkpoint_every=every)
+        with faults.active(plan):
+            BinarySVC(cfg, solver_opts=FULL_OPTS, device=device).fit(
+                X, Y, checkpoint_path=path, checkpoint_every=every)
         check(False, "[12] the fit was not stopped")
-    except _Stopped as e:
-        stopped_at = e.args[0]
-    finally:
-        ckmod.save_solver_state = save
+    except faults.SimulatedKill:
+        pass
     check(os.path.exists(path), "[12] no checkpoint on disk")
+    with np.load(path) as z:
+        stopped_at = int(z["n_outer"])
+    check(stopped_at == stop_round, f"[12] checkpoint of round {stopped_at}")
     t = time.perf_counter()
     resumed = BinarySVC(cfg, solver_opts=FULL_OPTS, device=device).fit(
         X, Y, checkpoint_path=path, checkpoint_every=every, resume=True)
@@ -870,8 +892,8 @@ def phase_checkpoint(X_all, Y_all, n_tr, device, stop_round=8, every=4):
     a, b = resumed.result_, plain.result_
     same = (torch.equal(a.alpha, b.alpha) and (a.b, a.n_iter, a.status)
             == (b.b, b.n_iter, b.status))
-    log(f"[12] fit stopped after the checkpoint of round {stopped_at} (every "
-        f"{every}), resumed in a fresh estimator in {resume_s:.3f} s: rounds "
+    log(f"[12] fit killed at the checkpoint write after round {stopped_at}'s "
+        f"(every {every}; a fault plan's kill rule), resumed in a fresh estimator in {resume_s:.3f} s: rounds "
         f"{a.n_outer}, updates {a.n_iter - 1}, status {a.status.name}, b "
         f"{a.b:.15f}; equal to the fit without a checkpoint bit for bit: "
         f"{same}; checkpoint removed at the end: {not os.path.exists(path)}")
@@ -1289,7 +1311,8 @@ def phase_cascade(X_all, Y_all, n_tr, m5, acc5, device, counters, launches,
     """Phase 14: the one-process fits of CASCADE_CASES (cascade_case; a case
     cut in rows is held to the direct blocked fit on its rows), kernel #1 at
     the leaf's size after 14(a), then 14(d)'s rank processes on CSVs written
-    in the background meanwhile. Adds each case's launches to `launches`."""
+    in the background meanwhile. Adds each case's launches to `launches`;
+    returns the one-process fits by tag (cascade_case's tuples)."""
     from tpusvm_torch.config import SVMConfig
     from tpusvm_torch.models import BinarySVC
 
@@ -1333,6 +1356,7 @@ def phase_cascade(X_all, Y_all, n_tr, m5, acc5, device, counters, launches,
             writer.kill()
             writer.wait()
     clock("14d")
+    return fits
 
 
 # phase 3's problem-axis lanes: B working sets of phase 5's q over phase 5's
@@ -1754,6 +1778,354 @@ def phase_fleet(Xm, lm, n_tr, ovr_a, device, counters, launches):
     check(all(inv), f"[16] lanes depend on their companions {inv}")
     check(all(same_comp) and rounds["16"] == rounds["16c"] and c16 == c16c,
           f"[16] compact_every changed the solve {same_comp} {rounds}")
+
+
+# phase 17's shards: phase 5's training rows at 16,384 rows a shard (four
+# shards, the last one 10,848 rows) and its 10,000 held-out rows in one
+STREAM_ROWS_PER_SHARD = 16384
+# phase 17(e)'s shards of phase 10's 10,000-row CSV
+CSV_ROWS_PER_SHARD = 4096
+
+
+def _count(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _zero(counters):
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _same_bits(a, b):
+    """The fitted models' SV IDs, alpha bits, SV rows and b are equal."""
+    return (np.array_equal(a.sv_ids_, b.sv_ids_)
+            and a.sv_alpha_.tobytes() == b.sv_alpha_.tobytes()
+            and np.asarray(a.sv_X_).tobytes() == np.asarray(b.sv_X_).tobytes()
+            and a.b_ == b.b_)
+
+
+def phase_stream(X_all, Y_all, n_tr, m5, acc5, m14b, csv10, device,
+                 counters, launches, smi, out_dir):
+    """Phase 17, the out-of-core tier on phase 5's rows: (a) ingest the
+    training rows at STREAM_ROWS_PER_SHARD a shard and the held-out rows,
+    every shard validating OK and the manifest scaler equal to phase 5's
+    bits, the ingest, validation and read rates logged; (b) fit_stream of
+    phase 5's job equal to phase 5 bit for bit (SV IDs, alphas, b, rounds,
+    updates), kernels #1 and #2 counted; (c) evaluate_stream's accuracy
+    equal to phase 5's, predict_stream's scores within 1e-5 x sum(alpha)
+    of phase 5's decision_function (the contraction's blocking: batches of
+    4,096 rows against one call); (d) fit_cascade_stream with 14(b)'s star
+    and blocked leaves equal to 14(b) bit for bit; (e) `ingest`, `train
+    --data` and `predict --data` as subprocesses on phase 10's CSV, which
+    print the in-process fit's bits. Returns the training dataset."""
+    import shutil
+
+    from tpusvm_torch.config import CascadeConfig, SVMConfig
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.status import Status, StreamStatus
+    from tpusvm_torch.stream import (ShardReader, evaluate_stream,
+                                     ingest_arrays, open_dataset,
+                                     predict_stream)
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    train_dir, test_dir = str(out_dir / "train"), str(out_dir / "test")
+    X, Y = X_all[:n_tr], Y_all[:n_tr]
+    Xt, Yt = X_all[n_tr:], Y_all[n_tr:]
+    mb = (X.astype(np.float64).nbytes + 4 * len(Y)) / 1e6
+    t = time.perf_counter()
+    man = ingest_arrays(train_dir, X, Y, rows_per_shard=STREAM_ROWS_PER_SHARD)
+    ingest_s = time.perf_counter() - t
+    ingest_arrays(test_dir, Xt, Yt, rows_per_shard=STREAM_ROWS_PER_SHARD)
+    ds, ds_test = open_dataset(train_dir), open_dataset(test_dir)
+    t = time.perf_counter()
+    statuses = ds.validate() + ds_test.validate()
+    validate_s = time.perf_counter() - t
+    t = time.perf_counter()
+    rows = sum(len(b[0]) for b in ShardReader(ds, scaler=ds.scaler()))
+    read_s = time.perf_counter() - t
+    sc = ds.scaler()
+    same_scaler = (sc.min_val.tobytes() == m5.scaler_.min_val.tobytes()
+                   and sc.max_val.tobytes() == m5.scaler_.max_val.tobytes())
+    log(f"[17a] ingested {man.n_rows} x {man.n_features} rows into "
+        f"{len(man.shards)} shards ({[s.n_rows for s in man.shards]}) in "
+        f"{ingest_s:.2f} s ({mb / ingest_s:.0f} MB/s of f64 rows and labels: "
+        f"npz write, sha256, stats, fsync), held-out {ds_test.n_rows} rows in "
+        f"{ds_test.n_shards} shard; validate all {len(statuses)} shards in "
+        f"{validate_s:.2f} s ({(mb + mb * len(Yt) / len(Y)) / validate_s:.0f} "
+        f"MB/s), statuses {[s.name for s in statuses]}; a prefetched scaled "
+        f"read of {rows} rows in {read_s:.2f} s ({mb / read_s:.0f} MB/s); "
+        f"manifest scaler has phase 5's bits: {same_scaler} ({smi})")
+    check(len(man.shards) == 4, f"[17a] {len(man.shards)} shards")
+    check(all(s == StreamStatus.OK for s in statuses), f"[17a] {statuses}")
+    check(same_scaler, "[17a] the manifest scaler differs from phase 5's")
+    check(rows == n_tr, f"[17a] the reader gave {rows} rows")
+
+    cfg = SVMConfig(C=C, gamma=GAMMA, max_iter=10**6)
+    _zero(counters)
+    sync(device)
+    t = time.perf_counter()
+    m = BinarySVC(cfg, solver_opts=FULL_OPTS, device=device).fit_stream(ds)
+    sync(device)
+    train_s = time.perf_counter() - t
+    counts = _count(counters)
+    same = (_same_bits(m, m5) and m.result_.n_outer == m5.result_.n_outer
+            and m.n_iter_ == m5.n_iter_)
+    for k in ("fused_fupdate", "inner_smo"):
+        launches.setdefault(k, {})["17b"] = counts[k]
+    log(f"[17b] fit_stream of phase 5's job: train {train_s:.3f} s (fit "
+        f"phases {json.dumps({k: round(v, 3) for k, v in m.fit_phases_.items()})}"
+        f"), status {m.status_.name}, rounds {m.result_.n_outer}, updates "
+        f"{m.n_iter_ - 1}, SV count {m.n_support_}, b {m.b_:.15f}; phase 5's "
+        f"bits (SV IDs, alphas, SV rows, b, rounds, updates): {same}; "
+        f"launches {counts}")
+    check(same, "[17b] fit_stream differs from phase 5")
+    check(m.status_ == Status.CONVERGED, f"[17b] {m.status_.name}")
+    check(device == "cpu" or (counts["fused_fupdate"] > 0
+                              and counts["inner_smo"] > 0),
+          f"[17b] kernels not launched: {counts}")
+
+    t = time.perf_counter()
+    acc, n_scored = evaluate_stream(m, ds_test)
+    eval_s = time.perf_counter() - t
+    scores = np.concatenate([s for s, _ in predict_stream(m, ds_test)])
+    ref = m5.decision_function(Xt)
+    err = float(np.abs(scores - ref).max())
+    tol = 1e-5 * float(np.abs(m5.sv_alpha_).sum())
+    log(f"[17c] evaluate_stream over {n_scored} held-out rows in batches of "
+        f"4096: {eval_s:.3f} s, accuracy {acc:.4f} (phase 5 {acc5:.4f}); "
+        f"predict_stream scores against phase 5's decision_function: max "
+        f"|diff| {err:.3e} (tol {tol:.3e}), bit-equal "
+        f"{scores.tobytes() == ref.tobytes()}")
+    check(acc == acc5, f"[17c] accuracy {acc} vs phase 5 {acc5}")
+    check(err <= tol, f"[17c] scores {err} over {tol}")
+
+    cc = CascadeConfig(n_shards=CASCADE_P, sv_capacity=CASCADE_SV_CAP,
+                       topology="star")
+    _zero(counters)
+    sync(device)
+    t = time.perf_counter()
+    mc = _cascade_model("blocked", device).fit_cascade_stream(ds, cc)
+    sync(device)
+    cas_s = time.perf_counter() - t
+    counts = _count(counters)
+    same = _same_bits(mc, m14b) and mc.cascade_rounds_ == m14b.cascade_rounds_
+    for k in ("fused_fupdate", "inner_smo"):
+        launches.setdefault(k, {})["17d"] = counts[k]
+    log(f"[17d] fit_cascade_stream, 14(b)'s star with blocked leaves (P="
+        f"{CASCADE_P}): {cas_s:.3f} s, {mc.cascade_rounds_} rounds, status "
+        f"{mc.status_.name}, SV count {mc.n_support_}, b {mc.b_:.15f}; 14(b)'s "
+        f"bits (SV IDs, alphas, SV rows, b, rounds): {same}; launches {counts}")
+    check(same, "[17d] fit_cascade_stream differs from 14(b)")
+    check(device == "cpu" or (counts["fused_fupdate"] > 0
+                              and counts["inner_smo"] > 0),
+          f"[17d] kernels not launched: {counts}")
+
+    train_csv, test_csv, m10, n_cut = csv10
+    csv_dir = str(out_dir / "csv")
+    model_path = str(out_dir / "csv_model.npz")
+    out, ing_s = _cli(["ingest", "--train", train_csv, "--out", csv_dir,
+                       "--rows-per-shard", str(CSV_ROWS_PER_SHARD)], device)
+    log(f"[17e] ingest --train CSV ({ing_s:.1f} s in a subprocess): "
+        + " | ".join(out.strip().splitlines()[:2]))
+    flags = ["--C", str(C), "--gamma", str(GAMMA), "--max-iter", "1000000",
+             "--q", str(FULL_OPTS["q"]), "--wss", str(FULL_OPTS["wss"]),
+             "--max-inner", str(FULL_OPTS["max_inner"])]
+    out, tr_s = _cli(["train", "--data", csv_dir, "--test", test_csv, *flags,
+                      "--save", model_path], device)
+    Xc, Yc = X_all[:n_cut], Y_all[:n_cut]
+    acc10 = float((m10.predict(X_all[n_tr:n_tr + N_CSV_TEST])
+                   == Y_all[n_tr:n_tr + N_CSV_TEST]).mean())
+    cli = (_line(r"SV count = (\d+)", out), _line(r"b = (-?[\d.]+)", out),
+           _line(r"accuracy = ([\d.]+)", out))
+    log(f"[17e] train --data ({tr_s:.1f} s in a subprocess): SV count / b / "
+        f"accuracy {cli}; phase 10's in-process fit {_report(m10, acc10)}")
+    check(cli == _report(m10, acc10), f"[17e] train --data {cli} vs in "
+          f"process {_report(m10, acc10)}")
+    out, pr_s = _cli(["predict", "--model", model_path, "--data", csv_dir],
+                     device)
+    acc_c = float((m10.predict(Xc) == Yc).mean())
+    log(f"[17e] predict --data ({pr_s:.1f} s in a subprocess): "
+        f"{_line(r'(accuracy = .*)', out)}; in process {acc_c:.4f} on the "
+        f"{n_cut} training rows")
+    check(_line(r"accuracy = ([\d.]+)", out) == f"{acc_c:.4f}",
+          "[17e] predict --data differs from the in-process model")
+    return ds
+
+
+# phase 18's maps (the JAX bench's widths, benchmarks/approx_scale.py) and
+# gates: each arm CONVERGED, its accuracy within APPROX_ACC_BAND of phase
+# 5's, the rff probe error non-increasing in D with APPROX_ERR_SLACK
+APPROX_RFF_DIM, APPROX_LANDMARKS = 2048, 1024
+APPROX_ACC_BAND, APPROX_ERR_SLACK = 0.055, 1.05
+APPROX_PROBE_D = (512, 1024, 2048)
+# 18(c)'s primal knobs, cut (PERF.md section 4): the JAX bench's
+# full-run batch of 256 (benchmarks/approx_scale.py), 64 epochs at most,
+# the 5% plateau. At a batch of 1,024 the plateau comes after 30 epochs
+# (1,770 steps) instead of 5-6, about 40 s instead of 8 on the card, at the
+# same accuracy (scripts/torch_primal_batch_probe.py --rows 60000), which
+# would take phases 17-18 past a minute
+PRIMAL_OPTS = dict(primal_batch=256, primal_epochs=64, primal_tol=0.05)
+
+
+def _sync_count(fn):
+    """(fn(), the synchronizing CUDA calls torch reported during it): torch
+    .cuda's sync debug mode warns at each one, on whichever thread makes
+    it; each is recorded as (thread name, the innermost frame of this
+    checkout's code that led to it)."""
+    import threading
+    import traceback
+    from pathlib import Path
+
+    import torch
+
+    root = str(Path(__file__).resolve().parent)
+    seen = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(root) and "chip_smoke" not in
+                f.filename]
+        where = (f"{Path(ours[-1].filename).name}:{ours[-1].lineno}"
+                 if ours else f"{Path(filename).name}:{lineno}")
+        seen.append((threading.current_thread().name, where))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        # switched on before the recorder: the switch's own first use in a
+        # process warns once, and that is no call of fn's
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = record
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, seen
+
+
+def _round_trip(m, Xq, tag, device):
+    import os
+
+    from tpusvm_torch.models import load_any
+    from tpusvm_torch.ops.cuda import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(_build.BUILD_DIR / f"chip_smoke_{tag}.npz")
+    m.save(path)
+    again = load_any(path, device=device)
+    os.remove(path)
+    same = (again.decision_function(Xq).tobytes()
+            == m.decision_function(Xq).tobytes())
+    check(same, f"[{tag}] the reloaded artifact scores differently")
+    return same
+
+
+def phase_approx(X_all, Y_all, n_tr, acc5, ds, device, counters, launches):
+    """Phase 18, the approximate families on phase 5's job: (a) kernel="rff",
+    rff_dim=APPROX_RFF_DIM, map_seed=0 and (b) kernel="nystrom",
+    landmarks=APPROX_LANDMARKS, each the blocked solver (phase 5's q, wss,
+    max_inner) over the mapped rows on the card, #2 on the linear path;
+    (c) the streamed rff primal fit from 17(a)'s shards (PRIMAL_OPTS), its
+    live shards <= prefetch_depth + 1 and its synchronizing calls outside
+    the reader's thread <= one an epoch plus one (the reader's own are
+    printed); each CONVERGED, within APPROX_ACC_BAND of phase 5's
+    accuracy, its artifact round-tripped; the rff probe error over
+    APPROX_PROBE_D non-increasing (APPROX_ERR_SLACK). Train seconds, the
+    map's share (the map alone, CUDA events, over train seconds) and #2's
+    launches are printed."""
+    import torch
+
+    from tpusvm_torch.approx import build_map, kernel_approx_error
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.status import Status
+
+    X, Y = X_all[:n_tr], Y_all[:n_tr]
+    Xt, Yt = X_all[n_tr:], Y_all[n_tr:]
+    arms = (("18a", dict(kernel="rff", rff_dim=APPROX_RFF_DIM, map_seed=0)),
+            ("18b", dict(kernel="nystrom", landmarks=APPROX_LANDMARKS,
+                         map_seed=0)))
+    for tag, kw in arms:
+        cfg = SVMConfig(C=C, gamma=GAMMA, max_iter=10**6, **kw)
+        _zero(counters)
+        sync(device)
+        t = time.perf_counter()
+        m = BinarySVC(cfg, solver_opts=FULL_OPTS, device=device).fit(X, Y)
+        sync(device)
+        train_s = time.perf_counter() - t
+        counts = _count(counters)
+        launches.setdefault("inner_smo", {})[tag] = counts["inner_smo"]
+        acc = float((m.predict(Xt) == Yt).mean())
+        Xd = torch.as_tensor(m.scaler_.transform(X).astype(np.float32),
+                             device=device)
+        map_ms = cuda_ms(lambda: m.fmap_.transform(Xd), reps=3, warmup=1)
+        res = m.result_
+        log(f"[{tag}] {kw}: train {train_s:.3f} s, the map {map_ms:.1f} ms "
+            f"alone ({100 * map_ms / 1e3 / train_s:.1f}% of train; mapped "
+            f"{n_tr} x {m.fmap_.dim} f32, {n_tr * m.fmap_.dim * 4 / 1e6:.0f} "
+            f"MB on the card), status {m.status_.name}, rounds {res.n_outer}, "
+            f"updates {m.n_iter_ - 1}, SV count {m.n_support_}, b "
+            f"{m.b_:.15f}, accuracy {acc:.4f} (phase 5 {acc5:.4f}), host "
+            f"syncs {res.n_host_syncs}; fit phases "
+            f"{json.dumps({k: round(v, 3) for k, v in m.fit_phases_.items()})}"
+            f"; launches {counts}")
+        check(m.status_ == Status.CONVERGED, f"[{tag}] {m.status_.name}")
+        check(abs(acc - acc5) <= APPROX_ACC_BAND,
+              f"[{tag}] accuracy {acc} vs phase 5 {acc5}")
+        check(device == "cpu" or counts["inner_smo"] > 0,
+              f"[{tag}] #2 not launched: {counts}")
+        _round_trip(m, Xt, tag, device)
+
+    cfg = SVMConfig(C=C, gamma=GAMMA, kernel="rff", rff_dim=APPROX_RFF_DIM,
+                    map_seed=0)
+    _zero(counters)
+    sync(device)
+    t = time.perf_counter()
+    m, syncs = _sync_count(lambda: BinarySVC(
+        cfg, solver_opts=PRIMAL_OPTS, device=device).fit_stream(ds))
+    sync(device)
+    train_s = time.perf_counter() - t
+    pr = m.primal_result_
+    acc = float((m.predict(Xt) == Yt).mean())
+    Xd = torch.as_tensor(m.scaler_.transform(X).astype(np.float32),
+                         device=device)
+    map_ms = cuda_ms(lambda: m.fmap_.transform(Xd), reps=3, warmup=1)
+    reader = [w for t, w in syncs if t == "tpusvm-torch-stream-reader"]
+    solver = [w for t, w in syncs if t != "tpusvm-torch-stream-reader"]
+    where = {"solver": sorted(set(solver)), "reader": sorted(set(reader))}
+    log(f"[18c] streamed rff primal fit from 17(a)'s {ds.n_shards} shards "
+        f"{PRIMAL_OPTS}: train {train_s:.3f} s, status {m.status_.name}, "
+        f"{pr.epochs_run} epochs, {pr.n_steps} steps ({pr.n_steps / max(pr.epochs_run, 1):.0f} "
+        f"an epoch), objective {pr.objective:.9f}, b {m.b_:.9f}, accuracy "
+        f"{acc:.4f} (phase 5 {acc5:.4f}); live shards <= "
+        f"{m.stream_max_live_shards_} (bound 3); host reads counted by the "
+        f"solver {pr.host_syncs}, synchronizing calls torch reported on the "
+        f"solver's thread {len(solver)} and on the reader's {len(reader)}, "
+        f"at {where}; the map over all rows {map_ms:.1f} ms "
+        f"alone, x {pr.epochs_run} epochs = "
+        f"{100 * map_ms * pr.epochs_run / 1e3 / train_s:.1f}% of train")
+    check(m.status_ == Status.CONVERGED, f"[18c] {m.status_.name}")
+    check(abs(acc - acc5) <= APPROX_ACC_BAND,
+          f"[18c] accuracy {acc} vs phase 5 {acc5}")
+    check(m.stream_max_live_shards_ <= 3,
+          f"[18c] {m.stream_max_live_shards_} live shards")
+    check(pr.host_syncs == pr.epochs_run + 1
+          and len(solver) <= pr.epochs_run + 1,
+          f"[18c] {len(solver)} synchronizing calls on the solver's thread "
+          f"over {pr.epochs_run} epochs: {where}")
+    _round_trip(m, Xt, "18c", device)
+
+    Xs = m.scaler_.transform(X)
+    errs = []
+    for D in APPROX_PROBE_D:
+        fm = build_map(SVMConfig(C=C, gamma=GAMMA, kernel="rff", rff_dim=D,
+                                 map_seed=0), n_features=X.shape[1])
+        errs.append(kernel_approx_error(Xs, fm, GAMMA, device=device))
+    log(f"[18] rff probe max |K_hat - K| over 2048 row pairs at D = "
+        f"{list(APPROX_PROBE_D)}: {[round(e, 6) for e in errs]}")
+    check(all(b <= a * APPROX_ERR_SLACK for a, b in zip(errs, errs[1:])),
+          f"[18] probe errors not non-increasing in D: {errs}")
 
 
 def sync(device):
@@ -2391,8 +2763,8 @@ def main():
     clock("9")
 
     # ---- 10-13. the front door, refine, checkpoints, shrinking, cache ----
-    phase_front(X_all, Y_all, 60000, N_CSV, N_CSV_LIMIT, N_ORACLE, N_CSV_TEST,
-                "cuda", model5_path)
+    csv10 = phase_front(X_all, Y_all, 60000, N_CSV, N_CSV_LIMIT, N_ORACLE,
+                        N_CSV_TEST, "cuda", model5_path)
     clock("10")
     m11, gaps11 = phase_refine(X_all, Y_all, 60000, m5, acc5, "cuda", counters)
     clock("11")
@@ -2410,8 +2782,17 @@ def main():
     clock("16")
 
     # ---- 14. the cascade: tree and star, blocked and pair leaves ---------
-    phase_cascade(X_all, Y_all, 60000, m5, acc5, "cuda", counters, launches,
-                  _build.BUILD_DIR / "chip_smoke_cascade", clock)
+    fits14 = phase_cascade(X_all, Y_all, 60000, m5, acc5, "cuda", counters,
+                           launches, _build.BUILD_DIR / "chip_smoke_cascade",
+                           clock)
+
+    # ---- 17, 18. the out-of-core tier, the approximate families ---------
+    ds = phase_stream(X_all, Y_all, 60000, m5, acc5, fits14["14b"][0], csv10,
+                      "cuda", counters, launches, smi,
+                      _build.BUILD_DIR / "chip_smoke_stream")
+    clock("17")
+    phase_approx(X_all, Y_all, 60000, acc5, ds, "cuda", counters, launches)
+    clock("18")
 
     for k in kernels:
         k["launches_by_phase"] = launches[k["name"]]

@@ -149,10 +149,18 @@ def test_from_jax_state_carries_every_kind(pair_of_models):
 
 
 def test_load_refuses_approximate_artifacts(tmp_path):
+    # the approximate families are ported: their artifacts load (the map
+    # provenance is state), and a model without map provenance is refused
+    # when its map is rebuilt, as in the JAX package
     path = str(tmp_path / "rff.npz")
     np.savez(path, format_version=4, config_kernel="rff", map_n_features_in=3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tmodels.load_model(path)
+    state, cfg = tmodels.load_model(path)
+    assert cfg.kernel == "rff" and int(state["map_n_features_in"]) == 3
+    from tpusvm_torch.approx import map_from_state
+
+    assert map_from_state(state, cfg).dim == cfg.rff_dim
+    with pytest.raises(ValueError, match="no map provenance"):
+        map_from_state({}, cfg)
     np.savez(path, format_version=4, config_kernel="laplace")
     with pytest.raises(ValueError, match="laplace"):
         tmodels.load_model(path)
@@ -237,7 +245,10 @@ def test_cli_refuses_the_jax_packages_invalid_combinations(tmp_path):
                        (["--task", "svr", "--calibrate", "3"], "requires --task svc"),
                        (["--calibrate", "1"], ">= 2 folds"),
                        (["--multiclass", "--calibrate", "3"], "binary"),
-                       (["--kernel", "rff"], "Queue 1 item 10")):
+                       (["--kernel", "rff", "--rff-dim", "100"],
+                        "multiple of 128"),
+                       (["--kernel", "nystrom", "--mode", "oracle"],
+                        "no approximate kernels")):
         out = _cli("train", "--synthetic", "rings", "--n", "50", "--n-test", "0",
                    "--device", "cpu", *flags, cwd=tmp_path)
         assert out.returncode != 0 and msg in out.stderr, (flags, out.stderr)

@@ -157,8 +157,11 @@ def test_refusals():
              solver_opts={"shrink_every": 2, "shrink_min": 8})
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         _fit(Xs, Y, CFG, cc, tracer=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        BinarySVC(device="cpu").fit_cascade_stream(None)
+    # the streaming twin is ported (stream/); it refuses the approximate
+    # families, as the JAX package does
+    with pytest.raises(ValueError, match="approximate"):
+        BinarySVC(SVMConfig(kernel="rff"), device="cpu").fit_cascade_stream(
+            None)
     with pytest.raises(NotImplementedError, match=r"item 9\(i\)"):
         BinarySVC(device="cpu").fit_pod("data")
     with pytest.raises(ValueError, match="prebuilt partition has 2 leaves"):

@@ -10,7 +10,11 @@ command prints and saves, bit for bit.
 
 Every rank is a subprocess joined with its own deadline (DEADLINE_S); on
 expiry all are killed and the test fails, so a deadlocked collective
-cannot stall the suite. The ranks need free local ports.
+cannot stall the suite. The engine's ranks meet through a store file in
+the test's directory (no port to pick, none to lose to another test);
+the command line's ranks need a free local port. Each worker frees its
+group before it exits: a gloo group still referenced at interpreter
+shutdown aborted ranks under load.
 """
 
 import json
@@ -31,7 +35,7 @@ DEADLINE_S = 120.0
 # one rank: joins the group, fits, and writes its result (and, on rank 0
 # with "compare", the one-process engine's result) or its traceback
 _WORKER = r"""
-import json, sys, traceback
+import gc, json, sys, traceback
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -65,6 +69,11 @@ try:
                       resume=ckpt is not None, **kw)
     save(out + ".npz", res)
     dist.destroy_process_group()
+    # free the group now, as the command line does when cmd_train returns:
+    # a gloo group still referenced when the interpreter shuts down can
+    # abort the process ("terminate called without an active exception")
+    del group, res
+    gc.collect()
     if rank == 0 and spec.get("compare"):
         save(out + ".ref.npz", cascade_fit(Xs, Y, cfg, cc, **kw))
 except BaseException:
@@ -111,7 +120,7 @@ def _join(procs, deadline_s=DEADLINE_S):
 
 def _ranks(tmp_path, world, shards, topology, **spec):
     out = str(tmp_path / "rank")
-    spec = dict(addr=f"127.0.0.1:{_free_port()}", world=world, shards=shards,
+    spec = dict(addr=f"file://{tmp_path / 'store'}", world=world, shards=shards,
                 topology=topology, out=out, **spec)
     procs = [_popen([sys.executable, "-c", _WORKER, json.dumps(spec), str(r)],
                     tmp_path, f"rank{r}") for r in range(world)]

@@ -135,11 +135,13 @@ def test_family_validation_errors():
         tkernels.needs_norms("laplace")
     with pytest.raises(ValueError, match="unknown kernel family"):
         SVMConfig(kernel="laplace")
-    for fam in ("rff", "nystrom"):
+    for fam, key in (("rff", "rff_dim"), ("nystrom", "landmarks")):
         assert tkernels.validate_family(fam) == fam and tkernels.is_approx(fam)
         assert not tkernels.needs_norms(fam)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            SVMConfig(kernel=fam)
+        # ported: the map width is validated as the JAX config does
+        assert SVMConfig(kernel=fam).kernel == fam
+        with pytest.raises(ValueError, match="multiple of 128"):
+            SVMConfig(kernel=fam, **{key: 200})
     assert tkernels.needs_norms("rbf") and not tkernels.needs_norms("poly")
     assert tkernels.sq_norms_for("linear", torch.ones(3, 2)) is None
     with pytest.raises(ValueError, match="degree"):
@@ -161,8 +163,10 @@ def test_fused_fupdate_refused_off_rbf():
     with pytest.raises(ValueError, match="RBF pipeline only"):
         blocked_smo_solve(X, Y, kernel="poly", fused_fupdate=True, q=128,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        blocked_smo_solve(X, Y, kernel="rff", q=128, device="cpu")
+    # the approximate families run the linear path over mapped rows
+    lin = blocked_smo_solve(X, Y, kernel="linear", q=128, device="cpu")
+    rff = blocked_smo_solve(X, Y, kernel="rff", q=128, device="cpu")
+    assert torch.equal(lin.alpha, rff.alpha) and float(lin.b) == float(rff.b)
 
 
 def test_svr_doubling_is_the_jax_packages():

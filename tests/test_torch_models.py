@@ -118,17 +118,18 @@ def test_jax_artifact_loads_in_port(fitted, rings_data, tmp_path):
 
 
 def test_load_rejects_later_slice_artifacts(tmp_path):
-    # the approximate-kernel families are the kind this port cannot score
-    # yet; SVR and one-vs-rest artifacts load
+    # the approximate-kernel families are ported: their artifacts load
+    # (tests/test_torch_approx.py scores them); an unknown version is
+    # still refused
     path = str(tmp_path / "rff.npz")
     np.savez(path, format_version=4, map_n_features_in=3, config_kernel="rff")
-    with pytest.raises(NotImplementedError, match="approximate"):
-        load_model(path)
+    state, cfg = load_model(path)
+    assert cfg.kernel == "rff" and "map_n_features_in" in state
     np.savez(path, format_version=9)
     with pytest.raises(ValueError, match="version 9"):
         load_model(path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        SVMConfig(kernel="rff")
+    with pytest.raises(ValueError, match="multiple of 128"):
+        SVMConfig(kernel="rff", rff_dim=64)
     assert SVMConfig(kernel="poly").kernel == "poly"
 
 

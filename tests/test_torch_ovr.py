@@ -85,8 +85,8 @@ def test_fleet_and_class_parallel_are_refused():
         OneVsRestSVC(class_parallel=True, device="cpu")
     with pytest.raises(ValueError, match="pair|blocked"):
         OneVsRestSVC(solver="oracle", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        OneVsRestSVC(SVMConfig(kernel="rff"), device="cpu")
+    # the approximate families are ported (tests/test_torch_approx.py)
+    assert OneVsRestSVC(SVMConfig(kernel="rff"), device="cpu").fmap_ is None
 
 
 def test_ovr_poly_family(data):
@@ -115,14 +115,18 @@ def test_binary_fits_not_ported_are_refused():
     with pytest.raises(ValueError, match="binary and svr"):
         OneVsRestSVC(device="cpu", solver="blocked",
                      solver_opts=dict(shrink_every=8)).fit(X, np.arange(20) % 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        m.fit_stream(None)
+    # the streamed fits are ported (tests/test_torch_stream_fit.py); the
+    # approximate streamed fit refuses checkpoints as the JAX one does
+    with pytest.raises(ValueError, match="checkpoint_path/resume"):
+        BinarySVC(SVMConfig(kernel="rff"), scale=False,
+                  device="cpu").fit_stream(None, checkpoint_path="ck.npz")
     # the cascade is ported (ROADMAP Queue 1 item 9) but for its pod
-    # leaves, its streaming twin (item 11) and its tracer (item 12)
+    # leaves and its tracer (item 12)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         m.fit_pod(X, Y)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        m.fit_cascade_stream(X, Y)
+    with pytest.raises(ValueError, match="approximate"):
+        BinarySVC(SVMConfig(kernel="nystrom"), device="cpu").fit_cascade_stream(
+            None)
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         m.fit_cascade(X, Y, tracer=object())
     with pytest.raises(ValueError, match="unknown solver"):

@@ -138,3 +138,51 @@ def test_checkpoint_shrink_and_csv_entry_points_raise_without_a_card(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not (tmp_path / "ck.npz").exists()
+
+
+@pytest.mark.parametrize("pkg", ["stream", "approx", "faults", "obs"])
+def test_new_tiers_import_alone_without_jax_or_tpusvm(pkg):
+    # each tier in a fresh interpreter, alone: what it pulls in is its own
+    code = f"""
+import sys
+sys.modules["jax"] = None
+import tpusvm_torch.{pkg}
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m == "tpusvm" or m.startswith("tpusvm.") or m == "jax"
+                  or m.startswith("jax.")))
+print("LOADED", bad)
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "LOADED []" in out.stdout
+
+
+def test_stream_and_approx_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the no-card path is not reachable")
+    from tpusvm_torch.approx import build_map, kernel_approx_error
+    from tpusvm_torch.cli import main
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models.svm import BinarySVC
+    from tpusvm_torch.stream import ingest_arrays, open_dataset
+
+    X = np.random.default_rng(0).random((40, 3))
+    Y = np.tile([1, -1], 20).astype(np.int32)
+    d = str(tmp_path / "d")
+    ingest_arrays(d, X, Y, rows_per_shard=16)  # the host tier needs no card
+    ds = open_dataset(d)
+    rff = SVMConfig(kernel="rff", rff_dim=128)
+    fmap = build_map(rff, n_features=3)
+    for call in (lambda: BinarySVC().fit_stream(ds),
+                 lambda: BinarySVC(rff).fit_stream(ds),
+                 lambda: BinarySVC(rff).fit(X, Y),
+                 lambda: BinarySVC().fit_cascade_stream(ds),
+                 lambda: fmap.transform_np(X),
+                 lambda: kernel_approx_error(X, fmap, 1.0),
+                 lambda: main(["train", "--data", d]),
+                 lambda: main(["train", "--data", d, "--kernel", "nystrom",
+                               "--landmarks", "128"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

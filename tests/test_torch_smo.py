@@ -219,7 +219,9 @@ def test_pair_solver_refusals():
         smo_solve(X, Y, graph=True, device="cpu")
     with pytest.raises(ValueError, match="chunk"):
         smo_solve(X, Y, chunk=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        smo_solve(X, Y, kernel="nystrom", device="cpu")
+    # the approximate families run the linear K rows over mapped rows
+    lin = smo_solve(X, Y, kernel="linear", device="cpu")
+    nys = smo_solve(X, Y, kernel="nystrom", device="cpu")
+    assert torch.equal(lin.alpha, nys.alpha) and float(lin.b) == float(nys.b)
     with pytest.raises(ValueError, match="unknown kernel family"):
         smo_solve(X, Y, kernel="laplace", device="cpu")

@@ -1,4 +1,4 @@
-"""Command line: `python -m tpusvm_torch train|predict|info`.
+"""Command line: `python -m tpusvm_torch train|predict|ingest|info`.
 
 train fits a model on a CSV (--train, last column = label; --test scores a
 held-out CSV) or a synthetic dataset, scores the held-out rows and prints
@@ -15,11 +15,17 @@ gloo, where rank 0 alone prints the result and saves), the solver
 (--solver blocked|pair), the kernel family (--kernel, --degree, --coef0),
 one-vs-rest (--multiclass), epsilon-SVR (--task svr, --epsilon), Platt
 calibration (--calibrate K), crash-safe checkpoints (--checkpoint,
---resume, --checkpoint-every) and active-set shrinking (--shrink-every,
---shrink-stable). predict scores a saved model of any kind (either
-package's `.npz`) on a CSV (--data) or the synthetic held-out slice. info
+--resume, --checkpoint-every), active-set shrinking (--shrink-every,
+--shrink-stable), and the approximate families (--kernel rff|nystrom with
+--rff-dim, --rff-seed, --landmarks). train --data DIR trains from a sharded
+dataset (--mode single: the exact families' solve, or the approximate
+families' streaming primal fit; --mode cascade: the cascade filled shard by
+shard). ingest writes such a dataset from a CSV or a synthetic draw.
+predict scores a saved model of any kind (either package's `.npz`) on a
+CSV or a sharded dataset (--data) or the synthetic held-out slice. info
 prints the torch/CUDA versions and the visible devices, or describes a
-model artifact. train and predict run on the card unless --device cpu.
+model artifact or a sharded dataset (its manifest and each shard's
+StreamStatus). train and predict run on the card unless --device cpu.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from typing import List, Optional
 import numpy as np
 
 from tpusvm_torch.config import (DATASET_PRESETS, KERNEL_FAMILIES,
-                                 CascadeConfig, SVMConfig, preset)
+                                 CascadeConfig, SVMConfig, is_approx_family,
+                                 preset)
 from tpusvm_torch.data.csv_reader import read_csv, read_csv_regression
 from tpusvm_torch.data.scaler import MinMaxScaler
 from tpusvm_torch.data.synthetic import (BENCH_LABEL_NOISE, BENCH_NOISE,
@@ -46,8 +53,9 @@ _SYNTHETIC = ("mnist_like", "rings", "blobs", "mnist_like_multiclass",
 
 
 def _add_data_args(p: argparse.ArgumentParser, csv_flag: str,
-                   csv_help: str) -> None:
-    p.add_argument(csv_flag, metavar="CSV", help=csv_help)
+                   csv_help: str, metavar: str = "CSV",
+                   device: bool = True) -> None:
+    p.add_argument(csv_flag, metavar=metavar, help=csv_help)
     p.add_argument("--synthetic", choices=_SYNTHETIC,
                    help="deterministic synthetic dataset instead of a CSV "
                    "(svr_sine: continuous targets, --task svr only; "
@@ -65,7 +73,8 @@ def _add_data_args(p: argparse.ArgumentParser, csv_flag: str,
     p.add_argument("--positive-label", type=int, default=1, metavar="K",
                    help="CSV binary mode: the class mapped to +1 (label != "
                    "K -> -1); default 1, the reference's digit")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    if device:
+        p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,13 +84,18 @@ def build_parser() -> argparse.ArgumentParser:
     _add_data_args(tr, "--train", "training CSV (header line, last column "
                    "= label)")
     tr.add_argument("--test", metavar="CSV",
-                    help="held-out CSV to score (with --train)")
+                    help="held-out CSV to score (with --train or --data)")
+    tr.add_argument("--data", metavar="DIR",
+                    help="a sharded dataset directory (`ingest`): the "
+                    "scaler comes from the manifest's stats and shards are "
+                    "loaded one at a time (--mode single or cascade)")
     tr.add_argument("--mode", choices=("single", "oracle", "cascade", "pod"),
                     default="single",
                     help="single = on-device SMO; oracle = the serial NumPy "
                     "SMO (binary; the reference's main3.cpp); cascade = the "
                     "cascade over --shards leaves (the reference's MPI "
-                    "programs); pod is not ported yet")
+                    "programs); pod is not ported yet (ROADMAP Queue 1 item "
+                    "9(i))")
     tr.add_argument("--topology", choices=("tree", "star"), default="tree",
                     help="cascade merge topology (tree = mpi_svm_main3, "
                     "star = mpi_svm_main2)")
@@ -102,7 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "--process-id; launch the same command once per rank")
     tr.add_argument("--coordinator-address", default=None,
                     metavar="HOST:PORT",
-                    help="with --distributed: the process group's address")
+                    help="with --distributed: the process group's address "
+                    "(HOST:PORT, or file://PATH for a store in a shared "
+                    "file)")
     tr.add_argument("--num-processes", type=int, default=None,
                     help="with --distributed: world size")
     tr.add_argument("--process-id", type=int, default=None,
@@ -171,7 +187,21 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--kernel", choices=KERNEL_FAMILIES, default="rbf",
                     help="kernel family: rbf (default), linear, poly = "
                     "(gamma*x.z + coef0)^degree, sigmoid = tanh(gamma*x.z "
-                    "+ coef0); rff / nystrom are not ported yet")
+                    "+ coef0); rff / nystrom are the approximate rbf "
+                    "families: a seeded explicit feature map, applied on "
+                    "the card, routes every solve through the linear path; "
+                    "with --data they train out of core (per-shard mapping "
+                    "in the prefetch hook and the streaming primal solver)")
+    tr.add_argument("--rff-dim", type=int, default=2048, metavar="D",
+                    help="--kernel rff: mapped feature width (a positive "
+                    "multiple of 128; default 2048)")
+    tr.add_argument("--rff-seed", type=int, default=0, metavar="S",
+                    help="--kernel rff/nystrom: the map's seed; the same "
+                    "seed gives the same map bits in either package "
+                    "(default 0)")
+    tr.add_argument("--landmarks", type=int, default=256, metavar="K",
+                    help="--kernel nystrom: landmark count = mapped width (a "
+                    "positive multiple of 128, <= n; default 256)")
     tr.add_argument("--degree", type=int, default=3,
                     help="polynomial degree (--kernel poly)")
     tr.add_argument("--coef0", type=float, default=0.0,
@@ -211,15 +241,53 @@ def build_parser() -> argparse.ArgumentParser:
                     "--shrink-every may freeze it (default 3)")
     tr.add_argument("--save", metavar="PATH", help="write the model .npz")
     pr = sub.add_parser("predict", help="score a saved model")
-    _add_data_args(pr, "--data", "CSV to score (header line, last column = "
-                   "label)")
+    _add_data_args(pr, "--data", "CSV (header line, last column = label) or "
+                   "a sharded dataset directory to score (a directory "
+                   "streams batch by batch)", metavar="PATH")
     pr.add_argument("--model", metavar="PATH", required=True,
                     help="an artifact of either package (a one-vs-rest "
                     "model scores mnist_like as its 10-class draw)")
+    pr.add_argument("--batch-size", type=int, default=4096,
+                    help="--data DIR: rows scored per batch (default 4096)")
+    ing = sub.add_parser(
+        "ingest", help="write a CSV or a synthetic draw as a sharded "
+        "dataset: .npz shards and a JSON manifest with per-shard stats and "
+        "checksums (the JAX package's format)")
+    _add_data_args(ing, "--train", "CSV to ingest (header line, last column "
+                   "= label)", device=False)
+    ing.add_argument("--out", metavar="DIR",
+                     help="output dataset directory (required unless "
+                     "--smoke)")
+    ing.add_argument("--multiclass", action="store_true",
+                     help="keep raw integer labels instead of the binary "
+                     "one-vs-rest mapping")
+    ing.add_argument("--kernel", choices=("raw", "rff", "nystrom"),
+                     default="raw",
+                     help="shards always store RAW features: naming rff or "
+                     "nystrom here explains (with an error) that the map is "
+                     "applied at train time, per shard in the prefetch hook")
+    ing.add_argument("--rows-per-shard", type=int, default=65536,
+                     help="rows per .npz shard (default 65536)")
+    ing.add_argument("--block-rows", type=int, default=8192,
+                     help="CSV streaming block size (peak ingest memory)")
+    ing.add_argument("--resume", action="store_true",
+                     help="continue a killed ingest of the SAME source from "
+                     "its journal: verified durable shards are kept and the "
+                     "rest re-streamed")
+    ing.add_argument("--smoke", action="store_true",
+                     help="ingest a tiny synthetic dataset to a temporary "
+                     "directory and check it: every shard validates, the "
+                     "reader round-trips the rows, the manifest scaler "
+                     "equals a whole-array fit, the residency bound holds")
+    ing.add_argument("--trace", metavar="PATH",
+                     help="not ported yet (ROADMAP Queue 1 item 12)")
+    ing.add_argument("--profile", metavar="DIR",
+                     help="not ported yet (ROADMAP Queue 1 item 12)")
     inf = sub.add_parser("info", help="print the torch/CUDA versions and the "
                          "visible devices, or describe a model artifact")
     inf.add_argument("path", nargs="?", default=None,
-                     help="a model .npz of either package")
+                     help="a model .npz of either package, or a sharded "
+                     "dataset directory")
     return ap
 
 
@@ -253,7 +321,7 @@ def _data(args, task: str = "svc"):
     --test. A synthetic draw's test slice is its tail, so --n-limit cuts
     the training rows without moving the test rows."""
     if (args.train is None) == (args.synthetic is None):
-        raise SystemExit("pass exactly one of --train / --synthetic")
+        raise SystemExit("pass exactly one of --train / --synthetic / --data")
     if args.train:
         X, Y = _read(args.train, args, task, args.n_limit)
         Xt = Yt = None
@@ -291,6 +359,52 @@ def _check_train_args(args) -> None:
     if args.mode == "pod":
         raise SystemExit("--mode pod is not ported yet (ROADMAP Queue 1 "
                          "item 9(i): the pod leaves)")
+    approx = args.kernel in ("rff", "nystrom")
+    if args.data:
+        if args.train or args.synthetic:
+            raise SystemExit("pass exactly one of --train / --synthetic / "
+                             "--data")
+        if args.multiclass:
+            raise SystemExit("--data supports binary training (one-vs-rest "
+                             "over shards is not in the JAX package "
+                             "either); ingest was binary-mapped or use "
+                             "--train")
+        if args.mode == "oracle":
+            raise SystemExit("--mode oracle reads CSVs (--train); --data "
+                             "is the streaming path")
+        if args.n_limit is not None:
+            raise SystemExit("--n-limit does not apply to --data (the "
+                             "manifest defines the rows; re-ingest with "
+                             "--n-limit instead)")
+        if args.distributed:
+            raise SystemExit("--data with --distributed is not supported: "
+                             "each rank would stream the whole dataset")
+        if args.calibrate:
+            raise SystemExit("--calibrate fits Platt scaling on in-memory "
+                             "folds; it needs --train")
+    if approx:
+        if args.mode == "oracle":
+            raise SystemExit(
+                "--mode oracle has no approximate kernels: the NumPy oracle "
+                "is the EXACT rbf anchor the approx families are gated "
+                "against; train --kernel rbf --mode oracle instead")
+        if args.mode == "cascade" and args.data:
+            raise SystemExit(
+                "--mode cascade --data with an approximate kernel is not "
+                "supported yet (leaf partitions carry RAW rows; the mapped "
+                "width would change every buffer shape): drop --mode "
+                "cascade for the streaming primal path, or load the data "
+                "in-memory for a mapped cascade")
+        if args.data and args.convergence:
+            raise SystemExit(
+                "--convergence rides the blocked solver's outer loop; "
+                "streamed approximate training runs the primal epoch "
+                "schedule (approx/primal.py), which has no convergence "
+                "ring")
+        if args.data and args.checkpoint:
+            raise SystemExit(
+                "--checkpoint is a blocked-solver surface; the streamed "
+                "approximate fit runs the primal epoch schedule")
     if not args.distributed and (
             args.coordinator_address or args.num_processes is not None
             or args.process_id is not None):
@@ -307,14 +421,19 @@ def _check_train_args(args) -> None:
     if args.stratify and args.mode != "cascade":
         raise SystemExit("--stratify only applies to --mode cascade (it "
                          "changes how rows are dealt over the leaves)")
-    if args.test and not args.train:
-        raise SystemExit("--test scores a held-out CSV; it needs --train")
+    if args.test and not (args.train or args.data):
+        raise SystemExit("--test scores a held-out CSV; it needs --train or "
+                         "--data")
     if args.task == "svr":
         if args.mode != "single":
             raise SystemExit("--task svr requires --mode single")
         if args.multiclass:
             raise SystemExit("--task svr is a regression task; "
                              "--multiclass does not apply")
+        if args.data:
+            raise SystemExit("--task svr reads CSVs (--train, continuous "
+                             "last column) or --synthetic svr_sine; sharded "
+                             "--data datasets carry class labels")
         if args.calibrate:
             raise SystemExit("--calibrate fits class probabilities; it "
                              "requires --task svc")
@@ -333,10 +452,6 @@ def _check_train_args(args) -> None:
             raise SystemExit("--calibrate applies to binary --mode single "
                              "training (Platt scaling of the binary "
                              "decision function)")
-    if args.kernel in ("rff", "nystrom"):
-        raise SystemExit(f"--kernel {args.kernel}: the approximate-kernel "
-                         "feature maps are not ported yet (ROADMAP Queue 1 "
-                         "item 10)")
     if args.mode == "oracle" and (args.solver_opt or args.shrink_every
                                   or args.precision != "f32"):
         raise SystemExit("--solver-opt/--precision/--shrink-every have no "
@@ -474,7 +589,8 @@ def _config(args) -> SVMConfig:
     kw = dict(tau=args.tau, eps=args.eps, sv_tol=args.sv_tol,
               max_iter=args.max_iter, max_rounds=args.max_rounds,
               kernel=args.kernel, degree=args.degree,
-              coef0=args.coef0, epsilon=args.epsilon)
+              coef0=args.coef0, epsilon=args.epsilon, rff_dim=args.rff_dim,
+              map_seed=args.rff_seed, landmarks=args.landmarks)
     try:
         if args.preset:
             return preset(args.preset, **kw)
@@ -506,7 +622,7 @@ def _fit_oracle(X, Y, cfg: SVMConfig, device):
     return model
 
 
-def _fit_cascade(model, X, Y, args, group):
+def _fit_cascade(model, X, Y, args, group, dataset=None):
     """--mode cascade: the cascade over --shards leaves (default: the world
     size under --distributed, else the visible cards, 1 on the CPU), in
     this process or as this rank of `group`."""
@@ -525,9 +641,12 @@ def _fit_cascade(model, X, Y, args, group):
                            topology=args.topology)
     except ValueError as e:
         raise SystemExit(f"train: {e}")
-    model.fit_cascade(X, Y, cc, group=group, verbose=True,
-                      checkpoint_path=args.checkpoint, resume=args.resume,
-                      stratified=args.stratify)
+    kw = dict(group=group, verbose=True, checkpoint_path=args.checkpoint,
+              resume=args.resume, stratified=args.stratify)
+    if dataset is not None:
+        model.fit_cascade_stream(dataset, cc, **kw)
+    else:
+        model.fit_cascade(X, Y, cc, **kw)
     print(f"cascade: {model.cascade_rounds_} rounds, converged = "
           f"{model.status_.name == 'CONVERGED'}")
     return model
@@ -564,12 +683,26 @@ def _train(args, group) -> int:
     task = "ovr" if args.multiclass else args.task
     timer = _Timer()
     t = time.perf_counter()
-    X, Y, Xt, Yt = _data(args, task)
+    dataset = None
+    if args.data:
+        from tpusvm_torch.stream import open_dataset
+
+        dataset = open_dataset(args.data)
+        X = Y = Xt = Yt = None
+        if args.test:
+            Xt, Yt = _read(args.test, args, task)
+        n, n_features = dataset.n_rows, dataset.n_features
+    else:
+        X, Y, Xt, Yt = _data(args, task)
+        n, n_features = X.shape
     timer.add("data", t)
-    print(f"n = {X.shape[0]}, n_features = {X.shape[1]}")
+    print(f"n = {n}, n_features = {n_features}")
     solver = args.solver or ("pair" if args.multiclass else "blocked")
+    # the streamed approximate fit runs the primal solver: its knobs
+    # replace the blocked solver's
+    primal = dataset is not None and args.kernel in ("rff", "nystrom")
     opts = (dict(q=args.q, wss=args.wss, max_inner=args.max_inner)
-            if solver in ("blocked", "fleet") else {})
+            if solver in ("blocked", "fleet") and not primal else {})
     opts.update(_parse_solver_opts(args.solver_opt))
     if solver == "fleet":
         _check_fleet_opts(opts)
@@ -605,11 +738,15 @@ def _train(args, group) -> int:
     if args.mode == "oracle":
         model = _fit_oracle(X, Y, cfg, args.device)
     elif args.mode == "cascade":
-        model = _fit_cascade(BinarySVC(**common), X, Y, args, group)
+        model = _fit_cascade(BinarySVC(**common), X, Y, args, group, dataset)
     elif args.task == "svr":
         model = EpsilonSVR(**common).fit(X, Y)
     elif args.multiclass:
         model = OneVsRestSVC(**common).fit(X, Y)
+    elif dataset is not None:
+        model = BinarySVC(**common).fit_stream(
+            dataset, checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every, resume=args.resume)
     else:
         model = BinarySVC(**common).fit(
             X, Y, checkpoint_path=args.checkpoint,
@@ -626,6 +763,11 @@ def _train(args, group) -> int:
             print(f"(b_high - b_low)/2 * 1e10 = {gap * 1e10:.6f}")
         print(f"SV count = {model.n_support_}")
         print(f"status = {model.status_.name}")
+        if getattr(model, "primal_result_", None) is not None:
+            pr = model.primal_result_
+            print(f"primal: {pr.epochs_run} epochs, {pr.n_steps} steps, "
+                  f"objective {pr.objective:.9g}, live shards <= "
+                  f"{model.stream_max_live_shards_}")
     if args.calibrate:
         t = time.perf_counter()
         model.calibrate(X, Y, folds=args.calibrate)
@@ -649,11 +791,15 @@ def _train(args, group) -> int:
 def cmd_predict(args) -> int:
     from tpusvm_torch.models import load_any, model_task
 
+    from tpusvm_torch.stream import is_dataset_dir
+
     timer = _Timer()
     kind = model_task(args.model)
     t = time.perf_counter()
     if (args.data is None) == (args.synthetic is None):
         raise SystemExit("pass exactly one of --data / --synthetic")
+    if args.data and is_dataset_dir(args.data):
+        return _predict_stream(args, kind, timer)
     if args.data:
         Xt, Yt = _read(args.data, args, kind, args.n_limit)
     else:
@@ -668,6 +814,138 @@ def cmd_predict(args) -> int:
         print(f"SV count = {model.n_support_}")
     _accuracy_line(model, Xt, Yt, timer, kind)
     print(timer.report())
+    return 0
+
+
+def _predict_stream(args, kind: str, timer) -> int:
+    """predict --data DIR: streamed scoring off the shards, batch by batch
+    on the card; peak memory is the reader's bound plus one batch."""
+    from tpusvm_torch.models import load_any
+    from tpusvm_torch.stream import evaluate_stream, open_dataset
+
+    if kind == "svr":
+        raise SystemExit("svr models read CSV test data (--data CSV with a "
+                         "continuous last column)")
+    dataset = open_dataset(args.data)
+    model = load_any(args.model, device=args.device)
+    if kind == "ovr":
+        print(f"classes = {[int(c) for c in model.classes_]}")
+        print(f"SV count = {len(model.X_sv_)}")
+    else:
+        print(f"SV count = {model.n_support_}")
+    t = time.perf_counter()
+    acc, m = evaluate_stream(model, dataset, batch_size=args.batch_size,
+                             n_limit=args.n_limit)
+    timer.add("prediction", t)
+    print(f"accuracy = {acc:.4f} ({round(acc * m)}/{m})")
+    print(timer.report())
+    return 0
+
+
+def cmd_ingest(args) -> int:
+    """Write a CSV or a synthetic draw as a sharded dataset directory."""
+    from tpusvm_torch.status import StreamStatus
+    from tpusvm_torch.stream import ingest_arrays, ingest_csv, open_dataset
+
+    if args.kernel != "raw":
+        # shards hold raw features by design: a pre-mapped dataset would
+        # pin one (D, seed) and break the scale-then-map order (the
+        # scaler comes from the manifest at train time)
+        raise SystemExit(
+            f"ingest --kernel {args.kernel}: shards store RAW features; "
+            "the approximate map is applied stream-side during training "
+            "prefetch, so one ingested dataset serves every map; run "
+            f"`python -m tpusvm_torch train --data OUT --kernel "
+            f"{args.kernel} --rff-dim D --rff-seed S` instead")
+    if args.trace or args.profile:
+        raise SystemExit("ingest --trace/--profile: the trace and profile "
+                         "layer is not ported yet (ROADMAP Queue 1 item 12)")
+    if args.smoke:
+        return _ingest_smoke()
+    if not args.out:
+        raise SystemExit("ingest: --out DIR is required (or --smoke)")
+    if (args.train is None) == (args.synthetic is None):
+        raise SystemExit("ingest: pass exactly one of --train / --synthetic")
+    if args.synthetic == "svr_sine":
+        raise SystemExit("ingest shards labelled datasets; --synthetic "
+                         "svr_sine generates continuous targets (train "
+                         "--task svr reads it directly)")
+    timer = _Timer()
+    t = time.perf_counter()
+    if args.train:
+        manifest = ingest_csv(
+            args.out, args.train, rows_per_shard=args.rows_per_shard,
+            n_limit=args.n_limit, binary=not args.multiclass,
+            positive_label=args.positive_label, block_rows=args.block_rows,
+            resume=args.resume)
+    else:
+        if args.synthetic == "mnist_like_multiclass" and not args.multiclass:
+            raise SystemExit("--synthetic mnist_like_multiclass generates "
+                             "class ids; it requires --multiclass")
+        X, Y = _synthetic(argparse.Namespace(**dict(vars(args), n_test=0)),
+                          args.multiclass)
+        if args.n_limit is not None:
+            X, Y = X[:args.n_limit], Y[:args.n_limit]
+        manifest = ingest_arrays(
+            args.out, X, Y, rows_per_shard=args.rows_per_shard,
+            binary=not args.multiclass,
+            positive_label=None if args.multiclass else args.positive_label,
+            resume=args.resume)
+    timer.add("ingest", t)
+    t = time.perf_counter()
+    bad = [(manifest.shards[i].filename, s.name)
+           for i, s in enumerate(open_dataset(args.out).validate())
+           if s != StreamStatus.OK]
+    timer.add("validate", t)
+    if bad:
+        print(f"ingest: wrote shards that FAIL validation: {bad}")
+        return 1
+    stats = manifest.global_stats()
+    print(f"ingested {manifest.n_rows} rows x {manifest.n_features} features "
+          f"into {len(manifest.shards)} shards at {args.out}")
+    print(f"class counts: {dict(sorted(stats.class_counts.items()))}")
+    print(timer.report())
+    return 0
+
+
+def _ingest_smoke() -> int:
+    """Ingest a tiny synthetic dataset and check every claim of the stream
+    tier: manifest integrity, reader round trip, scaler-from-stats bits,
+    the prefetch residency bound."""
+    import tempfile
+
+    from tpusvm_torch.status import StreamStatus
+    from tpusvm_torch.stream import ShardReader, ingest_arrays, open_dataset
+
+    X, Y = rings(n=301, seed=11)
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest = ingest_arrays(tmp, X, Y, rows_per_shard=64)
+        ds = open_dataset(tmp)
+        statuses = ds.validate()
+        if not all(s == StreamStatus.OK for s in statuses):
+            failures.append(f"validate: {[s.name for s in statuses]}")
+        reader = ShardReader(ds, prefetch_depth=2)
+        blocks = list(reader)
+        Xr = np.concatenate([b[0] for b in blocks])
+        Yr = np.concatenate([b[1] for b in blocks])
+        if not (np.array_equal(Xr, X) and np.array_equal(Yr, Y)):
+            failures.append("reader round-trip diverged from the generator")
+        if reader.max_live_shards > 3:
+            failures.append(
+                f"residency bound violated: {reader.max_live_shards} live "
+                "shards > prefetch_depth + 1 = 3")
+        sc = ds.scaler()
+        sf = MinMaxScaler().fit(X)
+        if not (np.array_equal(sc.min_val, sf.min_val)
+                and np.array_equal(sc.max_val, sf.max_val)):
+            failures.append("manifest scaler != full-array fit")
+    if failures:
+        for f in failures:
+            print(f"INGEST SMOKE FAILED: {f}")
+        return 1
+    print(f"ingest smoke ok: {manifest.n_rows} rows, {len(manifest.shards)} "
+          "shards, scaler/round-trip/residency parity held")
     return 0
 
 
@@ -687,18 +965,53 @@ def _info_devices() -> int:
     return 0
 
 
+def _info_dataset(path: str) -> int:
+    """Describe and verify a sharded dataset directory, as the JAX command
+    line does: the manifest, then every shard whose StreamStatus is not OK
+    (exit 1 then)."""
+    from tpusvm_torch.status import StreamStatus
+    from tpusvm_torch.stream import open_dataset
+
+    ds = open_dataset(path)
+    m = ds.manifest
+    stats = m.global_stats()
+    kind = "binary" if m.binary else "multiclass (raw labels)"
+    print(f"sharded dataset: {m.n_rows} rows x {m.n_features} features, "
+          f"{len(m.shards)} shards")
+    print(f"labels: {kind}"
+          + (f" (positive_label={m.positive_label})"
+             if m.positive_label is not None else ""))
+    print(f"class counts: {dict(sorted(stats.class_counts.items()))}")
+    print(f"feature range: [{stats.min_val.min():g}, "
+          f"{stats.max_val.max():g}]")
+    statuses = ds.validate()
+    bad = [(m.shards[i].filename, s.name)
+           for i, s in enumerate(statuses) if s != StreamStatus.OK]
+    if bad:
+        print(f"validation FAILED on {len(bad)}/{len(statuses)} shards:")
+        for name, status in bad:
+            print(f"  {name}: {status}")
+        return 1
+    print(f"validation: all {len(statuses)} shards OK "
+          "(checksums, row counts, stats)")
+    return 0
+
+
 def _info_artifact(path: str) -> int:
-    """The JAX command line's description of a model artifact. The other
-    artifact kinds it describes belong to modules not ported yet."""
+    """The JAX command line's description of a model artifact or a sharded
+    dataset. Its other artifact kinds belong to modules not ported yet."""
     import json
     import os
     import zipfile
 
     from tpusvm_torch.models import load_model, model_task
+    from tpusvm_torch.stream import is_dataset_dir
 
+    if is_dataset_dir(path):
+        return _info_dataset(path)
     if os.path.isdir(path):
-        raise SystemExit(f"info: {path!r} is a directory; sharded datasets "
-                         "are not ported yet (ROADMAP Queue 1 item 11)")
+        raise SystemExit(f"info: {path!r} is a directory without a "
+                         "manifest.json: not a sharded dataset")
     if not zipfile.is_zipfile(path):
         try:
             with open(path) as f:
@@ -720,7 +1033,11 @@ def _info_artifact(path: str) -> int:
     kind = {"ovr": "multiclass (one-vs-rest)", "svr": "epsilon-SVR"}.get(
         task, "binary")
     print(f"model: {kind}")
-    n_feat = state["sv_X"].shape[1]
+    approx = is_approx_family(config.kernel)
+    # approximate families: sv_X holds MAPPED rows; the raw width is the
+    # map provenance field
+    n_feat = (int(state["map_n_features_in"]) if approx
+              and "map_n_features_in" in state else state["sv_X"].shape[1])
     if task == "ovr":
         print(f"classes: {state['classes'].tolist()}")
         print(f"SV union: {state['sv_X'].shape[0]}")
@@ -736,6 +1053,21 @@ def _info_artifact(path: str) -> int:
     if config.kernel == "sigmoid":
         kern += f" (coef0={config.coef0:g})"
     print(kern)
+    if approx:
+        # which map produced the mapped SV rows, and what rebuilds it
+        dim = int(state["sv_X"].shape[1])
+        if config.kernel == "rff":
+            print(f"approx map: rff D={config.rff_dim} "
+                  f"seed={config.map_seed} "
+                  f"({n_feat} raw -> {dim} mapped features; omega "
+                  "regenerates from config)")
+        else:
+            n_lm = (int(state["map_landmarks"].shape[0])
+                    if "map_landmarks" in state else config.landmarks)
+            print(f"approx map: nystrom landmarks={n_lm} "
+                  f"seed={config.map_seed} "
+                  f"({n_feat} raw -> {dim} mapped features; landmark "
+                  "rows stored in the artifact)")
     print(f"config: C={config.C:g} gamma={config.gamma:g} "
           f"tau={config.tau:g} sv_tol={config.sv_tol:g}"
           + (f" epsilon={config.epsilon:g}" if task == "svr" else ""))
@@ -766,7 +1098,7 @@ def cmd_info(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"train": cmd_train, "predict": cmd_predict,
+    return {"train": cmd_train, "predict": cmd_predict, "ingest": cmd_ingest,
             "info": cmd_info}[args.cmd](args)
 
 

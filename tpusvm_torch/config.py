@@ -13,20 +13,37 @@ from typing import Optional
 
 import torch
 
-# kernel families the JAX package knows; the approximate ones ("rff",
-# "nystrom") need the explicit feature maps, which are not ported yet
+# kernel families the JAX package knows. "rff"/"nystrom" are the
+# APPROXIMATE families (approx/features.py): a seeded explicit feature map
+# sends the rbf kernel into a space where every kernel computation is the
+# linear family's, so the solvers see mapped rows and kernels/dispatch.py
+# routes the approx names through the linear fast path
 KERNEL_FAMILIES = ("rbf", "linear", "poly", "sigmoid", "rff", "nystrom")
 APPROX_FAMILIES = ("rff", "nystrom")
 
 
-def refuse_approx(family: str) -> None:
-    """NotImplementedError for the approximate families at the model layer."""
-    if family in APPROX_FAMILIES:
-        raise NotImplementedError(
-            f"kernel={family!r} is an approximate-kernel family; its "
-            "feature maps are not ported yet (ROADMAP Queue 1 item 10). "
-            "The exact families rbf, linear, poly and sigmoid run"
+def is_approx_family(family: str) -> bool:
+    return family in APPROX_FAMILIES
+
+
+# the JAX package's tile lane width: it accepts map dimensions that are
+# positive multiples of 128 and no others, and the port accepts the same
+# set of configs (a config valid in one package is valid in the other)
+_MAP_DIM_MULTIPLE = 128
+
+
+def validate_map_dim(D: int, what: str = "rff_dim") -> int:
+    """Validate an approximate map's feature dimension: a positive
+    multiple of 128, the JAX package's rule (rff also needs an even D for
+    its cos/sin halves, which the rule implies)."""
+    if D < _MAP_DIM_MULTIPLE or D % _MAP_DIM_MULTIPLE != 0:
+        raise ValueError(
+            f"{what}={D} is not a positive multiple of {_MAP_DIM_MULTIPLE}, "
+            "the set of map dimensions the JAX package accepts (its mapped "
+            f"matrix puts {what} on the 128-lane axis); e.g. "
+            f"{max(_MAP_DIM_MULTIPLE, (D // _MAP_DIM_MULTIPLE + 1) * _MAP_DIM_MULTIPLE)}"
         )
+    return D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,10 +53,13 @@ class SVMConfig:
     b_low <= b_high + 2 tau). eps: index-set tolerance, eta guard and
     [U, V] slack. sv_tol: alpha > sv_tol defines a support vector.
     max_iter: cap on total alpha updates. max_rounds: cascade round cap
-    (mpi_svm_main3.cpp:544). kernel: "rbf", "linear", "poly"
-    or "sigmoid" ("rff"/"nystrom" are refused). degree: poly degree.
-    coef0: poly/sigmoid additive term. epsilon: the epsilon-SVR tube
-    half-width (EpsilonSVR only)."""
+    (mpi_svm_main3.cpp:544). kernel: one of KERNEL_FAMILIES. degree: poly
+    degree. coef0: poly/sigmoid additive term. epsilon: the epsilon-SVR
+    tube half-width (EpsilonSVR only). rff_dim: the random Fourier
+    feature width D (kernel="rff"). map_seed: the approximate map's seed
+    (the same seed gives the same map bits in either package). landmarks:
+    the Nystrom landmark count k (kernel="nystrom"; <= n at fit time).
+    The map widths are validated here (validate_map_dim)."""
 
     C: float = 10.0
     gamma: float = 0.00125
@@ -52,6 +72,9 @@ class SVMConfig:
     degree: int = 3
     coef0: float = 0.0
     epsilon: float = 0.1
+    rff_dim: int = 2048
+    map_seed: int = 0
+    landmarks: int = 256
 
     def __post_init__(self):
         if self.kernel not in KERNEL_FAMILIES:
@@ -63,7 +86,10 @@ class SVMConfig:
             raise ValueError(f"degree must be >= 1, got {self.degree}")
         if self.epsilon < 0:
             raise ValueError(f"epsilon must be >= 0, got {self.epsilon}")
-        refuse_approx(self.kernel)
+        if self.kernel == "rff":
+            validate_map_dim(self.rff_dim, "rff_dim")
+        if self.kernel == "nystrom":
+            validate_map_dim(self.landmarks, "landmarks")
 
 
 @dataclasses.dataclass(frozen=True)

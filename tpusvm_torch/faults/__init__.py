@@ -1,0 +1,62 @@
+"""Deterministic fault injection and the retry primitive it tests.
+
+  injection.py  named injection points at the port's I/O call sites and a
+                seeded, JSON-configured FaultPlan (the JAX package's
+                format) that raises transients, injects latency, corrupts
+                bytes or simulates kills;
+  retry.py      Retry(policy): exponential backoff with seeded jitter and
+                per-class retryability, adopted by shard reads, ingest
+                writes and solver checkpoint writes.
+
+The JAX package's circuit breaker (tpusvm/faults/breaker.py) belongs to
+the serving tier and its chaos command line (tpusvm/faults/__main__.py)
+to the pod tier; neither is ported yet.
+"""
+
+from tpusvm_torch.faults.injection import (
+    KINDS,
+    PLAN_FORMAT_VERSION,
+    POINTS,
+    FaultError,
+    FaultPlan,
+    FaultRule,
+    SimulatedKill,
+    TransientIOError,
+    activate,
+    active,
+    active_plan,
+    deactivate,
+    emit,
+    load_plan,
+    point,
+    set_event_sink,
+)
+from tpusvm_torch.faults.retry import (
+    DEFAULT_IO_POLICY,
+    Retry,
+    RetryExhaustedError,
+    RetryPolicy,
+)
+
+__all__ = [
+    "DEFAULT_IO_POLICY",
+    "FaultError",
+    "FaultPlan",
+    "FaultRule",
+    "KINDS",
+    "PLAN_FORMAT_VERSION",
+    "POINTS",
+    "Retry",
+    "RetryExhaustedError",
+    "RetryPolicy",
+    "SimulatedKill",
+    "TransientIOError",
+    "activate",
+    "active",
+    "active_plan",
+    "deactivate",
+    "emit",
+    "load_plan",
+    "point",
+    "set_event_sink",
+]

@@ -200,10 +200,6 @@ def fleet_smo_solve(
     state.
     """
     kernels.validate_family(kernel)
-    if kernels.is_approx(kernel):
-        raise NotImplementedError(
-            f"kernel={kernel!r}: the approximate-kernel feature maps are not "
-            "ported yet (ROADMAP Queue 1 item 10)")
     if wss not in (1, 2):
         raise ValueError(f"wss must be 1 or 2, got {wss}")
     if selection not in ("auto", "exact", "approx"):
@@ -511,10 +507,6 @@ def fleet_train(
     if compact_every < 0:
         raise ValueError(
             f"compact_every must be >= 0 rounds, got {compact_every}")
-    if kernels.is_approx(solver_opts.get("kernel", "rbf")):
-        raise NotImplementedError(
-            f"kernel={solver_opts['kernel']!r}: the approximate-kernel feature "
-            "maps are not ported yet (ROADMAP Queue 1 item 10)")
     opts = {k: v for k, v in solver_opts.items() if k not in _INERT}
     batch = pack_problems(Ys, Cs, gammas, valids=valids, alpha0s=alpha0s,
                           bucket=bucket)

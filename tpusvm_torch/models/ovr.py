@@ -15,7 +15,10 @@ The port of `tpusvm/models/ovr.py`:
     solo blocked solve's on the same knobs;
   - prediction: one K(test, SV union) matrix times the (K, n_sv)
     coefficients; the class is the argmax of the K scores.
-The class-parallel mesh is not ported yet.
+The approximate families (rff, nystrom) map ONCE for all heads, on the
+card: the K problems share Phi(X) as they share X, and every solver mode
+above runs the linear path over it. The class-parallel mesh is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -28,17 +31,17 @@ import numpy as np
 import torch
 
 from tpusvm_torch import kernels
-from tpusvm_torch.config import SVMConfig, refuse_approx, resolve_accum_dtype
+from tpusvm_torch.config import SVMConfig, is_approx_family, resolve_accum_dtype
 from tpusvm_torch.data.scaler import MinMaxScaler
 from tpusvm_torch.device import resolve_device
 from tpusvm_torch.models.serialization import load_model, save_model
-from tpusvm_torch.models.svm import scores, solve
+from tpusvm_torch.models.svm import load_map, scores, solve
 from tpusvm_torch.solver.smo import smo_solve_batched
 from tpusvm_torch.status import Status
 
 
 class OneVsRestSVC:
-    """K-class SVM as K one-vs-rest binary SVMs (any exact family).
+    """K-class SVM as K one-vs-rest binary SVMs (any kernel family).
 
     Attributes after fit: classes_, X_sv_ (the union of the heads' SVs),
     coef_ (K, n_sv) alpha*y, sv_ids_, b_ (K,), n_iter_ (K,), statuses_
@@ -62,7 +65,6 @@ class OneVsRestSVC:
             warnings.warn(
                 "batched=True has no effect with solver='blocked' "
                 "(per-class sequential solves)", UserWarning, stacklevel=2)
-        refuse_approx(config.kernel)
         self.config = config
         self.scale = scale
         self.batched = batched if batched is not None else solver == "pair"
@@ -81,6 +83,10 @@ class OneVsRestSVC:
         self.train_time_s_: float = 0.0
         self.results_ = None
         self.fleet_stats_: dict = {}
+        # approximate families: the map and the raw input width (X_sv_
+        # then holds MAPPED rows)
+        self.fmap_ = None
+        self.n_features_in_: Optional[int] = None
 
     @property
     def sv_X_(self):
@@ -106,6 +112,13 @@ class OneVsRestSVC:
                 "shrink_every supports binary and svr training; the JAX "
                 "package's one-vs-rest does not route it either")
         Xd = torch.as_tensor(np.asarray(Xs, np.float32), device=dev)
+        if is_approx_family(cfg.kernel):
+            # one map for all heads, fitted on the host, applied on the card
+            from tpusvm_torch.approx import build_map
+
+            self.n_features_in_ = int(np.asarray(Xs).shape[1])
+            self.fmap_ = build_map(cfg, X_scaled=np.asarray(Xs))
+            Xd = self.fmap_.transform(Xd)
         if self.solver == "fleet":
             self.fleet_stats_ = {}
             # one lockstep fleet trains every head: the K problems share X
@@ -157,7 +170,10 @@ class OneVsRestSVC:
         sv_idx = np.nonzero(is_sv)[0]
         alphas_sv = np.where(alphas[:, sv_idx] > cfg.sv_tol,
                              alphas[:, sv_idx], 0.0)
-        self.X_sv_ = Xs[sv_idx]
+        if self.fmap_ is not None:
+            self.X_sv_ = Xd[torch.as_tensor(sv_idx, device=dev)].cpu().numpy()
+        else:
+            self.X_sv_ = Xs[sv_idx]
         self.coef_ = alphas_sv * Ys[:, sv_idx]
         self.sv_ids_ = sv_idx.astype(np.int32)
         self.b_ = bs
@@ -200,6 +216,8 @@ class OneVsRestSVC:
         if self.scale:
             state["scaler_min"] = self.scaler_.min_val
             state["scaler_max"] = self.scaler_.max_val
+        if self.fmap_ is not None:
+            state.update(self.fmap_.state_entries())
         save_model(path, state, self.config)
 
     @classmethod
@@ -214,4 +232,5 @@ class OneVsRestSVC:
         if model.scale:
             model.scaler_ = MinMaxScaler(min_val=state["scaler_min"],
                                          max_val=state["scaler_max"])
+        load_map(model, state, config)
         return model

@@ -12,9 +12,11 @@ One `.npz` holds everything scoring needs, with format_version = 4:
   - the hyperparameters as config_<field> entries (kernel, degree, coef0
     and epsilon since v2).
 The same keys and dtypes are written and read, so a model saved by either
-package loads and scores in the other. Writes are atomic (temp file +
-os.replace). Artifacts of the approximate families (map_* keys) are
-refused: their feature maps are not ported yet.
+package loads and scores in the other. Approximate-family artifacts add
+the map provenance: map_n_features_in (the raw input width; sv_X holds
+mapped rows) and, for nystrom, map_landmarks and map_weights (rff's omega
+regenerates from the config's rff_dim, map_seed and gamma). Writes are
+atomic (temp file + os.replace).
 """
 
 from __future__ import annotations
@@ -25,15 +27,10 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
-from tpusvm_torch.config import APPROX_FAMILIES, KERNEL_FAMILIES, SVMConfig
+from tpusvm_torch.config import KERNEL_FAMILIES, SVMConfig
 
 FORMAT_VERSION = 4
 SUPPORTED_VERSIONS = (1, 2, 3, 4)
-
-# state keys of artifacts this port cannot score yet
-_LATER_SLICE_KEYS = {
-    "map_n_features_in": "approximate-kernel models",
-}
 
 
 def _norm(path: str) -> str:
@@ -67,10 +64,10 @@ def save_model(path: str, state: Dict[str, Any], config: SVMConfig) -> None:
 def load_model(path: str) -> Tuple[Dict[str, np.ndarray], SVMConfig]:
     """(state dict, SVMConfig) of an artifact of any kind the port scores.
 
-    Config fields this port does not carry (rff_dim, map_seed, ...) are
-    ignored, and fields a v1 file predates take their defaults (the RBF
-    family). An unknown version or kernel family, or an approximate-kernel
-    artifact, fails here with a specific error.
+    Config fields this port does not carry are ignored, and fields an
+    older file predates take their defaults (the RBF family, the map
+    defaults). An unknown version or kernel family fails here with a
+    specific error.
     """
     with np.load(_norm(path), allow_pickle=False) as z:
         if "format_version" not in z.files:
@@ -106,10 +103,4 @@ def load_model(path: str) -> Tuple[Dict[str, np.ndarray], SVMConfig]:
             f"{_norm(path)!r} names kernel family {family!r}, which this "
             f"build does not implement (supported: {list(KERNEL_FAMILIES)})"
         )
-    for key, what in _LATER_SLICE_KEYS.items():
-        if key in state or family in APPROX_FAMILIES:
-            raise NotImplementedError(
-                f"{_norm(path)!r} holds one of the {what}; their feature "
-                "maps are not ported yet (ROADMAP Queue 1 item 10)"
-            )
     return state, SVMConfig(**cfg)

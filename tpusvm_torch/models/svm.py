@@ -18,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpusvm_torch.config import (CascadeConfig, SVMConfig, refuse_approx,
+from tpusvm_torch.config import (CascadeConfig, SVMConfig, is_approx_family,
                                  resolve_accum_dtype)
 from tpusvm_torch.data.scaler import MinMaxScaler
 from tpusvm_torch.device import resolve_device
@@ -106,7 +106,10 @@ def get_sv_indices(alpha: np.ndarray, tol: float = 1e-8) -> np.ndarray:
 
 
 class BinarySVC:
-    """Binary C-SVC over any exact kernel family (config.kernel).
+    """Binary C-SVC over any kernel family (config.kernel). The
+    approximate families (rff, nystrom) fit their feature map on the host
+    and map on the card; the solver, the SV rows (sv_X_) and scoring then
+    live in the mapped space (fmap_, n_features_in_).
 
     accum_dtype: the solver's alpha/f dtype; "auto" = torch.float64 (f32
     features with f64 accumulators), None = same as the features.
@@ -126,7 +129,6 @@ class BinarySVC:
                  accum_dtype="auto", solver: str = "blocked",
                  solver_opts: Optional[dict] = None, device="cuda"):
         check_solver(solver)
-        refuse_approx(config.kernel)
         self.solver = solver
         self.config = config
         self.scale = scale
@@ -161,12 +163,30 @@ class BinarySVC:
         self.cascade_rounds_: int = 0
         self.cascade_topology_: Optional[str] = None
         self.cascade_leaves_: int = 0
+        # approximate families: the fitted feature map and the raw input
+        # width (sv_X_ then holds MAPPED rows)
+        self.fmap_ = None
+        self.n_features_in_: Optional[int] = None
+        # streamed approximate fits: the reader's live-shard high-water
+        # mark (the prefetch_depth + 1 bound) and the primal result
+        self.stream_max_live_shards_: Optional[int] = None
+        self.primal_result_ = None
 
     def _scale_fit(self, X: np.ndarray) -> np.ndarray:
         if self.scale:
             self.scaler_ = MinMaxScaler().fit(X)
             return self.scaler_.transform(X)
         return X
+
+    def _map_fit(self, Xs: np.ndarray) -> None:
+        """Fit the approximate feature map on the host (nothing for the
+        exact families)."""
+        if not is_approx_family(self.config.kernel):
+            return
+        from tpusvm_torch.approx import build_map
+
+        self.n_features_in_ = int(Xs.shape[1])
+        self.fmap_ = build_map(self.config, X_scaled=Xs)
 
     def fit(self, X: np.ndarray, Y: np.ndarray,
             checkpoint_path: Optional[str] = None,
@@ -178,10 +198,24 @@ class BinarySVC:
         carry is written atomically every `checkpoint_every` outer rounds,
         and resume=True restarts from the file, bit-identical to an
         uninterrupted fit (solver/checkpoint.py; a missing file means a
-        fresh start)."""
+        fresh start). The approximate families map the scaled rows on the
+        card before the solve."""
+        t0 = time.perf_counter()
+        Xs = self._scale_fit(np.asarray(X))
+        phases = {"scale": time.perf_counter() - t0}
+        return self._fit_scaled(Xs, np.asarray(Y), t0, phases,
+                                checkpoint_path=checkpoint_path,
+                                checkpoint_every=checkpoint_every,
+                                resume=resume)
+
+    def _fit_scaled(self, Xs: np.ndarray, Y: np.ndarray, t0: float,
+                    phases: dict, checkpoint_path: Optional[str] = None,
+                    checkpoint_every: int = 64,
+                    resume: bool = False) -> "BinarySVC":
+        """The solve and SV extraction on already-scaled rows (fit, and
+        fit_stream for the exact families). phases: host seconds so far."""
         dev = resolve_device(self.device)
-        phases = {}
-        t0 = t = time.perf_counter()
+        t = time.perf_counter()
 
         def span(name):
             nonlocal t
@@ -189,15 +223,18 @@ class BinarySVC:
             phases[name] = now - t
             t = now
 
-        Xs = self._scale_fit(np.asarray(X))
-        span("scale")
         cfg = self.config
         # cast on the host: half the bytes cross to the device
         X32 = np.asarray(Xs, np.float32)
         span("cast")
         Xd = torch.as_tensor(X32, device=dev)
-        Yd = torch.as_tensor(np.asarray(Y), device=dev)
+        Yd = torch.as_tensor(Y, device=dev)
         span("to_device")
+        self._map_fit(Xs)
+        if self.fmap_ is not None:
+            # the solver, the SV rows and scoring live in the mapped space
+            Xd = self.fmap_.transform(Xd)
+            span("map")
         ckpt = None
         if checkpoint_path is not None:
             ckpt = dict(checkpoint_path=checkpoint_path,
@@ -215,7 +252,10 @@ class BinarySVC:
             self.solver_opts)
         self.convergence_ = convergence_of(res)
         sv = get_sv_indices(alpha, cfg.sv_tol)
-        self.sv_X_ = Xs[sv]
+        if self.fmap_ is not None:
+            self.sv_X_ = Xd[torch.as_tensor(sv, device=dev)].cpu().numpy()
+        else:
+            self.sv_X_ = Xs[sv]
         self.sv_Y_ = np.asarray(Y)[sv].astype(np.int32)
         self.sv_alpha_ = alpha[sv]
         self.sv_ids_ = sv.astype(np.int32)
@@ -232,14 +272,127 @@ class BinarySVC:
                 f"{self.n_iter_} iterations; the model may be partially "
                 "optimised",
                 RuntimeWarning,
-                stacklevel=2,
+                stacklevel=3,
             )
         return self
 
-    def fit_stream(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the streaming fit over a sharded dataset is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+    def fit_stream(self, dataset, checkpoint_path: Optional[str] = None,
+                   checkpoint_every: int = 64,
+                   resume: bool = False) -> "BinarySVC":
+        """Fit from a sharded dataset (stream/).
+
+        The scaler comes from the MANIFEST statistics (the bits of a
+        whole-array fit, stream/stats.py) and shards are scaled as they
+        stream in. The exact families concatenate the scaled shards and
+        solve as fit() does, with its bits (one copy to the card). The
+        approximate families run the streaming primal solver
+        (_fit_stream_approx): each shard is copied to the card and mapped
+        there in the reader's prefetch hook and consumed batch by batch,
+        so neither the raw nor the mapped (n, D) matrix exists anywhere.
+        checkpoint_path/resume: see fit() (exact families only)."""
+        from tpusvm_torch.stream.reader import ShardReader
+
+        t0 = time.perf_counter()
+        scaler = None
+        if self.scale:
+            self.scaler_ = scaler = dataset.scaler()
+        if is_approx_family(self.config.kernel):
+            if checkpoint_path is not None or resume:
+                raise ValueError(
+                    "checkpoint_path/resume is a blocked-solver outer-"
+                    "loop surface; the streamed approximate fit runs "
+                    "the approx/primal.py epoch schedule instead, which "
+                    "has no checkpoints yet")
+            return self._fit_stream_approx(dataset, scaler, t0)
+        parts = [X for X, _ in ShardReader(dataset, scaler=scaler)]
+        Xs = np.concatenate(parts)
+        del parts
+        phases = {"stream_scale": time.perf_counter() - t0}
+        return self._fit_scaled(Xs, dataset.load_labels(), t0, phases,
+                                checkpoint_path=checkpoint_path,
+                                checkpoint_every=checkpoint_every,
+                                resume=resume)
+
+    def _fit_stream_approx(self, dataset, scaler, t0: float) -> "BinarySVC":
+        """Out-of-core approximate training: per-shard mapping on the card
+        in the reader's prefetch hook and the streaming primal solver.
+
+        The result is a one-support-vector linear model over mapped
+        features (sv_X_ = w, alpha*y = 1, b = bias). solver_opts:
+        primal_batch (default 1024), primal_epochs (64), primal_tol (0.05)
+        and prefetch_depth (2); anything else is a blocked-solver knob and
+        is refused by name, as in the JAX package."""
+        from tpusvm_torch.approx import build_map, streaming_primal_fit
+        from tpusvm_torch.approx.features import nystrom_landmark_indices
+        from tpusvm_torch.device import host_to_device
+        from tpusvm_torch.stream.reader import ShardReader
+
+        dev = resolve_device(self.device)
+        cfg = self.config
+        opts = dict(self.solver_opts)
+        batch = int(opts.pop("primal_batch", 1024))
+        epochs = int(opts.pop("primal_epochs", 64))
+        tol = float(opts.pop("primal_tol", 0.05))
+        prefetch_depth = int(opts.pop("prefetch_depth", 2))
+        if opts:
+            raise ValueError(
+                f"streamed approximate fits take only the primal knobs "
+                f"(primal_batch, primal_epochs, primal_tol, "
+                f"prefetch_depth); got blocked-solver opts "
+                f"{sorted(opts)}")
+        n, d = dataset.n_rows, dataset.n_features
+        self.n_features_in_ = int(d)
+        if cfg.kernel == "nystrom":
+            # the same seeded landmark rows the in-memory path draws,
+            # gathered from the manifest without loading the rest
+            from tpusvm_torch.stream.assign import gather_rows
+
+            idx = nystrom_landmark_indices(n, cfg.landmarks, cfg.map_seed)
+            rows = gather_rows(dataset, idx)
+            if scaler is not None:
+                rows = scaler.transform(rows)
+            fmap = build_map(cfg, landmark_rows=rows)
+        else:
+            fmap = build_map(cfg, n_features=d)
+        self.fmap_ = fmap
+        fmap.device_arrays(dev)  # the parameters cross once, not per shard
+
+        def to_card_and_map(X):
+            return fmap.transform(host_to_device(X, torch.float32, dev))
+
+        readers = []
+
+        def make_reader(epoch):
+            r = ShardReader(dataset, prefetch_depth=prefetch_depth,
+                            scaler=scaler, dtype=np.float32,
+                            transform=to_card_and_map)
+            readers.append(r)
+            return r
+
+        res = streaming_primal_fit(
+            make_reader, fmap.dim, C=cfg.C, n_rows=n, batch=batch,
+            epochs=epochs, tol=tol, dtype=np.float32, device=dev)
+        self.primal_result_ = res
+        self.stream_max_live_shards_ = max(r.max_live_shards
+                                           for r in readers)
+        self.train_time_s_ = time.perf_counter() - t0
+        self.sv_X_ = res.w[None, :].astype(np.float32)
+        self.sv_Y_ = np.array([1], np.int32)
+        self.sv_alpha_ = np.array([1.0], np.float32)
+        # the primal weight vector is not a training row: sentinel id
+        self.sv_ids_ = np.array([-1], np.int32)
+        # decision_function computes Phi(x).sv_coef - b_; the primal model
+        # is f = w.Phi(x) - bias: b_ IS the bias
+        self.b_ = res.bias
+        self.n_iter_ = int(res.n_steps)
+        self.status_ = res.status
+        if self.status_ != Status.CONVERGED:
+            warnings.warn(
+                f"streaming primal fit ended {self.status_.name} after "
+                f"{res.epochs_run} epochs (objective {res.objective:g}); "
+                "raise primal_epochs or loosen primal_tol",
+                RuntimeWarning, stacklevel=3)
+        return self
 
     def fit_cascade(self, X: np.ndarray, Y: np.ndarray,
                     cascade_config: CascadeConfig = CascadeConfig(),
@@ -257,11 +410,18 @@ class BinarySVC:
         n_shards, and every rank calls fit_cascade with the same data.
         checkpoint_path/resume: per-round cascade state. stratified:
         per-class round-robin sharding instead of the contiguous scatter.
-        tracer: not ported yet (ROADMAP Queue 1 item 12)."""
+        tracer: not ported yet (ROADMAP Queue 1 item 12). The approximate
+        families cascade over the mapped rows: the map is fitted once on
+        the full scaled data and every leaf runs the linear path."""
         from tpusvm_torch.parallel.cascade import cascade_fit
 
         t0 = time.perf_counter()
         Xs = self._scale_fit(np.asarray(X))
+        self._map_fit(Xs)
+        if self.fmap_ is not None:
+            # the cascade runs over the MAPPED rows: mapped on the card,
+            # then partitioned on the host like any other rows
+            Xs = self.fmap_.transform_np(Xs, device=self.device)
         res = cascade_fit(
             Xs, Y, self.config, cascade_config, group=group,
             accum_dtype=self.accum_dtype, verbose=verbose,
@@ -289,16 +449,46 @@ class BinarySVC:
         self.cascade_leaves_ = int(cascade_config.n_shards)
         return self
 
-    def fit_cascade_stream(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the cascade fit from a sharded dataset is not ported yet "
-            "(ROADMAP Queue 1 item 11: the stream tier); fit_cascade trains "
-            "the same cascade from an in-memory array")
+    def fit_cascade_stream(self, dataset,
+                           cascade_config: CascadeConfig = CascadeConfig(),
+                           group=None, verbose: bool = False,
+                           checkpoint_path: Optional[str] = None,
+                           resume: bool = False, stratified: bool = False,
+                           tracer=None) -> "BinarySVC":
+        """The cascade from a sharded dataset: the scaler from the MANIFEST
+        statistics, each leaf filled by streaming shards into the
+        partition (stream.partition_from_dataset), so no (n, d) array
+        exists. The partition equals fit_cascade's on the same rows bit
+        for bit, so the model does too. Arguments as fit_cascade."""
+        if is_approx_family(self.config.kernel):
+            raise ValueError(
+                "fit_cascade_stream does not support the approximate "
+                f"families yet (kernel={self.config.kernel!r}): leaf "
+                "partitions are filled with RAW rows and the mapped "
+                "width would change every buffer shape; use fit_stream "
+                "(the streaming primal path) or in-memory fit_cascade "
+                "over mapped features")
+        from tpusvm_torch.parallel.cascade import cascade_fit
+        from tpusvm_torch.stream.assign import partition_from_dataset
+
+        t0 = time.perf_counter()
+        scaler = None
+        if self.scale:
+            self.scaler_ = scaler = dataset.scaler()
+        part = partition_from_dataset(dataset, cascade_config.n_shards,
+                                      stratified=stratified, scaler=scaler)
+        res = cascade_fit(
+            None, None, self.config, cascade_config, group=group,
+            accum_dtype=self.accum_dtype, verbose=verbose,
+            checkpoint_path=checkpoint_path, resume=resume,
+            solver=self.solver, solver_opts=self.solver_opts,
+            partition=part, tracer=tracer, device=self.device)
+        return self._finish_cascade(res, t0, cascade_config)
 
     def fit_pod(self, *args, **kwargs):
         raise NotImplementedError(
             "the pod fit is not ported yet (ROADMAP Queue 1 item 9(i): the "
-            "pod leaves)")
+            "pod leaves, on the port's stream tier)")
 
     def _check_fitted(self):
         if self.sv_X_ is None:
@@ -375,6 +565,10 @@ class BinarySVC:
             state["cascade_topology"] = self.cascade_topology_
             state["cascade_leaves"] = int(self.cascade_leaves_)
             state["cascade_rounds"] = int(self.cascade_rounds_)
+        # approximate-map provenance (format v4): the raw input width, and
+        # nystrom's landmark rows and weights (rff regenerates omega)
+        if self.fmap_ is not None:
+            state.update(self.fmap_.state_entries())
         save_model(path, state, self.config)
 
     @classmethod
@@ -400,24 +594,39 @@ class BinarySVC:
             model.cascade_topology_ = str(state["cascade_topology"])
             model.cascade_leaves_ = int(state["cascade_leaves"])
             model.cascade_rounds_ = int(state["cascade_rounds"])
+        load_map(model, state, config)
         model.status_ = Status.CONVERGED
         return model
 
 
+def load_map(model, state: dict, config: SVMConfig) -> None:
+    """Rebuild a loaded approximate-family model's feature map (rff from
+    the config, nystrom from its stored arrays)."""
+    if is_approx_family(config.kernel):
+        from tpusvm_torch.approx import map_from_state
+
+        model.fmap_ = map_from_state(state, config)
+        model.n_features_in_ = model.fmap_.n_features_in
+
+
 def scores(model, coef: np.ndarray, b, X: np.ndarray) -> np.ndarray:
     """sum_k coef_k K(x, sv_k) - b in float32 for a fitted estimator with
-    sv_X_ (the SV rows), config, scaler_ and device; coef (n_sv,) or
-    (n_sv, K) for K heads."""
+    sv_X_ (the SV rows), config, scaler_, fmap_ and device; coef (n_sv,)
+    or (n_sv, K) for K heads. An approximate-family model maps the scaled
+    rows on the card first (sv_X_ holds mapped rows)."""
     dev = resolve_device(model.device)
     cfg = model.config
     f32 = torch.float32
     Xs = model.scaler_.transform(np.asarray(X)) if model.scale else np.asarray(X)
-    out = _decision(
-        torch.as_tensor(np.asarray(Xs, np.float32), device=dev),
-        torch.as_tensor(model.sv_X_, dtype=f32, device=dev),
-        torch.as_tensor(np.array(coef, np.float32), device=dev),
-        torch.as_tensor(np.array(b, np.float32), device=dev),
-        gamma=cfg.gamma, kernel=cfg.kernel, degree=cfg.degree,
-        coef0=cfg.coef0,
-    )
+    Xq = torch.as_tensor(np.asarray(Xs, np.float32), device=dev)
+    sv = torch.as_tensor(model.sv_X_, dtype=f32, device=dev)
+    coef = torch.as_tensor(np.array(coef, np.float32), device=dev)
+    b = torch.as_tensor(np.array(b, np.float32), device=dev)
+    if getattr(model, "fmap_", None) is not None:
+        from tpusvm_torch.approx import approx_decision_function
+
+        out = approx_decision_function(Xq, model.fmap_, sv, coef, b)
+    else:
+        out = _decision(Xq, sv, coef, b, gamma=cfg.gamma, kernel=cfg.kernel,
+                        degree=cfg.degree, coef0=cfg.coef0)
     return out.cpu().numpy()

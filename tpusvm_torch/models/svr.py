@@ -8,7 +8,9 @@ coef_i = alpha_i - alpha*_i. Prediction is the classifiers' sum,
     y(x) = sum_i coef_i K(x, x_i) - b,
 
 so the artifact differs from a classifier's only in carrying `sv_coef`
-(signed) and a `task` marker. The port of `tpusvm/models/svr.py`.
+(signed) and a `task` marker. The approximate families map the single set
+of rows on the card before the doubling (sv_X_ then holds mapped rows).
+The port of `tpusvm/models/svr.py`.
 """
 
 from __future__ import annotations
@@ -20,12 +22,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpusvm_torch.config import SVMConfig, refuse_approx
+from tpusvm_torch.config import SVMConfig, is_approx_family
 from tpusvm_torch.data.scaler import MinMaxScaler
 from tpusvm_torch.device import resolve_device
 from tpusvm_torch.kernels.svr import collapse_duals, doubled_problem
 from tpusvm_torch.models.serialization import load_model, save_model
-from tpusvm_torch.models.svm import check_solver, convergence_of, scores, solve
+from tpusvm_torch.models.svm import (check_solver, convergence_of, load_map,
+                                     scores, solve)
 from tpusvm_torch.status import Status
 
 
@@ -40,7 +43,6 @@ class EpsilonSVR:
                  accum_dtype="auto", solver: str = "blocked",
                  solver_opts: Optional[dict] = None, device="cuda"):
         check_solver(solver)
-        refuse_approx(config.kernel)
         self.config = config
         self.scale = scale
         self.accum_dtype = accum_dtype
@@ -60,6 +62,9 @@ class EpsilonSVR:
         self.result_ = None
         # the materialized convergence ring (solver_opts telemetry=T)
         self.convergence_: Optional[dict] = None
+        # approximate families: the map and the raw input width
+        self.fmap_ = None
+        self.n_features_in_: Optional[int] = None
 
     def fit(self, X: np.ndarray, t: np.ndarray) -> "EpsilonSVR":
         """Fit on features X and CONTINUOUS targets t (not labels)."""
@@ -75,6 +80,14 @@ class EpsilonSVR:
             Xs = X
         Y2, z = doubled_problem(t, cfg.epsilon)
         X1 = torch.as_tensor(np.asarray(Xs, np.float32), device=dev)
+        if is_approx_family(cfg.kernel):
+            # the map is fitted on the single set of rows; the doubling
+            # shares it
+            from tpusvm_torch.approx import build_map
+
+            self.n_features_in_ = int(np.asarray(Xs).shape[1])
+            self.fmap_ = build_map(cfg, X_scaled=np.asarray(Xs))
+            X1 = self.fmap_.transform(X1)
         X2 = torch.cat([X1, X1])
         res = solve(self.solver, X2, torch.as_tensor(Y2, device=dev), cfg,
                     self.accum_dtype, self.solver_opts, dev,
@@ -85,7 +98,8 @@ class EpsilonSVR:
         self.convergence_ = convergence_of(res)
         coef = collapse_duals(beta)
         sv = np.nonzero(np.abs(coef) > cfg.sv_tol)[0]
-        self.sv_X_ = Xs[sv]
+        self.sv_X_ = (X1[torch.as_tensor(sv, device=dev)].cpu().numpy()
+                      if self.fmap_ is not None else Xs[sv])
         self.sv_coef_ = coef[sv]
         self.sv_ids_ = sv.astype(np.int32)
         self.b_ = float(res.b)
@@ -142,6 +156,8 @@ class EpsilonSVR:
         if self.scale:
             state["scaler_min"] = self.scaler_.min_val
             state["scaler_max"] = self.scaler_.max_val
+        if self.fmap_ is not None:
+            state.update(self.fmap_.state_entries())
         save_model(path, state, self.config)
 
     @classmethod
@@ -159,5 +175,6 @@ class EpsilonSVR:
         if model.scale:
             model.scaler_ = MinMaxScaler(min_val=state["scaler_min"],
                                          max_val=state["scaler_max"])
+        load_map(model, state, config)
         model.status_ = Status.CONVERGED
         return model

@@ -31,15 +31,18 @@ from tpusvm_torch.parallel.svbuffer import SVBuffer
 
 def init_group(address: str, world_size: int, rank: int,
                timeout_s: float = 600.0):
-    """Join the gloo process group at `address` ("host:port") as `rank` of
-    `world_size` and return it. A failure raises; nothing falls back to a
-    one-process run."""
+    """Join the gloo process group at `address` as `rank` of `world_size`
+    and return it. `address` is "host:port" (a TCP store that rank 0
+    serves) or "file://PATH" (a store in a shared file: no port to pick,
+    and no store that lives and dies with rank 0). A failure raises;
+    nothing falls back to a one-process run."""
     import datetime
 
     if not 0 <= rank < world_size:
         raise ValueError(f"rank {rank} is outside a world of {world_size}")
+    init = address if address.startswith("file://") else f"tcp://{address}"
     dist.init_process_group(
-        "gloo", init_method=f"tcp://{address}", world_size=world_size,
+        "gloo", init_method=init, world_size=world_size,
         rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
     return dist.group.WORLD
 

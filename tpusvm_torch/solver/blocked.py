@@ -611,10 +611,6 @@ def blocked_smo_solve(
     rebuild only.
     """
     kernels.validate_family(kernel)
-    if kernels.is_approx(kernel):
-        raise NotImplementedError(
-            f"kernel={kernel!r}: the approximate-kernel feature maps are not "
-            "ported yet (ROADMAP Queue 1 item 10)")
     eta_exclude = _alias("pallas_eta_exclude", pallas_eta_exclude,
                          "eta_exclude", eta_exclude, False)
     multipair = _alias("pallas_multipair", pallas_multipair, "multipair",

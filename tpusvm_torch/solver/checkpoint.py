@@ -17,8 +17,10 @@ A checkpoint of another solve is refused by fingerprint, naming the fields
 that differ: the file carries the solve's configuration, CRCs of the
 training bytes and an `engine` key, so a checkpoint of the JAX package (no
 engine key; its trajectory differs from the port's) is refused rather than
-resumed. The JAX package's fault-injection points around the write
-(tpusvm/faults) are not ported (ROADMAP Queue 1).
+resumed. The write sits behind the ``solver.outer_checkpoint`` fault
+point inside a Retry (faults/), as in the JAX package: a transient fault
+re-runs the whole write, a simulated kill dies before the rename and
+leaves the previous checkpoint whole.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tpusvm_torch import faults
 from tpusvm_torch.device import resolve_device
 from tpusvm_torch.solver.blocked import OuterState, blocked_smo_solve
 from tpusvm_torch.status import Status
@@ -91,14 +94,29 @@ def solve_fingerprint(X, Y, accum_dtype, solver_kwargs: dict) -> dict:
     return fp
 
 
-def save_solver_state(path: str, state: OuterState, fingerprint: dict) -> None:
+def save_solver_state(path: str, state: OuterState, fingerprint: dict,
+                      retry: Optional[faults.Retry] = None) -> None:
     """Atomically write an outer-loop carry and its fingerprint: the
-    previous checkpoint stays whole until the new one is on disk."""
-    tmp = path + ".tmp"
-    np.savez(tmp, ckpt_version=SOLVER_CKPT_VERSION,
-             fingerprint=json.dumps(fingerprint, sort_keys=True),
-             **state.arrays())
-    fsync_replace(tmp + ".npz", path)  # np.savez appends .npz
+    previous checkpoint stays whole until the new one is on disk.
+
+    The injection point fires inside the retried write, so a transient
+    rule fails the write and the retry re-runs it, while a kill rule dies
+    where a real crash would: before the rename."""
+    arrays = state.arrays()
+
+    def _write():
+        faults.point("solver.outer_checkpoint", path=path,
+                     round=int(state.n_outer))
+        tmp = path + ".tmp"
+        np.savez(tmp, ckpt_version=SOLVER_CKPT_VERSION,
+                 fingerprint=json.dumps(fingerprint, sort_keys=True),
+                 **arrays)
+        fsync_replace(tmp + ".npz", path)  # np.savez appends .npz
+
+    if retry is None:
+        retry = faults.Retry(faults.DEFAULT_IO_POLICY,
+                             op="solver.outer_checkpoint")
+    retry(_write)
 
 
 def load_solver_state(path: str, fingerprint: dict) -> OuterState:
@@ -167,6 +185,8 @@ def checkpointed_blocked_solve(X, Y, *, checkpoint_path: str,
         state = load_solver_state(checkpoint_path, fp)
     Xd = torch.as_tensor(X, device=dev)
     Yd = torch.as_tensor(Y, device=dev)
+    retry = faults.Retry(faults.DEFAULT_IO_POLICY,
+                         op="solver.outer_checkpoint")
     while True:
         start = state.n_outer if state is not None else 0
         res, state = blocked_smo_solve(
@@ -177,6 +197,6 @@ def checkpointed_blocked_solve(X, Y, *, checkpoint_path: str,
             if not keep_checkpoint and os.path.exists(checkpoint_path):
                 os.remove(checkpoint_path)
             return res
-        save_solver_state(checkpoint_path, state, fp)
+        save_solver_state(checkpoint_path, state, fp, retry=retry)
         if watchdog is not None and watchdog():
             raise WatchdogTimeout(checkpoint_path, state.n_outer)

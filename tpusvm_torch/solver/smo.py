@@ -229,10 +229,6 @@ def _run(state: _PairState, chunk: int, graph: bool):
 def _prepare(X, Ys, valid, alpha0, *, warm_start, accum_dtype, kernel,
              degree, coef0, gamma, targets, device):
     kernels.validate_family(kernel)
-    if kernels.is_approx(kernel):
-        raise NotImplementedError(
-            f"kernel={kernel!r}: the approximate-kernel feature maps are not "
-            "ported yet (ROADMAP Queue 1 item 10)")
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
     if dev.type == "cuda" and X.dtype != torch.float32:
@@ -271,6 +267,10 @@ def _solve(X, Ys, valid, alpha0, *, C, gamma, eps, tau, max_iter,
            graph, device) -> BatchedSMOResult:
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if kernels.is_approx(kernel):
+        # X holds the mapped rows: the approximate families are the linear
+        # family's geometry, and the K-row kernel knows them by that name
+        kernel = "linear"
     X, Ys, valid, alpha, f0, sn = _prepare(
         X, Ys, valid, alpha0, warm_start=warm_start, accum_dtype=accum_dtype,
         kernel=kernel, degree=degree, coef0=coef0, gamma=gamma,

@@ -1,8 +1,8 @@
-"""Solver termination status codes.
+"""Solver termination and shard integrity status codes.
 
-The port's own copy of the JAX package's ``Status`` enum, with the same
-integer values, so a status read from one package compares equal to the
-other's.
+The port's own copies of the JAX package's ``Status`` and
+``StreamStatus`` enums, with the same integer values, so a status read
+from one package compares equal to the other's.
 
   CONVERGED       b_low <= b_high + 2*tau
   NO_WORKING_SET  I_high or I_low is empty
@@ -23,3 +23,28 @@ class Status(enum.IntEnum):
     NONPOS_ETA = 4
     MAX_ITER = 5
     STALLED = 6
+
+
+class StreamStatus(enum.IntEnum):
+    """Per-shard integrity codes of a sharded dataset (stream/format.py:
+    ShardedDataset.validate re-derives each shard's manifest claims from
+    its bytes):
+
+      OK                  the bytes match the manifest's claims
+      MISSING_FILE        the shard file named by the manifest is absent
+      CHECKSUM_MISMATCH   the content hash differs, or the bytes do not
+                          parse as an npz
+      ROW_COUNT_MISMATCH  the arrays disagree with the manifest's n_rows
+                          or n_features
+      STATS_MISMATCH      per-shard min/max or class counts do not
+                          re-derive from the rows
+      READ_FAILED         the shard could not be read within the reader's
+                          retry budget (faults/retry.py)
+    """
+
+    OK = 0
+    MISSING_FILE = 1
+    CHECKSUM_MISMATCH = 2
+    ROW_COUNT_MISMATCH = 3
+    STATS_MISMATCH = 4
+    READ_FAILED = 5
