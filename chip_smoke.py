@@ -148,7 +148,19 @@ Phases, in order (any failure raises and the script exits non-zero):
      artifact reloaded with the same scores; the rff probe error
      non-increasing over D = 512, 1024, 2048 (5% slack); train seconds and
      the map's share printed.
-  (Phases 15 and 16 run after 13, before 14; 17 and 18 after 14.)
+  19. the pod on 17(a)'s shards with 14(b)'s job (star, P=4, blocked
+     leaves): (a) BinarySVC.fit_pod equal to 17(d) bit for bit (SV IDs,
+     alphas, SV rows, b, rounds), every row in a worker, live shards <= 3
+     per worker, no revive, kernels #1 and #2 launched in every worker
+     process (counts read from the workers) and in the coordinator's
+     layer-2 solves; fit, start-up and per-round seconds printed; (b)
+     pod_fit with worker 1 SIGKILLed at its 2nd request: one revive,
+     (a)'s bits; (c) `python -m tpusvm_torch.faults pod-chaos-smoke` and
+     `kill-resume-smoke` and `python -m tpusvm_torch pod --smoke` as
+     subprocesses on the card, started together with (b), each exiting 0
+     with its ok line.
+  (Phases 15 and 16 run after 13, before 14; 17 and 18 after 14; 19
+  last.)
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
@@ -1817,7 +1829,8 @@ def phase_stream(X_all, Y_all, n_tr, m5, acc5, m14b, csv10, device,
     4,096 rows against one call); (d) fit_cascade_stream with 14(b)'s star
     and blocked leaves equal to 14(b) bit for bit; (e) `ingest`, `train
     --data` and `predict --data` as subprocesses on phase 10's CSV, which
-    print the in-process fit's bits. Returns the training dataset."""
+    print the in-process fit's bits. Returns the training dataset and
+    (d)'s model."""
     import shutil
 
     from tpusvm_torch.config import CascadeConfig, SVMConfig
@@ -1949,7 +1962,181 @@ def phase_stream(X_all, Y_all, n_tr, m5, acc5, m14b, csv10, device,
         f"{n_cut} training rows")
     check(_line(r"accuracy = ([\d.]+)", out) == f"{acc_c:.4f}",
           "[17e] predict --data differs from the in-process model")
-    return ds
+    return ds, mc
+
+
+# phase 19(c)'s subprocesses: the chaos command line's two smokes and the
+# pod sub-command's gate, each on the card, each with the line it must print
+POD_SMOKES = ((("tpusvm_torch.faults", "pod-chaos-smoke"),
+               "pod chaos smoke ok"),
+              (("tpusvm_torch.faults", "kill-resume-smoke"),
+               "kill-resume smoke ok"),
+              (("tpusvm_torch", "pod", "--smoke"), "pod ok"))
+
+
+def _start_pod_smokes(device, out_dir, timeout=600):
+    """Phase 19(c)'s subprocesses, all started together, their output to
+    files in out_dir, and a thread that notes when each ends (and kills
+    any still running after `timeout` s): (runs, ends, watcher)."""
+    import os
+    import threading
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root)
+    runs = []
+    for i, (args, line) in enumerate(POD_SMOKES):
+        argv = [sys.executable, "-m", *args]
+        if device == "cpu":
+            argv += ["--device", "cpu"]
+        out_path = os.path.join(out_dir, f"smoke19c_{i}.out")
+        err_path = os.path.join(out_dir, f"smoke19c_{i}.err")
+        with open(out_path, "w") as out, open(err_path, "w") as err:
+            proc = subprocess.Popen(argv, stdout=out, stderr=err, cwd=root,
+                                    env=env)
+        runs.append((args, line, proc, time.perf_counter(), out_path,
+                     err_path))
+    ends = {}
+
+    def watch():
+        deadline = time.perf_counter() + timeout
+        while len(ends) < len(runs) and time.perf_counter() < deadline:
+            for i, run in enumerate(runs):
+                if i not in ends and run[2].poll() is not None:
+                    ends[i] = time.perf_counter()
+            time.sleep(0.1)
+        _stop_pod_smokes(runs)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    return runs, ends, watcher
+
+
+def _stop_pod_smokes(runs):
+    for run in runs:
+        if run[2].poll() is None:
+            run[2].kill()
+            run[2].wait()
+
+
+def _finish_pod_smokes(smokes):
+    """Waits for 19(c)'s subprocesses, then checks each one's exit code and
+    ok line."""
+    runs, ends, watcher = smokes
+    watcher.join()
+    for i, (args, line, proc, t0, out_path, err_path) in enumerate(runs):
+        with open(out_path) as f:
+            out = f.read()
+        with open(err_path) as f:
+            err = f.read()
+        ok = [x for x in out.splitlines() if x.startswith(line)]
+        secs = ends.get(i, time.perf_counter()) - t0
+        log(f"[19c] python -m {' '.join(args)}: exit {proc.returncode} in "
+            f"{secs:.1f} s (the three and 19(b) started together); "
+            f"{ok[-1] if ok else out[-300:]!r}")
+        check(proc.returncode == 0 and ok,
+              f"[19c] {' '.join(args)}: exit {proc.returncode}\n"
+              f"{out[-2000:]}\n{err[-2000:]}")
+
+
+def _pod_bits(res, ref):
+    """A PodResult's SV IDs, alpha bits, SV rows, b and rounds equal
+    another's."""
+    return (np.array_equal(res.sv_ids, ref.sv_ids)
+            and res.sv_alpha.tobytes() == ref.sv_alpha.tobytes()
+            and res.sv_X.tobytes() == ref.sv_X.tobytes()
+            and res.b == ref.b and res.rounds == ref.rounds)
+
+
+def phase_pod(ds, m17d, device, counters, launches, smi, prefetch_depth=2):
+    """Phase 19, the pod on 17(a)'s dataset with 14(b)'s job (star, P =
+    CASCADE_P, blocked leaves with phase 5's q, wss and max_inner): (a)
+    BinarySVC.fit_pod equal to 17(d)'s fit_cascade_stream bit for bit (SV
+    IDs, alphas, SV rows, b, rounds), every row in a worker, each worker's
+    live shards <= prefetch_depth + 1, no revive, and kernels #1 and #2
+    launched in every worker process (their counts read from the workers'
+    RESULT frames) and in the coordinator's layer-2 solves; the fit's
+    seconds, the workers' start-up (spawn, leaf load, up to READY) and
+    each round's seconds printed; (b) pod_fit with worker 1 killed (a real
+    SIGKILL) at its 2nd request: one revive, (a)'s bits; (c) the chaos
+    smokes and `pod --smoke` as subprocesses, started together with (b)
+    (each process start costs seconds; their times and (b)'s are not
+    measurements), each exiting 0 with its ok line."""
+    import json as _json
+    import os
+
+    from tpusvm_torch.config import CascadeConfig, SVMConfig
+    from tpusvm_torch.pod import pod_fit
+
+    cc = CascadeConfig(n_shards=CASCADE_P, sv_capacity=CASCADE_SV_CAP,
+                       topology="star")
+
+    def kernel_counts(coordinator, res):
+        """{kernel: (coordinator, [per worker])} of #1 and #2."""
+        return {k: (coordinator[k], [w.get(k, 0) for w in res.worker_launches])
+                for k in ("fused_fupdate", "inner_smo")}
+
+    _zero(counters)
+    sync(device)
+    t = time.perf_counter()
+    m = _cascade_model("blocked", device).fit_pod(
+        ds.path, cc, prefetch_depth=prefetch_depth)
+    sync(device)
+    fit_s = time.perf_counter() - t
+    res = m.pod_result_
+    kc = kernel_counts(_count(counters), res)
+    for k, (coord, workers) in kc.items():
+        launches.setdefault(k, {})["19a"] = coord + sum(workers)
+    same = _same_bits(m, m17d) and m.cascade_rounds_ == m17d.cascade_rounds_
+    rounds_s = [round(h["time_s"], 3) for h in res.history]
+    log(f"[19a] fit_pod, 14(b)'s star with blocked leaves in {CASCADE_P} "
+        f"worker processes on 17(a)'s shards: {fit_s:.3f} s, of which "
+        f"worker start-up (spawn, CUDA context, leaf load, up to READY) "
+        f"{res.startup_s:.3f} s and rounds {rounds_s} (sum "
+        f"{sum(rounds_s):.3f} s; 17(d) in process: see [17d]); "
+        f"{m.cascade_rounds_} rounds, status {m.status_.name}, SV count "
+        f"{m.n_support_}, b {m.b_:.15f}; 17(d)'s bits (SV IDs, alphas, SV "
+        f"rows, b, rounds): {same}; worker rows {list(res.worker_rows)}, "
+        f"live shards {list(res.worker_max_live_shards)}, revives "
+        f"{res.revives}; #1/#2 launches (coordinator, [workers]) "
+        f"{_json.dumps(kc)} ({smi})")
+    check(same, "[19a] fit_pod differs from 17(d)")
+    check(sum(res.worker_rows) == ds.n_rows, f"[19a] rows {res.worker_rows}")
+    check(max(res.worker_max_live_shards) <= prefetch_depth + 1,
+          f"[19a] live shards {res.worker_max_live_shards}")
+    check(res.revives == 0, f"[19a] revives {res.revives}")
+    check(device == "cpu" or all(
+        coord > 0 and min(workers) > 0 for coord, workers in kc.values()),
+          f"[19a] #1/#2 not launched in every process: {kc}")
+
+    plan = os.path.join(os.path.dirname(ds.path), "pod_kill_plan.json")
+    with open(plan, "w") as f:
+        _json.dump({"format_version": 1, "seed": 0, "rules": [
+            {"point": "pod.worker", "kind": "kill", "at_hit": 2}]}, f)
+    cfg = SVMConfig(C=C, gamma=GAMMA, max_iter=10**6, max_rounds=50)
+    smokes = _start_pod_smokes(device, os.path.dirname(ds.path))
+    try:
+        _zero(counters)
+        t = time.perf_counter()
+        rb = pod_fit(ds.path, cfg, cc, solver="blocked",
+                     solver_opts=FULL_OPTS, prefetch_depth=prefetch_depth,
+                     worker_faults={1: plan}, device=device)
+        kb = kernel_counts(_count(counters), rb)
+        for k, (coord, workers) in kb.items():
+            launches[k]["19b"] = coord + sum(workers)
+        same_b = _pod_bits(rb, res)
+        log(f"[19b] pod_fit with worker 1 SIGKILLed at its 2nd request: "
+            f"{time.perf_counter() - t:.3f} s (alongside 19(c)), start-up "
+            f"{rb.startup_s:.3f} s, revives {rb.revives}, {rb.rounds} "
+            f"rounds; 19(a)'s bits: {same_b}; #1/#2 launches "
+            f"{_json.dumps(kb)}")
+        check(rb.revives == 1, f"[19b] revives {rb.revives}")
+        check(same_b, "[19b] the revived fit differs from 19(a)")
+    except BaseException:
+        _stop_pod_smokes(smokes[0])
+        raise
+    _finish_pod_smokes(smokes)
+    return m
 
 
 # phase 18's maps (the JAX bench's widths, benchmarks/approx_scale.py) and
@@ -2787,12 +2974,16 @@ def main():
                            clock)
 
     # ---- 17, 18. the out-of-core tier, the approximate families ---------
-    ds = phase_stream(X_all, Y_all, 60000, m5, acc5, fits14["14b"][0], csv10,
-                      "cuda", counters, launches, smi,
-                      _build.BUILD_DIR / "chip_smoke_stream")
+    ds, m17d = phase_stream(X_all, Y_all, 60000, m5, acc5, fits14["14b"][0],
+                            csv10, "cuda", counters, launches, smi,
+                            _build.BUILD_DIR / "chip_smoke_stream")
     clock("17")
     phase_approx(X_all, Y_all, 60000, acc5, ds, "cuda", counters, launches)
     clock("18")
+
+    # ---- 19. the pod: the cascade's leaves in worker processes ----------
+    phase_pod(ds, m17d, "cuda", counters, launches, smi)
+    clock("19")
 
     for k in kernels:
         k["launches_by_phase"] = launches[k["name"]]

@@ -162,8 +162,9 @@ def test_refusals():
     with pytest.raises(ValueError, match="approximate"):
         BinarySVC(SVMConfig(kernel="rff"), device="cpu").fit_cascade_stream(
             None)
-    with pytest.raises(NotImplementedError, match=r"item 9\(i\)"):
-        BinarySVC(device="cpu").fit_pod("data")
+    # so is the pod (pod/), which refuses them alike
+    with pytest.raises(ValueError, match="approximate"):
+        BinarySVC(SVMConfig(kernel="rff"), device="cpu").fit_pod("data")
     with pytest.raises(ValueError, match="prebuilt partition has 2 leaves"):
         from tpusvm_torch.data.partition import partition
         _fit(None, None, CFG, CascadeConfig(n_shards=4, topology="star"),

@@ -27,6 +27,18 @@ from tpusvm_torch.parallel import svbuffer as tsb
 CFG = SVMConfig(C=10.0, gamma=10.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The pair leaves' small per-step ops on one intra-op thread: under a
+    parallel test run, torch's thread pool contending with the other
+    workers' made these fits about ten times slower (every comparison
+    here is between fits of this process, under the same count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def data():
     # three rounds or more at P=4 (the rows of test_torch_cli_front.py's

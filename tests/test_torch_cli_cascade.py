@@ -104,7 +104,7 @@ def test_checkpoint_and_resume_reproduce_the_run(csvs, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mode", "pod"], r"item 9\(i\)"),
+    (["--mode", "pod"], "pass --data DIR"),
     (["--mode", "cascade", "--shards", "3"], "power-of-two"),
     (["--mode", "cascade", "--shrink-every", "2"], "--mode single"),
     (["--stratify"], "only applies to --mode cascade"),

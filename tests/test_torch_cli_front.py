@@ -133,7 +133,7 @@ def test_checkpoint_and_shrink_flags(csvs, tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--mode", "cascade", "--solver", "pair", "--shrink-every", "2"],
      "blocked solver"),
-    (["--mode", "pod"], "item 9"),
+    (["--mode", "pod"], "pass --data DIR"),
     (["--solver", "pair", "--checkpoint", "c.npz"], "blocked solver"),
     (["--mode", "oracle", "--checkpoint", "c.npz"], "oracle"),
     (["--resume"], "--checkpoint"),

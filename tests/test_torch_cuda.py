@@ -755,3 +755,57 @@ def test_fleet_on_the_card_equals_solo_solves_and_launches_the_problem_axis(dev)
     rev = fleet_train(X, Ys[::-1], Cs[::-1], gs[::-1], device=dev, **opts)
     for a, b in zip(fl, rev[::-1]):
         assert torch.equal(a.alpha, b.alpha)
+
+
+def test_float64_features_solve_on_the_card_in_float64_without_kernels(dev):
+    # the kernels take float32 only: float64 X resolves to the torch
+    # engines in float64 on the card, and an explicit kernel is refused
+    from tpusvm_torch.data import rings
+    from tpusvm_torch.data.scaler import MinMaxScaler
+    from tpusvm_torch.solver.blocked import blocked_smo_solve
+    from tpusvm_torch.status import Status
+
+    X, Y = rings(n=512, seed=5)
+    X = torch.as_tensor(MinMaxScaler().fit_transform(X), dtype=torch.float64,
+                        device=dev)
+    Y = torch.as_tensor(Y, device=dev)
+    kw = dict(C=10.0, gamma=10.0, q=128, max_inner=256,
+              accum_dtype=torch.float64, device=dev)
+    before = (rbf_cross_matvec_kernel.launches, inner_smo_kernel.launches)
+    r = blocked_smo_solve(X, Y, **kw)
+    cpu = blocked_smo_solve(X.cpu(), Y.cpu(), **dict(kw, device="cpu"))
+    assert (rbf_cross_matvec_kernel.launches, inner_smo_kernel.launches) \
+        == before
+    assert r.alpha.dtype == torch.float64
+    assert r.status == cpu.status == Status.CONVERGED
+    sv = set(torch.nonzero(r.alpha > 1e-8).flatten().tolist())
+    assert sv == set(torch.nonzero(cpu.alpha > 1e-8).flatten().tolist())
+    assert abs(float(r.b) - float(cpu.b)) <= 1e-4
+    for engine in (dict(inner="kernel"), dict(fused_fupdate=True)):
+        with pytest.raises(ValueError, match="float64"):
+            blocked_smo_solve(X, Y, **kw, **engine)
+
+
+def test_pod_on_the_card_equals_the_inprocess_cascade(dev, tmp_path):
+    # two worker processes on the card, blocked leaves: the in-process
+    # cascade's bits, #1 and #2 launched in each worker
+    from tpusvm_torch.config import CascadeConfig
+    from tpusvm_torch.parallel.cascade import cascade_fit
+    from tpusvm_torch.pod import pod_fit
+    from tpusvm_torch.stream import ingest_arrays, open_dataset
+
+    X, Y = mnist_like(n=4096, d=64, seed=3)
+    ingest_arrays(str(tmp_path / "ds"), X, Y, rows_per_shard=1024)
+    ds = open_dataset(str(tmp_path / "ds"))
+    cfg = SVMConfig(C=10.0, gamma=0.02)
+    cc = CascadeConfig(n_shards=2, sv_capacity=1024, topology="star")
+    opts = dict(q=256, max_inner=512)
+    res = pod_fit(str(tmp_path / "ds"), cfg, cc, solver="blocked",
+                  solver_opts=opts, device=dev)
+    ctrl = cascade_fit(ds.scaler().transform(X), Y, cfg, cc,
+                       solver="blocked", solver_opts=opts, device=dev)
+    assert res.converged and np.array_equal(res.sv_ids, ctrl.sv_ids)
+    assert res.sv_alpha.tobytes() == ctrl.sv_alpha.tobytes()
+    assert res.b == ctrl.b and res.rounds == ctrl.rounds
+    for w in res.worker_launches:
+        assert w.get("fused_fupdate", 0) > 0 and w.get("inner_smo", 0) > 0

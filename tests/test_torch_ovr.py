@@ -120,10 +120,11 @@ def test_binary_fits_not_ported_are_refused():
     with pytest.raises(ValueError, match="checkpoint_path/resume"):
         BinarySVC(SVMConfig(kernel="rff"), scale=False,
                   device="cpu").fit_stream(None, checkpoint_path="ck.npz")
-    # the cascade is ported (ROADMAP Queue 1 item 9) but for its pod
-    # leaves and its tracer (item 12)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        m.fit_pod(X, Y)
+    # the cascade and its pod leaves are ported (ROADMAP Queue 1 item 9)
+    # but for their tracer (item 12); the pod refuses the approximate
+    # families as the JAX estimator does
+    with pytest.raises(ValueError, match="approximate"):
+        BinarySVC(SVMConfig(kernel="rff"), device="cpu").fit_pod("data")
     with pytest.raises(ValueError, match="approximate"):
         BinarySVC(SVMConfig(kernel="nystrom"), device="cpu").fit_cascade_stream(
             None)

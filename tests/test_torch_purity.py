@@ -140,7 +140,8 @@ def test_checkpoint_shrink_and_csv_entry_points_raise_without_a_card(tmp_path):
     assert not (tmp_path / "ck.npz").exists()
 
 
-@pytest.mark.parametrize("pkg", ["stream", "approx", "faults", "obs"])
+@pytest.mark.parametrize("pkg", ["stream", "approx", "faults", "obs", "pod",
+                                 "faults.__main__"])
 def test_new_tiers_import_alone_without_jax_or_tpusvm(pkg):
     # each tier in a fresh interpreter, alone: what it pulls in is its own
     code = f"""
@@ -186,3 +187,37 @@ def test_stream_and_approx_entry_points_raise_without_a_card(tmp_path):
                                "--landmarks", "128"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_pod_workers_run_without_jax_or_tpusvm(tmp_path, monkeypatch):
+    # every worker process starts under a guard that makes jax and the JAX
+    # package unimportable: a worker that imported either would die, and
+    # the fit with it
+    from tpusvm_torch.config import CascadeConfig, SVMConfig
+    from tpusvm_torch.data import rings
+    from tpusvm_torch.pod import pod_fit
+    from tpusvm_torch.stream import ingest_arrays
+
+    guard = tmp_path / "guard.py"
+    guard.write_text(
+        "import runpy, sys\n"
+        "sys.modules['jax'] = sys.modules['tpusvm'] = None\n"
+        "assert sys.argv[1] == '-m', sys.argv\n"
+        "sys.argv = [sys.argv[2]] + sys.argv[3:]\n"
+        "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+    python = tmp_path / "python"
+    python.write_text(f'#!/bin/sh\nexec "{sys.executable}" "{guard}" "$@"\n')
+    python.chmod(0o755)
+    X, Y = rings(n=64, seed=3)
+    ds = str(tmp_path / "ds")
+    ingest_arrays(ds, X, Y, rows_per_shard=16)
+    monkeypatch.setattr(sys, "executable", str(python))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        res = pod_fit(ds, SVMConfig(C=10.0, gamma=10.0),
+                      CascadeConfig(n_shards=2, sv_capacity=64),
+                      device="cpu")
+    finally:
+        torch.set_num_threads(n)
+    assert res.converged and sum(res.worker_rows) == 64

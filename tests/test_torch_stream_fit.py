@@ -28,6 +28,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from tpusvm import stream as jstream
 from tpusvm.config import CascadeConfig as JCascadeConfig
@@ -69,6 +70,20 @@ def _same_model(a, b):
     assert a.b_ == b.b_ and a.n_iter_ == b.n_iter_ and a.status_ == b.status_
 
 
+@pytest.fixture
+def one_torch_thread():
+    """The solvers' small per-step ops on one intra-op thread: under a
+    parallel test run, torch's thread pool contending with the other
+    workers' made the pair fits here about ten times slower. Only for
+    tests whose bit comparisons are between fits of this process (the CLI
+    case compares a subprocess's bits, at the default count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("solver,opts", [
     ("blocked", dict(q=128, inner="loop")),
     ("blocked", dict(q=128, inner="kernel", wss=2)),
@@ -110,6 +125,7 @@ def test_fit_stream_matches_jax(tmp_path, name):
     assert _bits(t.scaler_.min_val) == _bits(j.scaler_.min_val)
 
 
+@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("topology,stratified", [("tree", False),
                                                  ("star", False),
                                                  ("star", True)])
@@ -236,7 +252,7 @@ def test_cli_ingest_train_predict_info(tmp_path):
      "not supported yet"),
     (["train", "--data", "d", "--task", "svr"], "sharded"),
     (["train", "--data", "d", "--n-limit", "5"], "does not apply"),
-    (["train", "--synthetic", "rings", "--mode", "pod"], r"item 9\(i\)"),
+    (["train", "--synthetic", "rings", "--mode", "pod"], "pass --data DIR"),
 ])
 def test_cli_stream_refusals(tmp_path, argv, msg):
     from tpusvm_torch.cli import main

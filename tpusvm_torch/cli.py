@@ -1,4 +1,4 @@
-"""Command line: `python -m tpusvm_torch train|predict|ingest|info`.
+"""Command line: `python -m tpusvm_torch train|pod|predict|ingest|info`.
 
 train fits a model on a CSV (--train, last column = label; --test scores a
 held-out CSV) or a synthetic dataset, scores the held-out rows and prints
@@ -20,7 +20,11 @@ calibration (--calibrate K), crash-safe checkpoints (--checkpoint,
 --rff-dim, --rff-seed, --landmarks). train --data DIR trains from a sharded
 dataset (--mode single: the exact families' solve, or the approximate
 families' streaming primal fit; --mode cascade: the cascade filled shard by
-shard). ingest writes such a dataset from a CSV or a synthetic draw.
+shard; --mode pod: the cascade's leaves in worker processes, each
+streaming its own shards). pod runs the pod cascade on a sharded dataset
+(by default a synthetic rings draw, then held bit for bit against the
+in-memory cascade; --smoke makes that a gate). ingest writes such a
+dataset from a CSV or a synthetic draw.
 predict scores a saved model of any kind (either package's `.npz`) on a
 CSV or a sharded dataset (--data) or the synthetic held-out slice. info
 prints the torch/CUDA versions and the visible devices, or describes a
@@ -88,21 +92,22 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--data", metavar="DIR",
                     help="a sharded dataset directory (`ingest`): the "
                     "scaler comes from the manifest's stats and shards are "
-                    "loaded one at a time (--mode single or cascade)")
+                    "loaded one at a time (--mode single, cascade or pod)")
     tr.add_argument("--mode", choices=("single", "oracle", "cascade", "pod"),
                     default="single",
                     help="single = on-device SMO; oracle = the serial NumPy "
                     "SMO (binary; the reference's main3.cpp); cascade = the "
                     "cascade over --shards leaves (the reference's MPI "
-                    "programs); pod is not ported yet (ROADMAP Queue 1 item "
-                    "9(i))")
+                    "programs); pod = the cascade's leaves as worker "
+                    "processes streaming their shards of --data (--shards "
+                    "workers, default 4)")
     tr.add_argument("--topology", choices=("tree", "star"), default="tree",
                     help="cascade merge topology (tree = mpi_svm_main3, "
                     "star = mpi_svm_main2)")
     tr.add_argument("--shards", type=int, default=None,
                     help="cascade shard count P (default: the world size "
                     "with --distributed, else the visible cards; 1 with "
-                    "--device cpu)")
+                    "--device cpu; --mode pod: 4 worker processes)")
     tr.add_argument("--stratify", action="store_true",
                     help="cascade: per-class round-robin sharding instead "
                     "of the reference's contiguous scatter (safe on "
@@ -220,9 +225,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="fit Platt-scaled predict_proba on K held-out "
                     "folds after training (binary --task svc)")
     tr.add_argument("--checkpoint", metavar="NPZ",
-                    help="crash-safe training: --mode cascade writes the "
-                    "per-round state here; --mode single (binary, blocked "
-                    "solver) the solver's outer-loop carry every "
+                    help="crash-safe training: --mode cascade or pod "
+                    "writes the per-round state here; --mode single "
+                    "(binary, blocked solver) the solver's outer-loop "
+                    "carry every "
                     "--checkpoint-every rounds (atomic; a resumed run is "
                     "bit-identical to an uninterrupted one)")
     tr.add_argument("--resume", action="store_true",
@@ -283,6 +289,43 @@ def build_parser() -> argparse.ArgumentParser:
                      help="not ported yet (ROADMAP Queue 1 item 12)")
     ing.add_argument("--profile", metavar="DIR",
                      help="not ported yet (ROADMAP Queue 1 item 12)")
+    po = sub.add_parser(
+        "pod", help="self-contained pod-cascade run: a coordinator and "
+        "worker processes train out of core from a sharded dataset, each "
+        "leaf streaming only its manifest shards; held bit for bit against "
+        "the in-memory cascade on the same rows")
+    po.add_argument("--data", metavar="DIR", default=None,
+                    help="existing sharded dataset dir to train on "
+                    "(default: ingest a synthetic rings set into a temp "
+                    "dir, which enables the in-memory parity gate)")
+    po.add_argument("--workers", type=int, default=4, metavar="P",
+                    help="worker process count = cascade leaf count "
+                    "(default 4)")
+    po.add_argument("--topology", choices=("tree", "star", "both"),
+                    default="both",
+                    help="merge topology to run (default both)")
+    po.add_argument("--n", type=int, default=192,
+                    help="synthetic row count (ignored with --data)")
+    po.add_argument("--rows-per-shard", type=int, default=24,
+                    help="synthetic ingest shard size (ignored with --data)")
+    po.add_argument("--sv-capacity", type=int, default=128,
+                    help="padded SV buffer capacity per leaf")
+    po.add_argument("--C", type=float, default=10.0)
+    po.add_argument("--gamma", type=float, default=10.0)
+    po.add_argument("--max-rounds", type=int, default=12)
+    po.add_argument("--smoke", action="store_true",
+                    help="gate: non-zero exit unless every topology "
+                    "converges, matches the in-memory cascade's SV-ID set / "
+                    "alpha bytes / b exactly, conserves every row across the "
+                    "workers, and keeps per-worker shard residency within "
+                    "the prefetch bound")
+    po.add_argument("--trace-dir", metavar="DIR", default=None,
+                    help="not ported yet (ROADMAP Queue 1 item 12)")
+    po.add_argument("--trace-max-bytes", type=int, default=None,
+                    metavar="N", help="not ported yet (ROADMAP Queue 1 item "
+                    "12)")
+    po.add_argument("-q", "--quiet", action="store_true")
+    po.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     inf = sub.add_parser("info", help="print the torch/CUDA versions and the "
                          "visible devices, or describe a model artifact")
     inf.add_argument("path", nargs="?", default=None,
@@ -356,9 +399,6 @@ def _check_train_args(args) -> None:
         if args.solver != "fleet":
             raise SystemExit("--fleet-compact needs --fleet/--solver "
                              "fleet")
-    if args.mode == "pod":
-        raise SystemExit("--mode pod is not ported yet (ROADMAP Queue 1 "
-                         "item 9(i): the pod leaves)")
     approx = args.kernel in ("rff", "nystrom")
     if args.data:
         if args.train or args.synthetic:
@@ -388,13 +428,13 @@ def _check_train_args(args) -> None:
                 "--mode oracle has no approximate kernels: the NumPy oracle "
                 "is the EXACT rbf anchor the approx families are gated "
                 "against; train --kernel rbf --mode oracle instead")
-        if args.mode == "cascade" and args.data:
+        if args.mode in ("cascade", "pod") and args.data:
             raise SystemExit(
-                "--mode cascade --data with an approximate kernel is not "
-                "supported yet (leaf partitions carry RAW rows; the mapped "
-                "width would change every buffer shape): drop --mode "
-                "cascade for the streaming primal path, or load the data "
-                "in-memory for a mapped cascade")
+                f"--mode {args.mode} --data with an approximate kernel is "
+                "not supported yet (leaf partitions carry RAW rows; the "
+                "mapped width would change every buffer shape): drop "
+                f"--mode {args.mode} for the streaming primal path, or load "
+                "the data in-memory for a mapped cascade")
         if args.data and args.convergence:
             raise SystemExit(
                 "--convergence rides the blocked solver's outer loop; "
@@ -418,9 +458,20 @@ def _check_train_args(args) -> None:
                 or args.process_id is None):
             raise SystemExit("--distributed needs --coordinator-address, "
                              "--num-processes and --process-id")
-    if args.stratify and args.mode != "cascade":
-        raise SystemExit("--stratify only applies to --mode cascade (it "
-                         "changes how rows are dealt over the leaves)")
+    if args.stratify and args.mode not in ("cascade", "pod"):
+        raise SystemExit("--stratify only applies to --mode cascade/pod "
+                         "(it changes how rows are dealt over the leaves)")
+    if args.mode == "pod":
+        # pod leaves stream their manifest shards from disk: there is no
+        # in-memory source to hand them
+        if not args.data:
+            raise SystemExit(
+                "--mode pod trains out-of-core from a sharded dataset dir: "
+                "pass --data DIR (`python -m tpusvm_torch ingest` builds "
+                "one)")
+        if (args.solver or "blocked") not in ("blocked", "pair"):
+            raise SystemExit("--mode pod leaves run the blocked or pair "
+                             "solver")
     if args.test and not (args.train or args.data):
         raise SystemExit("--test scores a held-out CSV; it needs --train or "
                          "--data")
@@ -491,17 +542,20 @@ def _check_train_args(args) -> None:
         if solver != "blocked":
             raise SystemExit("--shrink-every needs the blocked solver "
                              "(working-set rounds are what gets compacted)")
-        if args.mode != "single":
-            raise SystemExit("--shrink-every needs --mode single: the "
-                             "shrinking driver segments the solve on the "
-                             "host, which the cascade's leaves do not")
-        if args.checkpoint:
+        if args.mode not in ("single", "pod"):
+            raise SystemExit(
+                "--shrink-every needs --mode single or --mode pod: the "
+                "shrinking driver segments the solve on the host, which "
+                "the cascade's leaves do not (pod leaves are host "
+                "processes, so they can)")
+        if args.checkpoint and args.mode == "single":
             raise SystemExit(
                 "--shrink-every and --checkpoint both segment the outer "
-                "loop and cannot be combined yet")
+                "loop and cannot be combined yet (--mode pod checkpoints "
+                "per round, which composes)")
         if args.multiclass:
             raise SystemExit("--shrink-every supports binary/svr --mode "
-                             "single training for now")
+                             "single/pod training for now")
 
 
 def _check_fleet_opts(opts: dict) -> None:
@@ -652,6 +706,24 @@ def _fit_cascade(model, X, Y, args, group, dataset=None):
     return model
 
 
+def _fit_pod(model, args):
+    """--mode pod: the cascade over --shards worker processes (default 4:
+    a small pod of processes, not the card count), each streaming its own
+    shards of --data."""
+    shards = args.shards or 4
+    try:
+        cc = CascadeConfig(n_shards=shards, sv_capacity=args.sv_capacity,
+                           topology=args.topology)
+    except ValueError as e:
+        raise SystemExit(f"train: {e}")
+    model.fit_pod(args.data, cc, verbose=True,
+                  checkpoint_path=args.checkpoint, resume=args.resume,
+                  stratified=args.stratify)
+    print(f"pod: {shards} workers, {model.cascade_rounds_} rounds, "
+          f"converged = {model.status_.name == 'CONVERGED'}")
+    return model
+
+
 def cmd_train(args) -> int:
     _check_train_args(args)
     if not args.distributed:
@@ -739,6 +811,8 @@ def _train(args, group) -> int:
         model = _fit_oracle(X, Y, cfg, args.device)
     elif args.mode == "cascade":
         model = _fit_cascade(BinarySVC(**common), X, Y, args, group, dataset)
+    elif args.mode == "pod":
+        model = _fit_pod(BinarySVC(**common), args)
     elif args.task == "svr":
         model = EpsilonSVR(**common).fit(X, Y)
     elif args.multiclass:
@@ -785,6 +859,80 @@ def _train(args, group) -> int:
         print("convergence (b_low - b_high per outer round):")
         print(format_gap_table(conv))
     print(timer.report())
+    return 0
+
+
+def cmd_pod(args) -> int:
+    """Self-contained pod-cascade run: out-of-core multiprocess training
+    with a bit-level parity gate against the in-memory cascade."""
+    import os
+    import tempfile
+
+    from tpusvm_torch.parallel.cascade import cascade_fit
+    from tpusvm_torch.pod import pod_fit
+    from tpusvm_torch.stream import ingest_arrays, open_dataset
+
+    if args.trace_dir or args.trace_max_bytes is not None:
+        raise SystemExit("pod --trace-dir/--trace-max-bytes: the trace layer "
+                         "is not ported yet (ROADMAP Queue 1 item 12)")
+    topologies = (["tree", "star"] if args.topology == "both"
+                  else [args.topology])
+    cfg = SVMConfig(C=args.C, gamma=args.gamma, max_rounds=args.max_rounds)
+    failures = []
+    summaries = []
+    with tempfile.TemporaryDirectory() as td:
+        if args.data:
+            data, X, Y = args.data, None, None
+        else:
+            X, Y = rings(n=args.n, seed=3)
+            data = os.path.join(td, "ds")
+            ingest_arrays(data, X, Y, rows_per_shard=args.rows_per_shard)
+        n_rows = open_dataset(data).n_rows
+        for topo in topologies:
+            cc = CascadeConfig(n_shards=args.workers,
+                               sv_capacity=args.sv_capacity, topology=topo)
+            res = pod_fit(data, cfg, cc, verbose=not args.quiet,
+                          device=args.device)
+            if not args.quiet:
+                print(f"pod[{topo}]: {res.rounds} rounds, "
+                      f"{len(res.sv_ids)} SVs, b = {res.b:.12f}, "
+                      f"rows {list(res.worker_rows)}, "
+                      f"live shards {list(res.worker_max_live_shards)}, "
+                      f"revives {res.revives}, start-up "
+                      f"{res.startup_s:.2f} s")
+            if not res.converged:
+                failures.append(f"[{topo}] pod did not converge in "
+                                f"{res.rounds} rounds")
+            if sum(res.worker_rows) != n_rows:
+                failures.append(
+                    f"[{topo}] rows lost: workers hold "
+                    f"{sum(res.worker_rows)} of {n_rows}")
+            summaries.append((topo, res.rounds, len(res.sv_ids)))
+            if X is None:
+                continue
+            # parity gate: the in-memory cascade on the identically scaled
+            # rows must give the same bits (the pod moves leaf results
+            # over the wire protocol; any serialization loss shows here)
+            ctrl = cascade_fit(MinMaxScaler().fit_transform(X), Y, cfg, cc,
+                               device=args.device)
+            if set(res.sv_ids.tolist()) != set(ctrl.sv_ids.tolist()):
+                failures.append(f"[{topo}] SV-ID set diverges from the "
+                                "in-memory cascade")
+            elif res.sv_alpha.tobytes() != ctrl.sv_alpha.tobytes():
+                failures.append(f"[{topo}] alpha bytes diverge from the "
+                                "in-memory cascade")
+            if res.b != ctrl.b:
+                failures.append(f"[{topo}] b diverges: pod {res.b!r} vs "
+                                f"in-memory {ctrl.b!r}")
+    if failures:
+        for f in failures:
+            print(f"POD{' SMOKE' if args.smoke else ''} FAILED: {f}")
+        return 1
+    parity = ("bit-identical to in-memory cascade" if X is not None
+              else "parity gate skipped (--data)")
+    print("pod ok: " + "; ".join(
+        f"{t} {r} rounds/{s} SVs" for t, r, s in summaries)
+        + f", {args.workers} workers, {parity}")
     return 0
 
 
@@ -1098,8 +1246,8 @@ def cmd_info(args) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
-    return {"train": cmd_train, "predict": cmd_predict, "ingest": cmd_ingest,
-            "info": cmd_info}[args.cmd](args)
+    return {"train": cmd_train, "pod": cmd_pod, "predict": cmd_predict,
+            "ingest": cmd_ingest, "info": cmd_info}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -8,9 +8,10 @@
                 per-class retryability, adopted by shard reads, ingest
                 writes and solver checkpoint writes.
 
-The JAX package's circuit breaker (tpusvm/faults/breaker.py) belongs to
-the serving tier and its chaos command line (tpusvm/faults/__main__.py)
-to the pod tier; neither is ported yet.
+``python -m tpusvm_torch.faults`` (__main__.py) is the chaos command
+line: ``validate``, ``kill-resume-smoke`` and ``pod-chaos-smoke``. The
+JAX package's circuit breaker (tpusvm/faults/breaker.py) belongs to the
+serving tier, which is not ported yet.
 """
 
 from tpusvm_torch.faults.injection import (

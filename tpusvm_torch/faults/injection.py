@@ -22,10 +22,22 @@ The points the port has call sites for:
                               commit transitions (stream/format.py)
   ``solver.outer_checkpoint`` the solver-state checkpoint write
                               (solver/checkpoint.py)
+  ``cascade.round``           entry to every cascade round, under Retry
+                              (parallel/cascade.py)
+  ``cascade.checkpoint``      the cascade round-state write
+                              (parallel/cascade.py)
+  ``models.save``             the model artifact write
+                              (models/serialization.py)
+  ``pod.round``               entry to every pod round, under Retry
+                              (pod/coordinator.py)
+  ``pod.merge``               the pod round-state write (pod/state.py)
+  ``pod.worker``              every request a pod worker takes; a kill
+                              there is escalated to a real SIGKILL
+                              (pod/worker.py)
 
 The other names of POINTS belong to modules not ported yet (serving, the
-autopilot, tenants, the router, the pod); a plan may name them and they
-never fire here.
+autopilot, tenants, the router); a plan may name them and they never
+fire here.
 
 Kill semantics: :class:`SimulatedKill` subclasses ``BaseException``, so
 no ``except Exception`` recovery path, the retry machinery included, can

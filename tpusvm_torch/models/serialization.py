@@ -27,6 +27,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
+from tpusvm_torch import faults
 from tpusvm_torch.config import KERNEL_FAMILIES, SVMConfig
 
 FORMAT_VERSION = 4
@@ -50,7 +51,11 @@ def model_task(path: str) -> str:
 
 
 def save_model(path: str, state: Dict[str, Any], config: SVMConfig) -> None:
+    """Write an artifact atomically (temp file + os.replace), after the
+    ``models.save`` fault point: a kill there leaves the previous artifact
+    or none, never a truncated one."""
     out = _norm(path)
+    faults.point("models.save", path=out)
     tmp = out + ".tmp.npz"
     np.savez_compressed(
         tmp,

@@ -171,6 +171,10 @@ class BinarySVC:
         # mark (the prefetch_depth + 1 bound) and the primal result
         self.stream_max_live_shards_: Optional[int] = None
         self.primal_result_ = None
+        # pod fits: the rows each worker loaded and the PodResult (its
+        # per-worker launches and start-up seconds)
+        self.pod_worker_rows_: Optional[tuple] = None
+        self.pod_result_ = None
 
     def _scale_fit(self, X: np.ndarray) -> np.ndarray:
         if self.scale:
@@ -485,10 +489,55 @@ class BinarySVC:
             partition=part, tracer=tracer, device=self.device)
         return self._finish_cascade(res, t0, cascade_config)
 
-    def fit_pod(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the pod fit is not ported yet (ROADMAP Queue 1 item 9(i): the "
-            "pod leaves, on the port's stream tier)")
+    def fit_pod(self, data: str,
+                cascade_config: CascadeConfig = CascadeConfig(),
+                verbose: bool = False,
+                checkpoint_path: Optional[str] = None,
+                resume: bool = False, stratified: bool = False,
+                prefetch_depth: int = 2, tracer=None) -> "BinarySVC":
+        """Pod (multi-process) cascade training from a sharded dataset
+        directory: each leaf runs in its OWN worker process that streams
+        only its manifest shards (pod/), on this estimator's device — the
+        process-transport sibling of fit_cascade_stream, with the same
+        fixed point, bit for bit, and the same manifest-fitted scaler.
+        Leaves are host processes, so shrink_every and its siblings in
+        solver_opts run the shrinking driver per leaf (solver="blocked").
+
+        checkpoint_path/resume: per-round coordinator checkpoints
+        (pod/state.py); a killed coordinator resumes bit-identically, a
+        killed worker is revived mid-round. tracer: not ported yet
+        (ROADMAP Queue 1 item 12)."""
+        if is_approx_family(self.config.kernel):
+            raise ValueError(
+                "fit_pod does not support the approximate families yet "
+                f"(kernel={self.config.kernel!r}): leaf partitions are "
+                "filled with RAW rows and the mapped width would change "
+                "every buffer shape; use fit_stream (the streaming "
+                "primal path) or in-memory fit_cascade over mapped "
+                "features")
+        from tpusvm_torch.pod import pod_fit
+        from tpusvm_torch.stream import open_dataset
+
+        t0 = time.perf_counter()
+        if self.scale:
+            self.scaler_ = open_dataset(data).scaler()
+        res = pod_fit(
+            data, self.config, cascade_config,
+            accum_dtype=self.accum_dtype, verbose=verbose,
+            checkpoint_path=checkpoint_path, resume=resume,
+            solver=self.solver, solver_opts=self.solver_opts,
+            stratified=stratified, prefetch_depth=prefetch_depth,
+            scale=self.scale, tracer=tracer, device=self.device)
+        self.pod_result_ = res
+        self.stream_max_live_shards_ = int(max(res.worker_max_live_shards))
+        self.pod_worker_rows_ = tuple(int(r) for r in res.worker_rows)
+        # ladder provenance, as fit() records it: pod leaves run the
+        # shrinking driver and the precision rungs for real
+        self.train_precision_ = (
+            self.solver_opts.get("matmul_precision") or "f32")
+        self.shrink_every_, self.shrink_stable_ = shrink_provenance(
+            self.solver_opts)
+        return self._finish_cascade(res, t0, cascade_config)
 
     def _check_fitted(self):
         if self.sv_X_ is None:

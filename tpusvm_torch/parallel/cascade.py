@@ -28,11 +28,12 @@ Two round engines give the same values:
 SV sets are capacity-padded SVBuffers (parallel/svbuffer.py); dedup by ID
 and the warm-start alpha rules are the reference's. The leaf solves are
 the port's solvers, so on the card the blocked leaves run kernels #1 and
-#2 and the pair leaves pair_rows. Not ported yet, each refused or left
-out by name: the tracer (ROADMAP Queue 1 item 12, which also owns the JAX
-package's profiled round call) and the fault hooks around the round and
-the checkpoint write (item 13): the round state is written once,
-atomically, through utils/durable.py.
+#2 and the pair leaves pair_rows. The fault points are the JAX package's:
+``cascade.round`` before every round (a transient rule is retried, a kill
+dies between rounds) and ``cascade.checkpoint`` before the round state is
+written, atomically, through utils/durable.py. Not ported yet and refused
+by name: the tracer (ROADMAP Queue 1 item 12, which also owns the JAX
+package's profiled round call).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from tpusvm_torch import faults
 from tpusvm_torch.config import (CascadeConfig, SVMConfig,
                                  resolve_accum_dtype)
 from tpusvm_torch.data.partition import partition as make_partition
@@ -95,6 +97,7 @@ def save_round_state(path: str, global_sv: SVBuffer, prev_ids, rnd: int,
         extra["n_shards"] = n_shards
     if topology is not None:
         extra["topology"] = topology
+    faults.point("cascade.checkpoint", path=path, round=rnd)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez_compressed(
@@ -572,7 +575,12 @@ def cascade_fit(
     new_global = global_sv
     full_merged_cap = n_shards * sv_cap  # star layer-2 concatenation bound
 
+    round_retry = faults.Retry(faults.DEFAULT_IO_POLICY, op="cascade.round")
     for rnd in range(start_round, svm_config.max_rounds + 1):
+        # chaos hook, on every rank alike: a transient rule is retried (the
+        # round has not started), a kill dies between rounds and a resume
+        # must reproduce the uninterrupted trajectory from the checkpoint
+        round_retry(faults.point, "cascade.round", round=rnd)
         t0 = time.perf_counter()
         while True:
             out_global, b_round, diag = round_fn(

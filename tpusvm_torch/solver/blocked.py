@@ -224,12 +224,15 @@ def _clamp_q(n: int, q: int) -> int:
 
 def resolve_solver_config(n: int, q: int = 1024, inner: str = "auto",
                           fused_fupdate="auto", kernel: str = "rbf",
-                          matmul_precision=None):
+                          matmul_precision=None, dtype=torch.float32):
     """Effective (q, inner, fused_fupdate) blocked_smo_solve will run.
 
     q clamps to the even training-set size; "auto" resolves both engines
     to their kernels when q is a multiple of 128 ("kernel" / True), else to
-    the plain engines ("loop" / False). The fused f-update computes the RBF
+    the plain engines ("loop" / False). The kernels take float32 only, so
+    for features of another dtype (X's, which the solve computes in, as the
+    JAX solver does) "auto" resolves to the plain engines and an explicit
+    kernel engine is refused by name. The fused f-update computes the RBF
     pipeline only: off RBF "auto" resolves to the family's contraction and
     an explicit True is refused. It runs at the trust tier only, so on the
     reduced rungs ("default", "bf16_f32", "bf16_f32c") "auto" resolves to
@@ -254,6 +257,18 @@ def resolve_solver_config(n: int, q: int = 1024, inner: str = "auto",
             "fused_fupdate=True cannot honour matmul_precision="
             f"{matmul_precision!r} (the fused kernel runs at the full-f32 "
             "trust tier); use fused_fupdate='auto' or False")
+    if dtype != torch.float32:
+        for engine, explicit in (("inner_smo (inner='kernel')",
+                                  inner == "kernel"),
+                                 ("rbf_cross_matvec (fused_fupdate=True)",
+                                  fused_fupdate is True)):
+            if explicit:
+                raise ValueError(
+                    f"the {engine} kernel takes float32 features, X is "
+                    f"{dtype}; use 'auto' to run the plain engine in X's "
+                    "dtype, or pass float32 features")
+        inner = "loop" if inner == "auto" else inner
+        fused_fupdate = False if fused_fupdate == "auto" else fused_fupdate
     q = _clamp_q(n, q)
     aligned = q % _LANE == 0
     if inner == "auto":
@@ -421,25 +436,27 @@ def _cache_lookup(keys, B, dcoef):
 
 
 def _cache_fupdate(st, lookup, all_hit: bool, dcoef, B, rows_fn,
-                   precision=None):
+                   precision=None, dtype=torch.float32):
     """df = K(X, X_B) @ dcoef served from the cache when every moved member
     hits, else from all q rows computed fresh (rows_fn()), which then replace
     the empty slots first and the oldest after them. Updates the cache,
-    keys, ages and hit/miss counts of `st` in place; returns df (n,) f32.
-    precision: the coefficient matvec's rung (coef_matvec)."""
+    keys, ages and hit/miss counts of `st` in place; returns df (n,) in
+    `dtype` (X's: the rows are stored in f32 and the coefficients taken in
+    X's dtype, as in the JAX solver). precision: the coefficient matvec's
+    rung (coef_matvec)."""
     hit, slot_of, _ = lookup
     q = dcoef.shape[0]
-    dc32 = dcoef.to(torch.float32)
+    dcx = dcoef.to(dtype)
     age = st.cache_age + 1
     if all_hit:
         # an unmoved member's slot_of is arbitrary: its coefficient is 0
-        dc = torch.where(hit, dc32, torch.zeros_like(dc32))
-        df = coef_matvec(st.cache[slot_of].T, dc, precision)
+        dc = torch.where(hit, dcx, torch.zeros_like(dcx))
+        df = coef_matvec(st.cache[slot_of].T.to(dtype), dc, precision)
         age[slot_of[hit]] = 0
         st.cache_hits += q
     else:
         rows = rows_fn().to(torch.float32)
-        df = coef_matvec(rows.T, dc32, precision)
+        df = coef_matvec(rows.T.to(dtype), dcx, precision)
         # empty slots first, then the oldest; ties to the lower slot, as
         # lax.top_k orders them, so the q targets are distinct
         score = torch.where(st.cache_keys < 0,
@@ -453,18 +470,27 @@ def _cache_fupdate(st, lookup, all_hit: bool, dcoef, B, rows_fn,
     return df
 
 
+def rbf_rebuild(X):
+    """The RBF contraction of the exact f rebuilds (refine, the shrinking
+    driver's): kernel #1 (its plain version on the CPU) for float32 X,
+    which is all the kernel takes, else the torch contraction in X's
+    dtype."""
+    return (rbf_cross_matvec_kernel if X.dtype == torch.float32
+            else rbf_cross_matvec)
+
+
 def refine_f(X, alpha, yf, z, valid, cap: int, *, kernel: str, sn, kern,
              kernel_fast: bool = True):
     """f rebuilt from scratch, K(X, X[idx]) @ (alpha*y)[idx] - z, over the
     `cap` rows of largest |alpha*y| (every nonzero coefficient whenever the
     live count fits the cap; the rest add exactly 0); invalid rows 0. RBF
     runs the fused f-update (kernel #1 on the card, its plain version on the
-    CPU)."""
+    CPU) on f32 features, the torch contraction in X's dtype otherwise."""
     coef = alpha * yf
     idx = _top_k(coef.abs().to(torch.float32), cap, largest=True)
     c = coef[idx].to(X.dtype)
     if kernel == "rbf":
-        df = rbf_cross_matvec_kernel(X, X[idx], c, kern["gamma"], sn)
+        df = rbf_rebuild(X)(X, X[idx], c, kern["gamma"], sn)
     else:
         df = kernels.cross_matvec(kernel, X, X[idx], c, sn=sn,
                                   fast=kernel_fast, **kern)
@@ -520,8 +546,10 @@ def blocked_smo_solve(
 ):
     """Train to the reference's stopping criterion with blocked working sets.
 
-    X (n, d) float32 and Y (n,) in {+1, -1} (tensors or numpy arrays) are
-    moved to `device`. valid masks rows out of the problem; alpha0 starts
+    X (n, d) and Y (n,) in {+1, -1} (tensors or numpy arrays) are moved to
+    `device`; the solve computes in X's dtype, as the JAX solver does, and
+    the kernels (float32 only) run for float32 X (resolve_solver_config).
+    valid masks rows out of the problem; alpha0 starts
     from given alphas, with warm_start=True rebuilding f from them (or f0
     supplying that f directly). accum_dtype (default: X's dtype) holds
     alpha and f. sn = sq_norms(X) may be passed to skip its computation.
@@ -640,8 +668,6 @@ def blocked_smo_solve(
             "would orphan them — use one or the other")
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
-    if X.dtype != torch.float32:
-        X = X.to(torch.float32)
     Y = torch.as_tensor(Y, device=dev).to(torch.int32)
     n = Y.shape[0]
     adt = X.dtype if accum_dtype is None else accum_dtype
@@ -658,7 +684,7 @@ def blocked_smo_solve(
                 "rows path)")
         fused_fupdate = False
     q, inner, fused = resolve_solver_config(n, q, inner, fused_fupdate,
-                                            kernel, matmul_precision)
+                                            kernel, matmul_precision, X.dtype)
     if krow_cache and krow_cache < q:
         raise ValueError(
             f"krow_cache={krow_cache} slots cannot hold a full working set "
@@ -924,7 +950,7 @@ def blocked_smo_solve(
             df = _cache_fupdate(
                 st, lookup, bool(all_hit[0]), dcoef, B,
                 lambda: kernels.rows_at(kernel, X, B, sn=sn, precision=prec,
-                                        **kern), prec)
+                                        **kern), prec, X.dtype)
         elif fused_selection:
             # the epilogue masks with the post-round alphas, and keys on
             # f32(f) + df

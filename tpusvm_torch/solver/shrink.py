@@ -47,10 +47,9 @@ import torch
 from tpusvm_torch import kernels
 from tpusvm_torch.config import BF16_RUNGS
 from tpusvm_torch.device import resolve_device
-from tpusvm_torch.ops.cuda.fused_fupdate import (rbf_cross_matvec_kernel,
-                                                 selection_shape)
+from tpusvm_torch.ops.cuda.fused_fupdate import selection_shape
 from tpusvm_torch.solver.blocked import (blocked_smo_solve,
-                                         bootstrap_candidates,
+                                         bootstrap_candidates, rbf_rebuild,
                                          resolve_solver_config)
 from tpusvm_torch.status import Status
 
@@ -73,7 +72,8 @@ def _rebuild_f(X_eval, X, Y, valid_eval, alpha_np, z_eval, kern_kw, sn_eval):
     bucket (the bf16 rebuild at a pause). coef is formed in f64 and rounded
     to X's dtype, and z is in X's dtype, as in the JAX package's shrinking
     solve. RBF runs the fused f-update (kernel #1 on the card, its plain
-    version on the CPU)."""
+    version on the CPU) on f32 features, the torch contraction in X's dtype
+    otherwise."""
     n = X.shape[0]
     nz = np.flatnonzero(alpha_np != 0.0)
     cap = min(n, max(64, 1 << max(0, int(len(nz) - 1).bit_length())))
@@ -85,8 +85,8 @@ def _rebuild_f(X_eval, X, Y, valid_eval, alpha_np, z_eval, kern_kw, sn_eval):
     coef_t = torch.as_tensor(coef, device=X.device).to(X.dtype)
     kernel = kern_kw["kernel"]
     if kernel == "rbf":
-        f = rbf_cross_matvec_kernel(X_eval, X[idx_t], coef_t,
-                                    kern_kw["gamma"], sn_eval)
+        f = rbf_rebuild(X)(X_eval, X[idx_t], coef_t, kern_kw["gamma"],
+                           sn_eval)
     else:
         f = kernels.cross_matvec(
             kernel, X_eval, X[idx_t], coef_t, gamma=kern_kw["gamma"],
@@ -163,8 +163,6 @@ def shrinking_blocked_solve(X, Y, valid=None, alpha0=None, *,
             "accumulation is covered by the un-shrink revalidation")
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
-    if X.dtype != torch.float32:
-        X = X.to(torch.float32)
     Y = torch.as_tensor(Y, device=dev).to(torch.int32)
     n, d = X.shape
     C = kw.get("C", 10.0)
