@@ -68,13 +68,17 @@ Phases, in order (any failure raises and the script exits non-zero):
      10,000 rows; Platt calibration (3 folds) on that cut's RBF model,
      predict_proba monotone in decision_function; a save and load round
      trip of each kind; every pair fit must launch pair_rows;
-  10. the front door, cut in rows: phase 5's rows [:10000] and
-     [60000:62000] written as CSVs; `python -m tpusvm_torch train --train
-     ... --test ...` in a subprocess prints the SV count, b and accuracy of
-     an in-process fit on the rows it read, and so does the entry point's
-     main in this process with --n-limit 5000; --mode oracle on 2,000 rows
-     within the cross-engine band of the blocked
-     fit on them; `info` names the card and describes phase 5's artifact;
+  10. the front door at full width: phase 5's rows [:60000] and [60000:]
+     as CSVs (written by a background process from the end of phase 5,
+     with phase 8's ten-class rows for 20(b)), read by the native reader
+     (seconds, MB/s; phase 5's rows back; the Python reader's bits on the
+     first 10,000); `python -m tpusvm_torch train --train ... --test ...`
+     in a subprocess prints the SV count, b and accuracy of an in-process
+     fit on the rows it read, which equals phase 5 bit for bit, and so
+     does the entry point's main in this process with --n-limit 5000;
+     --mode oracle on 2,000 rows (the O(n^2) oracle, cut) within the
+     cross-engine band of the blocked fit on them; `info` names the card
+     and describes phase 5's artifact;
   11. refine: phase 5's job with refine=4096, max_refines=2, CONVERGED with
      n_refines >= 1, kernel #1 launched in every rebuild, the f64 exact-f
      gap below phase 5's, accuracy within 0.002 of phase 5's;
@@ -135,8 +139,8 @@ Phases, in order (any failure raises and the script exits non-zero):
      phase 5's, predict_stream's scores within 1e-5 x sum(alpha) of its
      decision_function; (d) fit_cascade_stream with 14(b)'s star and
      blocked leaves equal to 14(b) bit for bit; (e) `ingest`, `train
-     --data` and `predict --data` as subprocesses on phase 10's 10,000-row
-     CSV, printing the in-process fit's bits;
+     --data` and `predict --data` as subprocesses on phase 10's full-width
+     CSVs, printing the in-process fit's bits;
   18. the approximate families on phase 5's job: (a) kernel="rff" at
      rff_dim 2048 and (b) kernel="nystrom" at 1,024 landmarks, each the
      blocked solver over the mapped rows on the card (#2 launched, #1 not:
@@ -159,8 +163,30 @@ Phases, in order (any failure raises and the script exits non-zero):
      `kill-resume-smoke` and `python -m tpusvm_torch pod --smoke` as
      subprocesses on the card, started together with (b), each exiting 0
      with its ok line.
-  (Phases 15 and 16 run after 13, before 14; 17 and 18 after 14; 19
-  last.)
+  20. the class axis and the front door: (a) OneVsRestSVC(solver="pair",
+     class_parallel=True) on 8(b)'s job over the default mesh and over
+     three members on the one card (12 heads with the padding), every head
+     equal to 8(b)'s bit for bit, pair_rows launched; (b) two rank
+     processes of `train --multiclass --class-parallel --distributed` on
+     8(b)'s rows from a CSV, both saved models equal to (a)'s array by
+     array; (c) phase 5's and 8(a)'s decision_function split over three
+     members (predictions equal, scores within 1e-5 x sum|coef|) and
+     `predict --mesh-predict`; (d) phase 5's job on rows [:10000] at
+     float64 and bfloat16 (CONVERGED, no kernel launched, accuracy within
+     0.002 of float32's) and the float64 pair solver on 2,000 rows (no
+     pair_rows); (e) `predict --scores/--proba` on phase 9's Platt model,
+     equal to the in-process values to the printed digits, and `train
+     --smoke` in its three cells, subprocesses started together beside
+     (d);
+  21. tuning on phase 5's training rows: a halving search with one fleet
+     a fold and rung (a 3 x 3 log grid around phase 5's C and gamma, 3
+     folds, eta 3, rungs from 4,096 rows, phase 5's q, wss and max_inner),
+     every fit ending CONVERGED or NO_WORKING_SET, the winner's CV accuracy
+     within 0.005 of phase 5's, the problem-axis #1 and #2 launched, one
+     lane of the last rung re-fit alone equal to it bit for bit, the
+     results JSON described by `info`; `tune --smoke` as a subprocess.
+  (Phases 15 and 16 run after 13, before 14; 17 and 18 after 14; then
+  19, 20 and 21.)
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
@@ -187,9 +213,10 @@ N_SVR_PAIR = 2000
 # the depth cut of phase 6 (PERF.md section 4): the profiled 5b fit stops
 # after this many of its 2,183 rounds
 PROFILE_5B_ROUNDS = 500
-# the row cuts of phase 10 (PERF.md section 4): the training CSV, its
-# --n-limit run, the --mode oracle run, and the held-out CSV
-N_CSV, N_CSV_LIMIT, N_ORACLE, N_CSV_TEST = 10000, 5000, 2000, 2000
+# phase 10's --n-limit run and its --mode oracle run, cut in rows (PERF.md
+# section 4: the serial NumPy oracle is O(n^2) by design); the native
+# reader is held to the Python reader on the first N_CSV_PY rows
+N_CSV_LIMIT, N_ORACLE, N_CSV_PY = 5000, 2000, 10000
 
 
 def log(msg):
@@ -693,42 +720,59 @@ def _report(model, acc):
     return (str(model.n_support_), f"{model.b_:.15f}", f"{acc:.4f}")
 
 
-def phase_front(X_all, Y_all, n_tr, n_cut, n_lim, n_oracle, n_test, device,
-                model_path):
-    """Phase 10, cut in rows: phase 5's rows [:n_cut] and [n_tr:n_tr+n_test]
-    as CSVs (the port's write_csv), then `python -m tpusvm_torch train
-    --train ... --test ...` in a subprocess, which must print the SV count,
-    b and accuracy of an in-process BinarySVC fit on the rows it read (the
-    same program, so the same bits); then, through the same entry point's
-    main in this process, again with --n-limit n_lim; --mode oracle on
-    n_oracle rows, within the cross-engine band of the blocked fit on those
-    rows (SV-ID symmetric difference <= 2, |db| <= 2.5e-4: PARITY.md);
-    `info`, which must name the card, and `info` on phase 5's artifact.
-    Returns (train CSV, held-out CSV, the in-process fit on the n_cut
-    rows, n_cut) for phase 17(e)."""
+def phase_front(X_all, Y_all, n_tr, n_lim, n_oracle, csvs, writers, m5,
+                device, model_path):
+    """Phase 10, at full width: phase 5's rows [:n_tr] and [n_tr:] as
+    CSVs (written in the background since phase 5), read by the native
+    reader (seconds and MB/s), which must give phase 5's rows back and
+    equal the Python reader bit for bit on the first N_CSV_PY rows; then
+    `python -m tpusvm_torch train --train ... --test ...` in a subprocess,
+    which must print the SV count, b and accuracy of an in-process
+    BinarySVC fit on the rows it read (the same program, so the same
+    bits), that fit equal to phase 5 bit for bit; then, through the same
+    entry point's main in this process, again with --n-limit n_lim;
+    --mode oracle on n_oracle rows, within the cross-engine band of the
+    blocked fit on those rows (SV-ID symmetric difference <= 2, |db| <=
+    2.5e-4: PARITY.md); `info`, which must name the card, and `info` on
+    phase 5's artifact. Returns (train CSV, held-out CSV, the in-process
+    fit, n_tr) for phase 17(e)."""
+    import os
+
     import torch
     from tpusvm_torch.config import SVMConfig
-    from tpusvm_torch.data import read_csv, write_csv
+    from tpusvm_torch.data import read_csv
+    from tpusvm_torch.data.native_io import build_library, read_csv_fast
     from tpusvm_torch.models import BinarySVC
     from tpusvm_torch.ops.cuda import _build
     from tpusvm_torch.status import Status
 
-    d = _build.BUILD_DIR / "chip_smoke_csv"
-    d.mkdir(parents=True, exist_ok=True)
-    train_csv, test_csv = str(d / "train.csv"), str(d / "test.csv")
+    train_csv, test_csv = csvs["train"], csvs["test"]
+    wait_s = wait_for(train_csv, writers) + wait_for(test_csv, writers)
     t = time.perf_counter()
-    write_csv(train_csv, X_all[:n_cut], Y_all[:n_cut])
-    write_csv(test_csv, X_all[n_tr:n_tr + n_test], Y_all[n_tr:n_tr + n_test])
-    t_write = time.perf_counter() - t
+    build_library()
+    build_s = time.perf_counter() - t
     t = time.perf_counter()
-    X, Y = read_csv(train_csv)
-    Xt, Yt = read_csv(test_csv)
-    t_read = time.perf_counter() - t
-    check(np.array_equal(X, X_all[:n_cut]) and np.array_equal(Y, Y_all[:n_cut]),
-          "[10] the CSV does not read back to the rows written")
-    log(f"[10] CSVs of {n_cut} + {n_test} rows x {X.shape[1]}: written in "
-        f"{t_write:.1f} s, read back in {t_read:.1f} s, "
-        f"{(d / 'train.csv').stat().st_size / 1e6:.0f} MB")
+    X, Y = read_csv_fast(train_csv)
+    Xt, Yt = read_csv_fast(test_csv)
+    read_s = time.perf_counter() - t
+    mb = (os.path.getsize(train_csv) + os.path.getsize(test_csv)) / 1e6
+    check(np.array_equal(X, X_all[:n_tr]) and np.array_equal(Y, Y_all[:n_tr])
+          and np.array_equal(Xt, X_all[n_tr:])
+          and np.array_equal(Yt, Y_all[n_tr:]),
+          "[10] the CSVs do not read back to the rows written")
+    t = time.perf_counter()
+    Xp, Yp = read_csv(train_csv, n_limit=N_CSV_PY)
+    py_s = time.perf_counter() - t
+    t = time.perf_counter()
+    Xn, Yn = read_csv_fast(train_csv, n_limit=N_CSV_PY)
+    nat_s = time.perf_counter() - t
+    same_py = Xp.tobytes() == Xn.tobytes() and Yp.tobytes() == Yn.tobytes()
+    log(f"[10] CSVs of {len(Y)} + {len(Yt)} rows x {X.shape[1]} ({mb:.0f} MB; "
+        f"waited {wait_s:.1f} s for the writers): native reader "
+        f"{read_s:.2f} s ({mb / read_s:.0f} MB/s; its library built in "
+        f"{build_s:.2f} s); on the first {N_CSV_PY} rows the native reader "
+        f"{nat_s:.3f} s, the Python reader {py_s:.2f} s, bit-equal {same_py}")
+    check(same_py, "[10] the native reader differs from the Python reader")
     flags = ["--C", str(C), "--gamma", str(GAMMA), "--max-iter", "1000000",
              "--q", str(FULL_OPTS["q"]), "--wss", str(FULL_OPTS["wss"]),
              "--max-inner", str(FULL_OPTS["max_inner"])]
@@ -742,7 +786,7 @@ def phase_front(X_all, Y_all, n_tr, n_cut, n_lim, n_oracle, n_test, device,
     # call the same entry point's main here, which saves a process start
     # (about 9 s on the card's machine) each
     fits = {}
-    for n, extra, run in ((n_cut, [], _cli),
+    for n, extra, run in ((n_tr, [], _cli),
                           (n_lim, ["--n-limit", str(n_lim)], _cli_in_process)):
         out, secs = run(["train", "--train", train_csv, "--test", test_csv,
                          *flags, *extra], device)
@@ -751,7 +795,9 @@ def phase_front(X_all, Y_all, n_tr, n_cut, n_lim, n_oracle, n_test, device,
         m, acc = fits[n] = in_process(n)
         where = "a subprocess" if run is _cli else "this process"
         log(f"[10] train --train CSV {' '.join(extra)}: {secs:.1f} s in "
-            f"{where}, n = {_line(r'n = (\d+),', out)}, status "
+            f"{where} (data {_line(r'data time: ([\d.]+) s', out)} s, "
+            f"training {_line(r'training time: ([\d.]+) s', out)} s), n = "
+            f"{_line(r'n = (\d+),', out)}, status "
             f"{_line(r'status = (\w+)', out)}, SV count / b / accuracy "
             f"{cli}; in process {_report(m, acc)}")
         check(_line(r"status = (\w+)", out) == "CONVERGED",
@@ -759,6 +805,13 @@ def phase_front(X_all, Y_all, n_tr, n_cut, n_lim, n_oracle, n_test, device,
         check(m.status_ == Status.CONVERGED, f"[10] {m.status_.name}")
         check(cli == _report(m, acc), f"[10] CLI {cli} vs in process "
               f"{_report(m, acc)}")
+    m10 = fits[n_tr][0]
+    same5 = _same_bits(m10, m5) and m10.n_iter_ == m5.n_iter_
+    log(f"[10] the in-process fit on the CSV's rows equals phase 5 bit for "
+        f"bit (SV IDs, alphas, SV rows, b, updates): {same5}")
+    check(same5, "[10] the fit on the CSV's rows differs from phase 5")
+    d = _build.BUILD_DIR / "chip_smoke_csv"
+    d.mkdir(parents=True, exist_ok=True)
     oracle_path = str(d / "oracle.npz")
     out, secs = _cli_in_process(
         ["train", "--train", train_csv, "--test", test_csv, *flags[:6],
@@ -785,7 +838,7 @@ def phase_front(X_all, Y_all, n_tr, n_cut, n_lim, n_oracle, n_test, device,
     log(f"[10] info {model_path} ({secs:.1f} s): "
         + " | ".join(out.strip().splitlines()))
     check("model: binary" in out, "[10] info does not describe the model")
-    return train_csv, test_csv, fits[n_cut][0], n_cut
+    return train_csv, test_csv, m10, n_tr
 
 
 def phase_refine(X_all, Y_all, n_tr, m5, acc5, device, counters):
@@ -1213,30 +1266,59 @@ def cascade_case(tag, topology, solver, X, Y, Xt, Yt, m5, acc5, device,
     return model, acc, train_s, {k: counts[k] for k in kernels}, leaves.solves
 
 
-def start_cascade_csvs(n, n_tr, d, out_dir):
-    """Writes phase 5's rows (mnist_like(n, d), seed 587, as phase 3 draws
-    them) [:n_tr] and [n_tr:] as CSVs for phase 14(d) in a background
-    process (the CSV writer is a Python loop: about 20 s for 70,000 rows of
-    784), so it overlaps phases 14(a)-(c). Returns the process and the two
-    paths."""
+def start_csv_writers(n, n_tr, d, out_dir):
+    """Writes, in two background processes (the CSV writer is a Python
+    loop: about 20 s for 70,000 rows of 784), phase 5's rows
+    (mnist_like(n, d), seed 587, as phase 3 draws them) [:n_tr] and [n_tr:]
+    for phases 10, 14(d) and 17(e), and phase 8's ten-class rows
+    (mnist_like_multiclass(n, d), its noise) [:n_tr] for 20(b). Each file
+    is written under a temporary name and renamed when complete. Returns
+    {"train", "test", "ovr": path} and the two processes."""
     import os
     from pathlib import Path
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    train, test = str(out_dir / "train.csv"), str(out_dir / "test.csv")
-    code = ("import sys; from tpusvm_torch.data import mnist_like, write_csv; "
+    paths = {k: str(out_dir / f"{k}.csv") for k in ("train", "test", "ovr")}
+    for p in paths.values():
+        if os.path.exists(p):
+            os.unlink(p)
+    code = ("import os, sys; from tpusvm_torch.data import write_csv; "
+            "from tpusvm_torch.data.synthetic import mnist_like, "
+            "mnist_like_multiclass, BENCH_NOISE_MULTICLASS; "
             "n, n_tr, d = map(int, sys.argv[1:4]); "
-            "X, Y = mnist_like(n=n, d=d, noise=30.0, label_noise=0.005, "
-            "seed=587); write_csv(sys.argv[4], X[:n_tr], Y[:n_tr]); "
-            "write_csv(sys.argv[5], X[n_tr:], Y[n_tr:])")
+            "kind, *out = sys.argv[4:]; "
+            "X, Y = (mnist_like(n=n, d=d, noise=30.0, label_noise=0.005, "
+            "seed=587) if kind == 'binary' else mnist_like_multiclass("
+            "n=n, d=d, noise=BENCH_NOISE_MULTICLASS)); "
+            "parts = [(X[:n_tr], Y[:n_tr]), (X[n_tr:], Y[n_tr:])]; "
+            "[(write_csv(o + '.tmp', *xy), os.replace(o + '.tmp', o)) "
+            "for o, xy in zip(out, parts)]")
     root = str(Path(__file__).resolve().parent)
-    proc = subprocess.Popen(
-        [sys.executable, "-c", code, str(n), str(n_tr), str(d), train, test],
-        cwd=root, env=dict(os.environ, PYTHONPATH=root))
-    return proc, train, test
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, str(n), str(n_tr), str(d), kind, *out],
+        cwd=root, env=env)
+        for kind, out in (("binary", [paths["train"], paths["test"]]),
+                          ("multiclass", [paths["ovr"]]))]
+    return paths, procs
 
 
-def phase_cascade_ranks(writer, train_csv, test_csv, model_a, acc_a, train_a_s,
+def wait_for(path, procs, deadline_s=600):
+    """Wait until a writer's file is complete (renamed into place); fail if
+    a writer failed or the deadline passes."""
+    import os
+
+    t = time.perf_counter()
+    while not os.path.exists(path):
+        check(all(p.poll() in (None, 0) for p in procs),
+              f"a CSV writer failed: {[p.poll() for p in procs]}")
+        check(time.perf_counter() - t < deadline_s,
+              f"{path} not written within {deadline_s} s")
+        time.sleep(0.5)
+    return time.perf_counter() - t
+
+
+def phase_cascade_ranks(train_csv, test_csv, model_a, acc_a, train_a_s,
                         out_dir, device, deadline_s=600):
     """Phase 14(d): four rank processes of `python -m tpusvm_torch train
     --mode cascade --shards 4 --topology tree --distributed ...` on the CSVs
@@ -1248,9 +1330,6 @@ def phase_cascade_ranks(writer, train_csv, test_csv, model_a, acc_a, train_a_s,
     import socket
     from pathlib import Path
 
-    t = time.perf_counter()
-    check(writer.wait(timeout=deadline_s) == 0, "[14d] the CSV writer failed")
-    wait_s = time.perf_counter() - t
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -1299,8 +1378,8 @@ def phase_cascade_ranks(writer, train_csv, test_csv, model_a, acc_a, train_a_s,
            _line(r"cascade: (\d+) rounds", out))
     want = (*_report(model_a, acc_a), str(model_a.cascade_rounds_))
     rounds = [ln for ln in out.splitlines() if ln.startswith("=== Round")]
-    log(f"[14d] {CASCADE_P} rank processes on one card: {wall_s:.1f} s wall "
-        f"(after {wait_s:.1f} s waiting for the CSVs); rank 0: data "
+    log(f"[14d] {CASCADE_P} rank processes on one card: {wall_s:.1f} s wall; "
+        f"rank 0: data "
         f"{_line(r'data time: ([\d.]+) s', out)} s, training "
         f"{_line(r'training time: ([\d.]+) s', out)} s (14(a) in one process "
         f"{train_a_s:.3f} s); SV count / b / accuracy / rounds {got}, 14(a) "
@@ -1319,54 +1398,48 @@ def phase_cascade_ranks(writer, train_csv, test_csv, model_a, acc_a, train_a_s,
 
 
 def phase_cascade(X_all, Y_all, n_tr, m5, acc5, device, counters, launches,
-                  out_dir, clock):
+                  csvs, out_dir, clock):
     """Phase 14: the one-process fits of CASCADE_CASES (cascade_case; a case
     cut in rows is held to the direct blocked fit on its rows), kernel #1 at
-    the leaf's size after 14(a), then 14(d)'s rank processes on CSVs written
-    in the background meanwhile. Adds each case's launches to `launches`;
-    returns the one-process fits by tag (cascade_case's tuples)."""
+    the leaf's size after 14(a), then 14(d)'s rank processes on phase 10's
+    CSVs. Adds each case's launches to `launches`; returns the one-process
+    fits by tag (cascade_case's tuples)."""
     from tpusvm_torch.config import SVMConfig
     from tpusvm_torch.models import BinarySVC
 
-    writer, train_csv, test_csv = start_cascade_csvs(
-        len(Y_all), n_tr, X_all.shape[1], out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
     Xt, Yt = X_all[n_tr:], Y_all[n_tr:]
-    try:
-        fits = {}
-        for tag, topology, solver, n_c in CASCADE_CASES:
-            ref, ref_acc, ref_name = m5, acc5, "phase 5"
-            if n_c < n_tr:
-                # the cut: held to the direct blocked fit on the same rows
-                ref = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
-                                solver_opts=FULL_OPTS, device=device).fit(
-                                    X_all[:n_c], Y_all[:n_c])
-                ref_acc = float((ref.predict(Xt) == Yt).mean())
-                ref_name = f"the blocked fit on rows [:{n_c}]"
-            n_c = min(n_c, n_tr)
-            fits[tag] = cascade_case(
-                tag, topology, solver, X_all[:n_c], Y_all[:n_c], Xt, Yt, ref,
-                ref_acc, device, counters, str(out_dir / f"{tag}_rounds.npz"),
-                ref=ref_name)
-            for k, v in fits[tag][3].items():
-                launches.setdefault(k, {})[tag] = v
-            if tag == "14a":
-                rows, err, tol, r_ms, rp_ms = leaf_rebuild_check(
-                    fits[tag][0], X_all[:n_c], Y_all[:n_c], CASCADE_SV_CAP,
-                    device)
-                log(f"[14a] kernel #1 at q = the leaf's size (the warm-start "
-                    f"rebuild, X_B = X, {rows} x {X_all.shape[1]}): max_abs_err "
-                    f"{err:.3e} (tol {tol:.3e}); kernel {r_ms:.3f} ms, plain "
-                    f"{rp_ms:.3f} ms")
-                check(err <= tol, f"[14a] #1 at the leaf's size: error {err} "
-                      f"over {tol}")
-            clock(tag)
-        model_a, acc_a, train_a_s = fits["14a"][:3]
-        phase_cascade_ranks(writer, train_csv, test_csv, model_a, acc_a,
-                            train_a_s, out_dir, device)
-    finally:
-        if writer.poll() is None:
-            writer.kill()
-            writer.wait()
+    fits = {}
+    for tag, topology, solver, n_c in CASCADE_CASES:
+        ref, ref_acc, ref_name = m5, acc5, "phase 5"
+        if n_c < n_tr:
+            # the cut: held to the direct blocked fit on the same rows
+            ref = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
+                            solver_opts=FULL_OPTS, device=device).fit(
+                                X_all[:n_c], Y_all[:n_c])
+            ref_acc = float((ref.predict(Xt) == Yt).mean())
+            ref_name = f"the blocked fit on rows [:{n_c}]"
+        n_c = min(n_c, n_tr)
+        fits[tag] = cascade_case(
+            tag, topology, solver, X_all[:n_c], Y_all[:n_c], Xt, Yt, ref,
+            ref_acc, device, counters, str(out_dir / f"{tag}_rounds.npz"),
+            ref=ref_name)
+        for k, v in fits[tag][3].items():
+            launches.setdefault(k, {})[tag] = v
+        if tag == "14a":
+            rows, err, tol, r_ms, rp_ms = leaf_rebuild_check(
+                fits[tag][0], X_all[:n_c], Y_all[:n_c], CASCADE_SV_CAP,
+                device)
+            log(f"[14a] kernel #1 at q = the leaf's size (the warm-start "
+                f"rebuild, X_B = X, {rows} x {X_all.shape[1]}): max_abs_err "
+                f"{err:.3e} (tol {tol:.3e}); kernel {r_ms:.3f} ms, plain "
+                f"{rp_ms:.3f} ms")
+            check(err <= tol, f"[14a] #1 at the leaf's size: error {err} "
+                  f"over {tol}")
+        clock(tag)
+    model_a, acc_a, train_a_s = fits["14a"][:3]
+    phase_cascade_ranks(csvs["train"], csvs["test"], model_a, acc_a,
+                        train_a_s, out_dir, device)
     clock("14d")
     return fits
 
@@ -1828,9 +1901,9 @@ def phase_stream(X_all, Y_all, n_tr, m5, acc5, m14b, csv10, device,
     of phase 5's decision_function (the contraction's blocking: batches of
     4,096 rows against one call); (d) fit_cascade_stream with 14(b)'s star
     and blocked leaves equal to 14(b) bit for bit; (e) `ingest`, `train
-    --data` and `predict --data` as subprocesses on phase 10's CSV, which
-    print the in-process fit's bits. Returns the training dataset and
-    (d)'s model."""
+    --data` and `predict --data` as subprocesses on phase 10's full-width
+    CSVs, which print the in-process fit's bits (phase 5's). Returns the
+    training dataset and (d)'s model."""
     import shutil
 
     from tpusvm_torch.config import CascadeConfig, SVMConfig
@@ -1946,8 +2019,7 @@ def phase_stream(X_all, Y_all, n_tr, m5, acc5, m14b, csv10, device,
     out, tr_s = _cli(["train", "--data", csv_dir, "--test", test_csv, *flags,
                       "--save", model_path], device)
     Xc, Yc = X_all[:n_cut], Y_all[:n_cut]
-    acc10 = float((m10.predict(X_all[n_tr:n_tr + N_CSV_TEST])
-                   == Y_all[n_tr:n_tr + N_CSV_TEST]).mean())
+    acc10 = float((m10.predict(X_all[n_tr:]) == Y_all[n_tr:]).mean())
     cli = (_line(r"SV count = (\d+)", out), _line(r"b = (-?[\d.]+)", out),
            _line(r"accuracy = ([\d.]+)", out))
     log(f"[17e] train --data ({tr_s:.1f} s in a subprocess): SV count / b / "
@@ -2313,6 +2385,355 @@ def phase_approx(X_all, Y_all, n_tr, acc5, ds, device, counters, launches):
         f"{list(APPROX_PROBE_D)}: {[round(e, 6) for e in errs]}")
     check(all(b <= a * APPROX_ERR_SLACK for a, b in zip(errs, errs[1:])),
           f"[18] probe errors not non-increasing in D: {errs}")
+
+
+def _head_bits(m, ref, K):
+    """Every head of two lockstep pair fits equal bit for bit (alpha, b,
+    n_iter, status)."""
+    import torch
+
+    return all(
+        torch.equal(m.results_.alpha[k], ref.results_.alpha[k])
+        and m.results_.b[k].item() == ref.results_.b[k].item()
+        and int(m.results_.n_iter[k]) == int(ref.results_.n_iter[k])
+        and int(m.results_.status[k]) == int(ref.results_.status[k])
+        for k in range(K))
+
+
+def _same_artifact(a, b):
+    """Two saved models hold the same arrays byte for byte (the zip
+    entries themselves carry the write time)."""
+    from tpusvm_torch.models.serialization import load_model
+
+    sa, sb = load_model(a)[0], load_model(b)[0]
+    return sorted(sa) == sorted(sb) and all(
+        sa[k].dtype == sb[k].dtype and sa[k].tobytes() == sb[k].tobytes()
+        for k in sa)
+
+
+def _start(args, out_dir, name, device):
+    """`python -m ARGS` as a background process from this checkout, its
+    output in out_dir/name.out and .err."""
+    import os
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parent)
+    if device == "cpu":
+        args = [*args, "--device", "cpu"]
+    with open(out_dir / f"{name}.out", "w") as o, \
+            open(out_dir / f"{name}.err", "w") as e:
+        return subprocess.Popen([sys.executable, "-m", *args], cwd=root,
+                                stdout=o, stderr=e,
+                                env=dict(os.environ, PYTHONPATH=root))
+
+
+def _finish(procs, out_dir, deadline_s, tag):
+    """Wait for named background processes until the deadline (all killed
+    on expiry), polling, so each one's seconds run from its start to its
+    exit; each must exit 0. Returns {name: (stdout, seconds)}."""
+    t = time.perf_counter()
+    secs = {}
+    while len(secs) < len(procs):
+        for name, (p, t0) in procs.items():
+            if name not in secs and p.poll() is not None:
+                secs[name] = time.perf_counter() - t0
+        if time.perf_counter() - t > deadline_s:
+            for p, _ in procs.values():
+                p.kill()
+                p.wait()
+            check(False, f"[{tag}] not finished within {deadline_s} s")
+        time.sleep(0.2)
+    for name, (p, _) in procs.items():
+        check(p.returncode == 0, f"[{tag}] {name}: exit {p.returncode}\n"
+              f"{(out_dir / f'{name}.out').read_text()[-1500:]}\n"
+              f"{(out_dir / f'{name}.err').read_text()[-1500:]}")
+    return {name: ((out_dir / f"{name}.out").read_text(), secs[name])
+            for name in procs}
+
+
+def phase_class_axis(Xm, lm, n_tr, ovr_b, ovr_a, X_all, Y_all, m5, acc5,
+                     csvs, writers, model5_path, device, counters, launches,
+                     out_dir, clock):
+    """Phase 20, the class axis and the front door: (a) class_parallel on
+    8(b)'s job over the default mesh and over three members on one card
+    (12 heads with the padding), every head equal to 8(b)'s bit for bit,
+    pair_rows launched; (b) two rank processes of `train --multiclass
+    --class-parallel --distributed` on 8(b)'s rows from a CSV, their saved
+    models equal to each other and to (a)'s; (c) row-split scoring of phase
+    5's and 8(a)'s models over three members (predictions equal, scores
+    within 1e-5 x sum|coef|) and `predict --mesh-predict`; (d) phase 5's
+    job on rows [:10000] at float64 and bfloat16 (CONVERGED, no kernel
+    launched, accuracy within 0.002 of the float32 fit) and the pair
+    solver at float64 on 2,000 rows (no pair_rows); (e) `predict --scores`
+    and `--proba` on phase 9's Platt model, equal to the in-process scores
+    and probabilities to the printed digits, and `train --smoke` in its
+    three cells, all as subprocesses started together."""
+    import torch
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC, OneVsRestSVC, load_any
+    from tpusvm_torch.ops.cuda import _build
+    from tpusvm_torch.status import Status
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cfg = SVMConfig(C=C, gamma=GAMMA, max_iter=10**6)
+    K = len(ovr_b.classes_)
+    one_card = ["cpu"] * 3 if device == "cpu" else ["cuda:0"] * 3
+    # (a) the class axis in this process
+    a_path = str(out_dir / "class_parallel.npz")
+    for tag, mesh in (("default mesh", None), ("3 members", one_card)):
+        _zero(counters)
+        sync(device)
+        t = time.perf_counter()
+        m = OneVsRestSVC(cfg, solver="pair", class_parallel=True, mesh=mesh,
+                         device=device).fit(Xm[:n_tr], lm[:n_tr])
+        sync(device)
+        secs = time.perf_counter() - t
+        counts = _count(counters)
+        same = _head_bits(m, ovr_b, K) and len(m.classes_) == K
+        r = m.results_
+        members = len(m.class_mesh_["devices"])
+        log(f"[20a] class_parallel, {tag} {json.dumps(m.class_mesh_)}: train "
+            f"{secs:.3f} s, {K} heads padded to {-(-K // members) * members}, "
+            f"statuses {[Status(int(v)).name for v in m.statuses_]}, chunks "
+            f"{r.chunks}, host syncs {r.host_syncs}; every head equal to "
+            f"8(b)'s bit for bit: {same}; launches {counts}")
+        check(same, f"[20a] {tag}: heads differ from 8(b)")
+        check(device == "cpu" or counts["pair_rows"] > 0,
+              f"[20a] {tag}: pair_rows not launched {counts}")
+        launches.setdefault("pair_rows", {})[f"20a {tag}"] = counts["pair_rows"]
+        if mesh is None:
+            m.save(a_path)
+    clock("20a")
+
+    # (b) the class axis over two rank processes on the one card
+    waited = wait_for(csvs["ovr"], writers)
+    flags = ["tpusvm_torch", "train", "--train", csvs["ovr"], "--multiclass",
+             "--class-parallel", "--C", str(C), "--gamma", str(GAMMA),
+             "--max-iter", "1000000", "--distributed", "--coordinator-address",
+             f"file://{out_dir / 'store'}", "--num-processes", "2"]
+    if (out_dir / "store").exists():
+        (out_dir / "store").unlink()
+    t = time.perf_counter()
+    ranks = {f"rank{r}": (_start([*flags, "--process-id", str(r), "--save",
+                                  str(out_dir / f"rank{r}.npz")], out_dir,
+                                 f"rank{r}", device), t) for r in range(2)}
+    done = _finish(ranks, out_dir, 600, "20b")
+    wall = time.perf_counter() - t
+    out0 = done["rank0"][0]
+    equal = [_same_artifact(str(out_dir / f"rank{r}.npz"), a_path)
+             for r in range(2)]
+    log(f"[20b] two rank processes of train --multiclass --class-parallel "
+        f"--distributed on 8(b)'s {n_tr} rows from a CSV (waited {waited:.1f} "
+        f"s for it), one card: {wall:.1f} s wall; rank 0: data "
+        f"{_line(r'data time: ([\d.]+) s', out0)} s, training "
+        f"{_line(r'training time: ([\d.]+) s', out0)} s, "
+        f"{_line(r'(status = .*)', out0)}; each rank's model equals (a)'s "
+        f"(every array byte for byte): {equal}")
+    check(all(equal), "[20b] a rank's model differs from (a)'s")
+    check(not done["rank1"][0].strip(), "[20b] rank 1 printed")
+    clock("20b")
+
+    # (c) row-split scoring
+    Xt, Yt = X_all[n_tr:], Y_all[n_tr:]
+    m8a = ovr_a[0]
+    for name, model, Xq, coef in (
+            ("phase 5", m5, Xt, m5.sv_alpha_ * m5.sv_Y_),
+            ("8(a)", m8a, Xm[n_tr:], m8a.coef_.T)):
+        t = time.perf_counter()
+        full = model.decision_function(Xq)
+        full_s = time.perf_counter() - t
+        t = time.perf_counter()
+        split = model.decision_function(Xq, mesh=one_card)
+        split_s = time.perf_counter() - t
+        err = float(np.abs(split - full).max())
+        tol = 1e-5 * float(np.abs(coef).sum(axis=0).max())
+        pf, ps = ((full > 0, split > 0) if full.ndim == 1
+                  else (full.argmax(1), split.argmax(1)))
+        log(f"[20c] {name}'s decision_function over 3 members on one card: "
+            f"{split_s:.3f} s (unsplit {full_s:.3f} s), max |diff| {err:.3e} "
+            f"(tol {tol:.3e}), bit-equal {split.tobytes() == full.tobytes()}, "
+            f"predictions equal {bool(np.array_equal(pf, ps))}")
+        check(np.array_equal(pf, ps), f"[20c] {name}: predictions differ")
+        check(err <= tol, f"[20c] {name}: scores {err} over {tol}")
+    out, secs = _cli(["predict", "--model", model5_path, "--data",
+                      csvs["test"], "--mesh-predict"], device)
+    log(f"[20c] predict --mesh-predict ({secs:.1f} s in a subprocess): "
+        f"{_line(r'(accuracy = .*)', out)}; phase 5 {acc5:.4f}")
+    check(_line(r"accuracy = ([\d.]+)", out) == f"{acc5:.4f}",
+          "[20c] predict --mesh-predict differs from phase 5")
+    clock("20c")
+
+    # (e)'s subprocesses start now and run beside (d)
+    smokes = {}
+    cal_path = str(_build.BUILD_DIR / "chip_smoke_calibrated.npz")
+    for name, args in (
+            ("scores", ["predict", "--model", cal_path, "--data", csvs["test"],
+                        "--scores"]),
+            ("proba", ["predict", "--model", cal_path, "--data", csvs["test"],
+                       "--proba"]),
+            ("smoke_svc", ["train", "--smoke"]),
+            ("smoke_ovr", ["train", "--smoke", "--task", "ovr"]),
+            ("smoke_svr", ["train", "--smoke", "--task", "svr"])):
+        smokes[name] = (_start(["tpusvm_torch", *args], out_dir, name, device),
+                        time.perf_counter())
+
+    # (d) the feature dtype, cut in rows
+    n_cut = 10000
+    Xc, Yc = X_all[:n_cut], Y_all[:n_cut]
+    fits = {}
+    for dt, solver, n_fit in (("float32", "blocked", n_cut),
+                              ("float64", "blocked", n_cut),
+                              ("bfloat16", "blocked", n_cut),
+                              ("float64", "pair", 2000)):
+        _zero(counters)
+        sync(device)
+        t = time.perf_counter()
+        m = BinarySVC(cfg, solver=solver, dtype=dt, device=device,
+                      solver_opts=FULL_OPTS if solver == "blocked" else {}
+                      ).fit(Xc[:n_fit], Yc[:n_fit])
+        sync(device)
+        secs = time.perf_counter() - t
+        counts = _count(counters)
+        acc = float((m.predict(Xt) == Yt).mean())
+        fits[(dt, solver)] = (m, acc)
+        ref, acc_ref = fits[("float32", "blocked")]
+        jac = (len(set(m.sv_ids_) & set(ref.sv_ids_))
+               / len(set(m.sv_ids_) | set(ref.sv_ids_)))
+        rounds = getattr(m.result_, "n_outer", None)
+        log(f"[20d] {dt} {solver} on rows [:{n_fit}]: train {secs:.3f} s, "
+            f"status {m.status_.name}, rounds {rounds}, updates "
+            f"{m.n_iter_ - 1}, SV count {m.n_support_}, b {m.b_:.12f}, accuracy "
+            f"{acc:.4f} (float32 blocked on [:{n_cut}]: {acc_ref:.4f}), SV-ID "
+            f"Jaccard with it {jac:.3f}; launches {counts}")
+        check(m.status_ == Status.CONVERGED, f"[20d] {dt} {solver}: "
+              f"{m.status_.name}")
+        if dt != "float32":
+            check(sum(counts.values()) == 0,
+                  f"[20d] {dt} {solver} launched a float32 kernel: {counts}")
+        if solver == "blocked":
+            check(abs(acc - acc_ref) <= 0.002, f"[20d] {dt}: accuracy {acc} "
+                  f"vs float32 {acc_ref}")
+    clock("20d")
+
+    # (e) the subprocesses
+    done = _finish(smokes, out_dir, 600, "20e")
+    cal = load_any(cal_path, device=device)
+    for name, want in (
+            ("scores", [f"{v:.15f}" for v in cal.decision_function(Xt)]),
+            ("proba", [f"{v:.15f}" for v in cal.predict_proba(Xt)[:, 1]])):
+        got = done[name][0].splitlines()
+        log(f"[20e] predict --{name} on phase 9's Platt model (a "
+            f"subprocess, done {done[name][1]:.1f} s after its start, read "
+            f"after (d)): {len(got)} lines, "
+            f"equal to the in-process values to the printed digits "
+            f"{got == want}; first {got[:2]}")
+        check(got == want, f"[20e] predict --{name} differs")
+    for name in ("smoke_svc", "smoke_ovr", "smoke_svr"):
+        line = _line(r"(train smoke ok .*)", done[name][0])
+        log(f"[20e] train --smoke {name[6:]} (a subprocess beside (d), done "
+            f"{done[name][1]:.1f} s after its start, read after (d)): {line}")
+    clock("20e")
+
+
+# phase 21's search: a 3 x 3 log grid (step 4) around phase 5's point,
+# halving over 3 folds with eta 3 from 4,096 rows, one fleet a fold and rung
+TUNE_SPAN, TUNE_FOLDS, TUNE_ETA, TUNE_MIN_RUNG = 1, 3, 3, 4096
+
+
+def phase_tune(X_all, Y_all, n_tr, acc5, device, counters, launches,
+               out_dir):
+    """Phase 21, tuning on phase 5's training rows: the halving search with
+    fleet=True (phase 5's q, wss and max_inner), every fit ending with a
+    status JAX's tune accepts, the winner's mean CV accuracy within 0.005
+    of phase 5's held-out accuracy, the problem-axis #1 and #2 launched, one
+    lane of the last rung re-fit alone (a one-lane fleet_train with its
+    seed) equal to its lane bit for bit, the results JSON written and
+    described by `info` with format_table's text; `tune --smoke` as a
+    subprocess beside it. Each rung's seconds and the phase's."""
+    import torch
+    from tpusvm_torch import fleet
+    from tpusvm_torch.tune import (TuneConfig, format_table, load_tune_result,
+                                   log_grid, save_tune_result, tune)
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    smoke = {"tune_smoke": (_start(["tpusvm_torch", "tune", "--smoke"],
+                                   out_dir, "tune_smoke", device),
+                            time.perf_counter())}
+    grid = log_grid(C, GAMMA, span=TUNE_SPAN)
+    calls = []
+    real = fleet.fleet_train
+
+    def recorded(Xr, Ys, Cs, gammas, **kw):
+        outs = real(Xr, Ys, Cs, gammas, **kw)
+        calls.append((Xr, Ys, Cs, gammas, kw, outs))
+        return outs
+
+    said = []
+
+    def say(msg):
+        said.append((time.perf_counter(), msg))
+
+    _zero(counters)
+    fleet.fleet_train = recorded
+    sync(device)
+    t0 = time.perf_counter()
+    try:
+        res = tune(X_all[:n_tr], Y_all[:n_tr], grid,
+                   TuneConfig(folds=TUNE_FOLDS, schedule="halving",
+                              eta=TUNE_ETA, min_rung=TUNE_MIN_RUNG,
+                              fleet=True),
+                   solver_opts=FULL_OPTS, log_fn=say, device=device)
+    finally:
+        fleet.fleet_train = real
+    sync(device)
+    secs = time.perf_counter() - t0
+    counts = _count(counters)
+    t_prev = t0
+    for t, msg in said:
+        if " rung " in msg:
+            log(f"[21] {msg}: {t - t_prev:.3f} s")
+            t_prev = t
+    for line in format_table(res).splitlines():
+        log(f"[21]   {line}")
+    ended = [msg for _, msg in said if " ended " in msg]
+    win = res.winner
+    log(f"[21] halving tune, fleet, {grid.shape[0]}x{grid.shape[1]} grid, "
+        f"{TUNE_FOLDS} folds, eta {TUNE_ETA}, min rung {TUNE_MIN_RUNG}: "
+        f"{secs:.3f} s, {len(calls)} fleets, {res.total_updates} updates; "
+        f"winner C={win['C']:g} gamma={win['gamma']:g} cv_accuracy "
+        f"{win['cv_accuracy']:.4f} (phase 5 held out {acc5:.4f}); fits ending "
+        f"outside CONVERGED/NO_WORKING_SET: {ended}; launches {counts}")
+    check(not ended, f"[21] fits ended {ended}")
+    check(abs(win["cv_accuracy"] - acc5) <= 0.005,
+          f"[21] winner cv_accuracy {win['cv_accuracy']} vs phase 5 {acc5}")
+    check(device == "cpu" or (counts["inner_smo_batched"] > 0
+                              and counts["fused_fupdate_batched"] > 0),
+          f"[21] the problem-axis kernels did not launch: {counts}")
+    for k in ("inner_smo_batched", "fused_fupdate_batched", "fused_fupdate",
+              "inner_smo"):
+        launches.setdefault(k, {})["21"] = counts[k]
+    Xr, Ys, Cs, gammas, kw, outs = calls[-1]
+    one = dict(kw)
+    if kw.get("alpha0s") is not None:
+        one["alpha0s"] = [kw["alpha0s"][0]]
+    solo = real(Xr, [Ys[0]], [Cs[0]], [gammas[0]], **one)[0]
+    same = (torch.equal(solo.alpha, outs[0].alpha)
+            and float(solo.b) == float(outs[0].b)
+            and int(solo.n_iter) == int(outs[0].n_iter)
+            and int(solo.status) == int(outs[0].status))
+    log(f"[21] the last rung's lane 0 (C={Cs[0]:g}, gamma={gammas[0]:g}, "
+        f"{Xr.shape[0]} rows, seeded {one.get('alpha0s') is not None}) re-fit "
+        f"alone: equal bit for bit {same}")
+    check(same, "[21] a lane differs from its one-lane fit")
+    path = str(out_dir / "tune.json")
+    save_tune_result(path, res)
+    out, _ = _cli_in_process(["info", path], device)
+    check(out.strip() == format_table(load_tune_result(path)),
+          "[21] info does not print format_table's text")
+    done = _finish(smoke, out_dir, 600, "21")
+    log(f"[21] info {path}: format_table's text; tune --smoke "
+        f"({done['tune_smoke'][1]:.1f} s in a subprocess, beside the search): "
+        f"{_line(r'(tune smoke ok.*)', done['tune_smoke'][0])}")
 
 
 def sync(device):
@@ -2897,6 +3318,13 @@ def main():
     check(abs(acc5b - acc5) <= 0.002, f"5b accuracy {acc5b} vs phase 5 {acc5}")
 
     clock("5, 5b")
+    # the CSVs of phases 10, 14(d), 17(e) and 20(b), written in the
+    # background from here on (stopped at exit if still running)
+    import atexit
+
+    csvs, writers = start_csv_writers(70000, 60000, 784,
+                                      _build.BUILD_DIR / "chip_smoke_csvs")
+    atexit.register(lambda: [p.kill() for p in writers if p.poll() is None])
 
     # ---- 6. where the time goes: each full-width fit again, profiled -----
     # (5b cut in depth to its first PROFILE_5B_ROUNDS rounds)
@@ -2950,8 +3378,8 @@ def main():
     clock("9")
 
     # ---- 10-13. the front door, refine, checkpoints, shrinking, cache ----
-    csv10 = phase_front(X_all, Y_all, 60000, N_CSV, N_CSV_LIMIT, N_ORACLE,
-                        N_CSV_TEST, "cuda", model5_path)
+    csv10 = phase_front(X_all, Y_all, 60000, N_CSV_LIMIT, N_ORACLE, csvs,
+                        writers, m5, "cuda", model5_path)
     clock("10")
     m11, gaps11 = phase_refine(X_all, Y_all, 60000, m5, acc5, "cuda", counters)
     clock("11")
@@ -2970,8 +3398,8 @@ def main():
 
     # ---- 14. the cascade: tree and star, blocked and pair leaves ---------
     fits14 = phase_cascade(X_all, Y_all, 60000, m5, acc5, "cuda", counters,
-                           launches, _build.BUILD_DIR / "chip_smoke_cascade",
-                           clock)
+                           launches, csvs,
+                           _build.BUILD_DIR / "chip_smoke_cascade", clock)
 
     # ---- 17, 18. the out-of-core tier, the approximate families ---------
     ds, m17d = phase_stream(X_all, Y_all, 60000, m5, acc5, fits14["14b"][0],
@@ -2984,6 +3412,14 @@ def main():
     # ---- 19. the pod: the cascade's leaves in worker processes ----------
     phase_pod(ds, m17d, "cuda", counters, launches, smi)
     clock("19")
+
+    # ---- 20, 21. the class axis and the front door; tuning --------------
+    phase_class_axis(Xm, lm, 60000, ovr_model, ovr_a, X_all, Y_all, m5, acc5,
+                     csvs, writers, model5_path, "cuda", counters, launches,
+                     _build.BUILD_DIR / "chip_smoke_class", clock)
+    phase_tune(X_all, Y_all, 60000, acc5, "cuda", counters, launches,
+               _build.BUILD_DIR / "chip_smoke_tune")
+    clock("21")
 
     for k in kernels:
         k["launches_by_phase"] = launches[k["name"]]

@@ -79,10 +79,14 @@ def test_port_matches_jax_ovr(fits, data):
 
 
 def test_fleet_and_class_parallel_are_refused():
-    # the fleet is ported (tests/test_torch_fleet.py); the mesh is not
+    # the fleet is ported (tests/test_torch_fleet.py); class_parallel is
+    # ported for the pair solver (tests/test_torch_class_parallel.py) and
+    # refused with the others, as in the JAX package
     assert OneVsRestSVC(solver="fleet", device="cpu").solver == "fleet"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        OneVsRestSVC(class_parallel=True, device="cpu")
+    assert OneVsRestSVC(class_parallel=True, device="cpu").class_parallel
+    for solver in ("blocked", "fleet"):
+        with pytest.raises(ValueError, match="requires solver='pair'"):
+            OneVsRestSVC(solver=solver, class_parallel=True, device="cpu")
     with pytest.raises(ValueError, match="pair|blocked"):
         OneVsRestSVC(solver="oracle", device="cpu")
     # the approximate families are ported (tests/test_torch_approx.py)

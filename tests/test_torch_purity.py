@@ -141,7 +141,8 @@ def test_checkpoint_shrink_and_csv_entry_points_raise_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("pkg", ["stream", "approx", "faults", "obs", "pod",
-                                 "faults.__main__"])
+                                 "faults.__main__", "tune", "parallel.mesh",
+                                 "data.native_io"])
 def test_new_tiers_import_alone_without_jax_or_tpusvm(pkg):
     # each tier in a fresh interpreter, alone: what it pulls in is its own
     code = f"""
@@ -221,3 +222,38 @@ def test_pod_workers_run_without_jax_or_tpusvm(tmp_path, monkeypatch):
     finally:
         torch.set_num_threads(n)
     assert res.converged and sum(res.worker_rows) == 64
+
+
+def test_class_axis_ranks_and_the_native_reader_run_without_jax_or_tpusvm(
+        tmp_path):
+    # two rank processes of `train --multiclass --class-parallel
+    # --distributed` (the CSV through the native reader) start under a
+    # guard that makes jax and the JAX package unimportable
+    from tpusvm_torch.data import write_csv
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(60, 2)) + np.repeat([[0, 0], [5, 0], [0, 5]], 20, 0)
+    write_csv(str(tmp_path / "a.csv"), X, np.repeat([0, 1, 2], 20))
+    guard = ("import runpy, sys; sys.modules['jax'] = sys.modules['tpusvm'] "
+             "= None; sys.argv[0] = 'tpusvm_torch'; "
+             "runpy.run_module('tpusvm_torch', run_name='__main__', "
+             "alter_sys=True)")
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    argv = ["train", "--train", "a.csv", "--C", "10", "--gamma", "1",
+            "--multiclass", "--class-parallel", "--distributed",
+            "--coordinator-address", f"file://{tmp_path / 'store'}",
+            "--num-processes", "2", "--device", "cpu"]
+    procs = [subprocess.Popen([sys.executable, "-c", guard, *argv,
+                               "--process-id", str(r)], cwd=tmp_path,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    assert "status = ['CONVERGED', 'CONVERGED', 'CONVERGED']" in outs[0][0]

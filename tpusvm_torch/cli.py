@@ -1,4 +1,4 @@
-"""Command line: `python -m tpusvm_torch train|pod|predict|ingest|info`.
+"""Command line: `python -m tpusvm_torch train|pod|predict|ingest|tune|info`.
 
 train fits a model on a CSV (--train, last column = label; --test scores a
 held-out CSV) or a synthetic dataset, scores the held-out rows and prints
@@ -13,23 +13,30 @@ process or as one rank process each with --distributed
 --coordinator-address --num-processes --process-id over torch.distributed
 gloo, where rank 0 alone prints the result and saves), the solver
 (--solver blocked|pair), the kernel family (--kernel, --degree, --coef0),
-one-vs-rest (--multiclass), epsilon-SVR (--task svr, --epsilon), Platt
+the feature dtype (--dtype), one-vs-rest (--multiclass; --class-parallel
+splits the heads over the visible cards, or with --distributed over rank
+processes, each saving the model), epsilon-SVR (--task svr, --epsilon), Platt
 calibration (--calibrate K), crash-safe checkpoints (--checkpoint,
 --resume, --checkpoint-every), active-set shrinking (--shrink-every,
 --shrink-stable), and the approximate families (--kernel rff|nystrom with
---rff-dim, --rff-seed, --landmarks). train --data DIR trains from a sharded
+--rff-dim, --rff-seed, --landmarks), and --smoke, a tiny gated run of the
+(kernel, task) cell. train --data DIR trains from a sharded
 dataset (--mode single: the exact families' solve, or the approximate
 families' streaming primal fit; --mode cascade: the cascade filled shard by
 shard; --mode pod: the cascade's leaves in worker processes, each
 streaming its own shards). pod runs the pod cascade on a sharded dataset
 (by default a synthetic rings draw, then held bit for bit against the
 in-memory cascade; --smoke makes that a gate). ingest writes such a
-dataset from a CSV or a synthetic draw.
+dataset from a CSV or a synthetic draw. tune runs the cross-validated
+(C, gamma) search (grid or halving, warm starts, --fleet) and trains the
+winner. CSVs of class labels are read by the native reader.
 predict scores a saved model of any kind (either package's `.npz`) on a
-CSV or a sharded dataset (--data) or the synthetic held-out slice. info
-prints the torch/CUDA versions and the visible devices, or describes a
-model artifact or a sharded dataset (its manifest and each shard's
-StreamStatus). train and predict run on the card unless --device cpu.
+CSV or a sharded dataset (--data) or the synthetic held-out slice, and
+prints accuracy, or --scores / --proba line by line (--mesh-predict splits
+the rows over the visible cards). info prints the torch/CUDA versions and
+the visible devices, or describes a model artifact, a tune-results JSON or
+a sharded dataset (its manifest and each shard's StreamStatus). train,
+predict and tune run on the card unless --device cpu.
 """
 
 from __future__ import annotations
@@ -44,7 +51,8 @@ import numpy as np
 from tpusvm_torch.config import (DATASET_PRESETS, KERNEL_FAMILIES,
                                  CascadeConfig, SVMConfig, is_approx_family,
                                  preset)
-from tpusvm_torch.data.csv_reader import read_csv, read_csv_regression
+from tpusvm_torch.data.csv_reader import read_csv_regression
+from tpusvm_torch.data.native_io import read_csv_fast
 from tpusvm_torch.data.scaler import MinMaxScaler
 from tpusvm_torch.data.synthetic import (BENCH_LABEL_NOISE, BENCH_NOISE,
                                          BENCH_NOISE_MULTICLASS, blobs,
@@ -155,6 +163,10 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--accum", choices=("none", "float64"), default="float64",
                     help="solver accumulator dtype: float64 (default; f32 "
                     "features, f64 alpha and f) or none (the features' f32)")
+    tr.add_argument("--dtype", choices=("float32", "bfloat16", "float64"),
+                    default="float32",
+                    help="feature/kernel dtype (the card's kernels take "
+                    "float32; the others run the solvers' torch engines)")
     tr.add_argument("--no-scale", action="store_true",
                     help="skip min-max feature scaling")
     tr.add_argument("--solver", choices=("blocked", "pair", "fleet"),
@@ -214,6 +226,11 @@ def build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--multiclass", action="store_true",
                     help="one-vs-rest over all labels instead of the "
                     "reference's binary '1 vs rest' mapping")
+    tr.add_argument("--class-parallel", action="store_true",
+                    help="with --multiclass: split the class axis over the "
+                    "visible cards (requires the pair solver); with "
+                    "--distributed, one slice of the heads a rank process, "
+                    "and every rank saves the whole model")
     tr.add_argument("--task", choices=("svc", "svr", "ovr"), default="svc",
                     help="svc = classification (default); svr = "
                     "epsilon-insensitive regression over the doubled "
@@ -246,6 +263,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="rounds a row must stay at a bound and safe before "
                     "--shrink-every may freeze it (default 3)")
     tr.add_argument("--save", metavar="PATH", help="write the model .npz")
+    tr.add_argument("--smoke", action="store_true",
+                    help="gate: a tiny synthetic run for the (kernel, task) "
+                    "cell with the convergence ring on; non-zero exit "
+                    "unless it converges (every head, --task ovr), beats "
+                    "the held-out accuracy (R^2) gate and records a gap "
+                    "trajectory ending within 2 tau")
+    tr.add_argument("--trace", metavar="PATH",
+                    help="not ported yet (ROADMAP Queue 1 item 12)")
+    tr.add_argument("--profile", metavar="DIR",
+                    help="not ported yet (ROADMAP Queue 1 item 12)")
     pr = sub.add_parser("predict", help="score a saved model")
     _add_data_args(pr, "--data", "CSV (header line, last column = label) or "
                    "a sharded dataset directory to score (a directory "
@@ -255,6 +282,16 @@ def build_parser() -> argparse.ArgumentParser:
                     "model scores mnist_like as its 10-class draw)")
     pr.add_argument("--batch-size", type=int, default=4096,
                     help="--data DIR: rows scored per batch (default 4096)")
+    pr.add_argument("--scores", action="store_true",
+                    help="print decision scores instead of accuracy (one "
+                    "line per row; multiclass: one column per class; svr: "
+                    "the regressed values)")
+    pr.add_argument("--proba", action="store_true",
+                    help="print Platt-calibrated P(y=+1) per row (requires "
+                    "a binary model trained with --calibrate)")
+    pr.add_argument("--mesh-predict", action="store_true",
+                    help="split the test rows over every visible card "
+                    "(parallel/mesh.py; --device cpu: the CPU)")
     ing = sub.add_parser(
         "ingest", help="write a CSV or a synthetic draw as a sharded "
         "dataset: .npz shards and a JSON manifest with per-shard stats and "
@@ -272,6 +309,14 @@ def build_parser() -> argparse.ArgumentParser:
                      help="shards always store RAW features: naming rff or "
                      "nystrom here explains (with an error) that the map is "
                      "applied at train time, per shard in the prefetch hook")
+    # accepted so that the JAX command line meets the refusal of --kernel
+    # rff/nystrom below, not an argparse error
+    ing.add_argument("--rff-dim", type=int, default=2048, metavar="D",
+                     help=argparse.SUPPRESS)
+    ing.add_argument("--rff-seed", type=int, default=0, metavar="S",
+                     help=argparse.SUPPRESS)
+    ing.add_argument("--landmarks", type=int, default=256, metavar="K",
+                     help=argparse.SUPPRESS)
     ing.add_argument("--rows-per-shard", type=int, default=65536,
                      help="rows per .npz shard (default 65536)")
     ing.add_argument("--block-rows", type=int, default=8192,
@@ -326,12 +371,107 @@ def build_parser() -> argparse.ArgumentParser:
                     "12)")
     po.add_argument("-q", "--quiet", action="store_true")
     po.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    _add_tune_parser(sub)
     inf = sub.add_parser("info", help="print the torch/CUDA versions and the "
                          "visible devices, or describe a model artifact")
     inf.add_argument("path", nargs="?", default=None,
-                     help="a model .npz of either package, or a sharded "
-                     "dataset directory")
+                     help="a model .npz of either package, a tune-results "
+                     "JSON, or a sharded dataset directory")
     return ap
+
+
+def _add_tune_parser(sub) -> None:
+    """The `tune` sub-command: the JAX command line's flags, the trace and
+    profile flags refused (item 12)."""
+    tu = sub.add_parser(
+        "tune", help="cross-validated (C, gamma) search with warm-started "
+        "fits (tune/); trains the winner on the full data")
+    _add_data_args(tu, "--train", "training CSV (last column = label)")
+    tu.add_argument("--test", metavar="CSV",
+                    help="held-out CSV to score the winner on")
+    tu.add_argument("--data", metavar="DIR",
+                    help="a sharded dataset directory (`ingest`): folds from "
+                    "the manifest's labels, each fold gathering only its "
+                    "rows")
+    tu.add_argument("--kernels", metavar="LIST", default=None,
+                    help="comma-separated kernel families to search "
+                    "alongside (C, gamma), e.g. rbf,linear,poly (default: "
+                    "rbf only); the winner is the global CV argmax")
+    tu.add_argument("--degree", type=int, default=3,
+                    help="polynomial degree for the poly family")
+    tu.add_argument("--coef0", type=float, default=1.0,
+                    help="polynomial additive term for the poly family "
+                    "(default 1.0)")
+    tu.add_argument("--C-grid", metavar="LIST", dest="C_grid",
+                    help="comma-separated C values (overrides "
+                    "--center-C/--span/--step)")
+    tu.add_argument("--gamma-grid", metavar="LIST",
+                    help="comma-separated gamma values")
+    tu.add_argument("--center-C", type=float, default=10.0,
+                    help="log-grid center C when --C-grid is absent")
+    tu.add_argument("--center-gamma", type=float, default=0.00125,
+                    help="log-grid center gamma when --gamma-grid is "
+                    "absent")
+    tu.add_argument("--span", type=int, default=2,
+                    help="log grid: steps each side of the center")
+    tu.add_argument("--step", type=float, default=4.0,
+                    help="log grid: multiplicative step per cell")
+    tu.add_argument("--folds", type=int, default=3,
+                    help="stratified CV folds (default 3)")
+    tu.add_argument("--fold-seed", type=int, default=0,
+                    help="fold split / rung subset shuffle seed")
+    tu.add_argument("--schedule", choices=("grid", "halving"),
+                    default="grid")
+    tu.add_argument("--eta", type=int, default=3,
+                    help="halving: rung growth factor and survivor "
+                    "fraction denominator")
+    tu.add_argument("--min-rung", type=int, default=256,
+                    help="halving: smallest rung subset size")
+    tu.add_argument("--no-warm-start", action="store_true",
+                    help="fit every point cold")
+    tu.add_argument("--patience", type=int, default=None,
+                    help="grid: stop after this many consecutive "
+                    "non-improving points")
+    tu.add_argument("--plateau-tol", type=float, default=0.0,
+                    help="minimum CV-accuracy gain that resets --patience")
+    tu.add_argument("--fleet", action="store_true", dest="fleet",
+                    help="run each rung's points as one fleet a fold "
+                    "(fleet/: the points share the fold's scaled rows and "
+                    "norms and differ only in (C, gamma))")
+    tu.add_argument("--no-fleet", action="store_false", dest="fleet",
+                    help="per-point sequential fits (the default)")
+    tu.set_defaults(fleet=False)
+    tu.add_argument("--fleet-compact", type=int, default=0, metavar="R",
+                    help="--fleet: the JAX CLI's compaction cadence; "
+                    "accepted and inert here (R >= 0)")
+    tu.add_argument("--tau", type=float, default=1e-5)
+    tu.add_argument("--eps", type=float, default=1e-12)
+    tu.add_argument("--sv-tol", type=float, default=1e-8)
+    tu.add_argument("--max-iter", type=int, default=100000)
+    tu.add_argument("--dtype", choices=("float32", "bfloat16", "float64"),
+                    default="float32")
+    tu.add_argument("--accum", choices=("none", "float64"), default="float64",
+                    help="solver accumulator dtype (see train --accum)")
+    tu.add_argument("--no-scale", action="store_true",
+                    help="skip min-max feature scaling")
+    tu.add_argument("--solver-opt", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="extra blocked-solver knob, repeatable (e.g. "
+                    "--solver-opt q=256)")
+    tu.add_argument("--results", metavar="JSON",
+                    help="write the versioned TuneResult table here")
+    tu.add_argument("--save", metavar="NPZ",
+                    help="save the winner model trained on the full data")
+    tu.add_argument("--smoke", action="store_true",
+                    help="gate: a 2x2 grid, 2 folds, synthetic rings (blobs "
+                    "for a --kernels sweep); non-zero exit unless warm "
+                    "seeding engaged, every point beats chance and the "
+                    "winner model scores > 0.8 held out")
+    tu.add_argument("--trace", metavar="PATH",
+                    help="not ported yet (ROADMAP Queue 1 item 12)")
+    tu.add_argument("--profile", "--xprof", metavar="DIR", dest="profile",
+                    help="not ported yet (ROADMAP Queue 1 item 12)")
+    tu.add_argument("-q", "--quiet", action="store_true")
 
 
 def _synthetic(args, multiclass: bool):
@@ -352,11 +492,12 @@ def _synthetic(args, multiclass: bool):
 
 def _read(path: str, args, task: str, n_limit=None):
     """(X, Y) of a CSV: continuous targets for svr, raw labels for
-    one-vs-rest, else the binary `!= positive_label -> -1` mapping."""
+    one-vs-rest, else the binary `!= positive_label -> -1` mapping. Class
+    labels go through the native reader (data/native_io.py)."""
     if task == "svr":
         return read_csv_regression(path, n_limit=n_limit)
-    return read_csv(path, n_limit=n_limit, binary=task != "ovr",
-                    positive_label=args.positive_label)
+    return read_csv_fast(path, n_limit=n_limit, binary_labels=task != "ovr",
+                         positive_label=args.positive_label)
 
 
 def _data(args, task: str = "svc"):
@@ -399,6 +540,18 @@ def _check_train_args(args) -> None:
         if args.solver != "fleet":
             raise SystemExit("--fleet-compact needs --fleet/--solver "
                              "fleet")
+    if args.trace or args.profile:
+        raise SystemExit("train --trace/--profile: the trace and profile "
+                         "layer is not ported yet (ROADMAP Queue 1 item 12)")
+    if args.class_parallel:
+        if not args.multiclass:
+            raise SystemExit("--class-parallel requires --multiclass (it "
+                             "shards the one-vs-rest class axis)")
+        if args.solver in ("blocked", "fleet"):
+            raise SystemExit(
+                "--class-parallel shards the vmapped pair solver over the "
+                "mesh; --solver blocked trains classes sequentially and "
+                "--solver fleet is already one batched launch")
     approx = args.kernel in ("rff", "nystrom")
     if args.data:
         if args.train or args.synthetic:
@@ -451,9 +604,11 @@ def _check_train_args(args) -> None:
         raise SystemExit("--coordinator-address/--num-processes/--process-id "
                          "require --distributed")
     if args.distributed:
-        if args.mode != "cascade":
-            raise SystemExit("--distributed runs the cascade's ranks as "
-                             "processes; it needs --mode cascade")
+        if args.mode != "cascade" and not args.class_parallel:
+            raise SystemExit("--distributed runs the cascade's ranks (or "
+                             "the class axis's) as processes; it needs "
+                             "--mode cascade or --multiclass "
+                             "--class-parallel")
         if (not args.coordinator_address or args.num_processes is None
                 or args.process_id is None):
             raise SystemExit("--distributed needs --coordinator-address, "
@@ -623,11 +778,15 @@ class _Timer:
         return "\n".join(lines)
 
 
-def _accuracy_line(model, Xt, Yt, timer, task: str = "svc") -> None:
+def _accuracy_line(model, Xt, Yt, timer, task: str = "svc", mesh=None):
+    """Print the held-out accuracy (R^2 for svr) and return it; None on no
+    rows. mesh: the classifiers' rows split over it (predict
+    --mesh-predict)."""
     if not len(Yt):
-        return
+        return None
     t = time.perf_counter()
-    acc = model.score(Xt, Yt)
+    acc = (model.score(Xt, Yt) if mesh is None or task == "svr"
+           else model.score(Xt, Yt, mesh=mesh))
     timer.add("prediction", t)
     m = len(Yt)
     if task == "svr":
@@ -637,6 +796,7 @@ def _accuracy_line(model, Xt, Yt, timer, task: str = "svc") -> None:
         print(f"r2 = {acc:.4f}  rmse = {rmse:.4f} ({m} rows)")
     else:
         print(f"accuracy = {acc:.4f} ({round(acc * m)}/{m})")
+    return acc
 
 
 def _config(args) -> SVMConfig:
@@ -724,7 +884,93 @@ def _fit_pod(model, args):
     return model
 
 
+def _smoke_fixture(args) -> None:
+    """train --smoke: the JAX command line's tiny fixture for the (kernel,
+    task) cell under test. Rings need the RBF geometry (the approximate
+    families get them too, with map widths sized to the problem), the
+    linear-like families separable blobs, svr the sine regression problem,
+    ovr a 10-class mnist-shaped problem; the binary cells carry a 32-slot
+    convergence ring."""
+    if args.task == "ovr":
+        args.synthetic, args.d = "mnist_like", 64
+        args.C, args.gamma = 10.0, 1.0 / 64
+        args.train = args.data = args.test = None
+        args.n, args.n_test, args.n_limit = 1024, 256, None
+        args.mode = "single"
+        args.solver = args.solver or ("fleet" if args.fleet else "blocked")
+        return
+    if args.task == "svr":
+        args.synthetic, args.d = "svr_sine", 2
+        args.C, args.gamma, args.epsilon = 10.0, 20.0, 0.1
+    elif args.kernel in ("rbf", "rff", "nystrom"):
+        args.synthetic = "rings"
+        args.C, args.gamma = 10.0, 10.0
+        if args.kernel == "rff":
+            args.rff_dim = min(args.rff_dim, 512)
+        if args.kernel == "nystrom":
+            args.landmarks = min(args.landmarks, 128)
+    elif args.kernel == "sigmoid":
+        # tanh needs the negative offset to carve a margin on blobs
+        args.synthetic, args.d = "blobs", 6
+        args.C, args.gamma = 10.0, 0.25
+        if args.coef0 == 0.0:
+            args.coef0 = -1.0
+    else:
+        args.synthetic, args.d = "blobs", 6
+        args.C, args.gamma = 1.0, 1.0
+        if args.kernel == "poly" and args.coef0 == 0.0:
+            args.coef0 = 1.0  # odd-degree poly needs the affine term
+    args.train = args.data = args.test = None
+    args.n, args.n_test, args.n_limit = 240, 60, None
+    args.mode, args.multiclass = "single", False
+    args.solver = args.solver or "blocked"
+    if args.convergence == 0:
+        args.convergence = 32
+
+
+def _smoke_gates(args, model, acc) -> int:
+    """train --smoke's gates, the JAX command line's: 0 when they hold."""
+    failures = []
+    if args.task == "ovr":
+        bad = [(int(c), Status(int(s)).name)
+               for c, s in zip(model.classes_, model.statuses_)
+               if int(s) != Status.CONVERGED]
+        if bad:
+            failures.append(f"heads did not converge: {bad}")
+        if acc is None or acc <= 0.25:
+            failures.append(f"held-out accuracy gate failed ({acc!r})")
+        ok = (f"train smoke ok [ovr/{args.solver}]: {len(model.classes_)} "
+              f"heads, SV union {model.X_sv_.shape[0]}, accuracy "
+              f"{acc if acc is None else format(acc, '.4f')}")
+    else:
+        gate = "r2" if args.task == "svr" else "accuracy"
+        conv = model.convergence_
+        if model.status_ != Status.CONVERGED:
+            failures.append(f"solver ended {model.status_.name}")
+        if acc is None or acc <= 0.8:
+            failures.append(f"held-out {gate} gate failed ({acc!r})")
+        if conv is None or len(conv["gap"]) == 0:
+            failures.append("no convergence telemetry recorded")
+        elif conv["gap"][-1] > 2.0 * args.tau * (1 + 1e-9):
+            failures.append(
+                f"final recorded gap {conv['gap'][-1]:g} exceeds the 2*tau "
+                f"stopping criterion ({2 * args.tau:g})")
+        ok = (f"train smoke ok [{args.kernel}/{args.task}]: "
+              f"{model.n_support_} SVs, {gate} "
+              f"{acc if acc is None else format(acc, '.4f')}, "
+              f"{conv['rounds_recorded'] if conv else 0} convergence rounds "
+              "recorded")
+    for f in failures:
+        print(f"TRAIN SMOKE FAILED: {f}")
+    if failures:
+        return 1
+    print(ok)
+    return 0
+
+
 def cmd_train(args) -> int:
+    if args.smoke:
+        _smoke_fixture(args)
     _check_train_args(args)
     if not args.distributed:
         return _train(args, None)
@@ -740,7 +986,7 @@ def cmd_train(args) -> int:
     try:
         if args.process_id == 0:
             return _train(args, group)
-        # the other ranks train their leaves and print nothing
+        # the other ranks train their leaves (or heads) and print nothing
         with contextlib.redirect_stdout(io.StringIO()):
             return _train(args, group)
     finally:
@@ -805,7 +1051,8 @@ def _train(args, group) -> int:
         opts.setdefault("shrink_stable", args.shrink_stable)
     common = dict(config=cfg, device=args.device, solver=solver,
                   solver_opts=opts, scale=not args.no_scale,
-                  accum_dtype="auto" if args.accum == "float64" else None)
+                  accum_dtype="auto" if args.accum == "float64" else None,
+                  dtype=args.dtype)
     t = time.perf_counter()
     if args.mode == "oracle":
         model = _fit_oracle(X, Y, cfg, args.device)
@@ -816,7 +1063,8 @@ def _train(args, group) -> int:
     elif args.task == "svr":
         model = EpsilonSVR(**common).fit(X, Y)
     elif args.multiclass:
-        model = OneVsRestSVC(**common).fit(X, Y)
+        model = OneVsRestSVC(**common, class_parallel=args.class_parallel
+                             ).fit(X, Y, group=group)
     elif dataset is not None:
         model = BinarySVC(**common).fit_stream(
             dataset, checkpoint_path=args.checkpoint,
@@ -847,9 +1095,11 @@ def _train(args, group) -> int:
         model.calibrate(X, Y, folds=args.calibrate)
         timer.add("calibration", t)
         print("calibrated: Platt A=%.6f B=%.6f" % model.platt_)
+    acc = None
     if Xt is not None and rank0:
-        _accuracy_line(model, Xt, Yt, timer, task)
-    if args.save and rank0:
+        acc = _accuracy_line(model, Xt, Yt, timer, task)
+    # the class axis's ranks all end with the whole model: each saves it
+    if args.save and (rank0 or args.class_parallel):
         model.save(args.save)
         print(f"model saved to {args.save}")
     conv = getattr(model, "convergence_", None)
@@ -859,6 +1109,8 @@ def _train(args, group) -> int:
         print("convergence (b_low - b_high per outer round):")
         print(format_gap_table(conv))
     print(timer.report())
+    if args.smoke:
+        return _smoke_gates(args, model, acc)
     return 0
 
 
@@ -936,6 +1188,14 @@ def cmd_pod(args) -> int:
     return 0
 
 
+def _print_rows(values) -> None:
+    """One line per row, each value as the JAX command line prints it."""
+    values = np.asarray(values)
+    if len(values):  # reshape(n, -1) is ambiguous on 0 rows
+        for row in values.reshape(len(values), -1):
+            print(" ".join(f"{s:.15f}" for s in row))
+
+
 def cmd_predict(args) -> int:
     from tpusvm_torch.models import load_any, model_task
 
@@ -943,39 +1203,68 @@ def cmd_predict(args) -> int:
 
     timer = _Timer()
     kind = model_task(args.model)
-    t = time.perf_counter()
     if (args.data is None) == (args.synthetic is None):
         raise SystemExit("pass exactly one of --data / --synthetic")
+    model = load_any(args.model, device=args.device)
+    if args.proba and (kind != "svc" or model.platt_ is None):
+        raise SystemExit(
+            "--proba needs a calibrated binary model (train with "
+            "--calibrate); this artifact carries no Platt coefficients")
+    t = time.perf_counter()
     if args.data and is_dataset_dir(args.data):
-        return _predict_stream(args, kind, timer)
+        return _predict_stream(args, kind, model, timer)
     if args.data:
         Xt, Yt = _read(args.data, args, kind, args.n_limit)
     else:
         _, _, Xt, Yt = _data(argparse.Namespace(**vars(args), train=None,
                                                 test=None), kind)
     timer.add("data", t)
-    model = load_any(args.model, device=args.device)
+    mesh = None
+    if args.mesh_predict:
+        from tpusvm_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(devices=["cpu"] if args.device == "cpu" else None)
+    if args.proba:
+        _print_rows(model.predict_proba(Xt, mesh=mesh)[:, 1])
+        return 0
+    if args.scores:
+        kw = {} if kind == "svr" else {"mesh": mesh}
+        _print_rows(model.decision_function(Xt, **kw))
+        return 0
     if kind == "ovr":
         print(f"classes = {[int(c) for c in model.classes_]}")
         print(f"SV count = {len(model.X_sv_)}")
     else:
         print(f"SV count = {model.n_support_}")
-    _accuracy_line(model, Xt, Yt, timer, kind)
+    _accuracy_line(model, Xt, Yt, timer, kind, mesh)
     print(timer.report())
     return 0
 
 
-def _predict_stream(args, kind: str, timer) -> int:
+def _predict_stream(args, kind: str, model, timer) -> int:
     """predict --data DIR: streamed scoring off the shards, batch by batch
     on the card; peak memory is the reader's bound plus one batch."""
-    from tpusvm_torch.models import load_any
-    from tpusvm_torch.stream import evaluate_stream, open_dataset
+    from tpusvm_torch.stream import (evaluate_stream, open_dataset,
+                                     predict_stream)
 
     if kind == "svr":
         raise SystemExit("svr models read CSV test data (--data CSV with a "
                          "continuous last column)")
     dataset = open_dataset(args.data)
-    model = load_any(args.model, device=args.device)
+    if args.mesh_predict:
+        raise SystemExit("--mesh-predict applies to CSV input; the streamed "
+                         "path batches over shards instead")
+    if args.scores:
+        n_out = 0
+        for scores, _ in predict_stream(model, dataset,
+                                        batch_size=args.batch_size):
+            if args.n_limit is not None:
+                scores = scores[:max(0, args.n_limit - n_out)]
+            n_out += len(scores)
+            _print_rows(scores)
+            if args.n_limit is not None and n_out >= args.n_limit:
+                break
+        return 0
     if kind == "ovr":
         print(f"classes = {[int(c) for c in model.classes_]}")
         print(f"SV count = {len(model.X_sv_)}")
@@ -1097,6 +1386,148 @@ def _ingest_smoke() -> int:
     return 0
 
 
+def cmd_tune(args) -> int:
+    """Cross-validated (C, gamma) search, then the winner trained on the
+    full data: the JAX command line's `tune`."""
+    import dataclasses
+
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.status import TuneStatus
+    from tpusvm_torch.tune import (TuneConfig, format_table, log_grid,
+                                   make_grid, normalize_kernel_specs,
+                                   save_tune_result, tune)
+
+    if args.trace or args.profile:
+        raise SystemExit("tune --trace/--profile: the trace and profile "
+                         "layer is not ported yet (ROADMAP Queue 1 item 12)")
+    if args.smoke:
+        # the JAX command line's fixture: 2 folds, a 2x2 grid; rings for
+        # one family, separable blobs for a family sweep (rings fail the
+        # linear family by construction)
+        multi_family = args.kernels and "," in args.kernels
+        args.synthetic = "blobs" if multi_family else "rings"
+        args.d = 6
+        args.train, args.test, args.data = None, None, None
+        args.n, args.n_test, args.n_limit = 240, 60, None
+        args.folds, args.fold_seed = 2, 0
+        args.C_grid, args.gamma_grid = "1,8", "1,8"
+        args.schedule = "grid"
+    if args.synthetic in ("svr_sine", "mnist_like_multiclass"):
+        raise SystemExit(f"tune is a binary classification search; "
+                         f"--synthetic {args.synthetic} is not binary "
+                         "training data")
+    if args.C_grid or args.gamma_grid:
+        if not (args.C_grid and args.gamma_grid):
+            raise SystemExit("tune: pass both --C-grid and --gamma-grid (or "
+                             "neither, for the log grid around "
+                             "--center-C/--center-gamma)")
+        try:
+            grid = make_grid([float(v) for v in args.C_grid.split(",")],
+                             [float(v) for v in args.gamma_grid.split(",")])
+        except ValueError as e:
+            raise SystemExit(f"tune: {e}")
+    else:
+        grid = log_grid(args.center_C, args.center_gamma, span=args.span,
+                        step=args.step)
+    base = SVMConfig(tau=args.tau, eps=args.eps, sv_tol=args.sv_tol,
+                     max_iter=args.max_iter, degree=args.degree,
+                     coef0=args.coef0)
+    kernel_specs = (None if not args.kernels
+                    else [k.strip() for k in args.kernels.split(",")])
+    try:
+        normalize_kernel_specs(kernel_specs, base)
+        config = TuneConfig(
+            folds=args.folds, seed=args.fold_seed, schedule=args.schedule,
+            eta=args.eta, min_rung=args.min_rung,
+            warm_start=not args.no_warm_start, patience=args.patience,
+            plateau_tol=args.plateau_tol, fleet=args.fleet,
+            fleet_compact=args.fleet_compact)
+    except ValueError as e:
+        raise SystemExit(f"tune: {e}")
+    accum = "auto" if args.accum == "float64" else None
+    timer = _Timer()
+    t = time.perf_counter()
+    dataset = None
+    if args.data:
+        if args.train or args.synthetic:
+            raise SystemExit("pass exactly one of --train / --synthetic / "
+                             "--data")
+        if args.n_limit is not None:
+            raise SystemExit("--n-limit does not apply to --data (re-ingest "
+                             "with --n-limit instead)")
+        from tpusvm_torch.stream import open_dataset
+
+        dataset = open_dataset(args.data)
+        X = Y = Xt = Yt = None
+        if args.test:
+            Xt, Yt = _read(args.test, args, "svc")
+        n, n_features = dataset.n_rows, dataset.n_features
+    else:
+        X, Y, Xt, Yt = _data(args, "svc")
+        n, n_features = X.shape
+    timer.add("data", t)
+    say = (lambda msg: None) if args.quiet else print
+    say(f"n = {n}, n_features = {n_features}, grid = {grid.shape[0]}x"
+        f"{grid.shape[1]}, folds = {args.folds}, schedule = {args.schedule}")
+    t = time.perf_counter()
+    result = tune(X, Y, grid, config, base=base, dtype=args.dtype,
+                  accum_dtype=accum, scale=not args.no_scale,
+                  solver_opts=_parse_solver_opts(args.solver_opt),
+                  log_fn=say, dataset=dataset, kernels=kernel_specs,
+                  device=args.device)
+    timer.add("search", t)
+    print(format_table(result))
+    if args.results:
+        save_tune_result(args.results, result)
+        say(f"results written to {args.results}")
+    # the winner becomes a normal model: a full-data fit at the winning
+    # point (its kernel family included), saved in the standard artifact
+    win_cfg = dataclasses.replace(
+        base, C=result.winner["C"], gamma=result.winner["gamma"],
+        kernel=result.winner["kernel"], degree=result.winner["degree"],
+        coef0=result.winner["coef0"])
+    model = BinarySVC(config=win_cfg, dtype=args.dtype,
+                      scale=not args.no_scale, device=args.device)
+    t = time.perf_counter()
+    if dataset is not None:
+        model.fit_stream(dataset)
+    else:
+        model.fit(X, Y)
+    timer.add("final-train", t)
+    say(f"winner model: {model.n_support_} SVs, status {model.status_.name}")
+    test_acc = None
+    if Xt is not None and len(Xt):
+        test_acc = model.score(Xt, Yt)
+        say(f"held-out accuracy = {test_acc:.4f}")
+    if args.save:
+        model.save(args.save)
+        say(f"model saved to {args.save}")
+    say(timer.report())
+    if args.smoke:
+        evaluated = [r for r in result.points
+                     if r["status"] == TuneStatus.EVALUATED.name]
+        # beyond each family's first point every fold fit must have found
+        # a warm seed; a fleet grid fits its population at once, so there
+        # the warm gate is vacuous
+        warm_ok = args.fleet or all(
+            r["warm_seeded"] == args.folds
+            for fam in {r["kernel"] for r in evaluated}
+            for r in [r for r in evaluated if r["kernel"] == fam][1:])
+        acc_ok = all(r["cv_accuracy"] is not None and r["cv_accuracy"] > 0.5
+                     for r in evaluated)
+        final_ok = test_acc is not None and test_acc > 0.8
+        if not (warm_ok and acc_ok and final_ok):
+            print(f"TUNE SMOKE FAILED: warm_ok={warm_ok} acc_ok={acc_ok} "
+                  f"final_ok={final_ok} (test_acc={test_acc})")
+            return 1
+        print(f"tune smoke ok: {len(evaluated)} points over "
+              f"{len(result.kernels)} kernel famil"
+              f"{'ies' if len(result.kernels) > 1 else 'y'}, winner "
+              f"kernel={result.winner['kernel']} C={result.winner['C']:g} "
+              f"gamma={result.winner['gamma']:g}, test_acc={test_acc:.4f}")
+    return 0
+
+
 def _info_devices() -> int:
     import torch
 
@@ -1146,17 +1577,22 @@ def _info_dataset(path: str) -> int:
 
 
 def _info_artifact(path: str) -> int:
-    """The JAX command line's description of a model artifact or a sharded
-    dataset. Its other artifact kinds belong to modules not ported yet."""
+    """The JAX command line's description of a model artifact, a sharded
+    dataset or a tune-results JSON. Its other artifact kinds (tenant
+    stores) belong to modules not ported yet."""
     import json
     import os
     import zipfile
 
     from tpusvm_torch.models import load_model, model_task
     from tpusvm_torch.stream import is_dataset_dir
+    from tpusvm_torch.tune import format_table, is_tune_result, load_tune_result
 
     if is_dataset_dir(path):
         return _info_dataset(path)
+    if is_tune_result(path):
+        print(format_table(load_tune_result(path)))
+        return 0
     if os.path.isdir(path):
         raise SystemExit(f"info: {path!r} is a directory without a "
                          "manifest.json: not a sharded dataset")
@@ -1167,9 +1603,9 @@ def _info_artifact(path: str) -> int:
         except (OSError, ValueError) as e:
             raise SystemExit(f"info: {path!r} is not a readable model "
                              f"artifact ({e})")
-        raise SystemExit(f"info: {path!r} is a JSON file; tune results and "
-                         "tenant stores are not ported yet (ROADMAP Queue 1 "
-                         "item 11)")
+        raise SystemExit(f"info: {path!r} is a JSON file but not a tune "
+                         "result; tenant stores are not ported yet (ROADMAP "
+                         "Queue 1 item 11(c))")
     try:
         task = model_task(path)
         state, config = load_model(path)
@@ -1247,7 +1683,8 @@ def cmd_info(args) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     return {"train": cmd_train, "pod": cmd_pod, "predict": cmd_predict,
-            "ingest": cmd_ingest, "info": cmd_info}[args.cmd](args)
+            "ingest": cmd_ingest, "tune": cmd_tune,
+            "info": cmd_info}[args.cmd](args)
 
 
 if __name__ == "__main__":

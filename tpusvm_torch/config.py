@@ -204,6 +204,25 @@ def resolve_accum_dtype(accum_dtype):
     return accum_dtype
 
 
+# the feature dtypes of the JAX estimators' dtype= (and train --dtype)
+FEATURE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float64": torch.float64}
+
+
+def resolve_dtype(dtype) -> torch.dtype:
+    """The feature dtype of an estimator: torch.float32 (the default),
+    torch.bfloat16 or torch.float64, or one of their names."""
+    if isinstance(dtype, str):
+        if dtype not in FEATURE_DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(FEATURE_DTYPES)}, "
+                             f"got {dtype!r}")
+        return FEATURE_DTYPES[dtype]
+    if dtype not in FEATURE_DTYPES.values():
+        raise ValueError(f"dtype must be torch.float32, torch.bfloat16 or "
+                         f"torch.float64, got {dtype!r}")
+    return dtype
+
+
 # Named dataset presets mirroring the reference's edit-in-place dataset
 # switch (main3.cpp:308-313): each maps to (C, gamma). A copy of the JAX
 # package's DATASET_PRESETS.

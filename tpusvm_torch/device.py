@@ -1,7 +1,9 @@
-"""Device resolution: entry points run on the card unless asked not to."""
+"""Device resolution (entry points run on the card unless asked not to)
+and the host-side conversions to and from the card."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -29,3 +31,19 @@ def host_to_device(data, dtype, device) -> torch.Tensor:
     if torch.device(device).type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_dtype(X, dtype: torch.dtype) -> torch.Tensor:
+    """Host values as a CPU tensor of `dtype` (numpy has no bfloat16, so
+    the cast runs in torch; float32 and float64 round as numpy does)."""
+    X = np.asarray(X)
+    if not X.flags.writeable:
+        X = X.copy()  # torch warns on aliasing read-only memory
+    return torch.as_tensor(X).to(dtype)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a numpy array on the host; bfloat16 comes back
+    as float32 (numpy has no bfloat16), exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -22,12 +22,19 @@ round's device work is batched on the problem axis:
      else the family's contraction per lane (kernels.cross_matvec, at the
      matmul_precision rung).
 
+Kernels #2 and #1 take float32 features. X of another dtype (bfloat16,
+float64) runs the fleet's torch lanes: each lane's subproblem on the solo
+loop engine and its f-update by the family's contraction, in X's dtype,
+as the JAX fleet computes in X's dtype.
+
 A lane that has left RUNNING is frozen: it takes part in no selection and
 no launch, and its alpha, f, counters and ring no longer change, as the
 JAX per-lane select freezes it. Every per-lane computation above is the
 solo solver's on that lane's data, so a lane's bits do not depend on its
 companions (the hard no-crosstalk gate of the JAX fleet) and, on the card,
-equal the solo blocked fit at inner="kernel" with the fused f-update.
+equal the solo blocked fit at inner="kernel" with the fused f-update; a
+seeded lane's kernel deltas are also held to the box [0, C]
+(kernel_delta_in_box), which the solo solver's are not.
 
 Host syncs: two a round for the whole fleet (the stop check and the
 kernel statuses). Index lists go to the card through pinned non-blocking
@@ -72,6 +79,25 @@ _INERT = ("inner", "fused_fupdate", "krow_cache", "shrink_stable",
           "resume_state", "pause_at", "return_state", "pallas_layout")
 
 
+def kernel_delta_in_box(a_B, da_B, C):
+    """A kernel round's alpha deltas, pulled back onto [0, C] where a_B +
+    delta leaves the box; every other member keeps its delta's bits.
+
+    Kernel #2 takes alpha in float32 and the delta is taken against
+    f32(a_B), so a member it moves to a bound lands off it by a_B -
+    f32(a_B) when a_B is not a float32 value: up to half a float32 ulp of
+    C outside the box, and the next pair through it is infeasible (U > V +
+    1e-12), which ends the lane INFEASIBLE_UV. A seeded lane (a tune
+    rung's padded, re-projected solution) starts with such alphas
+    everywhere, so its deltas are pulled back; the JAX fleet runs the loop
+    engine, whose alphas never leave the box. A cold lane's alphas are
+    float32 values until a rescue round, and it keeps the solo kernel
+    engine's arithmetic (the JAX kernel path's). C: (lanes, 1), one C a
+    lane."""
+    a = a_B + da_B
+    return torch.where(a < 0, -a_B, torch.where(a > C, C - a_B, da_B))
+
+
 @dataclasses.dataclass
 class FleetState:
     """The fleet's carry: every lane's solve state, so that a fleet paused
@@ -95,6 +121,7 @@ class FleetState:
     tele_status: torch.Tensor   # (B, T) int32
     tele_active: torch.Tensor   # (B, T) int32
     tele_i: List[int]
+    seeded: List[bool]          # started from a non-zero alpha0
     n_host_syncs: int = 0
     host_wait_s: float = 0.0
     n_rounds: int = 0           # lockstep rounds (loop body executions)
@@ -104,7 +131,7 @@ class FleetState:
     _LANE_TENSORS = ("alpha", "f", "tele_gap", "tele_upd", "tele_status",
                      "tele_active")
     _LANE_LISTS = ("b_high", "b_low", "n_updates", "n_outer", "n_rescue",
-                   "status", "f_exact", "n_refines", "tele_i")
+                   "status", "f_exact", "n_refines", "tele_i", "seeded")
 
     @property
     def B(self) -> int:
@@ -213,8 +240,8 @@ def fleet_smo_solve(
     prec = ops_precision(matmul_precision)
     dev = resolve_device(device)
     X = torch.as_tensor(X, device=dev)
-    if X.dtype != torch.float32:
-        X = X.to(torch.float32)
+    # the kernels take float32 X; another dtype runs the torch lanes
+    kernel_lanes = X.dtype == torch.float32
     Ys = torch.as_tensor(Ys, device=dev).to(torch.int32)
     if Ys.ndim != 2:
         raise ValueError(
@@ -241,7 +268,8 @@ def fleet_smo_solve(
     q = _clamp_q(n, q)
     half = q // 2
     # the problem-axis f-update computes the RBF pipeline at full f32
-    batched_fupdate = kernel == "rbf" and prec in (None, "float32", "highest")
+    batched_fupdate = (kernel_lanes and kernel == "rbf"
+                       and prec in (None, "float32", "highest"))
     if not kernels.needs_norms(kernel):
         sn = None
     elif sn is None:
@@ -272,10 +300,11 @@ def fleet_smo_solve(
                  else torch.as_tensor(alpha0s, device=dev).to(adt))
         alpha = torch.where(valids, alpha, zero_a)
         f = -yf
+        seeded = ([False] * B if alpha0s is None
+                  else alpha.ne(0).any(dim=1).tolist())
         if warm_start and alpha0s is not None:
             # once a solve, lane by lane, with the solo f-update (#1 for
             # RBF at full f32); a cold lane's f is -y exactly
-            seeded = alpha.ne(0).any(dim=1).tolist()
             f = f.clone()
             for b in (b for b in range(B) if seeded[b]):
                 coef = (alpha[b] * yf[b]).to(X.dtype)
@@ -297,7 +326,7 @@ def fleet_smo_solve(
             tele_upd=torch.zeros((B, telemetry), dtype=i32, device=dev),
             tele_status=torch.zeros((B, telemetry), dtype=i32, device=dev),
             tele_active=torch.zeros((B, telemetry), dtype=i32, device=dev),
-            tele_i=[0] * B)
+            tele_i=[0] * B, seeded=seeded)
 
     refine_cap = min(refine, n) if refine > 0 else 0
     n_valid = valids.sum(dim=1).to(torch.int32)  # the ring's live rows
@@ -372,32 +401,46 @@ def fleet_smo_solve(
             K_BB = torch.stack([
                 kernels.cross(kernel, Xp, Xp, **kern(b))
                 for Xp, b in ((X[Bsel[p]], b) for p, b in enumerate(lanes))])
-            # the delta against the f32-quantised baseline, as the solo
-            # kernel round does
-            a_B_q = a_B.to(torch.float32).to(adt)
-            a_new, stat = inner_smo_batched_kernel(
-                K_BB, y_B, a_B, f_B, active_B, C32_dev[Pb], eps, tau,
-                max_inner=max_inner, wss=wss)
-            da_B = a_new.to(adt) - a_B_q
-            # host sync 2: the kernel's statuses
-            t_wait = time.perf_counter()
-            stats = stat.tolist()
-            st.host_wait_s += time.perf_counter() - t_wait
-            st.n_host_syncs += 1
+            if kernel_lanes:
+                # the delta against the f32-quantised baseline, as the solo
+                # kernel round does
+                a_B_q = a_B.to(torch.float32).to(adt)
+                a_new, stat = inner_smo_batched_kernel(
+                    K_BB, y_B, a_B, f_B, active_B, C32_dev[Pb], eps, tau,
+                    max_inner=max_inner, wss=wss)
+                da_B = a_new.to(adt) - a_B_q
+                if any(st.seeded[b] for b in lanes):
+                    # seeded lanes only: a cold lane keeps the solo kernel
+                    # engine's bits (kernel_delta_in_box)
+                    pull = host_to_device([st.seeded[b] for b in lanes],
+                                          torch.bool, dev)[:, None]
+                    da_B = torch.where(
+                        pull, kernel_delta_in_box(a_B, da_B, C_P), da_B)
+                # host sync 2: the kernel's statuses
+                t_wait = time.perf_counter()
+                stats = stat.tolist()
+                st.host_wait_s += time.perf_counter() - t_wait
+                st.n_host_syncs += 1
+            else:
+                da_B = torch.zeros_like(a_B)
             outcome = []
             for p, b in enumerate(lanes):
-                upd, progress, reason, _ = stats[p]
-                if reason < 0:
-                    raise RuntimeError(
-                        "inner_smo batched kernel tripped its iteration "
-                        f"guard on lane {b} (stat={stats[p]})")
+                progress = False
+                if kernel_lanes:
+                    upd, progress, reason, _ = stats[p]
+                    if reason < 0:
+                        raise RuntimeError(
+                            "inner_smo batched kernel tripped its iteration "
+                            f"guard on lane {b} (stat={stats[p]})")
                 if not progress:
-                    # f32 rescue: the round redone in the accum dtype
+                    # a torch lane, or the f32 rescue of a kernel lane: the
+                    # round on the solo loop engine in the accum dtype
                     a_r, upd, progress, reason = _inner_smo(
                         K_BB[p], y_B[p], a_B[p], f_B[p], active_B[p],
                         C_acc[b], eps, tau, max_inner, wss=wss)
                     da_B[p] = a_r - a_B[p]
-                    st.n_rescue[b] += 1
+                    if kernel_lanes:
+                        st.n_rescue[b] += 1
                 outcome.append((int(upd), bool(progress), reason))
             dcoef = da_B * y_Ba
             # scatter_add: an inactive duplicate carries a zero delta

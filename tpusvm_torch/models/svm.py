@@ -19,9 +19,9 @@ import numpy as np
 import torch
 
 from tpusvm_torch.config import (CascadeConfig, SVMConfig, is_approx_family,
-                                 resolve_accum_dtype)
+                                 resolve_accum_dtype, resolve_dtype)
 from tpusvm_torch.data.scaler import MinMaxScaler
-from tpusvm_torch.device import resolve_device
+from tpusvm_torch.device import resolve_device, to_dtype, to_numpy
 from tpusvm_torch.kernels.platt import fit_platt, platt_proba
 from tpusvm_torch.models.serialization import load_model, save_model
 from tpusvm_torch.obs.convergence import materialize
@@ -120,16 +120,22 @@ class BinarySVC:
     pallas_fused_selection and the JAX solver's other knobs, as
     solver/blocked.py lists them, and shrinking_blocked_solve's
     shrink_every, shrink_min, shrink_gap_factor and max_unshrinks; pair:
-    chunk, graph). device: where fit and scoring run ("cuda" unless the caller
-    asks for "cpu"). After calibrate(), platt_ = (A, B) and predict_proba
-    is available.
+    chunk, graph, refresh). device: where fit and scoring run ("cuda" unless
+    the caller asks for "cpu"). dtype: the feature dtype the solve and
+    scoring compute in, torch.float32 (the default), torch.bfloat16 or
+    torch.float64 (or their names); the card's kernels take float32, so the
+    other dtypes run the solvers' torch engines (resolve_solver_config,
+    resolve_pair_refresh). After calibrate(), platt_ = (A, B) and
+    predict_proba is available.
     """
 
     def __init__(self, config: SVMConfig = SVMConfig(), scale: bool = True,
                  accum_dtype="auto", solver: str = "blocked",
-                 solver_opts: Optional[dict] = None, device="cuda"):
+                 solver_opts: Optional[dict] = None, device="cuda",
+                 dtype=torch.float32):
         check_solver(solver)
         self.solver = solver
+        self.dtype = resolve_dtype(dtype)
         self.config = config
         self.scale = scale
         self.accum_dtype = accum_dtype
@@ -228,10 +234,10 @@ class BinarySVC:
             t = now
 
         cfg = self.config
-        # cast on the host: half the bytes cross to the device
-        X32 = np.asarray(Xs, np.float32)
+        # cast on the host: for float32 half the bytes cross to the device
+        Xc = to_dtype(Xs, self.dtype)
         span("cast")
-        Xd = torch.as_tensor(X32, device=dev)
+        Xd = Xc.to(dev)
         Yd = torch.as_tensor(Y, device=dev)
         span("to_device")
         self._map_fit(Xs)
@@ -246,7 +252,7 @@ class BinarySVC:
         res = solve(self.solver, Xd, Yd, cfg, self.accum_dtype,
                     self.solver_opts, dev, checkpoint=ckpt)
         span("solve")
-        alpha = res.alpha.cpu().numpy()  # device->host copy: completion
+        alpha = to_numpy(res.alpha)  # device->host copy: completion
         span("to_host")
         self.train_time_s_ = time.perf_counter() - t0
         self.result_ = res
@@ -257,7 +263,7 @@ class BinarySVC:
         self.convergence_ = convergence_of(res)
         sv = get_sv_indices(alpha, cfg.sv_tol)
         if self.fmap_ is not None:
-            self.sv_X_ = Xd[torch.as_tensor(sv, device=dev)].cpu().numpy()
+            self.sv_X_ = to_numpy(Xd[torch.as_tensor(sv, device=dev)])
         else:
             self.sv_X_ = Xs[sv]
         self.sv_Y_ = np.asarray(Y)[sv].astype(np.int32)
@@ -432,6 +438,7 @@ class BinarySVC:
             checkpoint_path=checkpoint_path, resume=resume,
             solver=self.solver, solver_opts=self.solver_opts,
             stratified=stratified, tracer=tracer, device=self.device,
+            dtype=self.dtype,
         )
         return self._finish_cascade(res, t0, cascade_config)
 
@@ -486,7 +493,8 @@ class BinarySVC:
             accum_dtype=self.accum_dtype, verbose=verbose,
             checkpoint_path=checkpoint_path, resume=resume,
             solver=self.solver, solver_opts=self.solver_opts,
-            partition=part, tracer=tracer, device=self.device)
+            partition=part, tracer=tracer, device=self.device,
+            dtype=self.dtype)
         return self._finish_cascade(res, t0, cascade_config)
 
     def fit_pod(self, data: str,
@@ -527,7 +535,8 @@ class BinarySVC:
             checkpoint_path=checkpoint_path, resume=resume,
             solver=self.solver, solver_opts=self.solver_opts,
             stratified=stratified, prefetch_depth=prefetch_depth,
-            scale=self.scale, tracer=tracer, device=self.device)
+            scale=self.scale, tracer=tracer, device=self.device,
+            dtype=self.dtype)
         self.pod_result_ = res
         self.stream_max_live_shards_ = int(max(res.worker_max_live_shards))
         self.pod_worker_rows_ = tuple(int(r) for r in res.worker_rows)
@@ -543,17 +552,26 @@ class BinarySVC:
         if self.sv_X_ is None:
             raise RuntimeError("model is not fitted")
 
-    def decision_function(self, X: np.ndarray) -> np.ndarray:
-        """Scores f(x) = sum_k alpha_k y_k K(x, x_k) - b, in float32."""
+    def decision_function(self, X: np.ndarray, mesh=None) -> np.ndarray:
+        """Scores f(x) = sum_k alpha_k y_k K(x, x_k) - b, in the model's
+        dtype (bfloat16 scores come back as float32: numpy has no
+        bfloat16).
+
+        mesh: optional 1-D mesh (parallel/mesh.py, or a list of devices):
+        the test rows are split into one contiguous chunk per mesh member,
+        each scored on its device, and the scores concatenated in order.
+        Each row's score depends on that row alone, so the scores match the
+        unsplit call to the summation-order noise of the contraction."""
         self._check_fitted()
-        return scores(self, self.sv_alpha_ * self.sv_Y_, self.b_, X)
+        return scores(self, self.sv_alpha_ * self.sv_Y_, self.b_, X, mesh)
 
-    def predict(self, X: np.ndarray) -> np.ndarray:
+    def predict(self, X: np.ndarray, mesh=None) -> np.ndarray:
         # strict > 0 -> +1
-        return np.where(self.decision_function(X) > 0, 1, -1).astype(np.int32)
+        return np.where(self.decision_function(X, mesh=mesh) > 0, 1,
+                        -1).astype(np.int32)
 
-    def score(self, X: np.ndarray, Y: np.ndarray) -> float:
-        return float((self.predict(X) == np.asarray(Y)).mean())
+    def score(self, X: np.ndarray, Y: np.ndarray, mesh=None) -> float:
+        return float((self.predict(X, mesh=mesh) == np.asarray(Y)).mean())
 
     def calibrate(self, X: np.ndarray, Y: np.ndarray, folds: int = 3,
                   seed: int = 0) -> "BinarySVC":
@@ -567,20 +585,22 @@ class BinarySVC:
         for fold in stratified_kfold(Y, folds, seed=seed):
             sub = BinarySVC(config=self.config, scale=self.scale,
                             accum_dtype=self.accum_dtype, solver=self.solver,
-                            solver_opts=self.solver_opts, device=self.device)
+                            solver_opts=self.solver_opts, device=self.device,
+                            dtype=self.dtype)
             sub.fit(X[fold.train_idx], Y[fold.train_idx])
             pooled[fold.val_idx] = sub.decision_function(X[fold.val_idx])
         self.platt_ = fit_platt(pooled, Y)
         return self
 
-    def predict_proba(self, X: np.ndarray) -> np.ndarray:
+    def predict_proba(self, X: np.ndarray, mesh=None) -> np.ndarray:
         """(m, 2) class probabilities [P(y=-1), P(y=+1)], Platt-scaled;
-        monotone in decision_function. Requires calibrate() first."""
+        monotone in decision_function (mesh: as there). Requires
+        calibrate() first."""
         if self.platt_ is None:
             raise RuntimeError(
                 "model is not calibrated; call calibrate(X, Y) (or train "
                 "with --calibrate) before predict_proba")
-        p = platt_proba(self.decision_function(X), *self.platt_)
+        p = platt_proba(self.decision_function(X, mesh=mesh), *self.platt_)
         return np.stack([1.0 - p, p], axis=1)
 
     @property
@@ -621,9 +641,10 @@ class BinarySVC:
         save_model(path, state, self.config)
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "BinarySVC":
+    def load(cls, path: str, device="cuda", dtype=torch.float32) -> "BinarySVC":
         state, config = load_model(path)
-        model = cls(config=config, scale=bool(state["scale"]), device=device)
+        model = cls(config=config, scale=bool(state["scale"]), device=device,
+                    dtype=dtype)
         model.sv_X_ = state["sv_X"]
         model.sv_Y_ = state["sv_Y"]
         model.sv_alpha_ = state["sv_alpha"]
@@ -658,19 +679,36 @@ def load_map(model, state: dict, config: SVMConfig) -> None:
         model.n_features_in_ = model.fmap_.n_features_in
 
 
-def scores(model, coef: np.ndarray, b, X: np.ndarray) -> np.ndarray:
-    """sum_k coef_k K(x, sv_k) - b in float32 for a fitted estimator with
-    sv_X_ (the SV rows), config, scaler_, fmap_ and device; coef (n_sv,)
-    or (n_sv, K) for K heads. An approximate-family model maps the scaled
-    rows on the card first (sv_X_ holds mapped rows)."""
-    dev = resolve_device(model.device)
-    cfg = model.config
-    f32 = torch.float32
+def scores(model, coef: np.ndarray, b, X: np.ndarray,
+           mesh=None) -> np.ndarray:
+    """sum_k coef_k K(x, sv_k) - b in the model's dtype for a fitted
+    estimator with sv_X_ (the SV rows), config, scaler_, fmap_, dtype and
+    device; coef (n_sv,) or (n_sv, K) for K heads. An approximate-family
+    model maps the scaled rows on the card first (sv_X_ holds mapped rows).
+    mesh: None scores on the model's device; a 1-D mesh (or a list of
+    devices) splits the rows into one chunk per member (parallel/mesh.py:
+    split_rows), scores each on its device and concatenates the chunks."""
     Xs = model.scaler_.transform(np.asarray(X)) if model.scale else np.asarray(X)
-    Xq = torch.as_tensor(np.asarray(Xs, np.float32), device=dev)
-    sv = torch.as_tensor(model.sv_X_, dtype=f32, device=dev)
-    coef = torch.as_tensor(np.array(coef, np.float32), device=dev)
-    b = torch.as_tensor(np.array(b, np.float32), device=dev)
+    Xq = to_dtype(Xs, model.dtype)
+    if mesh is None:
+        return _scores_on(model, coef, b, Xq.to(resolve_device(model.device)))
+    from tpusvm_torch.parallel.mesh import as_mesh, split_rows
+
+    mesh = as_mesh(mesh)
+    for dev in mesh.devices:
+        resolve_device(dev)
+    parts = [_scores_on(model, coef, b, chunk)
+             for chunk in split_rows(mesh, Xq)]
+    return np.concatenate(parts)
+
+
+def _scores_on(model, coef, b, Xq: torch.Tensor) -> np.ndarray:
+    """The scores of the scaled rows Xq, on Xq's device."""
+    dev, dt = Xq.device, model.dtype
+    cfg = model.config
+    sv = to_dtype(model.sv_X_, dt).to(dev)
+    coef = to_dtype(np.asarray(coef, np.float64), dt).to(dev)
+    b = to_dtype(np.asarray(b, np.float64), dt).to(dev)
     if getattr(model, "fmap_", None) is not None:
         from tpusvm_torch.approx import approx_decision_function
 
@@ -678,4 +716,4 @@ def scores(model, coef: np.ndarray, b, X: np.ndarray) -> np.ndarray:
     else:
         out = _decision(Xq, sv, coef, b, gamma=cfg.gamma, kernel=cfg.kernel,
                         degree=cfg.degree, coef0=cfg.coef0)
-    return out.cpu().numpy()
+    return to_numpy(out)

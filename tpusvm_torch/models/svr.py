@@ -22,9 +22,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tpusvm_torch.config import SVMConfig, is_approx_family
+from tpusvm_torch.config import SVMConfig, is_approx_family, resolve_dtype
 from tpusvm_torch.data.scaler import MinMaxScaler
-from tpusvm_torch.device import resolve_device
+from tpusvm_torch.device import resolve_device, to_dtype, to_numpy
 from tpusvm_torch.kernels.svr import collapse_duals, doubled_problem
 from tpusvm_torch.models.serialization import load_model, save_model
 from tpusvm_torch.models.svm import (check_solver, convergence_of, load_map,
@@ -37,12 +37,15 @@ class EpsilonSVR:
 
     Attributes after fit: sv_X_, sv_coef_ (signed alpha - alpha*),
     sv_ids_, b_, n_iter_, status_, train_time_s_, scaler_, result_.
+    dtype: the feature dtype (BinarySVC's).
     """
 
     def __init__(self, config: SVMConfig = SVMConfig(), scale: bool = True,
                  accum_dtype="auto", solver: str = "blocked",
-                 solver_opts: Optional[dict] = None, device="cuda"):
+                 solver_opts: Optional[dict] = None, device="cuda",
+                 dtype=torch.float32):
         check_solver(solver)
+        self.dtype = resolve_dtype(dtype)
         self.config = config
         self.scale = scale
         self.accum_dtype = accum_dtype
@@ -79,7 +82,7 @@ class EpsilonSVR:
         else:
             Xs = X
         Y2, z = doubled_problem(t, cfg.epsilon)
-        X1 = torch.as_tensor(np.asarray(Xs, np.float32), device=dev)
+        X1 = to_dtype(Xs, self.dtype).to(dev)
         if is_approx_family(cfg.kernel):
             # the map is fitted on the single set of rows; the doubling
             # shares it
@@ -92,13 +95,13 @@ class EpsilonSVR:
         res = solve(self.solver, X2, torch.as_tensor(Y2, device=dev), cfg,
                     self.accum_dtype, self.solver_opts, dev,
                     targets=torch.as_tensor(z, device=dev))
-        beta = res.alpha.cpu().numpy()  # device->host copy: completion
+        beta = to_numpy(res.alpha)  # device->host copy: completion
         self.train_time_s_ = time.perf_counter() - t0
         self.result_ = res
         self.convergence_ = convergence_of(res)
         coef = collapse_duals(beta)
         sv = np.nonzero(np.abs(coef) > cfg.sv_tol)[0]
-        self.sv_X_ = (X1[torch.as_tensor(sv, device=dev)].cpu().numpy()
+        self.sv_X_ = (to_numpy(X1[torch.as_tensor(sv, device=dev)])
                       if self.fmap_ is not None else Xs[sv])
         self.sv_coef_ = coef[sv]
         self.sv_ids_ = sv.astype(np.int32)
@@ -161,13 +164,15 @@ class EpsilonSVR:
         save_model(path, state, self.config)
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "EpsilonSVR":
+    def load(cls, path: str, device="cuda",
+             dtype=torch.float32) -> "EpsilonSVR":
         state, config = load_model(path)
         if "sv_coef" not in state:
             raise ValueError(
                 f"{path!r} is not an EpsilonSVR artifact (no sv_coef "
                 "state); load it with BinarySVC/OneVsRestSVC")
-        model = cls(config=config, scale=bool(state["scale"]), device=device)
+        model = cls(config=config, scale=bool(state["scale"]), device=device,
+                    dtype=dtype)
         model.sv_X_ = state["sv_X"]
         model.sv_coef_ = state["sv_coef"]
         model.sv_ids_ = state["sv_ids"]

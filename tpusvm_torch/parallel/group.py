@@ -10,7 +10,9 @@ move fixed-shape SVBuffers between them:
   - all_gather of the per-rank diagnostics and of the star's leaf SV sets;
   - the tree's pairwise send/recv (the JAX lax.ppermute with
     perm = [(r, r - step) for r % 2step == step]);
-  - all_gather of the resume fingerprints (the JAX process_allgather).
+  - all_gather of the resume fingerprints (the JAX process_allgather);
+  - all_gather of the class axis's per-head results (one-vs-rest
+    class_parallel over ranks, the JAX all_gather(tiled=True)).
 
 The backend is gloo, over CPU copies of the buffers: the ranks of one
 machine may share one card, and gloo is what runs without one. Bits cross
@@ -131,6 +133,15 @@ class Exchange:
         parts = [torch.empty_like(w) for _ in range(self.size)]
         dist.all_gather(parts, w, group=self.group)
         return torch.stack(parts).numpy()
+
+    def gather_tensor(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's t (one shape and dtype on every rank), concatenated
+        along dim 0 in rank order, on the CPU: the class axis's end-of-solve
+        gather (the JAX lax.all_gather(..., tiled=True)). Bits cross
+        unchanged."""
+        parts = [_blank(t) for _ in range(self.size)]
+        dist.all_gather(parts, _wire(t), group=self.group)
+        return torch.cat([p.to(t.dtype) for p in parts])
 
     def broadcast_values(self, values, src: int = 0) -> np.ndarray:
         """Rank src's float64 values on every rank (floats and counts

@@ -222,6 +222,28 @@ def _clamp_q(n: int, q: int) -> int:
     return min(q, n if n % 2 == 0 else n - 1) if n >= 2 else 2
 
 
+def pad_alpha0(alpha, n: int):
+    """Resize a previous solution's alphas to n rows for a warm re-solve.
+
+    The resume-shape helper of warm starts across problem sizes: a donor
+    solution transfers to a GROWN training set (successive-halving rungs
+    are nested prefixes of one fixed row order, tune/) by giving the new
+    rows alpha=0, the state a cold solve starts them in, and to a
+    truncated set by dropping the tail rows' alphas. Works on numpy arrays
+    and tensors alike (returns the family it was given); truncation
+    generally breaks sum(alpha*y) = 0, so callers re-project the seed
+    feasible (tune/warm.py:feasible_seed) before passing it as alpha0.
+    """
+    m = alpha.shape[0]
+    if m == n:
+        return alpha
+    if m > n:
+        return alpha[:n]
+    if torch.is_tensor(alpha):
+        return torch.cat([alpha, alpha.new_zeros(n - m)])
+    return np.concatenate([alpha, np.zeros((n - m,), alpha.dtype)])
+
+
 def resolve_solver_config(n: int, q: int = 1024, inner: str = "auto",
                           fused_fupdate="auto", kernel: str = "rbf",
                           matmul_precision=None, dtype=torch.float32):

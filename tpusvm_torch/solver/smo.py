@@ -13,6 +13,10 @@ JAX `_body`:
   5. the status, in the reference's order: NO_WORKING_SET, CONVERGED,
      INFEASIBLE_UV, NONPOS_ETA, STALLED, MAX_ITER.
 
+The K rows come from pair_rows (csrc/pair_rows.cu on the card, its plain
+version on the CPU), which takes float32 X; X of another dtype takes the
+plain torch refresh in X's dtype on either device (resolve_pair_refresh).
+
 PyTorch has no device-side while loop, so the loop runs in chunks of
 `chunk` iterations and the host reads the statuses once a chunk. Every
 step is predicated on its problem's status being RUNNING, so the steps
@@ -37,7 +41,8 @@ import torch
 
 from tpusvm_torch import kernels
 from tpusvm_torch.device import resolve_device
-from tpusvm_torch.ops.cuda.pair_rows import pair_rows_kernel, replay
+from tpusvm_torch.ops.cuda.pair_rows import (pair_rows_kernel, pair_rows_ref,
+                                             replay)
 from tpusvm_torch.ops.rbf import sq_norms
 from tpusvm_torch.ops.selection import masked_argmax, masked_argmin
 from tpusvm_torch.solver.analytic import pair_update
@@ -46,6 +51,24 @@ from tpusvm_torch.status import Status
 # iterations a chunk: a captured graph of this many steps, one status read
 # each (PERF.md section 6: chunk sizes timed on the card, 32 fastest)
 DEFAULT_CHUNK = 32
+
+
+def resolve_pair_refresh(dtype, refresh: str = "auto") -> str:
+    """The K-row refresh a pair solve over X of `dtype` runs: "kernel"
+    (pair_rows_kernel: csrc/pair_rows.cu on the card, its plain version on
+    the CPU) for float32 X, "plain" (pair_rows_ref, torch in X's dtype)
+    for the other dtypes. refresh="kernel" with X of another dtype is
+    refused by name: the kernel takes float32 features."""
+    if refresh not in ("auto", "kernel"):
+        raise ValueError(f"refresh must be 'auto' or 'kernel', got {refresh!r}")
+    if dtype == torch.float32:
+        return "kernel"
+    if refresh == "kernel":
+        raise ValueError(
+            f"the pair_rows kernel (refresh='kernel') takes float32 features, "
+            f"X is {dtype}; use refresh='auto' to run the plain K-row "
+            "refresh in X's dtype, or pass float32 features")
+    return "plain"
 
 
 @dataclasses.dataclass
@@ -99,8 +122,10 @@ class _PairState:
     them in place (so a captured graph replays on the same memory)."""
 
     def __init__(self, X, Ys, valid, alpha0, f0, *, C, gamma, eps, tau,
-                 max_iter, kernel, degree, coef0, sn):
+                 max_iter, kernel, degree, coef0, sn, refresh="kernel"):
         B, n = Ys.shape
+        self.refresh = (pair_rows_kernel if refresh == "kernel"
+                        else pair_rows_ref)
         dev = X.device
         adt = f0.dtype
         self.X, self.Y, self.sn = X, Ys, sn
@@ -154,9 +179,9 @@ class _PairState:
         # the K-row refresh, only for an index that changed; the kernel
         # reads `need` on the device and skips the X pass when it is clear
         need = proceed[:, None] & (pair != self.prev)
-        pair_rows_kernel(self.X, pair.reshape(-1), need.reshape(-1),
-                         self.rows, family=self.kernel, gamma=self.gamma,
-                         coef0=self.coef0, degree=self.degree, sn=self.sn)
+        self.refresh(self.X, pair.reshape(-1), need.reshape(-1), self.rows,
+                     family=self.kernel, gamma=self.gamma, coef0=self.coef0,
+                     degree=self.degree, sn=self.sn)
         self.refreshes.add_(need.any(dim=1))
         rows = self.rows.view(B, 2, n)
         k_high, k_low = rows[:, 0], rows[:, 1]
@@ -203,11 +228,13 @@ def _run(state: _PairState, chunk: int, graph: bool):
     wait = 0.0
     cuda_graph = None
     while True:
-        if cuda_graph is not None:
-            replay(cuda_graph, chunk)
-        else:
+        if cuda_graph is None:
             for _ in range(chunk):
                 state.step()
+        elif state.refresh is pair_rows_kernel:
+            replay(cuda_graph, chunk)  # counts the kernel's launches
+        else:
+            cuda_graph.replay()
         chunks += 1
         t = time.perf_counter()
         running = bool((state.status == Status.RUNNING).any())
@@ -230,11 +257,7 @@ def _prepare(X, Ys, valid, alpha0, *, warm_start, accum_dtype, kernel,
              degree, coef0, gamma, targets, device):
     kernels.validate_family(kernel)
     dev = resolve_device(device)
-    X = torch.as_tensor(X, device=dev)
-    if dev.type == "cuda" and X.dtype != torch.float32:
-        raise ValueError(
-            f"the card's K-row kernel takes float32 features, got {X.dtype}")
-    X = X.contiguous()
+    X = torch.as_tensor(X, device=dev).contiguous()
     if X.is_cuda and X.data_ptr() % 16:
         # the K-row kernel streams X with 16-byte bulk copies
         X = X.clone()
@@ -264,7 +287,7 @@ def _prepare(X, Ys, valid, alpha0, *, warm_start, accum_dtype, kernel,
 
 def _solve(X, Ys, valid, alpha0, *, C, gamma, eps, tau, max_iter,
            warm_start, accum_dtype, kernel, degree, coef0, targets, chunk,
-           graph, device) -> BatchedSMOResult:
+           graph, refresh, device) -> BatchedSMOResult:
     if chunk < 1:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if kernels.is_approx(kernel):
@@ -275,13 +298,14 @@ def _solve(X, Ys, valid, alpha0, *, C, gamma, eps, tau, max_iter,
         X, Ys, valid, alpha0, warm_start=warm_start, accum_dtype=accum_dtype,
         kernel=kernel, degree=degree, coef0=coef0, gamma=gamma,
         targets=targets, device=device)
+    refresh = resolve_pair_refresh(X.dtype, refresh)
     if graph == "auto":
         graph = X.is_cuda
     elif graph and not X.is_cuda:
         raise ValueError("graph=True captures a CUDA graph: it needs the card")
     state = _PairState(X, Ys, valid, alpha, f0, C=C, gamma=gamma, eps=eps,
                        tau=tau, max_iter=max_iter, kernel=kernel,
-                       degree=degree, coef0=coef0, sn=sn)
+                       degree=degree, coef0=coef0, sn=sn, refresh=refresh)
     syncs, wait, chunks, graphed = _run(state, chunk, bool(graph))
     t = time.perf_counter()
     out = [state.alpha, state.b_high, state.b_low, state.n_iter,
@@ -315,11 +339,12 @@ def smo_solve(
     targets=None,
     chunk: int = DEFAULT_CHUNK,
     graph="auto",
+    refresh: str = "auto",
     device="cuda",
 ) -> SMOResult:
     """Run pairwise SMO to termination on `device`.
 
-    X (n, d) features (float32 on the card; any float dtype on the CPU),
+    X (n, d) features of any float dtype,
     Y (n,) labels in {+1, -1} (padded rows 0), valid (n,) bool mask of
     real rows, alpha0 starting duals (zeros if None) with warm_start=True
     rebuilding f from them. accum_dtype (default: X's dtype) holds alpha,
@@ -328,6 +353,8 @@ def smo_solve(
     labels in f = K(alpha*y) - z (epsilon-SVR). chunk: iterations between
     host status reads. graph: "auto" captures a chunk as a CUDA graph on
     the card (True requires the card, False runs every chunk eagerly).
+    refresh: the K-row refresh, resolve_pair_refresh's ("auto": pair_rows
+    for float32 X, the plain torch refresh otherwise).
     Returns SMOResult; `alpha` of padded rows is exactly 0.
     """
     Y = torch.as_tensor(Y)
@@ -335,7 +362,7 @@ def smo_solve(
                  tau=tau, max_iter=max_iter, warm_start=warm_start,
                  accum_dtype=accum_dtype, kernel=kernel, degree=degree,
                  coef0=coef0, targets=targets, chunk=chunk, graph=graph,
-                 device=device)
+                 refresh=refresh, device=device)
     return res.head(0)
 
 
@@ -344,7 +371,8 @@ def smo_solve_batched(X, Ys, valid=None, *, C: float = 10.0,
                       tau: float = 1e-5, max_iter: int = 100000,
                       accum_dtype=None, kernel: str = "rbf", degree: int = 3,
                       coef0: float = 0.0, chunk: int = DEFAULT_CHUNK,
-                      graph="auto", device="cuda") -> BatchedSMOResult:
+                      graph="auto", refresh: str = "auto",
+                      device="cuda") -> BatchedSMOResult:
     """K pair solves over one X in lockstep: Ys (K, n) label rows. Each
     problem stops on its own status; the loop ends when none is RUNNING.
     Each problem's result equals smo_solve on its labels bit for bit."""
@@ -355,5 +383,5 @@ def smo_solve_batched(X, Ys, valid=None, *, C: float = 10.0,
                   max_iter=max_iter, warm_start=False,
                   accum_dtype=accum_dtype, kernel=kernel, degree=degree,
                   coef0=coef0, targets=None, chunk=chunk, graph=graph,
-                  device=device)
+                  refresh=refresh, device=device)
 

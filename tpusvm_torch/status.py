@@ -48,3 +48,21 @@ class StreamStatus(enum.IntEnum):
     ROW_COUNT_MISMATCH = 3
     STATS_MISMATCH = 4
     READ_FAILED = 5
+
+
+class TuneStatus(enum.IntEnum):
+    """Per-grid-point outcome codes of the hyperparameter search
+    (tune/search.py), the JAX package's values:
+
+      EVALUATED  fit and scored on every fold at the FINAL rung (grid
+                 schedule: all points; halving: the last survivors; the
+                 winner is always one of these)
+      PRUNED     successive halving dropped it after a smaller-rung
+                 evaluation; its recorded metrics are from that rung
+      SKIPPED    plateau early-stopping ended the sweep before this point
+                 was ever fit; no metrics recorded
+    """
+
+    EVALUATED = 0
+    PRUNED = 1
+    SKIPPED = 2
