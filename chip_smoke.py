@@ -184,9 +184,28 @@ Phases, in order (any failure raises and the script exits non-zero):
      every fit ending CONVERGED or NO_WORKING_SET, the winner's CV accuracy
      within 0.005 of phase 5's, the problem-axis #1 and #2 launched, one
      lane of the last rung re-fit alone equal to it bit for bit, the
-     results JSON described by `info`; `tune --smoke` as a subprocess.
+     results JSON described by `info`; `tune --smoke` as a subprocess;
+  22. serving and refresh (tpusvm_torch.serve): (a) phase 5's artifact,
+     8(a)'s ten-head model and 18(a)'s rff model served in-process with
+     max_batch 64, one CUDA graph captured a bucket (count, seconds), at
+     every bucket the replay, the program run eagerly on the worker's
+     stream and on the default stream, and decision_function bit for bit;
+     eight client threads send the 10,000 held-out rows one row a request,
+     every score (and label) bit-equal to decision_function, 0 recompiles,
+     QPS, p50/p99, batch occupancy and sequential_qps printed; (b) `serve
+     --port 0 --state` as a subprocess: 1,000 held-out rows in POSTs of
+     1-64 rows bit-equal to (a), /healthz, /metrics, /metrics.json and the
+     state's address; (c) eight hot-swaps between phase 5's and phase 11's
+     artifacts under four clients: every response one generation's bits,
+     none lost, device memory flat (printed after the first and the last
+     swap); (d) the refresh of phase 5's artifact on rows [:65000], warm
+     and cold, CONVERGED, warm in fewer updates, #1 and #2 launched,
+     accuracy on [65000:] within 0.002 of phase 5's, then `refresh --swap
+     URL` into (b)'s server, whose scores are then the refreshed
+     artifact's; (e) `serve --smoke`, `refresh --smoke` and
+     `swap-chaos-smoke` as subprocesses beside (d).
   (Phases 15 and 16 run after 13, before 14; 17 and 18 after 14; then
-  19, 20 and 21.)
+  19, 20, 21 and 22.)
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
@@ -2292,7 +2311,7 @@ def phase_approx(X_all, Y_all, n_tr, acc5, ds, device, counters, launches):
     accuracy, its artifact round-tripped; the rff probe error over
     APPROX_PROBE_D non-increasing (APPROX_ERR_SLACK). Train seconds, the
     map's share (the map alone, CUDA events, over train seconds) and #2's
-    launches are printed."""
+    launches are printed. Returns (a)'s model (phase 22 serves it)."""
     import torch
 
     from tpusvm_torch.approx import build_map, kernel_approx_error
@@ -2302,6 +2321,7 @@ def phase_approx(X_all, Y_all, n_tr, acc5, ds, device, counters, launches):
 
     X, Y = X_all[:n_tr], Y_all[:n_tr]
     Xt, Yt = X_all[n_tr:], Y_all[n_tr:]
+    fitted = {}
     arms = (("18a", dict(kernel="rff", rff_dim=APPROX_RFF_DIM, map_seed=0)),
             ("18b", dict(kernel="nystrom", landmarks=APPROX_LANDMARKS,
                          map_seed=0)))
@@ -2335,6 +2355,7 @@ def phase_approx(X_all, Y_all, n_tr, acc5, ds, device, counters, launches):
         check(device == "cpu" or counts["inner_smo"] > 0,
               f"[{tag}] #2 not launched: {counts}")
         _round_trip(m, Xt, tag, device)
+        fitted[tag] = m
 
     cfg = SVMConfig(C=C, gamma=GAMMA, kernel="rff", rff_dim=APPROX_RFF_DIM,
                     map_seed=0)
@@ -2385,6 +2406,7 @@ def phase_approx(X_all, Y_all, n_tr, acc5, ds, device, counters, launches):
         f"{list(APPROX_PROBE_D)}: {[round(e, 6) for e in errs]}")
     check(all(b <= a * APPROX_ERR_SLACK for a, b in zip(errs, errs[1:])),
           f"[18] probe errors not non-increasing in D: {errs}")
+    return fitted["18a"]
 
 
 def _head_bits(m, ref, K):
@@ -2734,6 +2756,391 @@ def phase_tune(X_all, Y_all, n_tr, acc5, device, counters, launches,
     log(f"[21] info {path}: format_table's text; tune --smoke "
         f"({done['tune_smoke'][1]:.1f} s in a subprocess, beside the search): "
         f"{_line(r'(tune smoke ok.*)', done['tune_smoke'][0])}")
+
+
+# phase 22's cut: the held-out rows (22(a)) and HTTP rows (22(b)) and the
+# swap clients' rows (22(c)); the refresh's appended rows (22(d)): phase
+# 5's training rows then the first N_APPEND held-out rows
+N_HTTP, N_SWAP_ROWS, N_SWAPS, N_APPEND = 1000, 64, 8, 5000
+SERVE_SMOKES = ((("tpusvm_torch", "serve", "--smoke"), "smoke rings:"),
+                (("tpusvm_torch", "refresh", "--smoke"), "refresh smoke ok"),
+                (("tpusvm_torch.faults", "swap-chaos-smoke"),
+                 "swap chaos smoke ok"))
+
+
+def _http(url, body=None, timeout=60.0):
+    """(status, bytes) of a GET (body None) or a JSON POST."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        url, data=data, method="GET" if body is None else "POST",
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _load_clients(srv, name, X, threads):
+    """`threads` client threads send the rows of X one row per request,
+    thread t the rows t::threads; (scores in row order, labels, seconds,
+    statuses that were not OK)."""
+    import threading
+
+    scores = [None] * len(X)
+    labels = [None] * len(X)
+    bad = []
+
+    def run(t):
+        for i in range(t, len(X), threads):
+            r = srv.submit(name, X[i], timeout_s=60.0)
+            if not r.ok:
+                bad.append((i, r.status))
+            scores[i], labels[i] = r.scores, r.label
+
+    ts = [threading.Thread(target=run, args=(t,)) for t in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(300.0)
+    secs = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in ts), "[22] a client thread hung")
+    return scores, labels, secs, bad
+
+
+def _serving_bits(tag, srv, name, est, Xt, device):
+    """22(a)'s card check on one hosted model: at every bucket, the graph
+    replay, the bucket program run eagerly on the worker's stream and on
+    the default stream, and the estimator's decision_function on the
+    default stream give the same bits. Returns the buckets' capture s."""
+    import torch
+
+    w = srv._worker(name)
+    cache = w.cache
+    for b in cache.buckets:
+        rows = w.entry.scale(w.entry.validate_rows(Xt[:b]))
+        replay, _ = cache.scores(rows)
+        eager = cache.eager_scores(rows)
+        default = cache.eager_scores(
+            rows, stream=torch.cuda.current_stream() if device != "cpu"
+            else None)
+        offline = np.asarray(est.decision_function(Xt[:b]))
+        check(replay.tobytes() == eager.tobytes() == default.tobytes()
+              == offline.tobytes(),
+              f"[{tag}] bucket {b}: replay, eager (worker stream), eager "
+              f"(default stream) and decision_function differ")
+    return cache.build_s
+
+
+def phase_serve(X_all, Y_all, n_tr, m5, model5_path, m11, ovr_a, Xm, rff,
+                device, counters, launches, smi, out_dir):
+    """Phase 22, serving and refresh at full width (tpusvm_torch.serve):
+
+    (a) phase 5's artifact, 8(a)'s ten-head model and 18(a)'s rff model
+        served in-process (max_batch 64): warm-up captures one CUDA graph
+        a bucket (count, seconds); at every bucket replay = eager on the
+        worker's stream = eager on the default stream = decision_function
+        bit for bit; eight client threads send the 10,000 held-out rows
+        one row a request, every score (and label) bit-equal to the
+        model's decision_function, recompiles 0; QPS, p50/p99, occupancy
+        and sequential_qps printed;
+    (b) `serve --model --port 0 --state` as a subprocess: 1,000 held-out
+        rows in POSTs of 1-64 rows, bit-equal to (a); /healthz 200,
+        /metrics and /metrics.json parse, the state names the address;
+    (c) eight hot-swaps between phase 5's and phase 11's artifacts under
+        four clients: every response one generation's bits, none lost;
+        device memory after the first and the last swap;
+    (d) refresh of phase 5's artifact on rows [:n_tr + N_APPEND], warm and
+        cold, both CONVERGED, warm in fewer updates, #1 and #2 launched,
+        accuracy on rows [n_tr + N_APPEND:] within 0.002 of phase 5's
+        there; then `refresh --swap URL` into (b)'s server, whose served
+        scores are then the refreshed artifact's decision_function bits;
+    (e) `serve --smoke`, `refresh --smoke` and `swap-chaos-smoke` as
+        subprocesses beside (d), each exiting 0."""
+    import gc
+    import os
+    import threading
+    import weakref
+
+    import torch
+
+    from tpusvm_torch.models import load_any
+    from tpusvm_torch.obs.fleet import parse_payload
+    from tpusvm_torch.serve import ServeConfig, Server
+    from tpusvm_torch.serve.refresh import refresh_fit
+    from tpusvm_torch.serve.server import sequential_qps
+    from tpusvm_torch.status import Status
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    Xt, Xmt = X_all[n_tr:], Xm[n_tr:]
+    paths = {"m5": model5_path, "ovr": str(out_dir / "ovr.npz"),
+             "rff": str(out_dir / "rff.npz"), "m11": str(out_dir / "m11.npz")}
+    ovr_a.save(paths["ovr"])
+    rff.save(paths["rff"])
+    m11.save(paths["m11"])
+
+    # (b)'s server starts first: ~10 s of interpreter and torch start
+    state = out_dir / "serve_state.json"
+    if state.exists():
+        state.unlink()
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "tpusvm_torch", "serve", "--model",
+            f"m5={paths['m5']}", "--port", "0", "--state", str(state)]
+    if device == "cpu":
+        argv += ["--device", "cpu"]
+    serve_out = open(out_dir / "serve22b.out", "w")
+    serve_err = open(out_dir / "serve22b.err", "w")
+    t_b = time.perf_counter()
+    server_proc = subprocess.Popen(argv, cwd=root, stdout=serve_out,
+                                   stderr=serve_err,
+                                   env=dict(os.environ, PYTHONPATH=root))
+    import atexit
+
+    atexit.register(lambda: server_proc.poll() is None and server_proc.kill())
+
+    # (a) in-process, every model
+    want = {}
+    cases = (("m5", m5, Xt), ("ovr", ovr_a, Xmt), ("rff", rff, Xt))
+    with Server(ServeConfig(max_batch=64), device=device) as srv:
+        for name, _, _ in cases:
+            srv.load_model(name, paths[name])
+        t = time.perf_counter()
+        built = srv.warmup()
+        warm_s = time.perf_counter() - t
+        log(f"[22a] warm-up: {json.dumps(built)} bucket graphs captured in "
+            f"{warm_s:.3f} s ({smi})")
+        for name, est, X in cases:
+            cap = _serving_bits("22a", srv, name, est, X, device)
+            offline = np.asarray(est.decision_function(X))
+            scores, labels, secs, bad = _load_clients(srv, name, X, 8)
+            check(not bad, f"[22a] {name}: statuses {bad[:5]}")
+            got = np.stack(scores)
+            check(got.tobytes() == offline.tobytes(),
+                  f"[22a] {name}: served scores differ from "
+                  "decision_function")
+            if name == "ovr":
+                check(np.array_equal(np.asarray(labels), est.predict(X)),
+                      "[22a] ovr: served labels differ from predict")
+            want[name] = got
+            snap = srv.metrics(name)
+            st = srv.status()["models"][name]
+            check(snap["recompiles"] == 0 and st["recompiles"] == 0,
+                  f"[22a] {name}: recompiles {snap['recompiles']}")
+            seq = sequential_qps(srv, name, list(X[:256]), 1.0)
+            lat = snap["latency_s"]
+            log(f"[22a] {name} ({st['kind']}, {st['n_sv']} SVs, "
+                f"{st['n_features']} features): {len(X)} rows one a request "
+                f"from 8 threads in {secs:.3f} s = {len(X) / secs:.0f} QPS, "
+                f"p50 {lat['p50'] * 1e3:.3f} ms, p99 {lat['p99'] * 1e3:.3f} "
+                f"ms, mean batch rows {snap['mean_batch_rows']:.2f} over "
+                f"{snap['batches']} batches, sequential_qps {seq:.0f}; "
+                f"{st['compiles']} graphs, capture {cap:.3f} s; scores "
+                f"bit-equal to decision_function, recompiles 0 ({smi})")
+
+    # (b) the subprocess server over HTTP
+    url = None
+    deadline = time.perf_counter() + 180.0
+    while url is None and time.perf_counter() < deadline:
+        check(server_proc.poll() is None, "[22b] serve exited early:\n"
+              + (out_dir / "serve22b.err").read_text()[-2000:])
+        for line in (out_dir / "serve22b.out").read_text().splitlines():
+            if line.startswith("serving on http://"):
+                url = line.split()[2]
+        time.sleep(0.2)
+    check(url is not None, "[22b] serve did not come up within 180 s")
+    up_s = time.perf_counter() - t_b
+    rng = np.random.default_rng(22)
+    i = 0
+    sizes = []
+    t = time.perf_counter()
+    while i < N_HTTP:
+        k = int(min(rng.integers(1, 65), N_HTTP - i))
+        code, body = _http(f"{url}/v1/models/m5:predict",
+                           {"instances": Xt[i:i + k].tolist()})
+        check(code == 200, f"[22b] POST {k} rows: {code} {body[:300]!r}")
+        got = np.asarray(json.loads(body)["scores"], np.float32)
+        check(got.tobytes() == want["m5"][i:i + k].tobytes(),
+              f"[22b] rows {i}:{i + k} over HTTP differ from (a)")
+        sizes.append(k)
+        i += k
+    http_s = time.perf_counter() - t
+    code, body = _http(f"{url}/healthz")
+    check(code == 200 and json.loads(body)["status"] == "ok",
+          f"[22b] /healthz {code} {body[:300]!r}")
+    code, body = _http(f"{url}/metrics")
+    lines = body.decode().splitlines()
+    check(code == 200 and lines and all(
+        len(x.rsplit(" ", 1)) == 2 and float(x.rsplit(" ", 1)[1]) >= 0
+        for x in lines), "[22b] /metrics does not parse")
+    code, body = _http(f"{url}/metrics.json")
+    check(code == 200, f"[22b] /metrics.json {code}")
+    payload = parse_payload(json.loads(body))
+    saved = json.loads(state.read_text())
+    check(url.endswith(saved.get("address", "?")),
+          f"[22b] serve_state.json names {saved.get('address')}, not {url}")
+    log(f"[22b] serve --port 0 up in {up_s:.1f} s at {url}; {N_HTTP} rows in "
+        f"{len(sizes)} POSTs of 1-64 rows in {http_s:.3f} s, bit-equal to "
+        f"(a); /healthz 200, /metrics {len(lines)} lines, /metrics.json "
+        f"{len(payload['snapshot']['metrics'])} series, state address "
+        f"{saved['address']} ({smi})")
+
+    # (c) hot-swaps under load
+    Xq = Xt[:N_SWAP_ROWS]
+    refA = np.asarray(m5.decision_function(Xq))
+    refB = np.asarray(m11.decision_function(Xq))
+    check(refA.tobytes() != refB.tobytes(), "[22c] the generations' scores "
+          "are equal: the torn-read check would be vacuous")
+    mem = []
+    gc.collect()  # (a)'s server: its memory freed now, not mid-loop
+    with Server(ServeConfig(max_batch=64), device=device) as srv:
+        srv.load_model("m", paths["m5"])
+        srv.warmup()
+        stop = threading.Event()
+        bad, served = [], [0]
+        lock = threading.Lock()
+
+        def client(t):
+            j = t
+            while not stop.is_set():
+                r = srv.submit("m", Xq[j % N_SWAP_ROWS], timeout_s=60.0)
+                k = j % N_SWAP_ROWS
+                with lock:
+                    if not r.ok:
+                        bad.append(("status", k, r.status))
+                    elif r.scores != refA[k] and r.scores != refB[k]:
+                        bad.append(("torn", k, float(r.scores)))
+                    else:
+                        served[0] += 1
+                j += 4
+
+        ts = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+        for t in ts:
+            t.start()
+        lat = []
+        for k in range(N_SWAPS):
+            old = weakref.ref(srv._worker("m")._gen)
+            out = srv.swap("m", paths["m11"] if k % 2 == 0 else paths["m5"])
+            lat.append(out["latency_s"])
+            # swap() returns once the old generation's last in-flight
+            # batch dropped it and its pool went back to the device
+            check(old() is None, f"[22c] generation {k + 1} still alive "
+                  "after its swap returned")
+            if device != "cpu":
+                torch.cuda.synchronize()
+                mem.append((torch.cuda.memory_allocated(),
+                            torch.cuda.memory_reserved()))
+        stop.set()
+        for t in ts:
+            t.join(60.0)
+        check(not any(t.is_alive() for t in ts), "[22c] a client hung")
+        gen = srv.registry.generation("m")
+    check(not bad, f"[22c] {len(bad)} bad responses: {bad[:5]}")
+    check(served[0] > 0, "[22c] nothing served")
+    if mem:
+        # swaps 2 and 8 both leave phase 5's artifact serving, 1 and 7
+        # phase 11's: the same bytes must be allocated
+        check(mem[-1][0] == mem[1][0] and mem[-2][0] == mem[0][0],
+              f"[22c] device memory not flat across swaps: {mem}")
+    log(f"[22c] {N_SWAPS} swaps (5 <-> 11) under 4 clients: {served[0]} "
+        f"responses, every one a generation's bits, 0 lost; generation "
+        f"{gen}; swap s {[round(x, 3) for x in lat]}; device memory "
+        f"allocated/reserved MiB after the first swap "
+        f"{[round(x / 2**20, 1) for x in mem[0]] if mem else 'n/a'}, after "
+        f"the last {[round(x / 2**20, 1) for x in mem[-1]] if mem else 'n/a'} "
+        f"({smi})")
+
+    # (d) refresh, with (e)'s smokes beside it
+    smokes = {}
+    for i, (args, line) in enumerate(SERVE_SMOKES):
+        smokes[f"smoke22e_{i}"] = (_start(list(args), out_dir,
+                                          f"smoke22e_{i}", device),
+                                   time.perf_counter())
+    n_ref = n_tr + N_APPEND
+    Xr, Yr = X_all[:n_ref], Y_all[:n_ref]
+    Xh, Yh = X_all[n_ref:], Y_all[n_ref:]
+    acc5h = float((m5.predict(Xh) == Yh).mean())
+    fits = {}
+    for arm in ("warm", "cold"):
+        _zero(counters)
+        sync(device)
+        t = time.perf_counter()
+        m = refresh_fit(paths["m5"], Xr, Yr,
+                        out_path=str(out_dir / f"refresh_{arm}.npz"),
+                        warm=arm == "warm", solver_opts=FULL_OPTS,
+                        device=device)
+        sync(device)
+        secs = time.perf_counter() - t
+        counts = _count(counters)
+        acc = float((m.predict(Xh) == Yh).mean())
+        fits[arm] = (m, acc)
+        if arm == "warm":
+            launches.setdefault("fused_fupdate", {})["22"] = \
+                counts["fused_fupdate"]
+            launches.setdefault("inner_smo", {})["22"] = counts["inner_smo"]
+        log(f"[22d] refresh {arm} on rows [:{n_ref}]: {secs:.3f} s, status "
+            f"{m.status_.name}, updates {m.n_iter_ - 1}, rounds "
+            f"{m.result_.n_outer}, SVs {m.n_support_}, b {m.b_:.15f}, "
+            f"accuracy on [{n_ref}:] {acc:.4f} (phase 5 {acc5h:.4f}); "
+            f"launches {counts} ({smi})")
+        check(m.status_ == Status.CONVERGED, f"[22d] {arm}: {m.status_.name}")
+        check(abs(acc - acc5h) <= 0.002,
+              f"[22d] {arm} accuracy {acc} vs phase 5 {acc5h}")
+        check(device == "cpu" or (counts["fused_fupdate"] > 0
+                                  and counts["inner_smo"] > 0),
+              f"[22d] {arm}: #1/#2 not launched: {counts}")
+    check(fits["warm"][0].n_iter_ < fits["cold"][0].n_iter_,
+          f"[22d] warm {fits['warm'][0].n_iter_} updates not below cold "
+          f"{fits['cold'][0].n_iter_}")
+    # the command line's refresh, on the same rows as one shard of a
+    # dataset, swapped into (b)'s server over HTTP
+    import shutil
+
+    from tpusvm_torch.stream import ingest_arrays
+
+    ds_dir = out_dir / "rows_refresh"
+    shutil.rmtree(ds_dir, ignore_errors=True)
+    ingest_arrays(str(ds_dir), Xr, Yr, rows_per_shard=n_ref)
+    out_path = str(out_dir / "m5.npz")
+    stdout, secs = _cli(["refresh", "--model", paths["m5"], "--data",
+                         str(ds_dir), "--save", out_path, "--swap", url],
+                        device)
+    fresh = load_any(out_path, device=device)
+    Xs = Xt[:N_HTTP]
+    code, body = _http(f"{url}/v1/models/m5:predict",
+                       {"instances": Xs.tolist()})
+    check(code == 200, f"[22d] POST after the swap: {code}")
+    got = np.asarray(json.loads(body)["scores"], np.float32)
+    offline = np.asarray(fresh.decision_function(Xs))
+    check(got.tobytes() == offline.tobytes(),
+          "[22d] scores served after `refresh --swap` differ from the "
+          "refreshed artifact's decision_function")
+    check(got.tobytes() != want["m5"][:N_HTTP].tobytes(),
+          "[22d] the swap changed no served score")
+    fitted = _line(r"(refreshed model: .*)", stdout)
+    swapped = _line(r"(swapped .*)", stdout)
+    log(f"[22d] `refresh --swap {url}` in {secs:.1f} s: {fitted}; "
+        f"{swapped}; {N_HTTP} rows served after it bit-equal to the "
+        f"refreshed artifact's decision_function ({smi})")
+
+    server_proc.terminate()
+    try:
+        server_proc.wait(30)
+    except subprocess.TimeoutExpired:
+        server_proc.kill()
+        server_proc.wait()
+    serve_out.close()
+    serve_err.close()
+    done = _finish(smokes, out_dir, 600, "22e")
+    for i, (args, line) in enumerate(SERVE_SMOKES):
+        text, secs = done[f"smoke22e_{i}"]
+        ok = [x for x in text.splitlines() if x.startswith(line)]
+        check(ok, f"[22e] {' '.join(args)}: no {line!r} line")
+        log(f"[22e] python -m {' '.join(args)}: exit 0 in {secs:.1f} s "
+            f"(beside (d); {smi}); {ok[-1]!r}")
 
 
 def sync(device):
@@ -3406,7 +3813,8 @@ def main():
                             csv10, "cuda", counters, launches, smi,
                             _build.BUILD_DIR / "chip_smoke_stream")
     clock("17")
-    phase_approx(X_all, Y_all, 60000, acc5, ds, "cuda", counters, launches)
+    rff18a = phase_approx(X_all, Y_all, 60000, acc5, ds, "cuda", counters,
+                          launches)
     clock("18")
 
     # ---- 19. the pod: the cascade's leaves in worker processes ----------
@@ -3420,6 +3828,12 @@ def main():
     phase_tune(X_all, Y_all, 60000, acc5, "cuda", counters, launches,
                _build.BUILD_DIR / "chip_smoke_tune")
     clock("21")
+
+    # ---- 22. serving and refresh ----------------------------------------
+    phase_serve(X_all, Y_all, 60000, m5, model5_path, m11, ovr_a[0], Xm,
+                rff18a, "cuda", counters, launches, smi,
+                _build.BUILD_DIR / "chip_smoke_serve")
+    clock("22")
 
     for k in kernels:
         k["launches_by_phase"] = launches[k["name"]]

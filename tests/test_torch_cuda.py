@@ -809,3 +809,120 @@ def test_pod_on_the_card_equals_the_inprocess_cascade(dev, tmp_path):
     assert res.b == ctrl.b and res.rounds == ctrl.rounds
     for w in res.worker_launches:
         assert w.get("fused_fupdate", 0) > 0 and w.get("inner_smo", 0) > 0
+
+
+def _serve_model(dev, kind):
+    """A small fitted model of `kind` and rows to score with it."""
+    from tpusvm_torch.data import rings
+    from tpusvm_torch.models import OneVsRestSVC
+
+    X, Y = rings(n=240, seed=2)
+    if kind == "ovr":
+        rng = np.random.default_rng(0)
+        centers = np.array([[0, 0], [6, 0], [0, 6], [6, 6]], float)
+        lm = rng.integers(0, 4, 300).astype(np.int32)
+        Xm = centers[lm] + rng.normal(0, 0.8, (300, 2))
+        return OneVsRestSVC(SVMConfig(C=10.0, gamma=2.0), solver="blocked",
+                            device=dev).fit(Xm, lm), Xm
+    cfg = {"binary": SVMConfig(C=10.0, gamma=10.0),
+           "poly": SVMConfig(C=1.0, gamma=1.0, kernel="poly", coef0=1.0),
+           "rff": SVMConfig(C=10.0, gamma=10.0, kernel="rff",
+                            rff_dim=256)}[kind]
+    return BinarySVC(cfg, device=dev).fit(X, Y), X
+
+
+@pytest.mark.parametrize("kind", ["binary", "poly", "rff", "ovr"])
+def test_serve_graph_replay_equals_eager_and_decision_function(dev, kind,
+                                                               tmp_path):
+    """At every bucket: the captured graph's replay, the bucket program run
+    eagerly on the worker's stream and on the default stream, and the
+    estimator's decision_function on the default stream, bit for bit; and
+    through the batcher at every row count 1..max_batch."""
+    from tpusvm_torch.serve import ServeConfig, Server
+
+    est, X = _serve_model(dev, kind)
+    path = str(tmp_path / "m.npz")
+    est.save(path)
+    rng = np.random.default_rng(5)
+    Xq = X[rng.permutation(len(X))[:64]]
+    with Server(ServeConfig(max_batch=16), device="cuda") as srv:
+        srv.load_model("m", path)
+        assert srv.warmup() == {"m": 5}
+        w = srv._worker("m")
+        assert w.cache.graphed
+        for b in w.cache.buckets:
+            rows = w.entry.scale(w.entry.validate_rows(Xq[:b]))
+            replay, _ = w.cache.scores(rows)
+            side = w.cache.eager_scores(rows)
+            default = w.cache.eager_scores(
+                rows, stream=torch.cuda.current_stream())
+            want = np.asarray(est.decision_function(Xq[:b]))
+            assert replay.tobytes() == side.tobytes() == default.tobytes() \
+                == want.tobytes(), b
+        for m in range(1, 17):
+            res = srv.submit_many("m", Xq[:m])
+            assert all(r.ok for r in res)
+            got = np.stack([np.asarray(r.scores) for r in res])
+            assert got.tobytes() == np.asarray(
+                est.decision_function(Xq[:m])).tobytes(), m
+        assert srv.metrics("m")["recompiles"] == 0
+
+
+def test_serve_swap_under_load_on_the_card_keeps_memory_flat(dev, tmp_path):
+    """Four clients stream rows while eight swaps alternate two models:
+    every response is one generation's bits, none is lost, and the device
+    memory after a swap equals that after the swap two before (the same
+    model serving)."""
+    import gc
+    import threading
+
+    from tpusvm_torch.data import rings
+    from tpusvm_torch.serve import ServeConfig, Server
+
+    Xa, Ya = rings(n=240, seed=2)
+    Xb, Yb = rings(n=240, seed=9)
+    A = BinarySVC(SVMConfig(C=10.0, gamma=10.0), device=dev).fit(Xa, Ya)
+    B = BinarySVC(SVMConfig(C=10.0, gamma=5.0), device=dev).fit(Xb, Yb)
+    pa, pb = str(tmp_path / "a.npz"), str(tmp_path / "b.npz")
+    A.save(pa)
+    B.save(pb)
+    Xq, _ = rings(n=32, seed=3)
+    refA = np.asarray(A.decision_function(Xq))
+    refB = np.asarray(B.decision_function(Xq))
+    assert refA.tobytes() != refB.tobytes()
+    bad, served, mem = [], [0], []
+    lock = threading.Lock()
+    stop = threading.Event()
+    gc.collect()  # earlier tests' servers: garbage freed now, not mid-loop
+    with Server(ServeConfig(max_batch=8), device="cuda") as srv:
+        srv.load_model("m", pa)
+        srv.warmup()
+
+        def client(t):
+            i = t
+            while not stop.is_set():
+                r = srv.submit("m", Xq[i % 32], timeout_s=30.0)
+                with lock:
+                    if not r.ok:
+                        bad.append(r.status)
+                    elif r.scores not in (refA[i % 32], refB[i % 32]):
+                        bad.append(float(r.scores))
+                    else:
+                        served[0] += 1
+                i += 4
+
+        ts = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+        for t in ts:
+            t.start()
+        for k in range(8):
+            srv.swap("m", pb if k % 2 == 0 else pa)
+            torch.cuda.synchronize()
+            mem.append((torch.cuda.memory_allocated(),
+                        torch.cuda.memory_reserved()))
+        stop.set()
+        for t in ts:
+            t.join(30.0)
+        assert not any(t.is_alive() for t in ts)
+        assert srv.registry.generation("m") == 9
+    assert not bad and served[0] > 0
+    assert [m[0] for m in mem[2:]] == [m[0] for m in mem[:-2]], mem

@@ -142,7 +142,9 @@ def test_checkpoint_shrink_and_csv_entry_points_raise_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("pkg", ["stream", "approx", "faults", "obs", "pod",
                                  "faults.__main__", "tune", "parallel.mesh",
-                                 "data.native_io"])
+                                 "data.native_io", "serve", "serve.http",
+                                 "serve.refresh", "serve.watch",
+                                 "obs.fleet"])
 def test_new_tiers_import_alone_without_jax_or_tpusvm(pkg):
     # each tier in a fresh interpreter, alone: what it pulls in is its own
     code = f"""
@@ -257,3 +259,25 @@ def test_class_axis_ranks_and_the_native_reader_run_without_jax_or_tpusvm(
                 p.wait()
     assert [p.returncode for p in procs] == [0, 0], outs
     assert "status = ['CONVERGED', 'CONVERGED', 'CONVERGED']" in outs[0][0]
+
+
+def test_serve_subprocess_runs_without_jax_or_tpusvm(tmp_path):
+    # `serve --smoke` and `swap-chaos-smoke` start under a guard that makes
+    # jax and the JAX package unimportable: an import of either would fail
+    # the command
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    for mod, argv, line in (
+            ("tpusvm_torch", ["serve", "--smoke", "--smoke-threads", "2",
+                              "--smoke-requests", "4"], "bit-equal"),
+            ("tpusvm_torch.faults", ["swap-chaos-smoke"],
+             "swap chaos smoke ok")):
+        guard = ("import runpy, sys; sys.modules['jax'] = "
+                 "sys.modules['tpusvm'] = None; "
+                 f"sys.argv[0] = {mod!r}; "
+                 f"runpy.run_module({mod!r}, run_name='__main__', "
+                 "alter_sys=True)")
+        out = subprocess.run([sys.executable, "-c", guard, *argv, "--device",
+                              "cpu"], capture_output=True, text=True,
+                             cwd=tmp_path, env=env, timeout=120)
+        assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+        assert line in out.stdout

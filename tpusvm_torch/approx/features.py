@@ -105,16 +105,20 @@ def apply_map(family: str, X: torch.Tensor,
 
 def approx_decision_function(Xq: torch.Tensor, fmap: "FeatureMap",
                              X_sv: torch.Tensor, coef: torch.Tensor,
-                             b) -> torch.Tensor:
+                             b, block: int = 2048) -> torch.Tensor:
     """f(x) = Phi(x).sum_j coef_j Phi(x_j) - b for raw scaled rows Xq on
     the card: the map, then the linear decision over the MAPPED support
     rows X_sv (models store mapped rows). coef (n_sv,) gives (m,) scores,
-    (n_sv, K) one-vs-rest's (m, K)."""
-    from tpusvm_torch.solver.predict import decision_function
+    (n_sv, K) one-vs-rest's (m, K). The raw rows are zero-padded to a
+    multiple of `block` BEFORE the map, so the map's products run one
+    shape per block whatever m is (solver/predict.py: a row's score is
+    then the same bits alone or among thousands)."""
+    from tpusvm_torch.solver.predict import decision_function, pad_rows
 
-    Z = fmap.transform(Xq)
+    m = Xq.shape[0]
+    Z = fmap.transform(pad_rows(Xq, block))
     return decision_function(Z, X_sv, coef, b, gamma=0.0,
-                             kernel=fmap.family)
+                             kernel=fmap.family, block=block)[:m]
 
 
 # -------------------------------------------------------------- the map object

@@ -1,4 +1,5 @@
-"""Command line: `python -m tpusvm_torch train|pod|predict|ingest|tune|info`.
+"""Command line: `python -m tpusvm_torch train|pod|predict|ingest|tune|serve|
+refresh|info`.
 
 train fits a model on a CSV (--train, last column = label; --test scores a
 held-out CSV) or a synthetic dataset, scores the held-out rows and prints
@@ -35,8 +36,12 @@ CSV or a sharded dataset (--data) or the synthetic held-out slice, and
 prints accuracy, or --scores / --proba line by line (--mesh-predict splits
 the rows over the visible cards). info prints the torch/CUDA versions and
 the visible devices, or describes a model artifact, a tune-results JSON or
-a sharded dataset (its manifest and each shard's StreamStatus). train,
-predict and tune run on the card unless --device cpu.
+a sharded dataset (its manifest and each shard's StreamStatus). serve
+hosts saved models over HTTP (tpusvm_torch.serve: micro-batching, one CUDA
+graph a row bucket, hot-swap, --state, --watch; --smoke is its gate), and
+refresh warm-starts a refit of a deployed model on grown data and can
+hot-swap it into a running serve (--swap URL). train, predict, tune, serve
+and refresh run on the card unless --device cpu.
 """
 
 from __future__ import annotations
@@ -372,6 +377,7 @@ def build_parser() -> argparse.ArgumentParser:
     po.add_argument("-q", "--quiet", action="store_true")
     po.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     _add_tune_parser(sub)
+    _add_serve_parsers(sub)
     inf = sub.add_parser("info", help="print the torch/CUDA versions and the "
                          "visible devices, or describe a model artifact")
     inf.add_argument("path", nargs="?", default=None,
@@ -1676,6 +1682,525 @@ def _info_artifact(path: str) -> int:
     return 0
 
 
+# ------------------------------------------------------------- serving
+def _add_serve_parsers(sub) -> None:
+    """`serve` and `refresh`, with the JAX command line's flags; serve's
+    --trace/--trace-max-bytes/--profile are refused (item 12)."""
+    sv = sub.add_parser(
+        "serve", help="serve saved models over HTTP with deadline-aware "
+        "micro-batching, one CUDA graph per row bucket (tpusvm_torch.serve)")
+    sv.add_argument("--model", action="append", default=[],
+                    metavar="[NAME=]NPZ", dest="models",
+                    help="model to host, repeatable; NAME defaults to the "
+                    "file stem (binary, one-vs-rest or SVR, either package's "
+                    "artifact). Optional when --state names a manifest to "
+                    "restore, --watch a directory to load from, or with "
+                    "--smoke (which then fits a small rings model to host)")
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8471,
+                    help="HTTP port (0 = ephemeral; default 8471)")
+    sv.add_argument("--max-batch", type=int, default=64,
+                    help="micro-batch coalescing cap = largest pad bucket")
+    sv.add_argument("--max-delay-ms", type=float, default=2.0,
+                    help="max latency added waiting for batch co-riders")
+    sv.add_argument("--queue-size", type=int, default=1024,
+                    help="backpressure bound; a full queue fast-fails")
+    sv.add_argument("--timeout-ms", type=float, default=1000.0,
+                    help="default per-request deadline")
+    sv.add_argument("--shed-threshold", type=float, default=None,
+                    metavar="FRAC",
+                    help="degraded mode: shed requests with OVERLOADED once "
+                    "the queue holds FRAC of its capacity (0 < FRAC <= 1; "
+                    "default: off, only the hard QUEUE_FULL bound applies)")
+    sv.add_argument("--breaker-threshold", type=int, default=5,
+                    help="consecutive scoring failures that trip a model's "
+                    "circuit breaker (requests then fail fast with "
+                    "UNAVAILABLE; default 5)")
+    sv.add_argument("--breaker-cooldown-s", type=float, default=30.0,
+                    help="open-breaker cooldown before a half-open probe is "
+                    "admitted (default 30)")
+    sv.add_argument("--dtype", choices=["float32", "float64"],
+                    default="float32", help="serving compute dtype")
+    sv.add_argument("--no-warmup", action="store_true",
+                    help="skip capturing the bucket graphs (the first "
+                    "request per bucket then pays the capture)")
+    rr = sv.add_argument_group("restart robustness / continuous serving")
+    rr.add_argument("--cache-dir", metavar="DIR", default=None,
+                    help="keep the bucket-signature manifest in DIR: every "
+                    "warm-up and swap records the (model config, bucket) "
+                    "programs it built (a CUDA graph cannot persist, so "
+                    "each run captures its own); also honoured from "
+                    "TPUSVM_CACHE_DIR")
+    rr.add_argument("--assert-cached", action="store_true",
+                    help="with --cache-dir: exit non-zero unless every "
+                    "bucket signature this run built was already in DIR's "
+                    "manifest when it started (the restart gate, run as "
+                    "the second of two runs sharing DIR)")
+    rr.add_argument("--state", metavar="JSON", default=None,
+                    help="serialized registry manifest (serve_state.json, "
+                    "either package's): restored at startup (the model set "
+                    "reloads with its generation history) and atomically "
+                    "rewritten after every successful load/swap")
+    rr.add_argument("--watch", metavar="DIR", default=None,
+                    help="poll DIR for model .npz files: a new stem loads "
+                    "as a new model, a newer mtime on a hosted stem "
+                    "hot-swaps it in (staged off to the side, probe-"
+                    "verified, atomic generation flip; a bad artifact rolls "
+                    "back and the old generation keeps serving)")
+    rr.add_argument("--watch-interval-s", type=float, default=2.0,
+                    help="--watch poll period (default 2.0)")
+    sv.add_argument("--smoke", action="store_true",
+                    help="no HTTP: warm up, fire concurrent in-process "
+                    "requests, print metrics, exit non-zero on any error, "
+                    "any post-warm-up capture or any served score that is "
+                    "not the offline decision_function's bits (the gate)")
+    sv.add_argument("--smoke-threads", type=int, default=8)
+    sv.add_argument("--smoke-requests", type=int, default=32,
+                    help="requests per smoke thread")
+    sv.add_argument("--trace", metavar="PATH",
+                    help="not ported yet (ROADMAP Queue 1 item 12)")
+    sv.add_argument("--trace-max-bytes", type=int, default=None, metavar="N",
+                    help="not ported yet (ROADMAP Queue 1 item 12)")
+    sv.add_argument("--profile", "--xprof", metavar="DIR", dest="profile",
+                    help="not ported yet (ROADMAP Queue 1 item 12)")
+    slo = sv.add_argument_group("serving SLOs")
+    slo.add_argument("--slo-p99-ms", type=float, default=None, metavar="MS",
+                     help="per-model p99 latency target: at most 1%% of "
+                     "windowed requests may exceed it; burn-rate gauges are "
+                     "exported on /metrics and /healthz degrades while a "
+                     "budget burns (default: no SLO)")
+    slo.add_argument("--slo-error-budget", type=float, default=0.001,
+                     metavar="FRAC",
+                     help="allowed windowed error fraction "
+                     "(errors/timeouts/unavailable; default 0.001)")
+    slo.add_argument("--slo-window-s", type=float, default=60.0,
+                     help="sliding SLO evaluation window (default 60)")
+    slo.add_argument("--slo-shed", action="store_true",
+                     help="admission control: shed new requests "
+                     "(OVERLOADED, retryable) while the latency budget "
+                     "burns; requires --slo-p99-ms")
+    sv.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+
+    rf = sub.add_parser(
+        "refresh", help="crash-safe online refresh: warm-start a refit from "
+        "a DEPLOYED model's duals (binary, one-vs-rest or SVR), checkpoint "
+        "it, save atomically, and hot-swap it into a running `serve` "
+        "(tpusvm_torch.serve.refresh); --data DIR reads an append-grown "
+        "sharded dataset")
+    _add_data_args(rf, "--train", "training CSV (header line, last column "
+                   "= label); its rows must start with the deployed run's")
+    rf.add_argument("--test", metavar="CSV",
+                    help="held-out CSV to score after the refit")
+    rf.add_argument("--data", metavar="DIR",
+                    help="a sharded dataset directory (`ingest`), read in "
+                    "its manifest's row order")
+    rf.add_argument("--model", metavar="NPZ",
+                    help="the deployed artifact to refresh (required unless "
+                    "--smoke); its config and duals seed the refit, and the "
+                    "new data must keep its training rows as a prefix")
+    rf.add_argument("--save", metavar="NPZ",
+                    help="refreshed artifact output (atomic write; required "
+                    "unless --smoke): drop it in a serve --watch directory "
+                    "or name it with --swap")
+    rf.add_argument("--cold", action="store_true",
+                    help="skip the warm seed (the control arm the warm "
+                    "path's update savings are measured against)")
+    rf.add_argument("--checkpoint", metavar="NPZ",
+                    help="crash-safe refit (binary): solver-carry "
+                    "checkpoints every --checkpoint-every outer rounds; a "
+                    "killed refresh resumed with --resume is bit-identical "
+                    "to an uninterrupted one")
+    rf.add_argument("--checkpoint-every", type=int, default=64, metavar="K")
+    rf.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint if it exists")
+    rf.add_argument("--swap", metavar="URL", dest="swap_url",
+                    help="after saving, POST /admin/swap on this running "
+                    "serve frontend (e.g. http://127.0.0.1:8471): the staged "
+                    "atomic flip; a refused swap reports the server's "
+                    "rollback reason")
+    rf.add_argument("--swap-name", metavar="NAME", default=None,
+                    help="hosted model name to swap (default: the --save "
+                    "file stem)")
+    rf.add_argument("--smoke", action="store_true",
+                    help="gate: deploy a tiny model, grow the data, refresh "
+                    "warm + cold control, hot-swap in-process; asserts "
+                    "convergence, warm update savings and bit-identical "
+                    "served scores after the swap")
+    rf.add_argument("-q", "--quiet", action="store_true")
+
+
+def _serve_config(args):
+    from tpusvm_torch.serve import ServeConfig
+
+    return ServeConfig(
+        max_batch=args.max_batch,
+        max_delay_ms=args.max_delay_ms,
+        queue_size=args.queue_size,
+        timeout_ms=args.timeout_ms,
+        shed_threshold=args.shed_threshold,
+        breaker_threshold=args.breaker_threshold,
+        breaker_cooldown_s=args.breaker_cooldown_s,
+        slo_p99_ms=args.slo_p99_ms,
+        slo_error_budget=args.slo_error_budget,
+        slo_window_s=args.slo_window_s,
+        slo_shed=args.slo_shed,
+    )
+
+
+def _smoke_model(server, td: str) -> None:
+    """`serve --smoke` with nothing named to host: a rings model (the JAX
+    serving tests' fixture) saved and loaded as `rings`."""
+    import os
+
+    from tpusvm_torch.models import BinarySVC
+
+    X, Y = rings(n=240, seed=2)
+    path = os.path.join(td, "rings.npz")
+    BinarySVC(SVMConfig(C=10.0, gamma=10.0), device=server.device,
+              dtype=server.dtype).fit(X, Y).save(path)
+    server.load_model("rings", path)
+
+
+def cmd_serve(args) -> int:
+    import os
+    import tempfile
+
+    from tpusvm_torch.serve import ModelLoadError, Server
+
+    if args.trace or args.trace_max_bytes is not None or args.profile:
+        raise SystemExit("serve --trace/--trace-max-bytes/--profile: the "
+                         "trace and profile layer is not ported yet (ROADMAP "
+                         "Queue 1 item 12)")
+    cache_dir = args.cache_dir or os.environ.get("TPUSVM_CACHE_DIR")
+    if args.assert_cached and not cache_dir:
+        raise SystemExit("serve: --assert-cached needs --cache-dir (or "
+                         "TPUSVM_CACHE_DIR): there is no manifest to hold "
+                         "the run's bucket signatures against")
+    if not (args.models or args.state or args.watch or args.smoke):
+        raise SystemExit("serve: nothing to host — pass --model, --state "
+                         "MANIFEST, or --watch DIR")
+    try:
+        cfg = _serve_config(args)
+        cfg.resolved_slo()
+        cfg.resolved_shed_at()
+    except ValueError as e:
+        raise SystemExit(f"serve: {e}")
+    server = Server(cfg, dtype=args.dtype, device=args.device)
+    with tempfile.TemporaryDirectory() as td:
+        try:
+            return _serve(args, server, cache_dir, td)
+        except ModelLoadError as e:
+            # the classified load failure (ServeStatus.LOAD_FAILED): the
+            # offending path and cause, never a raw numpy/zipfile traceback
+            raise SystemExit(f"serve: {e}")
+        finally:
+            server.close()
+
+
+def _serve(args, server, cache_dir, td) -> int:
+    import json
+    import os
+    import signal
+
+    if cache_dir:
+        manifest = server.configure_cache(cache_dir)
+        known = len(manifest.get("signatures", {}))
+        print(f"bucket-signature manifest: {cache_dir} ({known} known "
+              f"signatures{' — expecting a warm start' if known else ''})")
+    if args.state:
+        try:
+            restored = server.restore_state(args.state)
+        except FileNotFoundError:
+            print(f"serve state {args.state}: absent (fresh start); will be "
+                  "written after the first load")
+        except ValueError as e:
+            raise SystemExit(f"serve: --state: {e}")
+        else:
+            for n in restored["restored"]:
+                gen = server.registry.generation(n)
+                print(f"restored {n} (generation {gen}) from {args.state}")
+            for n in restored["skipped"]:
+                print(f"NOT restored (no source path recorded): {n}")
+        server.enable_state(args.state)
+    for spec in args.models:
+        name, sep, path = spec.partition("=")
+        if not sep:
+            name, path = "", spec
+        if not name:
+            name = os.path.splitext(os.path.basename(path))[0]
+        entry = server.load_model(name, path)
+        print(f"loaded {name}: {entry.kind}, {entry.n_sv} SVs, "
+              f"{entry.n_features} features, on {entry.device}")
+    if args.smoke and not server.registry.names() and not args.watch:
+        _smoke_model(server, td)
+        print("smoke: hosting a rings model (C=10, gamma=10, 240 rows)")
+    if not args.no_warmup:
+        t = time.perf_counter()
+        for name, n in server.warmup().items():
+            kind = ("CUDA graphs captured" if server.device.type == "cuda"
+                    else "programs built")
+            print(f"warmed {name}: {n} bucket {kind}")
+        print(f"warm-up: {time.perf_counter() - t:.3f} s")
+
+    watcher = None
+    if args.watch:
+        from tpusvm_torch.serve.watch import ModelWatcher
+
+        watcher = ModelWatcher(server, args.watch,
+                               interval_s=args.watch_interval_s,
+                               log_fn=print)
+        watcher.poll_once()  # pick up anything already there
+        if not args.smoke:
+            watcher.start()
+        print(f"watching {args.watch} every {args.watch_interval_s:g}s")
+
+    def cached_gate() -> int:
+        if not args.assert_cached:
+            return 0
+        unknown = server.unknown_signatures()
+        if unknown:
+            print(f"SMOKE FAILED --assert-cached: {len(unknown)} bucket "
+                  f"signatures this run built were not in the manifest: "
+                  f"{unknown[:4]}")
+            return 1
+        print("assert-cached ok: every bucket signature this run built was "
+              "in the manifest")
+        return 0
+
+    if args.smoke:
+        rc = _serve_smoke(server, args.smoke_threads, args.smoke_requests)
+        rc = rc or cached_gate()
+        print(server.metrics_text(), end="")
+        return rc
+
+    from tpusvm_torch.serve.http import make_http_server
+
+    httpd = make_http_server(server, host=args.host, port=args.port)
+    # close() owns the HTTP teardown: shutdown + server_close + join
+    server.attach_http(httpd)
+    host, port = httpd.server_address[:2]
+    # with --port 0 the kernel chose the port just now: record the real
+    # address into serve_state.json and flush the line
+    server.set_bound_address(host, port)
+    rc = cached_gate()
+    if rc:
+        return rc
+
+    def _stop(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _stop)
+    print(f"serving on http://{host}:{port} "
+          f"(POST /v1/models/<name>:predict, POST /admin/swap, "
+          f"GET /metrics)", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if watcher is not None:
+            watcher.stop()
+        print(server.metrics_text(), end="")
+        print(json.dumps(server.status()), flush=True)
+    return 0
+
+
+def _serve_smoke(server, n_threads: int, n_requests: int) -> int:
+    """Concurrent in-process exercise of every hosted model: the gate
+    asserts zero errors, zero post-warm-up captures, and that every served
+    score is the offline decision_function's bits on the same rows (the
+    artifact loaded again, scored without the server)."""
+    import threading
+
+    from tpusvm_torch.models import load_any
+
+    failures = []
+    for name in server.registry.names():
+        entry = server.registry.get(name)
+        rng = np.random.default_rng(0)
+        rows = rng.random((n_threads * n_requests, entry.n_features))
+        got = np.empty(len(rows), dtype=object)
+        bad = []
+        lock = threading.Lock()
+
+        def run(t, name=name, rows=rows, bad=bad, lock=lock, got=got):
+            for i in range(t * n_requests, (t + 1) * n_requests):
+                r = server.submit(name, rows[i], timeout_s=30.0)
+                if not r.ok:
+                    with lock:
+                        bad.append(r.status)
+                got[i] = r.scores
+
+        threads = [threading.Thread(target=run, args=(t,))
+                   for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120.0)
+        snap = server.metrics(name)
+        offline = "not compared (no artifact path)"
+        if entry.source_path and not bad:
+            est = load_any(entry.source_path, device=entry.device,
+                           dtype=entry.dtype)
+            want = np.asarray(est.decision_function(rows))
+            same = np.array_equal(np.stack(list(got)), want)
+            offline = "bit-equal" if same else "DIFFERENT"
+            if not same:
+                bad.append("scores differ from the offline decision_function")
+        if bad or snap["errors"] or snap["recompiles"]:
+            failures.append((name, bad[:4], snap["errors"],
+                             snap["recompiles"]))
+        print(f"smoke {name}: {snap['ok']} ok, {snap['errors']} errors, "
+              f"{snap['recompiles']} recompiles, mean batch rows "
+              f"{snap['mean_batch_rows']:.2f}, served scores vs offline "
+              f"decision_function: {offline}")
+    if failures:
+        for name, bad, errors, recompiles in failures:
+            print(f"SMOKE FAILED {name}: statuses={bad} errors={errors} "
+                  f"recompiles={recompiles}")
+        return 1
+    return 0
+
+
+def cmd_refresh(args) -> int:
+    """Warm-started crash-safe refit of a deployed model + hot-swap."""
+    import os
+
+    from tpusvm_torch.models import model_task
+    from tpusvm_torch.serve.refresh import refresh_fit, swap_via_http
+
+    if args.smoke:
+        return _refresh_smoke(args.device)
+    if not args.model or not args.save:
+        raise SystemExit("refresh: --model (the deployed artifact) and "
+                         "--save (the refreshed output) are required (or "
+                         "--smoke)")
+    if args.resume and not args.checkpoint:
+        raise SystemExit("refresh: --resume requires --checkpoint")
+    say = (lambda msg: None) if args.quiet else print
+    timer = _Timer()
+    # the loader needs the TASK the artifact was trained for (one-vs-rest
+    # keeps raw labels, SVR reads continuous targets): sniff it
+    try:
+        task = model_task(args.model)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"refresh: {e}")
+    t = time.perf_counter()
+    if args.data:
+        from tpusvm_torch.stream import open_dataset
+
+        if task == "svr":
+            raise SystemExit("refresh: svr artifacts read CSV/synthetic "
+                             "continuous targets; sharded datasets store "
+                             "integer labels")
+        try:
+            X, Y = open_dataset(args.data).load_arrays()
+        except (OSError, ValueError) as e:
+            raise SystemExit(f"refresh: --data: {e}")
+        Xt = Yt = None
+    else:
+        X, Y, Xt, Yt = _data(args, task)
+    timer.add("data", t)
+    say(f"refresh: {X.shape[0]} rows x {X.shape[1]} features ({task} "
+        f"deployed: {args.model})")
+    t = time.perf_counter()
+    try:
+        model = refresh_fit(
+            args.model, X, Y, out_path=args.save,
+            checkpoint_path=args.checkpoint,
+            checkpoint_every=args.checkpoint_every,
+            resume=args.resume, warm=not args.cold, device=args.device)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"refresh: {e}")
+    timer.add("training", t)
+    n_iter = (int(np.sum(model.n_iter_)) if np.ndim(model.n_iter_)
+              else model.n_iter_)
+    status = (model.status_.name if task != "ovr" else
+              str([Status(int(s)).name for s in model.statuses_]))
+    n_sv = model.n_support_ if task != "ovr" else len(model.X_sv_)
+    say(f"refreshed model: {n_sv} SVs, {n_iter} updates, status {status}, "
+        f"saved to {args.save}")
+    if Xt is not None and len(Xt):
+        t = time.perf_counter()
+        acc = model.score(Xt, Yt)
+        timer.add("prediction", t)
+        say(f"held-out {'r2' if task == 'svr' else 'accuracy'} = {acc:.4f}")
+    if args.swap_url:
+        name = args.swap_name or os.path.splitext(
+            os.path.basename(args.save))[0]
+        try:
+            out = swap_via_http(args.swap_url, name,
+                                os.path.abspath(args.save))
+        except (RuntimeError, OSError) as e:
+            raise SystemExit(f"refresh: {e}")
+        say(f"swapped {name} -> generation {out['generation']} "
+            f"({out['latency_s'] * 1e3:.1f} ms; the artifact is live)")
+    say(timer.report())
+    return 0
+
+
+def _refresh_smoke(device: str) -> int:
+    """The refresh loop's gate: deploy tiny, grow, refresh warm + cold
+    control, hot-swap in-process; gates convergence, warm update savings,
+    and bit-identical served scores after the swap."""
+    import os
+    import tempfile
+
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.serve import ServeConfig, Server
+    from tpusvm_torch.serve.refresh import refresh_fit
+
+    failures = []
+    X, Y = rings(n=360, seed=11)
+    with tempfile.TemporaryDirectory() as td:
+        deployed = os.path.join(td, "deployed.npz")
+        refreshed = os.path.join(td, "refreshed.npz")
+        cfg = SVMConfig(C=10.0, gamma=10.0)
+        # the deployed model: trained on the data's prefix
+        BinarySVC(cfg, device=device).fit(X[:240], Y[:240]).save(deployed)
+        warm = refresh_fit(deployed, X, Y, out_path=refreshed, device=device)
+        cold = refresh_fit(deployed, X, Y,
+                           out_path=os.path.join(td, "cold.npz"),
+                           warm=False, device=device)
+        if warm.status_.name != "CONVERGED":
+            failures.append(f"warm refresh ended {warm.status_.name}")
+        if cold.status_.name != "CONVERGED":
+            failures.append(f"cold control ended {cold.status_.name}")
+        if warm.n_iter_ >= cold.n_iter_:
+            failures.append(
+                f"warm seed saved nothing: {warm.n_iter_} updates warm vs "
+                f"{cold.n_iter_} cold")
+        acc = warm.score(X, Y)
+        if acc <= 0.8:
+            failures.append(f"refreshed accuracy gate failed ({acc:.4f})")
+        # the hot-swap leg: deployed serves, the refresh swaps in, and the
+        # served scores ARE the refreshed model's offline scores
+        with Server(ServeConfig(max_batch=8), device=device) as srv:
+            srv.load_model("m", deployed)
+            srv.warmup()
+            out = srv.swap("m", refreshed)
+            scores, _ = srv.predict_direct("m", X[:16])
+            ref = srv.registry.get("m")
+            offline = BinarySVC.load(refreshed, device=device)
+            want = np.asarray(offline.decision_function(X[:16]))
+            if not np.array_equal(scores, want):
+                failures.append("served scores after swap are not "
+                                "bit-identical to the refreshed model")
+            if out["generation"] != 2 or ref.generation != 2:
+                failures.append(f"swap generation bookkeeping off: {out}")
+            h = srv.health()
+            if h["status"] != "ok" or h["swap"]["m"]["staleness_s"] < 0:
+                failures.append(f"health after swap: {h['status']}")
+    if failures:
+        for f in failures:
+            print(f"REFRESH SMOKE FAILED: {f}")
+        return 1
+    print(f"refresh smoke ok: warm {warm.n_iter_} vs cold {cold.n_iter_} "
+          f"updates ({1 - warm.n_iter_ / cold.n_iter_:.1%} saved), accuracy "
+          f"{acc:.4f}, swap generation 2, served scores bit-identical")
+    return 0
+
+
 def cmd_info(args) -> int:
     return _info_artifact(args.path) if args.path else _info_devices()
 
@@ -1683,8 +2208,8 @@ def cmd_info(args) -> int:
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     return {"train": cmd_train, "pod": cmd_pod, "predict": cmd_predict,
-            "ingest": cmd_ingest, "tune": cmd_tune,
-            "info": cmd_info}[args.cmd](args)
+            "ingest": cmd_ingest, "tune": cmd_tune, "serve": cmd_serve,
+            "refresh": cmd_refresh, "info": cmd_info}[args.cmd](args)
 
 
 if __name__ == "__main__":

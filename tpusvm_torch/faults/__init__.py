@@ -6,13 +6,16 @@
                 bytes or simulates kills;
   retry.py      Retry(policy): exponential backoff with seeded jitter and
                 per-class retryability, adopted by shard reads, ingest
-                writes and solver checkpoint writes.
+                writes, solver checkpoint writes and served scoring;
+  breaker.py    the per-model circuit breaker behind degraded-mode
+                serving (serve/server.py).
 
 ``python -m tpusvm_torch.faults`` (__main__.py) is the chaos command
-line: ``validate``, ``kill-resume-smoke`` and ``pod-chaos-smoke``. The
-JAX package's circuit breaker (tpusvm/faults/breaker.py) belongs to the
-serving tier, which is not ported yet.
+line: ``validate``, ``kill-resume-smoke``, ``pod-chaos-smoke`` and
+``swap-chaos-smoke``.
 """
+
+from tpusvm_torch.faults.breaker import BreakerOpenError, CircuitBreaker
 
 from tpusvm_torch.faults.injection import (
     KINDS,
@@ -40,6 +43,8 @@ from tpusvm_torch.faults.retry import (
 )
 
 __all__ = [
+    "BreakerOpenError",
+    "CircuitBreaker",
     "DEFAULT_IO_POLICY",
     "FaultError",
     "FaultPlan",

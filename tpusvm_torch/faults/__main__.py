@@ -31,6 +31,18 @@ on the card unless ``--device cpu`` is given.
                       JAX command's third arm (the traced re-run) waits
                       for the trace layer (ROADMAP Queue 1 item 12).
 
+  swap-chaos-smoke    The hot-swap gate (tpusvm_torch.serve): client
+                      threads stream requests at a served model while
+                      eight swaps alternate between two models with
+                      distinct scores under a seeded fault plan (a kill
+                      mid-stage, a corrupted staged artifact, latency on
+                      the others). Asserts: every response is bitwise one
+                      of the two generations' scores (no torn reads), no
+                      request is lost, the kill fired and left the old
+                      generation serving, the corruption came back as a
+                      classified ModelLoadError with /healthz degraded,
+                      and a clean swap afterwards recovers health.
+
 The JAX package's other chaos commands belong to tiers not ported yet;
 each says so, names its ROADMAP Queue 1 item, and exits 2.
 """
@@ -43,7 +55,6 @@ import tempfile
 
 #: chaos commands of tiers not ported yet -> (tier, ROADMAP Queue 1 item)
 NOT_PORTED = {
-    "swap-chaos-smoke": ("serving and refresh", "11(b)"),
     "autopilot-chaos-smoke": ("the closed loop (autopilot)", "11(c)"),
     "tenant-chaos-smoke": ("the closed loop (tenants)", "11(c)"),
     "router-chaos-smoke": ("the router", "11(d)"),
@@ -252,10 +263,135 @@ def _validate(path: str) -> int:
     return 0
 
 
+def _swap_chaos_smoke(device: str) -> int:
+    import os
+    import threading
+
+    import numpy as np
+
+    from tpusvm_torch import faults
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.data import rings
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.serve import ModelLoadError, ServeConfig, Server
+
+    failures = []
+    Xa, Ya = rings(n=240, seed=2)
+    Xb, Yb = rings(n=240, seed=9)
+    A = BinarySVC(SVMConfig(C=10.0, gamma=10.0), device=device).fit(Xa, Ya)
+    B = BinarySVC(SVMConfig(C=10.0, gamma=5.0), device=device).fit(Xb, Yb)
+    Xq, _ = rings(n=32, seed=3)
+
+    with tempfile.TemporaryDirectory() as td, \
+            Server(ServeConfig(max_batch=8), device=device) as srv:
+        pa = os.path.join(td, "a.npz")
+        pb = os.path.join(td, "b.npz")
+        A.save(pa)
+        B.save(pb)
+        srv.load_model("m", pa)
+        srv.warmup()
+        refA, _ = srv.predict_direct("m", Xq)
+        srv.swap("m", pb)
+        refB, _ = srv.predict_direct("m", Xq)
+        srv.swap("m", pa)
+        if np.array_equal(refA, refB):
+            print("SWAP CHAOS SMOKE FAILED: the two models are not "
+                  "distinguishable — the torn-read check is vacuous")
+            return 1
+
+        # the chaos plan: kill one stage mid-swap, corrupt one staged
+        # artifact's bytes, latency on the others — all seeded
+        plan = faults.FaultPlan([
+            faults.FaultRule(point="serve.swap", kind="kill", at_hit=2),
+            faults.FaultRule(point="registry.load", kind="corrupt",
+                             at_hit=4),
+            faults.FaultRule(point="serve.swap", kind="latency",
+                             p=0.5, delay_ms=5.0),
+        ], seed=20260805)
+
+        stop = threading.Event()
+        bad = []
+        bad_lock = threading.Lock()
+        served = [0]
+
+        def client(t):
+            i = t
+            while not stop.is_set():
+                r = srv.submit("m", Xq[i % 32], timeout_s=10.0)
+                if not r.ok:
+                    with bad_lock:
+                        bad.append(("status", r.status))
+                else:
+                    s = np.asarray(r.scores)
+                    if s != refA[i % 32] and s != refB[i % 32]:
+                        with bad_lock:
+                            bad.append(("torn", i % 32, float(s)))
+                    with bad_lock:
+                        served[0] += 1
+                i += 1
+
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        killed = corrupted = ok_swaps = 0
+        with faults.active(plan):
+            for t in threads:
+                t.start()
+            for k in range(8):
+                target = pb if k % 2 == 0 else pa
+                try:
+                    srv.swap("m", target)
+                    ok_swaps += 1
+                except faults.SimulatedKill:
+                    killed += 1  # mid-stage death: nothing flipped
+                except ModelLoadError:
+                    corrupted += 1
+                    h = srv.health()
+                    if h["status"] != "degraded":
+                        failures.append(
+                            "healthz not degraded after a corrupt staged "
+                            f"artifact (got {h['status']})")
+                # the old generation must still answer, bitwise
+                s, _ = srv.predict_direct("m", Xq)
+                if not (np.array_equal(s, refA)
+                        or np.array_equal(s, refB)):
+                    failures.append(
+                        f"scores after swap attempt {k} match neither "
+                        "generation")
+            stop.set()
+            for t in threads:
+                t.join(30.0)
+        if any(t.is_alive() for t in threads):
+            failures.append("a client thread did not finish")
+        if bad:
+            failures.append(f"client anomalies under chaos: {bad[:5]} "
+                            f"({len(bad)} total)")
+        if served[0] == 0:
+            failures.append("no request was served under chaos")
+        if killed == 0:
+            failures.append("the kill rule never fired")
+        if corrupted == 0:
+            failures.append("the corrupt rule never produced a classified "
+                            "load failure")
+        # recovery: a clean swap clears the degraded flag
+        faults.deactivate()
+        srv.swap("m", pb)
+        h = srv.health()
+        if h["status"] != "ok":
+            failures.append(f"clean swap did not recover health: {h}")
+        gen = h["swap"]["m"]["generation"]
+    if failures:
+        for f in failures:
+            print(f"SWAP CHAOS SMOKE FAILED: {f}")
+        return 1
+    print(f"swap chaos smoke ok: {ok_swaps} swaps flipped, {killed} killed "
+          f"mid-stage, {corrupted} corrupt stages rolled back, {served[0]} "
+          f"responses, 0 torn/lost, final generation {gen}, health ok")
+    return 0
+
 def _device(prog: str, rest) -> str:
     ap = argparse.ArgumentParser(prog=f"python -m tpusvm_torch.faults {prog}")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="where the solves run (default: the card)")
+                    help="where the solves and the server run (default: the card)")
     return ap.parse_args(rest).device
 
 
@@ -269,6 +405,8 @@ def main(argv=None) -> int:
         return _kill_resume_smoke(_device(cmd, rest))
     if cmd == "pod-chaos-smoke":
         return _pod_chaos_smoke(_device(cmd, rest))
+    if cmd == "swap-chaos-smoke":
+        return _swap_chaos_smoke(_device(cmd, rest))
     if cmd == "validate":
         if len(rest) != 1:
             print("usage: python -m tpusvm_torch.faults validate PLAN.json")

@@ -34,8 +34,19 @@ The points the port has call sites for:
   ``pod.worker``              every request a pod worker takes; a kill
                               there is escalated to a real SIGKILL
                               (pod/worker.py)
+  ``serve.score``             every scoring attempt of a served batch,
+                              under Retry (serve/server.py)
+  ``serve.swap``              the start of a hot-swap stage
+                              (serve/server.py)
+  ``registry.load``           a served artifact's bytes; carries the
+                              payload, so ``corrupt`` rules apply here
+                              (serve/registry.py)
+  ``cache.read``              the serve-state and bucket-manifest reads,
+                              under Retry (serve/cache.py)
+  ``serve.state_write``       the serve-state and bucket-manifest writes
+                              (serve/cache.py)
 
-The other names of POINTS belong to modules not ported yet (serving, the
+The other names of POINTS belong to modules not ported yet (the
 autopilot, tenants, the router); a plan may name them and they never
 fire here.
 

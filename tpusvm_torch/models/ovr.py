@@ -124,11 +124,19 @@ class OneVsRestSVC:
         return self.X_sv_
 
     def fit(self, X: np.ndarray, labels: np.ndarray,
-            group=None) -> "OneVsRestSVC":
+            group=None, warm_seeds: Optional[np.ndarray] = None
+            ) -> "OneVsRestSVC":
         """Fit the K one-vs-rest heads. group (class_parallel only): a
         torch.distributed group (parallel.init_group); every rank calls fit
         with the same data, solves its slice of the heads and ends with
-        all of them."""
+        all of them. warm_seeds: optional (K, n) per-head alpha0 seeds
+        (already feasible per head, tune.warm.deployed_seed_ovr), the
+        one-vs-rest refresh's warm start; blocked solver only (the pair
+        lockstep and the fleet take no per-head seeds)."""
+        if warm_seeds is not None and self.solver != "blocked":
+            raise ValueError(
+                "warm_seeds requires solver='blocked' (per-head "
+                f"sequential solves); got solver={self.solver!r}")
         if group is not None and not self.class_parallel:
             raise ValueError("group= splits the class axis over rank "
                              "processes; it needs class_parallel=True")
@@ -184,9 +192,22 @@ class OneVsRestSVC:
             if self.solver == "blocked":
                 # the heads share X: one norms pass for all of them
                 kw["sn"] = kernels.sq_norms_for(cfg.kernel, Xd)
-            outs = [solve(self.solver, Xd, torch.as_tensor(y, device=dev),
-                          cfg, self.accum_dtype, self.solver_opts, dev, **kw)
-                    for y in Ys]
+            if warm_seeds is not None:
+                warm_seeds = np.asarray(warm_seeds, np.float64)
+                if warm_seeds.shape != Ys.shape:
+                    raise ValueError(
+                        f"warm_seeds shape {warm_seeds.shape} != (K, n) = "
+                        f"{Ys.shape}")
+            outs = []
+            for k, y in enumerate(Ys):
+                seed = {}
+                if warm_seeds is not None and warm_seeds[k].any():
+                    # an all-zero seed is a cold start: no f rebuild
+                    seed = {"alpha0": warm_seeds[k], "warm_start": True}
+                outs.append(solve(self.solver, Xd,
+                                  torch.as_tensor(y, device=dev), cfg,
+                                  self.accum_dtype, self.solver_opts, dev,
+                                  **kw, **seed))
             self.results_ = outs
             alphas, bs, iters, statuses = _stack(outs)
         self.train_time_s_ = time.perf_counter() - t0

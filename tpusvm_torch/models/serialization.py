@@ -34,14 +34,19 @@ FORMAT_VERSION = 4
 SUPPORTED_VERSIONS = (1, 2, 3, 4)
 
 
-def _norm(path: str) -> str:
-    # np.savez appends ".npz" to suffix-less paths
+def _norm(path):
+    # np.savez appends ".npz" to suffix-less paths; a file object (an
+    # artifact's bytes read once, serve/registry.py) is read from its start
+    if not isinstance(path, str):
+        path.seek(0)
+        return path
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def model_task(path: str) -> str:
+def model_task(path) -> str:
     """Artifact kind: "ovr" (carries `classes`), "svr" (a `task` marker)
-    or "svc" (everything else, every v1 file included)."""
+    or "svc" (everything else, every v1 file included). path: a file name
+    or a binary file object."""
     with np.load(_norm(path), allow_pickle=False) as z:
         if "classes" in z.files:
             return "ovr"
@@ -66,8 +71,9 @@ def save_model(path: str, state: Dict[str, Any], config: SVMConfig) -> None:
     os.replace(tmp, out)
 
 
-def load_model(path: str) -> Tuple[Dict[str, np.ndarray], SVMConfig]:
-    """(state dict, SVMConfig) of an artifact of any kind the port scores.
+def load_model(path) -> Tuple[Dict[str, np.ndarray], SVMConfig]:
+    """(state dict, SVMConfig) of an artifact of any kind the port scores
+    (path: a file name or a binary file object).
 
     Config fields this port does not carry are ignored, and fields an
     older file predates take their defaults (the RBF family, the map

@@ -704,16 +704,32 @@ def scores(model, coef: np.ndarray, b, X: np.ndarray,
 
 def _scores_on(model, coef, b, Xq: torch.Tensor) -> np.ndarray:
     """The scores of the scaled rows Xq, on Xq's device."""
-    dev, dt = Xq.device, model.dtype
-    cfg = model.config
-    sv = to_dtype(model.sv_X_, dt).to(dev)
-    coef = to_dtype(np.asarray(coef, np.float64), dt).to(dev)
-    b = to_dtype(np.asarray(b, np.float64), dt).to(dev)
-    if getattr(model, "fmap_", None) is not None:
+    sv, coef, b = score_operands(model, coef, b, Xq.device)
+    return to_numpy(score_scaled(Xq, sv, coef, b, model.config,
+                                 getattr(model, "fmap_", None)))
+
+
+def score_operands(model, coef, b, device):
+    """(SV rows, coef, b) of a fitted estimator on `device` in its dtype:
+    the operands every scoring call feeds the decision (a served model
+    pins exactly these once, serve/registry.py)."""
+    dt = model.dtype
+    sv = to_dtype(model.sv_X_, dt).to(device)
+    coef = to_dtype(np.asarray(coef, np.float64), dt).to(device)
+    b = to_dtype(np.asarray(b, np.float64), dt).to(device)
+    return sv, coef, b
+
+
+def score_scaled(Xq: torch.Tensor, sv: torch.Tensor, coef: torch.Tensor,
+                 b: torch.Tensor, config: SVMConfig, fmap=None,
+                 block: int = 2048) -> torch.Tensor:
+    """sum_k coef_k K(x, sv_k) - b for scaled rows Xq on their device: the
+    approximate families map first (sv then holds mapped rows). The one
+    program offline scoring and every served bucket run."""
+    if fmap is not None:
         from tpusvm_torch.approx import approx_decision_function
 
-        out = approx_decision_function(Xq, model.fmap_, sv, coef, b)
-    else:
-        out = _decision(Xq, sv, coef, b, gamma=cfg.gamma, kernel=cfg.kernel,
-                        degree=cfg.degree, coef0=cfg.coef0)
-    return to_numpy(out)
+        return approx_decision_function(Xq, fmap, sv, coef, b, block=block)
+    return _decision(Xq, sv, coef, b, gamma=config.gamma,
+                     kernel=config.kernel, degree=config.degree,
+                     coef0=config.coef0, block=block)

@@ -5,6 +5,14 @@ kernels.cross, so the (m, n_train) kernel matrix is never whole. The
 contractions are torch.matmul at full f32. Classification scores and
 epsilon-SVR values are the same sum. Sign convention: strict `> 0 -> +1`,
 the serial reference's.
+
+Every block is a full `block` rows: the rows are zero-padded up to a
+multiple of `block` and the padding's scores are dropped. BLAS on the CPU
+and cuBLAS on the card choose their kernels, and with them the summation
+order, by the product's shape, so a row's score would otherwise depend on
+how many rows were scored with it. With one shape for every call a row's
+score is the same bits whether it comes alone, in a served bucket or in an
+offline call over thousands of rows (the serving contract, serve/).
 """
 
 from __future__ import annotations
@@ -22,15 +30,25 @@ def decision_function(X_test: torch.Tensor, X_train: torch.Tensor,
     """f(x) = sum_j coef_j K(x, x_j) - b for each test row. Shape (m,),
     or (m, K) for a (n_train, K) coef (one column a head)."""
     m = X_test.shape[0]
+    Xp = pad_rows(X_test, block)
     sn_train = kernels.sq_norms_for(kernel, X_train)
-    out = torch.empty((m,) + tuple(coef.shape[1:]), dtype=X_test.dtype,
-                      device=X_test.device)
-    for start in range(0, m, block):
-        stop = min(start + block, m)
-        K = kernels.cross(kernel, X_test[start:stop], X_train, gamma=gamma,
-                          coef0=coef0, degree=degree, snB=sn_train)
-        out[start:stop] = coef_matvec(K, coef)
-    return out - b
+    out = torch.empty((Xp.shape[0],) + tuple(coef.shape[1:]),
+                      dtype=X_test.dtype, device=X_test.device)
+    for start in range(0, Xp.shape[0], block):
+        K = kernels.cross(kernel, Xp[start:start + block], X_train,
+                          gamma=gamma, coef0=coef0, degree=degree,
+                          snB=sn_train)
+        out[start:start + block] = coef_matvec(K, coef)
+    return out[:m] - b
+
+
+def pad_rows(X: torch.Tensor, block: int) -> torch.Tensor:
+    """X with zero rows appended up to a multiple of `block` rows (at
+    least one block)."""
+    pad = block * max(1, -(-X.shape[0] // block)) - X.shape[0]
+    if pad == 0:
+        return X
+    return torch.cat([X, X.new_zeros((pad,) + tuple(X.shape[1:]))])
 
 
 def predict(X_test: torch.Tensor, X_train: torch.Tensor,

@@ -1,8 +1,8 @@
-"""Solver termination and shard integrity status codes.
+"""Solver termination, shard integrity, tuning and serving status codes.
 
-The port's own copies of the JAX package's ``Status`` and
-``StreamStatus`` enums, with the same integer values, so a status read
-from one package compares equal to the other's.
+The port's own copies of the JAX package's ``Status``, ``StreamStatus``,
+``TuneStatus`` and ``ServeStatus`` enums, with the same integer values, so
+a status read from one package compares equal to the other's.
 
   CONVERGED       b_low <= b_high + 2*tau
   NO_WORKING_SET  I_high or I_low is empty
@@ -66,3 +66,40 @@ class TuneStatus(enum.IntEnum):
     EVALUATED = 0
     PRUNED = 1
     SKIPPED = 2
+
+
+class ServeStatus(enum.IntEnum):
+    """Per-request outcome codes of the serving path (serve/): the
+    frontend never raises for load-induced conditions, a request comes
+    back with a code the caller and the metrics can branch on.
+
+      OK          scored; the result carries scores and label
+      TIMEOUT     missed its deadline (client wait or queue residency)
+      QUEUE_FULL  fast-failed by backpressure; never entered the queue
+      ERROR       the scoring path raised (bad input is refused before
+                  the queue with ValueError instead: a caller bug)
+      SHUTDOWN    the server closed while the request was in flight
+      OVERLOADED  shed by the load-shedding threshold or the SLO
+                  admission gate: "come back later", told apart from the
+                  hard QUEUE_FULL bound
+      UNAVAILABLE the model's circuit breaker is OPEN (consecutive scoring
+                  failures tripped it); requests fail fast until a
+                  half-open probe recovers the model (faults/breaker.py)
+      DRAINING    the server is draining (Server.drain()): in-flight
+                  requests complete, new ones are refused
+      LOAD_FAILED a model artifact could not be loaded or staged
+                  (missing, truncated or corrupted .npz, or transient
+                  I/O past the retry budget), carried by
+                  serve.ModelLoadError; a failed hot-swap stage rolls
+                  back and the previous generation keeps serving
+    """
+
+    OK = 0
+    TIMEOUT = 1
+    QUEUE_FULL = 2
+    ERROR = 3
+    SHUTDOWN = 4
+    OVERLOADED = 5
+    UNAVAILABLE = 6
+    DRAINING = 7
+    LOAD_FAILED = 8

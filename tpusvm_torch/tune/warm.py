@@ -59,6 +59,83 @@ def feasible_seed(alpha: np.ndarray, Y: np.ndarray, C: float) -> np.ndarray:
     return a
 
 
+def deployed_seed(sv_ids: np.ndarray, sv_alpha: np.ndarray, n_rows: int,
+                  Y: np.ndarray, C: float) -> np.ndarray:
+    """Full-length alpha0 for a refresh fit, from a DEPLOYED model's SV set.
+
+    The online-learning warm start (`refresh`): the deployed artifact
+    stores only its support vectors' (sv_ids, sv_alpha); the refresh
+    training set must keep the deployed run's rows as a PREFIX (new data
+    appends), so the donor solution scatters back to full length at its
+    original row positions, new rows start at alpha=0 exactly as cold SMO
+    would start them, and the result is projected feasible for the
+    refresh problem's labels and box (feasible_seed).
+    """
+    ids = np.asarray(sv_ids, np.int64)
+    if ids.size and int(ids.max()) >= n_rows:
+        raise ValueError(
+            f"deployed model's SV ids reach row {int(ids.max())} but the "
+            f"refresh training set has only {n_rows} rows — refresh "
+            "requires the deployed run's rows as a prefix of the new data"
+        )
+    a = np.zeros(n_rows, np.float64)
+    a[ids] = np.asarray(sv_alpha, np.float64)
+    return feasible_seed(a, Y, C)
+
+
+def deployed_seed_ovr(sv_ids: np.ndarray, coef: np.ndarray, n_rows: int,
+                      labels: np.ndarray, classes: np.ndarray,
+                      C: float) -> np.ndarray:
+    """(K, n) per-head alpha0 seeds for a one-vs-rest refresh, from the
+    deployed artifact's signed coefficients.
+
+    The state stores coef = alpha * y per head over the SV union, so each
+    head's duals are |coef[k]|. Every head scatters to its original row
+    positions (the prefix contract) and is projected feasible against ITS
+    one-vs-rest labels: the heads share rows but not label vectors."""
+    ids = np.asarray(sv_ids, np.int64)
+    if ids.size and int(ids.max()) >= n_rows:
+        raise ValueError(
+            f"deployed OvR model's SV ids reach row {int(ids.max())} but "
+            f"the refresh training set has only {n_rows} rows — refresh "
+            "requires the deployed run's rows as a prefix of the new data"
+        )
+    coef = np.asarray(coef, np.float64)
+    labels = np.asarray(labels)
+    seeds = np.zeros((len(classes), n_rows), np.float64)
+    for k, c in enumerate(classes):
+        a = np.zeros(n_rows, np.float64)
+        a[ids] = np.abs(coef[k])
+        yk = np.where(labels == c, 1, -1).astype(np.int32)
+        seeds[k] = feasible_seed(a, yk, C)
+    return seeds
+
+
+def deployed_seed_svr(sv_ids: np.ndarray, sv_coef: np.ndarray,
+                      n_rows: int, C: float) -> np.ndarray:
+    """Doubled-variable beta0 seed (length 2n) for an SVR refresh.
+
+    The state stores signed coef_i = alpha_i - alpha*_i; at an SMO optimum
+    the twin duals never overlap, so the doubling inverts exactly:
+    beta_i = max(coef_i, 0) on the +1 half and beta_{n+i} = max(-coef_i, 0)
+    on the -1 half (kernels/svr.py's label convention), projected feasible
+    against the doubled labels."""
+    ids = np.asarray(sv_ids, np.int64)
+    if ids.size and int(ids.max()) >= n_rows:
+        raise ValueError(
+            f"deployed SVR model's SV ids reach row {int(ids.max())} but "
+            f"the refresh training set has only {n_rows} rows — refresh "
+            "requires the deployed run's rows as a prefix of the new data"
+        )
+    coef = np.asarray(sv_coef, np.float64)
+    beta = np.zeros(2 * n_rows, np.float64)
+    beta[ids] = np.maximum(coef, 0.0)
+    beta[n_rows + ids] = np.maximum(-coef, 0.0)
+    Y2 = np.concatenate([np.ones(n_rows, np.int32),
+                         -np.ones(n_rows, np.int32)])
+    return feasible_seed(beta, Y2, C)
+
+
 class WarmStore:
     """Per-fold memory of solved points' alphas, queried by log-space
     nearest neighbour.
