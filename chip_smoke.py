@@ -27,8 +27,11 @@ Phases, in order (any failure raises and the script exits non-zero):
      epilogue; the fleet's problem-axis launches of #2 and #1 at B=16 lanes
      (mixed gammas and Cs), each lane bit for bit against a solo launch on
      its operands and against the plain versions, timed beside the lanes'
-     solo launches and B times the solo bound; the fleet round's K_BB by
-     the per-lane solo call beside one torch.bmm (time, bits);
+     solo launches and B times the solo bound; #2's problem-axis launch
+     with boxed lanes (every other lane a seeded one: float64 seeds, some
+     within a float32 ulp of C) against its plain version and solo
+     launches, bit for bit; the fleet round's K_BB by the per-lane solo
+     call beside one torch.bmm (time, bits);
   4. the main path at mid size, trained on the card and on the CPU, held
      to the same SV-ID set, status and b (within 1e-4); 4b. the same for
      the multipair + fused-selection path;
@@ -46,7 +49,7 @@ Phases, in order (any failure raises and the script exits non-zero):
      and fused-selection kernels' launch counts are read around it and
      must be > 0, it must end CONVERGED with accuracy within 0.002 of
      phase 5's;
-  6. where the time goes: the fits of phases 5 and 5b (5b's first 500
+  6. where the time goes: the fits of phases 5 and 5b (5b's first 250
      rounds) once more under torch.profiler, device time by kernel and the
      device's busy share of the wall time;
   7. the pair solver at full width: phase 5's job with solver="pair" and
@@ -171,7 +174,7 @@ Phases, in order (any failure raises and the script exits non-zero):
      8(b)'s rows from a CSV, both saved models equal to (a)'s array by
      array; (c) phase 5's and 8(a)'s decision_function split over three
      members (predictions equal, scores within 1e-5 x sum|coef|) and
-     `predict --mesh-predict`; (d) phase 5's job on rows [:10000] at
+     `predict --mesh-predict`; (d) phase 5's job on rows [:5000] at
      float64 and bfloat16 (CONVERGED, no kernel launched, accuracy within
      0.002 of float32's) and the float64 pair solver on 2,000 rows (no
      pair_rows); (e) `predict --scores/--proba` on phase 9's Platt model,
@@ -204,13 +207,31 @@ Phases, in order (any failure raises and the script exits non-zero):
      URL` into (b)'s server, whose scores are then the refreshed
      artifact's; (e) `serve --smoke`, `refresh --smoke` and
      `swap-chaos-smoke` as subprocesses beside (d).
+  23. the closed loop (tpusvm_torch.autopilot, tpusvm_torch.tenants): (a)
+     phase 5's artifact served in-process while the autopilot watches a
+     fresh dataset of phase 5's training rows grown by five appends of
+     1,000 held-out rows, one a tick: two chained warm refreshes swap in
+     (the second killed at a solver checkpoint and resumed by a rebuilt
+     supervisor), each bit-equal to a direct refresh_fit of its donor,
+     CONVERGED, with #1 and #2's boxed subproblem launched, the grown
+     dataset a one-shot ingest's, every one-row response of 8 clients a
+     complete generation's bits; (b) 32 tenants over phase 8's rows (C in
+     {2.5, 10, 40}) provisioned in one cold fleet launch and served, then
+     the coalesced warm refresh twice (a control, and an arm killed at its
+     second fleet checkpoint and resumed), rolled out under 8 clients:
+     every tenant bit-equal to the control, view fingerprints equal,
+     checkpoints reaped, memory flat, 1b and 2b launched (2b with boxed
+     lanes), at most RESCUE_SHARE_MAX of the warm lane-rounds redone on
+     the loop engine; (c) `autopilot-chaos-smoke` and
+     `tenant-chaos-smoke` as subprocesses beside them.
   (Phases 15 and 16 run after 13, before 14; 17 and 18 after 14; then
-  19, 20, 21 and 22.)
+  19, 20, 21, 22 and 23.)
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -230,12 +251,17 @@ C, GAMMA = 10.0, 0.00125
 N_OVR_PAIR = 60000
 N_SVR_PAIR = 2000
 # the depth cut of phase 6 (PERF.md section 4): the profiled 5b fit stops
-# after this many of its 2,183 rounds
-PROFILE_5B_ROUNDS = 500
+# after this many of its 2,183 rounds (500 until phase 23 came in under
+# the same time limit)
+PROFILE_5B_ROUNDS = 250
 # phase 10's --n-limit run and its --mode oracle run, cut in rows (PERF.md
 # section 4: the serial NumPy oracle is O(n^2) by design); the native
 # reader is held to the Python reader on the first N_CSV_PY rows
 N_CSV_LIMIT, N_ORACLE, N_CSV_PY = 5000, 2000, 10000
+# phase 20(d)'s cut in rows (PERF.md section 4): the eager torch engine
+# that float64 and bfloat16 features run (10,000 rows until the closed
+# loop's phase 23 came in beside it under the same time limit)
+N_DTYPE_CUT = 5000
 
 
 def log(msg):
@@ -1581,6 +1607,45 @@ def phase_problem_axis(X, Y, sn, cold, round4, B_cold, q, dev, peak_bw,
     check(same_plain, "inner_smo problem axis differs from its plain version")
     err2 = float((a_out - a_ref).abs().max())
 
+    # the boxed subproblem of seeded lanes (every other lane): float64
+    # seeds off the float32 grid, a fifth of them within a float32 ulp of
+    # C, as a warm refresh's are
+    from tpusvm_torch.ops.cuda.inner_smo import boxed_operands
+    g = torch.Generator(device=dev).manual_seed(23)
+    C_l = torch.tensor(Cs, dtype=torch.float64, device=dev)[:, None]
+    u = torch.rand(a.shape, generator=g, device=dev, dtype=torch.float64)
+    a64 = torch.where(u < 0.2, C_l - 1e-7 * u, a.double() * (1 - 1e-9 * u))
+    pull = torch.arange(FLEET_B, device=dev) % 2 == 0
+    d0, f_c, lo, hi = boxed_operands(a64, f.double(), C_l, q // 2)
+    a_bx = torch.where(pull[:, None], d0.double(), a64)
+    f_bx = torch.where(pull[:, None], f_c.double(), f.double())
+    box = (lo, hi, pull)
+
+    def boxed2():
+        return inner_smo_batched_kernel(K, y, a_bx, f_bx, act, Cs_t, 1e-12,
+                                        1e-5, box=box, **kw)
+
+    a_bo, st_bo = boxed2()
+    t = time.perf_counter()
+    a_br, st_br = inner_smo_batched_ref(K, y, a_bx, f_bx, act, Cs, 1e-12,
+                                        1e-5, box=box, **kw)
+    torch.cuda.synchronize()
+    pb_ms = (time.perf_counter() - t) * 1e3
+    same_bx = torch.equal(a_bo, a_br) and torch.equal(st_bo, st_br)
+    solo_bx = [torch.equal(a_bo[b], inner_smo_kernel(
+        K[b], y[b], a_bx[b], f_bx[b], act[b], Cs[b], 1e-12, 1e-5,
+        box=(lo[b], hi[b]) if bool(pull[b]) else None, **kw)[0])
+        for b in lanes]
+    kb_ms = cuda_ms(boxed2)
+    log(f"[3] inner_smo problem axis with boxed lanes (every other lane "
+        f"seeded): kernel {kb_ms:.3f} ms, plain {pb_ms:.1f} ms (one run); "
+        f"bit-equal to the plain version {same_bx}, every lane to its solo "
+        f"launch {all(solo_bx)}; updates {st_bo[:, 0].tolist()}")
+    check(same_bx, "inner_smo boxed lanes differ from the plain version")
+    check(all(solo_bx), f"inner_smo boxed lanes differ from solo launches "
+          f"{solo_bx}")
+    err2 = max(err2, float((a_bo - a_br).abs().max()))
+
     # #1: the f-update with a problem axis
     g_t = torch.tensor(gammas, dtype=torch.float32, device=dev)
 
@@ -1653,6 +1718,7 @@ def phase_problem_axis(X, Y, sn, cold, round4, B_cold, q, dev, peak_bw,
         "launches": None, "max_abs_err": err2, "ms": k2_ms, "kernel_ms": k2_ms,
         "plain_ms": p2_ms, "bound_ms": b2_bound, "bound_by": "bytes",
         "library_ms": None, "solo_launches_ms": s2_ms,
+        "boxed_ms": kb_ms, "boxed_plain_ms": pb_ms,
         "shape": dict(shape, max_inner=4096, wss=2, iterations=iters)}, {
         "name": "fused_fupdate_batched", "route": "cuda",
         "source": "tpusvm_torch/csrc/fused_fupdate.cu",
@@ -1898,6 +1964,8 @@ def _count(counters):
 def _zero(counters):
     for fn in counters.values():
         fn.launches = 0
+        if hasattr(fn, "boxed_launches"):
+            fn.boxed_launches = 0
 
 
 def _same_bits(a, b):
@@ -2484,7 +2552,7 @@ def phase_class_axis(Xm, lm, n_tr, ovr_b, ovr_a, X_all, Y_all, m5, acc5,
     models equal to each other and to (a)'s; (c) row-split scoring of phase
     5's and 8(a)'s models over three members (predictions equal, scores
     within 1e-5 x sum|coef|) and `predict --mesh-predict`; (d) phase 5's
-    job on rows [:10000] at float64 and bfloat16 (CONVERGED, no kernel
+    job on rows [:N_DTYPE_CUT] at float64 and bfloat16 (CONVERGED, no kernel
     launched, accuracy within 0.002 of the float32 fit) and the pair
     solver at float64 on 2,000 rows (no pair_rows); (e) `predict --scores`
     and `--proba` on phase 9's Platt model, equal to the in-process scores
@@ -2600,7 +2668,7 @@ def phase_class_axis(Xm, lm, n_tr, ovr_b, ovr_a, X_all, Y_all, m5, acc5,
                         time.perf_counter())
 
     # (d) the feature dtype, cut in rows
-    n_cut = 10000
+    n_cut = N_DTYPE_CUT
     Xc, Yc = X_all[:n_cut], Y_all[:n_cut]
     fits = {}
     for dt, solver, n_fit in (("float32", "blocked", n_cut),
@@ -2994,7 +3062,7 @@ def phase_serve(X_all, Y_all, n_tr, m5, model5_path, m11, ovr_a, Xm, rff,
     refB = np.asarray(m11.decision_function(Xq))
     check(refA.tobytes() != refB.tobytes(), "[22c] the generations' scores "
           "are equal: the torn-read check would be vacuous")
-    mem = []
+    mem, blocks = [], []
     gc.collect()  # (a)'s server: its memory freed now, not mid-loop
     with Server(ServeConfig(max_batch=64), device=device) as srv:
         srv.load_model("m", paths["m5"])
@@ -3030,9 +3098,8 @@ def phase_serve(X_all, Y_all, n_tr, m5, model5_path, m11, ovr_a, Xm, rff,
             check(old() is None, f"[22c] generation {k + 1} still alive "
                   "after its swap returned")
             if device != "cpu":
-                torch.cuda.synchronize()
-                mem.append((torch.cuda.memory_allocated(),
-                            torch.cuda.memory_reserved()))
+                mem.append(_settled_memory())
+                blocks.append(_live_blocks())
         stop.set()
         for t in ts:
             t.join(60.0)
@@ -3042,13 +3109,17 @@ def phase_serve(X_all, Y_all, n_tr, m5, model5_path, m11, ovr_a, Xm, rff,
     check(served[0] > 0, "[22c] nothing served")
     if mem:
         # swaps 2 and 8 both leave phase 5's artifact serving, 1 and 7
-        # phase 11's: the same bytes must be allocated
+        # phase 11's: the same bytes must be requested
         check(mem[-1][0] == mem[1][0] and mem[-2][0] == mem[0][0],
-              f"[22c] device memory not flat across swaps: {mem}")
+              f"[22c] device bytes requested not flat across swaps "
+              f"(requested, allocated, reserved): {mem}; allocator blocks "
+              f"new at the last two reads ((bytes requested, pool, stream), "
+              f"count, stack): {_new_blocks(blocks[1], blocks[-1])} "
+              f"{_new_blocks(blocks[0], blocks[-2])}")
     log(f"[22c] {N_SWAPS} swaps (5 <-> 11) under 4 clients: {served[0]} "
         f"responses, every one a generation's bits, 0 lost; generation "
         f"{gen}; swap s {[round(x, 3) for x in lat]}; device memory "
-        f"allocated/reserved MiB after the first swap "
+        f"requested/allocated/reserved MiB after the first swap "
         f"{[round(x / 2**20, 1) for x in mem[0]] if mem else 'n/a'}, after "
         f"the last {[round(x / 2**20, 1) for x in mem[-1]] if mem else 'n/a'} "
         f"({smi})")
@@ -3141,6 +3212,691 @@ def phase_serve(X_all, Y_all, n_tr, m5, model5_path, m11, ovr_a, Xm, rff,
         check(ok, f"[22e] {' '.join(args)}: no {line!r} line")
         log(f"[22e] python -m {' '.join(args)}: exit 0 in {secs:.1f} s "
             f"(beside (d); {smi}); {ok[-1]!r}")
+
+
+# phase 23's cut: 23(a) appends N_LOOP_BATCHES batches of N_LOOP_BATCH rows,
+# one a tick, under a row-growth threshold that refreshes every second
+# batch; 23(b) runs N_TENANTS tenants over (C, gamma-multiple) palettes; the
+# chaos gates run beside them
+N_LOOP_BATCH, N_LOOP_BATCHES, LOOP_GROWTH = 1000, 5, 0.03
+# 32 tenants, not 64: their two warm refreshes and roll-outs of 64 swaps
+# each do not fit the run's time (PERF.md section 4); the C palette and
+# the gamma multiples are the JAX tenant gate's
+N_TENANTS, TENANT_C, TENANT_GAMMA = 32, (2.5, 10.0, 40.0), (0.5, 1.0, 2.0)
+TENANT_GROWTH, TENANT_CKPT_EVERY, N_TENANT_ROWS = 0.05, 2, 64
+# the warm refreshes' rounds redone on the float64 loop engine, at most
+# this share of their lane-rounds: a seeded lane's rounds run kernel #2's
+# boxed subproblem, and only a round whose violation float32 cannot
+# resolve falls back
+RESCUE_SHARE_MAX = 0.05
+# 23(b)'s clients think 5 ms between requests: the supervisor's host loop
+# over 64 lanes otherwise waits on their interpreter time
+TENANT_THINK_S = 0.005
+LOOP_SMOKES = ((("tpusvm_torch.faults", "autopilot-chaos-smoke"),
+                "autopilot chaos smoke ok"),
+               (("tpusvm_torch.faults", "tenant-chaos-smoke"),
+                "tenant chaos smoke ok"))
+
+
+class _LoopClients:
+    """`threads` client threads send one-row requests until stopped:
+    thread t takes request t, t + threads, ... of `pick(i) -> (model,
+    row)`, waiting `think_s` after each answer; every answer is kept with
+    its latency. `paused()` holds every thread between requests, so no
+    request is in flight inside it."""
+
+    def __init__(self, srv, pick, threads=8, think_s=0.0):
+        import threading
+
+        self.got, self.bad = [], []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._go = threading.Event()
+        self._go.set()
+        self._parked = [False] * threads
+
+        def run(t):
+            i = t
+            while not self._stop.is_set():
+                if not self._go.is_set():
+                    self._parked[t] = True
+                    self._go.wait(0.5)
+                    continue
+                name, row = pick(i)
+                t0 = time.perf_counter()
+                r = srv.submit(name, row[1], timeout_s=60.0)
+                lat = time.perf_counter() - t0
+                with self._lock:
+                    if r.ok:
+                        self.got.append((name, row[0], r.scores, lat,
+                                         t0 - self._t0))
+                    else:
+                        self.bad.append((name, row[0], r.status,
+                                         round(t0 - self._t0, 3)))
+                i += threads
+                if think_s:
+                    self._stop.wait(think_s)
+
+        # daemons: a failed gate must not leave the process waiting on them
+        self._ts = [threading.Thread(target=run, args=(t,), daemon=True)
+                    for t in range(threads)]
+        self._t0 = time.perf_counter()
+        for t in self._ts:
+            t.start()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+
+    @contextlib.contextmanager
+    def paused(self, tag):
+        self._parked = [False] * len(self._parked)
+        self._go.clear()
+        try:
+            deadline = time.perf_counter() + 60.0
+            while (not all(self._parked)
+                   and time.perf_counter() < deadline):
+                time.sleep(0.01)
+            check(all(self._parked), f"[{tag}] the clients did not pause")
+            yield
+        finally:
+            self._go.set()
+
+    def stop(self, tag):
+        self._stop.set()
+        for t in self._ts:
+            t.join(120.0)
+        check(not any(t.is_alive() for t in self._ts),
+              f"[{tag}] a client thread hung")
+        secs = time.perf_counter() - self._t0
+        lat = np.sort([g[3] for g in self.got]) if self.got else np.zeros(1)
+        return {"requests": len(self.got), "secs": secs,
+                "qps": len(self.got) / secs,
+                "p50_ms": 1e3 * float(lat[len(lat) // 2]),
+                "p99_ms": 1e3 * float(lat[min(len(lat) - 1,
+                                              int(0.99 * len(lat)))])}
+
+
+def _settled_memory(reads=3, gap_s=0.25, timeout_s=20.0):
+    """(requested, allocated, reserved) device bytes once `reads` reads
+    `gap_s` apart agree on the bytes requested (or at `timeout_s`).
+
+    Requested bytes are what the live allocations asked for, the sum of
+    their tensors' sizes; allocated bytes add the slack of the cached
+    blocks that served them (a block up to 1 MiB larger than a request is
+    handed out whole), which depends on the allocator's history, so the
+    same model set loaded twice can read as different allocated bytes.
+    Each read collects garbage first, then synchronizes and allocates
+    once, which makes the caching allocator release the blocks whose
+    cross-stream uses have completed: so a generation's tensors that a
+    serving thread or a reference cycle lets go of only after a swap
+    returned are not read as live, while memory that stays live is read
+    as it is."""
+    import gc
+
+    import torch
+
+    same, last = 0, None
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.empty(1, device="cuda")
+        cur = (torch.cuda.memory_stats()["requested_bytes.all.current"],
+               torch.cuda.memory_allocated(), torch.cuda.memory_reserved())
+        same = same + 1 if last is not None and cur[0] == last[0] else 1
+        if same >= reads or time.perf_counter() > deadline:
+            return cur
+        last = cur
+        time.sleep(gap_s)
+
+
+def _live_blocks():
+    """The caching allocator's live blocks, counted by (bytes requested,
+    memory pool, stream, allocating Python stack): the stack is recorded
+    only while torch.cuda.memory._record_memory_history is on, else
+    empty."""
+    import collections
+    import os
+
+    import torch
+
+    out = collections.Counter()
+    for seg in torch.cuda.memory_snapshot():
+        for blk in seg["blocks"]:
+            if blk["state"] != "active_allocated":
+                continue
+            frames = tuple(f"{os.path.basename(f['filename'])}:{f['line']} "
+                           f"{f['name']}" for f in blk.get("frames", ())
+                           if f["filename"].endswith(".py"))[:8]
+            out[(blk.get("requested_size", blk["size"]),
+                 tuple(seg.get("segment_pool_id", ())),
+                 seg["stream"], frames)] += 1
+    return out
+
+
+def _new_blocks(before, after, top=8):
+    """The largest live blocks of `after` that `before` does not have."""
+    new = after - before
+    return [(k[:3], n, " <- ".join(k[3]) or "-")
+            for k, n in sorted(new.items(), key=lambda kv: -kv[0][0])[:top]]
+
+
+def _cuda_census():
+    """The live CUDA tensors the collector can reach, by (shape, dtype):
+    {key: bytes of their distinct storages}."""
+    import collections
+    import gc
+
+    import torch
+
+    seen, out = set(), collections.Counter()
+    for o in gc.get_objects():
+        try:
+            if not (isinstance(o, torch.Tensor) and o.is_cuda):
+                continue
+            st = o.untyped_storage()
+        except (ReferenceError, RuntimeError):
+            continue
+        if st.data_ptr() in seen:
+            continue
+        seen.add(st.data_ptr())
+        out[(tuple(o.shape), str(o.dtype))] += st.nbytes()
+    return out
+
+
+def _manifest_bytes(path):
+    with open(path / "manifest.json", "rb") as f:
+        return f.read()
+
+
+def _loop_autopilot(X_all, Y_all, n_tr, acc5h, model5_path, device,
+                    counters, launches, smi, out_dir):
+    """23(a): the autopilot over an append-grown copy of phase 5's rows,
+    with phase 5's artifact deployed in an in-process server."""
+    import os
+    import shutil
+
+    from tpusvm_torch import faults
+    from tpusvm_torch.autopilot import (Autopilot, AutopilotConfig,
+                                        DriftThresholds)
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.serve import ServeConfig, Server
+    from tpusvm_torch.serve.refresh import refresh_fit
+    from tpusvm_torch.status import AutopilotStatus, Status
+    from tpusvm_torch.stream import ShardWriter, ingest_arrays, open_dataset
+
+    data, ref = out_dir / "loop_data", out_dir / "loop_ref"
+    for p in (data, ref):
+        shutil.rmtree(p, ignore_errors=True)
+    for p in out_dir.glob("loop*.npz"):
+        p.unlink()
+    state = out_dir / "autopilot_state.json"
+    if state.exists():
+        state.unlink()
+    t = time.perf_counter()
+    ingest_arrays(str(data), X_all[:n_tr], Y_all[:n_tr],
+                  rows_per_shard=STREAM_ROWS_PER_SHARD)
+    ingest_s = time.perf_counter() - t
+    n_end = n_tr + N_LOOP_BATCHES * N_LOOP_BATCH
+    Xq = X_all[n_end:]
+    cfg = AutopilotConfig(
+        data_dir=str(data), model_path=model5_path,
+        out_path=str(out_dir / "loop.npz"), state_path=str(state), name="m5",
+        thresholds=DriftThresholds(growth=LOOP_GROWTH, feature=None,
+                                   score=None),
+        checkpoint_path=str(out_dir / "loop_ck.npz"), checkpoint_every=1,
+        seed=23, device=device)
+    gens = [(model5_path, n_tr)]
+    fits, append_s, append_bytes = [], 0.0, 0
+    kill = {}
+    with Server(ServeConfig(max_batch=64), device=device) as srv:
+        srv.load_model("m5", model5_path)
+        srv.warmup()
+        pilot = Autopilot(cfg, server=srv, log_fn=None)
+        clients = _LoopClients(srv, lambda i: ("m5", (i % len(Xq),
+                                                      Xq[i % len(Xq)])))
+        statuses = []
+        with clients:
+            for k in range(N_LOOP_BATCHES):
+                a = n_tr + k * N_LOOP_BATCH
+                b = a + N_LOOP_BATCH
+                t = time.perf_counter()
+                w = ShardWriter.open_append(str(data))
+                w.append(X_all[a:b], Y_all[a:b])
+                w.close()
+                append_s += time.perf_counter() - t
+                append_bytes += X_all[a:b].nbytes + Y_all[a:b].astype(
+                    np.int32).nbytes
+                # the kill arm: generation 2's fit dies at its second solver
+                # checkpoint, and a rebuilt supervisor resumes it
+                plan = None
+                if pilot.state.generation == 1 and not kill:
+                    plan = faults.FaultPlan([faults.FaultRule(
+                        point="solver.outer_checkpoint", kind="kill",
+                        at_hit=2)], seed=0)
+                _zero(counters)
+                sync(device)
+                t = time.perf_counter()
+                try:
+                    if plan is None:
+                        out = pilot.tick()
+                    else:
+                        with faults.active(plan):
+                            out = pilot.tick()
+                except faults.SimulatedKill:
+                    t_k = time.perf_counter()
+                    kill["at_s"] = t_k - t
+                    kill["checkpoint"] = os.path.exists(cfg.checkpoint_path)
+                    pilot = Autopilot(cfg, server=srv, resume=True, log_fn=None)
+                    out = pilot.tick()
+                    kill["resume_s"] = time.perf_counter() - t_k
+                sync(device)
+                secs = time.perf_counter() - t
+                counts = _count(counters)
+                counts["inner_smo_boxed"] = counters["inner_smo"].boxed_launches
+                statuses.append(out["status"])
+                if out["status"] == AutopilotStatus.REFRESHED:
+                    path = str(out_dir / f"loop_gen{out['generation']}.npz")
+                    shutil.copyfile(cfg.out_path, path)
+                    gens.append((path, out["rows"]))
+                    fits.append((secs, counts))
+            serving = clients.stop("23a")
+    check(statuses == [AutopilotStatus.WATCHING, AutopilotStatus.REFRESHED,
+                       AutopilotStatus.WATCHING, AutopilotStatus.REFRESHED,
+                       AutopilotStatus.WATCHING],
+          f"[23a] tick statuses {[s.name for s in statuses]}")
+    check(kill.get("checkpoint"), f"[23a] the kill arm did not die at a "
+          f"durable checkpoint: {kill}")
+    # the grown dataset is a one-shot ingest of the rows it holds
+    ingest_arrays(str(ref), X_all[:n_end], Y_all[:n_end],
+                  rows_per_shard=STREAM_ROWS_PER_SHARD)
+    ds = open_dataset(str(data))
+    check(_manifest_bytes(data) == _manifest_bytes(ref)
+          and all(s.name == "OK" for s in ds.validate()),
+          "[23a] the grown dataset differs from a one-shot ingest")
+    # each generation is a direct refresh_fit of its donor on its rows
+    offline = {}
+    for g in range(1, len(gens)):
+        (donor, _), (path, rows) = gens[g - 1], gens[g]
+        direct = refresh_fit(donor, X_all[:rows], Y_all[:rows],
+                             out_path=str(out_dir / "loop_direct.npz"),
+                             device=device)
+        got = BinarySVC.load(path, device=device)
+        check(direct.status_ == Status.CONVERGED,
+              f"[23a] generation {g}: {direct.status_.name}")
+        check(_same_bits(got, direct), f"[23a] generation {g} differs from "
+              "a direct refresh_fit of its donor")
+        secs, counts = fits[g - 1]
+        acc = float((direct.predict(X_all[n_end:]) == Y_all[n_end:]).mean())
+        if g == 2:
+            check(abs(acc - acc5h) <= 0.002,
+                  f"[23a] generation 2 accuracy {acc} vs phase 5 {acc5h}")
+        check(device == "cpu" or (counts["fused_fupdate"] > 0
+                                  and counts["inner_smo_boxed"] > 0),
+              f"[23a] generation {g}: #1/#2's boxed subproblem not "
+              f"launched: {counts}")
+        for k in ("fused_fupdate", "inner_smo"):
+            launches.setdefault(k, {})[f"23a gen{g}"] = counts[k]
+        log(f"[23a] generation {g} on rows [:{rows}] (seeded by "
+            f"{'phase 5' if g == 1 else f'generation {g - 1}'}): tick "
+            f"{secs:.3f} s (read, refit, save, swap{', killed and resumed' if g == 2 else ''}), "
+            f"status {direct.status_.name}, rounds {direct.result_.n_outer}, "
+            f"updates {direct.n_iter_ - 1}, rounds redone on the loop engine "
+            f"{direct.result_.n_rescue}, SVs {direct.n_support_}, b "
+            f"{direct.b_:.15f}, accuracy on [{n_end}:] {acc:.4f} (phase 5 "
+            f"{acc5h:.4f}); launches #1 {counts['fused_fupdate']}, #2 "
+            f"{counts['inner_smo']} ({counts['inner_smo_boxed']} boxed); "
+            f"bit-equal to a direct refresh_fit ({smi})")
+        offline[g] = np.asarray(got.decision_function(Xq))
+    offline[0] = np.asarray(BinarySVC.load(
+        model5_path, device=device).decision_function(Xq))
+    torn = [(i, s) for _, i, s, _, _ in clients.got
+            if not any(s == offline[g][i] for g in offline)]
+    check(not clients.bad and not torn, f"[23a] {len(clients.bad)} failed and "
+          f"{len(torn)} torn responses: {clients.bad[:3]} {torn[:3]}")
+    log(f"[23a] the loop: ingest of [:{n_tr}] {ingest_s:.2f} s; "
+        f"{N_LOOP_BATCHES} appends of {N_LOOP_BATCH} rows in "
+        f"{append_s:.3f} s = {append_bytes / append_s / 1e6:.1f} MB/s, the "
+        f"grown manifest the one-shot ingest's bytes; statuses "
+        f"{[s.name for s in statuses]}; kill arm: generation 2 killed at its "
+        f"second checkpoint after {kill['at_s']:.3f} s, resumed in "
+        f"{kill['resume_s']:.3f} s, bit-equal; {serving['requests']} one-row "
+        f"requests from 8 clients in {serving['secs']:.3f} s = "
+        f"{serving['qps']:.0f}/s, p50 {serving['p50_ms']:.3f} ms, p99 "
+        f"{serving['p99_ms']:.3f} ms, each one generation's bits ({smi})")
+
+
+def _tenant_records(n, gamma):
+    from tpusvm_torch.tenants import TenantRecord
+
+    # the JAX tenant gate's layout (tpusvm/faults/__main__.py): a (C,
+    # gamma) palette, every eighth tenant a two-way row subset
+    return [TenantRecord(
+        tenant_id=f"t{i:02d}", positive_label=i % 10, C=TENANT_C[i % 3],
+        gamma=TENANT_GAMMA[(i // 3) % 3] * gamma,
+        row_mod=2 if i % 8 == 7 else None,
+        row_ofs=(i // 8) % 2 if i % 8 == 7 else 0) for i in range(n)]
+
+
+def _loop_tenants(Xm, lm, n_tr, gamma, n_tenants, device, counters,
+                  launches, smi, out_dir):
+    """23(b): n_tenants tenants over phase 8's ten-class rows: one cold
+    fleet provision, every tenant served, then the coalesced warm refresh
+    twice, a control arm and an arm killed at its second fleet checkpoint
+    and resumed, each rolled out into the server under client load."""
+    import dataclasses
+    import gc
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    import tpusvm_torch.tenants.loop as tenants_loop
+    from tpusvm_torch import faults
+    from tpusvm_torch.autopilot import DriftThresholds
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.serve import ServeConfig, Server
+    from tpusvm_torch.status import TenantsStatus
+    from tpusvm_torch.stream import ShardWriter, ingest_arrays, open_dataset
+    from tpusvm_torch.tenants import (TenantsConfig, TenantsSupervisor,
+                                      provision_tenants, tenant_labels,
+                                      view_fingerprint)
+
+    for p in out_dir.glob("tenants_*"):
+        shutil.rmtree(p) if p.is_dir() else p.unlink()
+    data = {arm: out_dir / f"tenants_data_{arm}" for arm in ("c", "k")}
+    ingest_arrays(str(data["c"]), Xm[:n_tr], lm[:n_tr],
+                  rows_per_shard=STREAM_ROWS_PER_SHARD)
+    shutil.copytree(data["c"], data["k"])
+    donors = out_dir / "tenants_donors"
+    recs = _tenant_records(n_tenants, gamma)
+    tids = [r.tenant_id for r in recs]
+    _zero(counters)
+    sync(device)
+    t = time.perf_counter()
+    # the JAX gate's template, SVMConfig(): a budget of 10^5 updates a lane
+    # (a C=40 lane at gamma <= 1/d needs more than 10^6 at this width and
+    # ends MAX_ITER at its budget: PERF.md section 4)
+    prov = provision_tenants(Xm[:n_tr], lm[:n_tr], recs,
+                             artifacts_dir=str(donors), config=SVMConfig(),
+                             solver_opts=OVR_OPTS, device=device)
+    sync(device)
+    cold = (time.perf_counter() - t, _count(counters), prov)
+    by_c = {c: sorted({prov[r.tenant_id]["status"].name for r in recs
+                       if r.C == c}) for c in TENANT_C}
+    log(f"[23b] provisioned {n_tenants} tenants in {cold[0]:.3f} s (a "
+        f"budget of {SVMConfig().max_iter} updates a lane): rounds "
+        f"{max(o['n_outer'] for o in prov.values())}, statuses by C {by_c}, "
+        f"per tenant (C, rounds, updates, rescued rounds) "
+        f"{[(r.C, prov[r.tenant_id]['n_outer'], prov[r.tenant_id]['n_iter'] - 1, prov[r.tenant_id]['n_rescue']) for r in recs]}")
+    n_end = n_tr + N_APPEND
+    Xq = Xm[n_end:n_end + N_TENANT_ROWS]
+    # every generation's offline scores of the query rows, by tenant
+    ref = {tid: [np.asarray(BinarySVC.load(
+        str(donors / f"{tid}.npz"), device=device).decision_function(Xq))]
+        for tid in tids}
+    outcomes = {}
+    refresh = tenants_loop.refresh_drifted
+
+    def recording(*a, **kw):
+        t0 = time.perf_counter()
+        out = refresh(*a, **kw)
+        outcomes[kw["artifacts_dir"]] = out
+        log(f"[23b] the coalesced refresh of {len(out)} tenants in "
+            f"{time.perf_counter() - t0:.3f} s: rounds "
+            f"{max(o['n_outer'] for o in out.values())}, updates "
+            f"{sum(o['n_iter'] - 1 for o in out.values())}")
+        return out
+
+    tenants_loop.refresh_drifted = recording
+    mem, census, blocks, runs, kill = [], [], [], {}, {}
+    gc.collect()
+    try:
+        with Server(ServeConfig(max_batch=64), device=device) as srv:
+            swaps = []
+            swap = srv.swap
+
+            def timed_swap(name, path):
+                out = swap(name, path)
+                swaps.append(out["latency_s"])
+                if len(swaps) in (1, 64, 65, 128):
+                    log(f"[23b] swap {len(swaps)} done at "
+                        f"{time.perf_counter() - clients._t0:.3f} s")
+                if len(swaps) % 16 == 0:
+                    log(f"[23b] {len(swaps)} swaps, {sum(swaps):.3f} s in "
+                        f"all, the longest {max(swaps):.3f} s")
+                return out
+
+            srv.swap = timed_swap
+            t = time.perf_counter()
+            for r in recs:
+                srv.load_model(r.tenant_id, r.model_path)
+            srv.warmup()
+            host_s = time.perf_counter() - t
+            log(f"[23b] {n_tenants} tenants hosted in {host_s:.3f} s")
+            clients = _LoopClients(srv, lambda i: (
+                tids[(7 * i + i // len(tids)) % len(tids)],
+                (i % len(Xq), Xq[i % len(Xq)])), think_s=TENANT_THINK_S)
+            with clients:
+                marks = []
+                for arm in ("c", "k"):
+                    # the kill arm's append dies at its second journal write
+                    # and is resumed by replaying its batch
+                    plan = faults.FaultPlan([faults.FaultRule(
+                        point="stream.append", kind="kill", at_hit=2)], seed=0)
+                    for attempt in range(2):
+                        try:
+                            with faults.active(plan if arm == "k" else
+                                               faults.FaultPlan([], seed=0)):
+                                w = ShardWriter.open_append(str(data[arm]),
+                                                            resume=attempt > 0)
+                                w.append(Xm[n_tr:n_end], lm[n_tr:n_end])
+                                w.close()
+                            break
+                        except faults.SimulatedKill:
+                            kill["append"] = True
+                    cfg = TenantsConfig(
+                        data_dir=str(data[arm]),
+                        store_path=str(out_dir / f"tenants_store_{arm}.json"),
+                        artifacts_dir=str(out_dir / f"tenants_models_{arm}"),
+                        thresholds=DriftThresholds(growth=TENANT_GROWTH,
+                                                   feature=None, score=None),
+                        checkpoint_every=TENANT_CKPT_EVERY, seed=23,
+                        solver_opts=OVR_OPTS, device=device)
+                    say = lambda m: log(f"[23b] arm {arm}: {m}")  # noqa: E731
+                    marks.append((f"arm {arm}",
+                                  round(time.perf_counter() - clients._t0, 3)))
+                    sup = TenantsSupervisor(cfg, server=srv, log_fn=say)
+                    for r in recs:
+                        sup.register(dataclasses.replace(r))
+                    _zero(counters)
+                    sync(device)
+                    t = t_k = time.perf_counter()
+                    if arm == "k":
+                        # tenants.store hit 1 is the stage="fitting" commit,
+                        # hits 2.. the fleet checkpoints: hit 3 dies at the
+                        # second segment's checkpoint write
+                        plan = faults.FaultPlan([faults.FaultRule(
+                            point="tenants.store", kind="kill", at_hit=3)],
+                            seed=0)
+                        try:
+                            with faults.active(plan):
+                                sup.tick()
+                        except faults.SimulatedKill:
+                            t_k = time.perf_counter()
+                            kill["at_s"] = t_k - t
+                            kill["checkpoint"] = bool(list(Path(
+                                cfg.artifacts_dir).glob("fleet_*.ck.npz")))
+                            sup = TenantsSupervisor(cfg, server=srv, resume=True,
+                                                    log_fn=say)
+                    out = sup.tick()
+                    if arm == "k":
+                        kill["resume_s"] = time.perf_counter() - t_k
+                    sync(device)
+                    secs = time.perf_counter() - t
+                    boxed = counters["inner_smo_batched"].boxed_launches
+                    # (a resumed tick finishes the persisted launch and
+                    # reports no fresh drift)
+                    done = outcomes.get(cfg.artifacts_dir, {})
+                    check(out["status"] == TenantsStatus.REFRESHED
+                          and sorted(done) == tids
+                          and not any("error" in o for o in done.values()),
+                          f"[23b] arm {arm}: {out['status'].name}, "
+                          f"{len(done)} of {len(tids)} refreshed")
+                    if device != "cpu":
+                        # read with no request in flight (no capture runs in
+                        # this thread now, and serving captures none)
+                        with clients.paused(f"23b arm {arm}"):
+                            mem.append(_settled_memory())
+                            census.append(_cuda_census())
+                            blocks.append(_live_blocks())
+                    counts = _count(counters)
+                    counts["inner_smo_batched_boxed"] = boxed
+                    runs[arm] = (secs, counts, outcomes[cfg.artifacts_dir],
+                                 cfg, sup)
+                    log(f"[23b] arm {arm} refreshed and rolled out in "
+                        f"{secs:.3f} s")
+                serving = clients.stop("23b")
+    finally:
+        tenants_loop.refresh_drifted = refresh
+    check(kill.get("append") and kill.get("checkpoint"),
+          f"[23b] the kill arm's kills did not fire as planned: {kill}")
+    labels = {arm: open_dataset(str(data[arm])).load_labels()
+              for arm in data}
+    (_, _, out_c, cfg_c, _), (_, _, out_k, cfg_k, _) = runs["c"], runs["k"]
+    for r in recs:
+        tid = r.tenant_id
+        a = BinarySVC.load(out_c[tid]["out_path"], device=device)
+        b = BinarySVC.load(out_k[tid]["out_path"], device=device)
+        check(_same_bits(a, b) and out_c[tid]["n_iter"] == out_k[tid]["n_iter"],
+              f"[23b] {tid}: the recovered refit differs from the control")
+        check(view_fingerprint(*tenant_labels(labels["c"], r))
+              == view_fingerprint(*tenant_labels(labels["k"], r)),
+              f"[23b] {tid}: the view fingerprints differ")
+        ref[tid].append(np.asarray(a.decision_function(Xq)))
+    torn = [(n, i, round(t, 3)) for n, i, s, _, t in clients.got
+            if not any(s == g[i] for g in ref[n])]
+    check(not clients.bad and not torn, f"[23b] {len(clients.bad)} failed and "
+          f"{len(torn)} torn responses (seconds since the clients started; "
+          f"{marks}, the refresh/roll-out lines above): {clients.bad[:8]} "
+          f"{torn[:8]} ... {torn[-4:]}")
+    left = [p for cfg in (cfg_c, cfg_k)
+            for p in Path(cfg.artifacts_dir).glob("*.ck.npz")]
+    check(not left, f"[23b] fleet checkpoints left after the roll-out: {left}")
+    for label, (secs, counts, outs) in (("cold provision", cold),
+                                        ("warm control", runs["c"][:3]),
+                                        ("warm, killed and resumed",
+                                         runs["k"][:3])):
+        check(device == "cpu" or (counts["fused_fupdate_batched"] > 0
+                                  and counts["inner_smo_batched"] > 0),
+              f"[23b] {label}: 1b/2b not launched: {counts}")
+        rescued = sum(o["n_rescue"] for o in outs.values())
+        lane_rounds = sum(o["n_outer"] for o in outs.values())
+        share = rescued / max(lane_rounds, 1)
+        if label.startswith("warm"):
+            check(device == "cpu" or counts["inner_smo_batched_boxed"] > 0,
+                  f"[23b] {label}: no 2b launch with boxed lanes: {counts}")
+            check(share <= RESCUE_SHARE_MAX, f"[23b] {label}: {rescued} of "
+                  f"{lane_rounds} lane-rounds redone on the loop engine "
+                  f"({share:.3f} > {RESCUE_SHARE_MAX})")
+        # the solo #1 launches are the seeded lanes' f rebuilds
+        for k in ("fused_fupdate_batched", "inner_smo_batched",
+                  "fused_fupdate", "inner_smo"):
+            launches.setdefault(k, {})[f"23b {label}"] = counts[k]
+        sts = [o["status"].name for o in outs.values()]
+        log(f"[23b] {label} of {n_tenants} tenants on rows "
+            f"[:{n_tr if label.startswith('cold') else n_end}]: {secs:.3f} s, "
+            f"rounds {max(o['n_outer'] for o in outs.values())}, updates "
+            f"{sum(o['n_iter'] - 1 for o in outs.values())}, statuses "
+            f"{ {s: sts.count(s) for s in sorted(set(sts))} }, SVs "
+            f"{sum(o['sv_count'] for o in outs.values())}; lane-rounds "
+            f"{lane_rounds}, of them redone on the loop engine {rescued} "
+            f"({100 * share:.2f}%); launches 1b "
+            f"{counts['fused_fupdate_batched']}, 2b "
+            f"{counts['inner_smo_batched']} "
+            f"({counts.get('inner_smo_batched_boxed', 0)} with boxed lanes), "
+            f"#1 {counts['fused_fupdate']}, #2 {counts['inner_smo']} ({smi})")
+    if mem:
+        grown = sorted(((v - census[0].get(k, 0), k) for k, v in
+                        census[1].items() if v > census[0].get(k, 0)),
+                       reverse=True)
+        check(mem[1][0] <= mem[0][0], f"[23b] device bytes requested after "
+              f"the last roll-out above the first's (requested, allocated, "
+              f"reserved): {mem}; live CUDA tensors grown "
+              f"(bytes, (shape, dtype)): {grown[:8]}; allocator blocks new "
+              f"((bytes requested, pool, stream), count, stack): "
+              f"{_new_blocks(blocks[0], blocks[1])}")
+    log(f"[23b] {n_tenants} tenants hosted in {host_s:.3f} s; kill arm: its "
+        f"append killed and resumed, its refresh killed at the second "
+        f"fleet checkpoint after {kill['at_s']:.3f} s and resumed in "
+        f"{kill['resume_s']:.3f} s, every tenant bit-equal to the control "
+        f"(alphas, SV IDs, b, updates), view fingerprints equal, checkpoints "
+        f"reaped; {serving['requests']} one-row requests from 8 clients in "
+        f"{serving['secs']:.3f} s = {serving['qps']:.0f}/s, p50 "
+        f"{serving['p50_ms']:.3f} ms, p99 {serving['p99_ms']:.3f} ms, each "
+        f"one generation's bits; device memory requested/allocated/reserved "
+        f"MiB after "
+        f"the first and the last roll-out "
+        f"{[[round(x / 2**20, 1) for x in m] for m in mem] or 'n/a'} ({smi})")
+
+
+def phase_closed_loop(X_all, Y_all, n_tr, m5, model5_path, Xm, lm, gamma,
+                      device, counters, launches, smi, out_dir,
+                      n_tenants=N_TENANTS):
+    """Phase 23, the closed loop at full width (tpusvm_torch.autopilot,
+    tpusvm_torch.tenants):
+
+    (a) phase 5's artifact served in-process; the autopilot over a fresh
+        dataset of its training rows grown by N_LOOP_BATCHES appends of
+        N_LOOP_BATCH held-out rows, one a tick (growth threshold
+        LOOP_GROWTH): two chained warm refreshes swap in (generation 1 on
+        62,000 rows seeded by phase 5's model, generation 2 on 64,000
+        seeded by generation 1's, killed at its second solver checkpoint
+        and resumed by a rebuilt supervisor), while 8 one-row clients
+        score the last held-out rows: the grown dataset is a one-shot
+        ingest's, each generation is a direct refresh_fit of its donor
+        bit for bit and CONVERGED, #1 and #2 launched in each refresh,
+        generation 2 within 0.002 of phase 5's accuracy, every response a
+        complete generation's bits;
+    (b) n_tenants tenants over phase 8's rows (a C palette, gamma
+        multiples of `gamma`, every eighth a row subset): one cold fleet
+        provision, every tenant served, then the coalesced warm refresh
+        over the grown rows twice, a control and an arm killed at its
+        second fleet checkpoint and resumed, each rolled out under 8
+        one-row clients: bits, fingerprints, reaped checkpoints, flat
+        memory, 1b and 2b launched;
+    (c) autopilot-chaos-smoke and tenant-chaos-smoke as subprocesses
+        beside (a) and (b), each exiting 0."""
+    import atexit
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    smokes = {f"smoke23c_{i}": (_start(list(args), out_dir, f"smoke23c_{i}",
+                                       device), time.perf_counter())
+              for i, (args, _) in enumerate(LOOP_SMOKES)}
+    # a failed gate must not leave them running
+    atexit.register(lambda: [p.kill() for p, _ in smokes.values()
+                             if p.poll() is None])
+    acc5h = float((m5.predict(X_all[n_tr + N_LOOP_BATCHES * N_LOOP_BATCH:])
+                   == Y_all[n_tr + N_LOOP_BATCHES * N_LOOP_BATCH:]).mean())
+    t = time.perf_counter()
+    _loop_autopilot(X_all, Y_all, n_tr, acc5h, model5_path, device,
+                    counters, launches, smi, out_dir)
+    log(f"[23a] {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    _loop_tenants(Xm, lm, n_tr, gamma, n_tenants, device, counters, launches,
+                  smi, out_dir)
+    log(f"[23b] {time.perf_counter() - t:.1f} s")
+    done = _finish(smokes, out_dir, 600, "23c")
+    for i, (args, line) in enumerate(LOOP_SMOKES):
+        text, secs = done[f"smoke23c_{i}"]
+        ok = [x for x in text.splitlines() if x.startswith(line)]
+        check(ok, f"[23c] {' '.join(args)}: no {line!r} line")
+        log(f"[23c] python -m {' '.join(args)}: exit 0 in {secs:.1f} s "
+            f"(beside (a) and (b); {smi}); {ok[-1]!r}")
 
 
 def sync(device):
@@ -3834,6 +4590,12 @@ def main():
                 rff18a, "cuda", counters, launches, smi,
                 _build.BUILD_DIR / "chip_smoke_serve")
     clock("22")
+
+    # ---- 23. the closed loop: the autopilot, the tenants ----------------
+    phase_closed_loop(X_all, Y_all, 60000, m5, model5_path, Xm, lm, GAMMA,
+                      "cuda", counters, launches, smi,
+                      _build.BUILD_DIR / "chip_smoke_loop")
+    clock("23")
 
     for k in kernels:
         k["launches_by_phase"] = launches[k["name"]]

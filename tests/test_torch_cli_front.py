@@ -213,12 +213,18 @@ def test_info_describes_artifacts_of_either_package(tmp_path, capsys):
 
 
 def test_info_refuses_the_artifacts_of_later_items(tmp_path):
-    # a tune-results JSON is described (tests/test_torch_tune.py); a tenant
-    # store is not ported yet
+    # a tune-results JSON and a tenant store are described
+    # (tests/test_torch_tune.py, tests/test_torch_closed_loop_cli.py); a
+    # store whose CRC fingerprint fails and a JSON that is neither are not
     js = tmp_path / "tenants.json"
     js.write_text('{"store_version": 1, "tenants": {}}')
-    with pytest.raises(SystemExit, match=r"item 11\(c\)"):
+    with pytest.raises(SystemExit, match="CRC fingerprint"):
         t_main(["info", str(js)])
+    other = tmp_path / "other.json"
+    other.write_text('{"a": 1}')
+    with pytest.raises(SystemExit, match="neither a tune result nor a "
+                       "tenant store"):
+        t_main(["info", str(other)])
     # a sharded dataset is described (tests/test_torch_stream.py); a
     # directory without a manifest is not one
     with pytest.raises(SystemExit, match="not a sharded dataset"):

@@ -680,6 +680,43 @@ def test_inner_smo_batched_equals_solo_launches(dev, B, q, wss, ex):
         assert torch.equal(a_out[b], a1) and torch.equal(stat[b], s1)
 
 
+@pytest.mark.parametrize("B,q,wss,ex", [(4, 256, 1, False), (5, 512, 2, False),
+                                        (16, 2048, 2, False), (3, 2176, 2, True)])
+def test_boxed_inner_smo_equals_its_plain_version(dev, B, q, wss, ex):
+    """The boxed subproblem of seeded lanes (float64 seeds, some within a
+    float32 ulp of C), mixed with plain lanes in one launch: the launch
+    equals its plain version, and each lane a solo launch (boxed or
+    plain), bit for bit; q = 2176 keeps members in shared memory."""
+    from tpusvm_torch.ops.cuda.inner_smo import (boxed_operands,
+                                                 inner_smo_batched_kernel,
+                                                 inner_smo_batched_ref)
+
+    X, XB, gammas, Cs, y, a, f, act, K = _lanes_case(dev, B, 3000, 16, q, B + q)
+    rng = np.random.default_rng(q)
+    C_t = torch.as_tensor(Cs, device=dev)[:, None]
+    a64 = a.double() * (1 - 1e-9 * torch.as_tensor(rng.random((B, q)),
+                                                   device=dev))
+    near = torch.as_tensor(rng.random((B, q)) < 0.2, device=dev)
+    a64 = torch.where(near, C_t - 1e-7 * torch.as_tensor(
+        rng.random((B, q)), device=dev), a64)
+    f64 = f.double()
+    boxed = torch.as_tensor(np.arange(B) % 2 == 0, device=dev)
+    d0, f_c, lo, hi = boxed_operands(a64, f64, C_t, q // 2)
+    a_in = torch.where(boxed[:, None], d0.double(), a64)
+    f_in = torch.where(boxed[:, None], f_c.double(), f64)
+    args = (K, y, a_in, f_in, act, torch.as_tensor(Cs), 1e-12, 1e-5)
+    kw = dict(max_inner=1024, wss=wss, eta_exclude=ex)
+    a_out, stat = inner_smo_batched_kernel(*args, box=(lo, hi, boxed), **kw)
+    a_ref, st_ref = inner_smo_batched_ref(*args, box=(lo, hi, boxed), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a_out, a_ref) and torch.equal(stat, st_ref)
+    for b in range(B):
+        box = (lo[b], hi[b]) if bool(boxed[b]) else None
+        a1, s1 = inner_smo_kernel(K[b], y[b], a_in[b], f_in[b], act[b],
+                                  float(Cs[b]), 1e-12, 1e-5, box=box, **kw)
+        assert torch.equal(a_out[b], a1) and torch.equal(stat[b], s1)
+
+
 @pytest.mark.parametrize("B,n,d,q", [(4, 4099, 784, 512), (3, 1000, 37, 200),
                                      (16, 4000, 64, 2048)])
 def test_fused_fupdate_batched_equals_solo_launches(dev, B, n, d, q):
@@ -917,7 +954,9 @@ def test_serve_swap_under_load_on_the_card_keeps_memory_flat(dev, tmp_path):
         for k in range(8):
             srv.swap("m", pb if k % 2 == 0 else pa)
             torch.cuda.synchronize()
-            mem.append((torch.cuda.memory_allocated(),
+            # the bytes the live tensors requested: the allocated bytes
+            # add the slack of whichever cached blocks served them
+            mem.append((torch.cuda.memory_stats()["requested_bytes.all.current"],
                         torch.cuda.memory_reserved()))
         stop.set()
         for t in ts:
@@ -926,3 +965,107 @@ def test_serve_swap_under_load_on_the_card_keeps_memory_flat(dev, tmp_path):
         assert srv.registry.generation("m") == 9
     assert not bad and served[0] > 0
     assert [m[0] for m in mem[2:]] == [m[0] for m in mem[:-2]], mem
+
+
+def test_autopilot_kill_arm_on_the_card_resumes_bit_for_bit(dev, tmp_path):
+    """Phase 23(a)'s kill arm at a small size: the autopilot's seeded
+    refresh, killed at its first solver checkpoint and resumed by a
+    rebuilt supervisor, equals a direct refresh_fit of its donor on the
+    same rows bit for bit, and its fit launched #1 and #2."""
+    from tpusvm_torch import faults
+    from tpusvm_torch.autopilot import (Autopilot, AutopilotConfig,
+                                        DriftThresholds)
+    from tpusvm_torch.serve.refresh import refresh_fit
+    from tpusvm_torch.status import AutopilotStatus
+    from tpusvm_torch.stream import ShardWriter, ingest_arrays, open_dataset
+
+    X, Y = mnist_like(n=4096, d=64, noise=30, label_noise=0.005, seed=587)
+    opts = dict(q=256, wss=2, max_inner=512)
+    data = str(tmp_path / "data")
+    ingest_arrays(data, X[:3072], Y[:3072], rows_per_shard=1024)
+    donor = str(tmp_path / "donor.npz")
+    BinarySVC(SVMConfig(C=10.0, gamma=1.0 / 64), solver_opts=opts,
+              device=dev).fit(X[:3072], Y[:3072]).save(donor)
+    cfg = AutopilotConfig(
+        data_dir=data, model_path=donor, out_path=str(tmp_path / "g.npz"),
+        thresholds=DriftThresholds(growth=0.1, feature=None, score=None),
+        checkpoint_path=str(tmp_path / "ck.npz"), checkpoint_every=1,
+        seed=1, device="cuda")
+    pilot = Autopilot(cfg, log_fn=None)
+    w = ShardWriter.open_append(data)
+    w.append(X[3072:], Y[3072:])
+    w.close()
+    plan = faults.FaultPlan([faults.FaultRule(
+        point="solver.outer_checkpoint", kind="kill", at_hit=2)], seed=0)
+    with pytest.raises(faults.SimulatedKill):
+        with faults.active(plan):
+            pilot.tick()
+    for fn in (rbf_cross_matvec_kernel, inner_smo_kernel):
+        fn.launches = 0
+    out = Autopilot(cfg, resume=True, log_fn=None).tick()
+    assert out["status"] == AutopilotStatus.REFRESHED
+    assert rbf_cross_matvec_kernel.launches > 0 and inner_smo_kernel.launches > 0
+    Xg, Yg = open_dataset(data).load_arrays()
+    plain = refresh_fit(donor, Xg, Yg, out_path=str(tmp_path / "p.npz"),
+                        device=dev)
+    got = BinarySVC.load(cfg.out_path, device=dev)
+    assert plain.status_.name == "CONVERGED"
+    assert got.sv_alpha_.tobytes() == plain.sv_alpha_.tobytes()
+    assert np.array_equal(got.sv_ids_, plain.sv_ids_) and got.b_ == plain.b_
+
+
+def test_tenants_kill_arm_on_the_card_resumes_bit_for_bit(dev, tmp_path):
+    """Phase 23(b)'s kill arm at a small size: a coalesced warm refresh of
+    eight tenants (phase 23's C palette) killed at its second
+    fleet-checkpoint write and resumed equals the uninterrupted launch bit
+    for bit; the launches ran the problem-axis #1 and #2 (1b, 2b)."""
+    from tpusvm_torch import faults
+    from tpusvm_torch.data.synthetic import mnist_like_multiclass
+    from tpusvm_torch.ops.cuda.fused_fupdate import (
+        rbf_cross_matvec_batched_kernel)
+    from tpusvm_torch.ops.cuda.inner_smo import inner_smo_batched_kernel
+    from tpusvm_torch.tenants import (TenantRecord, provision_tenants,
+                                      refresh_drifted)
+
+    Xm, lm = mnist_like_multiclass(n=3000, d=64, noise=30.0)
+    opts = dict(q=256, wss=2, max_inner=512)
+
+    def records():
+        return [TenantRecord(f"t{i}", positive_label=i % 10,
+                             C=(2.5, 10.0, 40.0)[i % 3],
+                             gamma=(0.5, 1.0, 2.0)[(i // 3) % 3] / 64,
+                             row_mod=2 if i % 8 == 7 else None)
+                for i in range(8)]
+
+    donors = str(tmp_path / "donors")
+    recs = records()
+    for fn in (inner_smo_batched_kernel, rbf_cross_matvec_batched_kernel):
+        fn.launches = 0
+    provision_tenants(Xm[:2500], lm[:2500], recs, artifacts_dir=donors,
+                      solver_opts=opts, device="cuda")
+    assert inner_smo_batched_kernel.launches > 0
+    assert rbf_cross_matvec_batched_kernel.launches > 0
+
+    def run(name, plan=None):
+        rs = records()
+        for r in rs:
+            r.model_path = f"{donors}/{r.tenant_id}.npz"
+        kw = dict(artifacts_dir=str(tmp_path / name), checkpoint_every=2,
+                  resume=True, solver_opts=opts, device="cuda")
+        if plan is not None:
+            with pytest.raises(faults.SimulatedKill):
+                with faults.active(plan):
+                    refresh_drifted(Xm, lm, rs, **kw)
+        return refresh_drifted(Xm, lm, rs, **kw)
+
+    ctl = run("ctl")
+    got = run("kill", faults.FaultPlan([faults.FaultRule(
+        point="tenants.store", kind="kill", at_hit=2)], seed=0))
+    for tid, o in ctl.items():
+        assert o["mode"] == "fleet" and o["status"].name == "CONVERGED"
+        # the seeded rounds ran in the boxed kernel, none on the loop engine
+        assert o["n_rescue"] == 0, (tid, o)
+        a = np.load(o["out_path"])
+        b = np.load(got[tid]["out_path"])
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), f"{tid}:{k}"

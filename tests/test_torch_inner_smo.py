@@ -143,3 +143,114 @@ def test_loop_engine_matches_jax_loop_f64_optimum(wss):
     assert (pr_t, r_t) == (pr_j, r_j) == (True, int(Status.CONVERGED))
     assert abs(n_t - n_j) <= 0.1 * n_j
     np.testing.assert_allclose(a_t, a_j, rtol=0, atol=2e-3)
+
+
+@pytest.mark.parametrize("wss, eta_exclude", [(1, False), (2, False),
+                                              (2, True)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_batched_plain_version_equals_the_solo_one_lane_by_lane(
+        seed, wss, eta_exclude):
+    """The problem-axis plain version steps every lane together; each lane
+    (its own C, warm and bound alphas, inactive members, lanes that end at
+    different iterations) equals inner_smo_ref on its operands bit for
+    bit."""
+    from tpusvm_torch.ops.cuda.inner_smo import inner_smo_batched_ref
+
+    rng = np.random.default_rng(seed)
+    B, q = 6, 32
+    K = np.stack([_subproblem(q, seed * 10 + b, gamma=0.5 + b)[0]
+                  for b in range(B)])
+    y = np.where(rng.random((B, q)) < 0.5, 1, -1).astype(np.int32)
+    Cs = rng.choice([0.5, 1.0, 3.3, 10.0], B)
+    a = rng.random((B, q)) * Cs[:, None]
+    a[rng.random((B, q)) < 0.4] = 0.0
+    bound = rng.random((B, q)) < 0.2
+    a[bound] = np.broadcast_to(Cs[:, None], (B, q))[bound]
+    f = rng.random((B, q)) - 0.5
+    act = rng.random((B, q)) < 0.9
+    args = [torch.tensor(v) for v in (K, y, a, f, act)]
+    kw = dict(max_inner=(8, 64, 1000)[seed], wss=wss,
+              eta_exclude=eta_exclude)
+    a_all, st_all = inner_smo_batched_ref(*args, Cs.tolist(), EPS, TAU, **kw)
+    for b in range(B):
+        a1, s1 = inner_smo_ref(*(t[b] for t in args), float(Cs[b]), EPS, TAU,
+                               **kw)
+        assert torch.equal(a_all[b], a1) and torch.equal(st_all[b], s1), b
+
+
+@pytest.mark.parametrize("wss, eta_exclude", [(1, False), (2, False),
+                                              (2, True)])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_boxed_plain_version_lanes_equal_the_solo_one(seed, wss, eta_exclude):
+    """The problem-axis plain version with boxed and plain lanes mixed:
+    each boxed lane (float64 seeds, some within a float32 ulp of C or of
+    0) equals the solo boxed plain version on its deltas and bounds, and
+    each plain lane equals the solo plain version, bit for bit."""
+    from tpusvm_torch.ops.cuda.inner_smo import (boxed_operands,
+                                                 inner_smo_batched_ref)
+
+    rng = np.random.default_rng(200 + seed)
+    B, q = 6, 32
+    K = np.stack([_subproblem(q, seed * 10 + b, gamma=0.5 + b)[0]
+                  for b in range(B)])
+    y = np.where(rng.random((B, q)) < 0.5, 1, -1).astype(np.int32)
+    Cs = rng.choice([0.5, 2.5, 10.0, 40.0], B)
+    a = rng.random((B, q)) * Cs[:, None]
+    a[rng.random((B, q)) < 0.3] = 0.0
+    near_c = rng.random((B, q)) < 0.2
+    a[near_c] = (Cs[:, None] - 1e-7 * rng.random((B, q)))[near_c]
+    near_0 = rng.random((B, q)) < 0.1
+    a[near_0] = 1e-9 * rng.random((B, q))[near_0]
+    f = rng.random((B, q)) - 0.5
+    act = torch.tensor(rng.random((B, q)) < 0.9)
+    boxed = torch.tensor([True, False, True, True, False, True])
+    Kt, yt, ft = torch.tensor(K), torch.tensor(y), torch.tensor(f)
+    at = torch.tensor(a)
+    d0, f_c, lo, hi = boxed_operands(at, ft, torch.tensor(Cs)[:, None],
+                                     q // 2)
+    a_in = torch.where(boxed[:, None], d0.double(), at)
+    f_in = torch.where(boxed[:, None], f_c.double(), ft)
+    kw = dict(max_inner=(8, 64, 1000)[seed], wss=wss,
+              eta_exclude=eta_exclude)
+    a_all, st_all = inner_smo_batched_ref(Kt, yt, a_in, f_in, act,
+                                          Cs.tolist(), EPS, TAU,
+                                          box=(lo, hi, boxed), **kw)
+    for b in range(B):
+        box = (lo[b], hi[b]) if boxed[b] else None
+        a1, s1 = inner_smo_ref(Kt[b], yt[b], a_in[b], f_in[b], act[b],
+                               float(Cs[b]), EPS, TAU, box=box, **kw)
+        assert torch.equal(a_all[b], a1) and torch.equal(st_all[b], s1), b
+
+
+@pytest.mark.parametrize("wss", [1, 2])
+def test_boxed_subproblem_moves_seeds_float32_cannot_hold(wss):
+    """Seeds within a float32 ulp of C = 40 (a warm refresh near its
+    optimum): on the alphas themselves kernel #2's float32 masks take every
+    member for one at C and end the subproblem with no update, the stall
+    the solver then redid on the float64 loop engine; the boxed
+    subproblem on the deltas takes the float64 loop engine's steps, and
+    its deltas, pulled back, stay in the box."""
+    from tpusvm_torch.ops.cuda.inner_smo import boxed_operands
+    from tpusvm_torch.solver.blocked import kernel_delta_in_box
+
+    c = 40.0
+    K, y, _, _, act = _subproblem(32, seed=7)
+    rng = np.random.default_rng(7)
+    a0 = np.full(32, c - 1e-7) - rng.random(32) * 1e-7
+    f0 = np.where(y > 0, -0.5 - 0.5 * rng.random(32),
+                  0.5 + 0.5 * rng.random(32))
+    Kt, yt, at, ft, actt = map(torch.tensor, (K, y, a0, f0, act))
+    _, st = inner_smo_ref(Kt, yt, at, ft, actt, c, EPS, TAU, max_inner=1000,
+                          wss=wss)
+    assert st.tolist()[:3] == [0, 0, int(Status.CONVERGED)]
+    d0, f_c, lo, hi = boxed_operands(at, ft, c, 16)
+    d, st = inner_smo_ref(Kt, yt, d0, f_c, actt, c, EPS, TAU, max_inner=1000,
+                          wss=wss, box=(lo, hi))
+    a_l, n_l, pr_l, r_l = t_inner_smo(Kt, yt, at, ft, actt, c, EPS, TAU,
+                                      1000, wss=wss)
+    assert st.tolist()[:3] == [n_l, int(pr_l), int(r_l)] \
+        == [31, 1, int(Status.CONVERGED)]
+    da = kernel_delta_in_box(at, d.double(), c)
+    assert bool(((at + da) >= 0).all() & ((at + da) <= c).all())
+    np.testing.assert_allclose(da.numpy(), (a_l - at).numpy(), rtol=0,
+                               atol=1e-12)

@@ -144,7 +144,8 @@ def test_checkpoint_shrink_and_csv_entry_points_raise_without_a_card(tmp_path):
                                  "faults.__main__", "tune", "parallel.mesh",
                                  "data.native_io", "serve", "serve.http",
                                  "serve.refresh", "serve.watch",
-                                 "obs.fleet"])
+                                 "obs.fleet", "stream.append", "autopilot",
+                                 "tenants"])
 def test_new_tiers_import_alone_without_jax_or_tpusvm(pkg):
     # each tier in a fresh interpreter, alone: what it pulls in is its own
     code = f"""

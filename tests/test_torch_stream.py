@@ -363,7 +363,7 @@ def test_open_refuses_what_is_not_a_dataset(tmp_path):
     (tmp_path / "manifest.json").write_text('{"format_version": 9}')
     with pytest.raises(ValueError, match="format_version 9"):
         stream.open_dataset(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="format_version 9"):
         stream.ShardWriter.open_append(str(tmp_path))
     with pytest.raises(ValueError, match="no rows appended"):
         stream.ShardWriter(str(tmp_path / "e")).close()

@@ -1,5 +1,5 @@
 """Command line: `python -m tpusvm_torch train|pod|predict|ingest|tune|serve|
-refresh|info`.
+refresh|autopilot|tenants|info`.
 
 train fits a model on a CSV (--train, last column = label; --test scores a
 held-out CSV) or a synthetic dataset, scores the held-out rows and prints
@@ -40,8 +40,13 @@ a sharded dataset (its manifest and each shard's StreamStatus). serve
 hosts saved models over HTTP (tpusvm_torch.serve: micro-batching, one CUDA
 graph a row bucket, hot-swap, --state, --watch; --smoke is its gate), and
 refresh warm-starts a refit of a deployed model on grown data and can
-hot-swap it into a running serve (--swap URL). train, predict, tune, serve
-and refresh run on the card unless --device cpu.
+hot-swap it into a running serve (--swap URL). autopilot supervises the
+closed loop of one deployed model over an append-grown dataset (drift
+detectors, warm refresh, hot-swap; --smoke is its gate), and tenants that
+of many tenant models over one shared corpus (coalesced fleet refreshes,
+a staggered roll-out; --smoke); info also describes a tenant store.
+train, predict, tune, serve, refresh, autopilot and tenants run on the
+card unless --device cpu.
 """
 
 from __future__ import annotations
@@ -378,11 +383,13 @@ def build_parser() -> argparse.ArgumentParser:
     po.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     _add_tune_parser(sub)
     _add_serve_parsers(sub)
+    _add_closed_loop_parsers(sub)
     inf = sub.add_parser("info", help="print the torch/CUDA versions and the "
                          "visible devices, or describe a model artifact")
     inf.add_argument("path", nargs="?", default=None,
                      help="a model .npz of either package, a tune-results "
-                     "JSON, or a sharded dataset directory")
+                     "JSON, a tenant store JSON, or a sharded dataset "
+                     "directory")
     return ap
 
 
@@ -1584,14 +1591,14 @@ def _info_dataset(path: str) -> int:
 
 def _info_artifact(path: str) -> int:
     """The JAX command line's description of a model artifact, a sharded
-    dataset or a tune-results JSON. Its other artifact kinds (tenant
-    stores) belong to modules not ported yet."""
+    dataset, a tune-results JSON or a tenant store."""
     import json
     import os
     import zipfile
 
     from tpusvm_torch.models import load_model, model_task
     from tpusvm_torch.stream import is_dataset_dir
+    from tpusvm_torch.tenants import is_tenant_store
     from tpusvm_torch.tune import format_table, is_tune_result, load_tune_result
 
     if is_dataset_dir(path):
@@ -1599,6 +1606,8 @@ def _info_artifact(path: str) -> int:
     if is_tune_result(path):
         print(format_table(load_tune_result(path)))
         return 0
+    if is_tenant_store(path):
+        return _info_tenant_store(path)
     if os.path.isdir(path):
         raise SystemExit(f"info: {path!r} is a directory without a "
                          "manifest.json: not a sharded dataset")
@@ -1609,9 +1618,8 @@ def _info_artifact(path: str) -> int:
         except (OSError, ValueError) as e:
             raise SystemExit(f"info: {path!r} is not a readable model "
                              f"artifact ({e})")
-        raise SystemExit(f"info: {path!r} is a JSON file but not a tune "
-                         "result; tenant stores are not ported yet (ROADMAP "
-                         "Queue 1 item 11(c))")
+        raise SystemExit(f"info: {path!r} is a JSON file but neither a "
+                         "tune result nor a tenant store")
     try:
         task = model_task(path)
         state, config = load_model(path)
@@ -1827,6 +1835,222 @@ def _add_serve_parsers(sub) -> None:
                     "convergence, warm update savings and bit-identical "
                     "served scores after the swap")
     rf.add_argument("-q", "--quiet", action="store_true")
+
+
+def _add_closed_loop_parsers(sub) -> None:
+    """`autopilot` and `tenants`, with the JAX command line's flags; their
+    --trace/--trace-max-bytes are refused (item 12)."""
+    ap = sub.add_parser(
+        "autopilot",
+        help="supervised closed-loop online learning: watch an "
+        "append-grown dataset, decide retrains off deterministic drift "
+        "detectors, and drive crash-safe refresh + hot-swap unattended "
+        "(tpusvm_torch.autopilot)")
+    ap.add_argument("--data", metavar="DIR",
+                    help="the sharded dataset to watch (grown by "
+                    "stream appends; required unless --smoke)")
+    ap.add_argument("--model", metavar="NPZ",
+                    help="the deployed artifact the first refresh "
+                    "warm-starts from (required unless --smoke); later "
+                    "refreshes chain from the last swapped artifact")
+    ap.add_argument("--save", metavar="NPZ", default=None,
+                    help="refreshed-artifact output (atomic replace; "
+                    "default: <model>.refresh.npz) — point a serve "
+                    "--watch dir here for zero-coordination deploys")
+    ap.add_argument("--state", metavar="JSON", default=None,
+                    help="crash-safe supervisor state (atomic, "
+                    "versioned, CRC-fingerprinted; default: "
+                    "DATA/autopilot_state.json); --resume replays it")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume a killed supervisor from --state: "
+                    "decisions replay identically and an in-flight "
+                    "refresh continues from its own checkpoint")
+    ap.add_argument("--name", default=None,
+                    help="hosted model name for swaps (default: the "
+                    "--save file stem)")
+    ap.add_argument("--swap", metavar="URL", dest="swap_url",
+                    help="POST /admin/swap on this running serve "
+                    "frontend after each refresh (omit for "
+                    "artifact-drop mode: serve --watch picks up --save)")
+    ap.add_argument("--interval-s", type=float, default=30.0,
+                    help="tick period (default 30)")
+    ap.add_argument("--max-ticks", type=int, default=None,
+                    help="stop after N ticks (default: run forever)")
+    det = ap.add_argument_group("drift detectors (None/off when unset)")
+    det.add_argument("--growth-threshold", type=float, default=0.25,
+                     help="refresh when appended rows exceed this "
+                     "fraction of the rows at the last refresh "
+                     "(default 0.25; -1 disables)")
+    det.add_argument("--feature-threshold", type=float, default=0.10,
+                     help="refresh when appended shards' min/max "
+                     "escapes the deployed scaler's fitted range by "
+                     "this relative fraction (default 0.10; -1 "
+                     "disables)")
+    det.add_argument("--score-threshold", type=float, default=0.20,
+                     help="refresh when the served-score positive-rate "
+                     "since the last refresh shifts this much vs the "
+                     "baseline (needs --swap-less in-process serving "
+                     "or smoke mode; -1 disables; default 0.20)")
+    det.add_argument("--staleness-s", type=float, default=None,
+                     help="refresh after this many seconds regardless "
+                     "of drift (default: off)")
+    det.add_argument("--min-new-rows", type=int, default=1,
+                     help="suppress non-staleness refreshes until this "
+                     "many rows appended (default 1)")
+    det.add_argument("--jitter-frac", type=float, default=0.0,
+                     help="seeded +/- threshold jitter fraction (the "
+                     "fleet de-synchronizer; default 0 = exact)")
+    det.add_argument("--seed", type=int, default=0,
+                     help="decision seed (reports are byte-reproducible "
+                     "per seed)")
+    gate = ap.add_argument_group("retrain gating")
+    gate.add_argument("--hysteresis", type=int, default=1,
+                      help="consecutive triggered ticks required "
+                      "(default 1)")
+    gate.add_argument("--cooldown-s", type=float, default=0.0,
+                      help="post-refresh quiet period (default 0)")
+    gate.add_argument("--breaker-threshold", type=int, default=3,
+                      help="consecutive refresh failures that trip the "
+                      "refresh breaker into degraded-watch mode "
+                      "(default 3)")
+    gate.add_argument("--breaker-cooldown-s", type=float, default=60.0,
+                      help="open-breaker cooldown before a half-open "
+                      "refresh probe (default 60)")
+    fit = ap.add_argument_group("refresh fit")
+    fit.add_argument("--cold", action="store_true",
+                     help="cold refits (skip the warm seed)")
+    fit.add_argument("--checkpoint", metavar="NPZ", default=None,
+                     help="crash-safe refit checkpoints (binary "
+                     "artifacts; enables --deadline-s)")
+    fit.add_argument("--checkpoint-every", type=int, default=64,
+                     metavar="K")
+    fit.add_argument("--deadline-s", type=float, default=None,
+                     help="fit watchdog: stop a too-slow refit at a "
+                     "checkpointed segment boundary and resume it on a "
+                     "later tick (requires --checkpoint)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="CI gate: ingest, deploy, append, run the "
+                    "supervisor in-process against a live server under "
+                    "any active fault plan; asserts a refresh lands, "
+                    "the swap serves the refreshed bytes, and drift "
+                    "reports are byte-reproducible")
+    ap.add_argument("--smoke-ticks", type=int, default=6,
+                    help="smoke tick budget (default 6)")
+    ap.add_argument("--trace", metavar="PATH",
+                    help="not ported yet (ROADMAP Queue 1 item 12)")
+    ap.add_argument("--trace-max-bytes", type=int, default=None,
+                    metavar="N", help="not ported yet (ROADMAP Queue 1 "
+                    "item 12)")
+    ap.add_argument("-q", "--quiet", action="store_true")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the refits (and --smoke's server) run "
+                    "(default: the card)")
+
+    tn = sub.add_parser(
+        "tenants",
+        help="multi-tenant platform tier (tpusvm.tenants): thousands of "
+        "per-tenant closed loops over ONE shared append-grown corpus — "
+        "per-tenant drift detection, drifted tenants coalesced into "
+        "power-of-two fleet refresh launches with warm seeds, staggered "
+        "hot-swap roll-out")
+    tn.add_argument("--data", metavar="DIR",
+                    help="the shared sharded dataset every tenant views "
+                    "(grown by stream appends; required unless --smoke)")
+    tn.add_argument("--store", metavar="JSON", default=None,
+                    help="crash-safe tenant registry + supervisor state "
+                    "(atomic, versioned, CRC-fingerprinted; default: "
+                    "DATA/tenants_store.json); --resume replays it")
+    tn.add_argument("--artifacts", metavar="DIR", default=None,
+                    help="refreshed per-tenant artifacts land here as "
+                    "<tenant_id>.npz (atomic replace; default: "
+                    "DATA/tenant_models) — point a serve --watch dir "
+                    "here for zero-coordination deploys")
+    tn.add_argument("--resume", action="store_true",
+                    help="resume a killed supervisor from --store: "
+                    "per-tenant decisions replay identically and an "
+                    "in-flight coalesced launch continues from its "
+                    "fleet checkpoint bit-identically")
+    tn.add_argument("--swap", metavar="URL", dest="swap_url",
+                    help="POST /admin/swap per tenant on this running "
+                    "serve frontend after each refresh (omit for "
+                    "artifact-drop mode)")
+    tn.add_argument("--interval-s", type=float, default=30.0,
+                    help="tick period (default 30)")
+    tn.add_argument("--max-ticks", type=int, default=None,
+                    help="stop after N ticks (default: run forever)")
+    tdet = tn.add_argument_group("drift detectors (per tenant; "
+                                 "None/off when unset)")
+    tdet.add_argument("--growth-threshold", type=float, default=0.25,
+                      help="refresh a tenant when appended rows exceed "
+                      "this fraction of its rows at last refresh "
+                      "(default 0.25; -1 disables)")
+    tdet.add_argument("--feature-threshold", type=float, default=0.10,
+                      help="refresh when appended shards' min/max "
+                      "escapes the tenant artifact's fitted range by "
+                      "this relative fraction (default 0.10; -1 "
+                      "disables)")
+    tdet.add_argument("--staleness-s", type=float, default=None,
+                      help="refresh a tenant after this many seconds "
+                      "regardless of drift (default: off)")
+    tdet.add_argument("--min-new-rows", type=int, default=1,
+                      help="suppress non-staleness refreshes until this "
+                      "many rows appended (default 1)")
+    tdet.add_argument("--jitter-frac", type=float, default=0.0,
+                      help="seeded +/- threshold jitter fraction; each "
+                      "tenant jitters with its own derived seed, so a "
+                      "nonzero value de-synchronises the fleet "
+                      "(default 0 = exact)")
+    tdet.add_argument("--seed", type=int, default=0,
+                      help="base decision seed (per-tenant seeds derive "
+                      "from it; decisions replay per seed)")
+    tgate = tn.add_argument_group("refresh gating + coalescing")
+    tgate.add_argument("--hysteresis", type=int, default=1,
+                       help="consecutive triggered ticks required per "
+                       "tenant (default 1)")
+    tgate.add_argument("--cooldown-s", type=float, default=0.0,
+                       help="per-tenant post-refresh quiet period "
+                       "(default 0)")
+    tgate.add_argument("--min-fleet", type=int, default=2,
+                       help="smallest drifted group coalesced into a "
+                       "fleet launch; smaller groups refresh solo "
+                       "(default 2)")
+    tgate.add_argument("--stagger-s", type=float, default=0.0,
+                       help="delay between per-tenant swaps of one "
+                       "generation roll-out (default 0)")
+    tgate.add_argument("--breaker-threshold", type=int, default=3,
+                       help="consecutive all-failed refresh rounds that "
+                       "trip the fleet refresh breaker (default 3)")
+    tgate.add_argument("--breaker-cooldown-s", type=float, default=60.0,
+                       help="open-breaker cooldown before a half-open "
+                       "refresh probe (default 60)")
+    tfit = tn.add_argument_group("refresh fit")
+    tfit.add_argument("--cold", action="store_true",
+                      help="cold refits (skip the deployed warm seeds)")
+    tfit.add_argument("--checkpoint-every", type=int, default=64,
+                      metavar="K",
+                      help="fleet-checkpoint segment length in outer "
+                      "rounds (default 64)")
+    tn.add_argument("--smoke", action="store_true",
+                    help="CI gate: provision a small tenant fleet over "
+                    "one ingested corpus, grow it, run the supervisor "
+                    "in-process against a live server under any active "
+                    "fault plan; asserts a coalesced refresh lands, "
+                    "every tenant's swap serves its refreshed bytes, "
+                    "and the store resumes consistently")
+    tn.add_argument("--smoke-tenants", type=int, default=8,
+                    help="smoke fleet size (default 8)")
+    tn.add_argument("--smoke-ticks", type=int, default=6,
+                    help="smoke tick budget (default 6)")
+    tn.add_argument("--trace", metavar="PATH",
+                    help="not ported yet (ROADMAP Queue 1 item 12)")
+    tn.add_argument("--trace-max-bytes", type=int, default=None,
+                    metavar="N", help="not ported yet (ROADMAP Queue 1 "
+                    "item 12)")
+    tn.add_argument("-q", "--quiet", action="store_true")
+    tn.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the fleet launches and refits (and "
+                    "--smoke's server) run (default: the card)")
+
 
 
 def _serve_config(args):
@@ -2201,6 +2425,409 @@ def _refresh_smoke(device: str) -> int:
     return 0
 
 
+def _refuse_trace(args, cmd: str) -> None:
+    if args.trace or args.trace_max_bytes is not None:
+        raise SystemExit(f"{cmd} --trace/--trace-max-bytes: the trace layer "
+                         "is not ported yet (ROADMAP Queue 1 item 12)")
+
+
+def cmd_autopilot(args) -> int:
+    """The closed-loop online-learning supervisor (tpusvm_torch.autopilot)."""
+    from tpusvm_torch.autopilot import Autopilot, AutopilotConfig, DriftThresholds
+
+    _refuse_trace(args, "autopilot")
+    if args.smoke:
+        return _autopilot_smoke(args)
+    if not args.data or not args.model:
+        raise SystemExit("autopilot: --data DIR and --model NPZ are "
+                         "required (or --smoke)")
+    say = (lambda msg: None) if args.quiet else print
+
+    def thr(v):
+        return None if v is not None and v < 0 else v
+
+    cfg = AutopilotConfig(
+        data_dir=args.data,
+        model_path=args.model,
+        out_path=args.save,
+        state_path=args.state,
+        name=args.name,
+        interval_s=args.interval_s,
+        thresholds=DriftThresholds(
+            feature=thr(args.feature_threshold),
+            growth=thr(args.growth_threshold),
+            score=thr(args.score_threshold),
+            staleness_s=args.staleness_s,
+            min_new_rows=args.min_new_rows,
+            jitter_frac=args.jitter_frac,
+        ),
+        hysteresis=args.hysteresis,
+        cooldown_s=args.cooldown_s,
+        warm=not args.cold,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every=args.checkpoint_every,
+        deadline_s=args.deadline_s,
+        breaker_threshold=args.breaker_threshold,
+        breaker_cooldown_s=args.breaker_cooldown_s,
+        seed=args.seed,
+        device=args.device,
+    )
+    try:
+        pilot = Autopilot(cfg, swap_url=args.swap_url,
+                          resume=args.resume, log_fn=say)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"autopilot: {e}")
+    say(f"autopilot: watching {args.data} every {cfg.interval_s:g}s "
+        f"(state {pilot.cfg.state_path}, out {pilot.cfg.out_path})")
+    try:
+        out = pilot.run(max_ticks=args.max_ticks)
+    except KeyboardInterrupt:
+        out = {"ticks": pilot.state.tick,
+               "generation": pilot.state.generation,
+               "refreshes": pilot.state.refreshes,
+               "failures": pilot.state.failures}
+    say(f"autopilot: {out['ticks']} ticks, {out['refreshes']} "
+        f"refreshes ({out['failures']} failures), generation "
+        f"{out['generation']}")
+    return 0
+
+
+def _autopilot_smoke(args) -> int:
+    """The gate: the whole closed loop in-process (ingest, deploy, serve,
+    append, supervise) on args.device; a refresh lands, the swap serves
+    the refreshed bytes, drift reports are byte-reproducible and a resumed
+    supervisor replays the same state."""
+    import os
+    import tempfile
+
+    from tpusvm_torch.autopilot import (
+        Autopilot,
+        AutopilotConfig,
+        DriftThresholds,
+        evaluate,
+    )
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.serve import ServeConfig, Server
+    from tpusvm_torch.status import AutopilotStatus
+    from tpusvm_torch.stream import ShardWriter, ingest_arrays, open_dataset
+
+    failures = []
+    X, Y = rings(n=400, seed=11)
+    with tempfile.TemporaryDirectory() as td:
+
+        data = os.path.join(td, "data")
+        ingest_arrays(data, X[:240], Y[:240], rows_per_shard=64)
+        deployed = os.path.join(td, "deployed.npz")
+        BinarySVC(SVMConfig(C=10.0, gamma=10.0), device=args.device).fit(
+            X[:240], Y[:240]).save(deployed)
+        thresholds = DriftThresholds(growth=0.5, feature=0.10,
+                                     score=None, jitter_frac=0.0)
+        with Server(ServeConfig(max_batch=8), device=args.device) as srv:
+            srv.load_model("m", deployed)
+            srv.warmup()
+            ref_old, _ = srv.predict_direct("m", X[:16])
+            cfg = AutopilotConfig(
+                data_dir=data, model_path=deployed,
+                out_path=os.path.join(td, "m.refresh.npz"),
+                name="m", thresholds=thresholds, hysteresis=1,
+                checkpoint_path=os.path.join(td, "refresh_ck.npz"),
+                checkpoint_every=8,
+                breaker_threshold=3, breaker_cooldown_s=0.1,
+                seed=20260805, device=args.device,
+            )
+            pilot = Autopilot(cfg, server=srv,
+                              log_fn=(lambda m: None) if args.quiet
+                              else print)
+            first = pilot.tick()
+            if first["status"] != AutopilotStatus.WATCHING:
+                failures.append(
+                    f"tick on unchanged data: {first['status'].name}")
+            # grow the dataset past the growth threshold (the appends
+            # run through the crash-safe tail writer)
+            w = ShardWriter.open_append(data)
+            for s in range(240, 400, 40):
+                w.append(X[s:s + 40], Y[s:s + 40])
+            w.close()
+            statuses = []
+            for _ in range(args.smoke_ticks):
+                statuses.append(pilot.tick()["status"])
+                if statuses[-1] == AutopilotStatus.REFRESHED:
+                    break
+            if AutopilotStatus.REFRESHED not in statuses:
+                failures.append(
+                    "no refresh landed in "
+                    f"{args.smoke_ticks} ticks: "
+                    f"{[s.name for s in statuses]}")
+            else:
+                scores, _ = srv.predict_direct("m", X[:16])
+                offline = BinarySVC.load(cfg.out_path, device=args.device)
+                want = np.asarray(offline.decision_function(X[:16]))
+                if not np.array_equal(scores, want):
+                    failures.append("served scores after the autopilot "
+                                    "swap are not bit-identical to the "
+                                    "refreshed artifact")
+                if np.array_equal(scores, ref_old):
+                    failures.append("swap was a no-op (old == new "
+                                    "scores — the gate is vacuous)")
+                if srv.registry.generation("m") < 2:
+                    failures.append("registry generation did not "
+                                    "advance")
+            # determinism: same inputs + seed => byte-identical report
+            ds = open_dataset(data)
+            kw = dict(manifest=ds.manifest,
+                      fitted_min=np.zeros(2), fitted_max=np.ones(2),
+                      rows_at_refresh=240, since_refresh_s=1.0,
+                      score_baseline=None, score_current=None,
+                      thresholds=thresholds, seed=7, tick=3)
+            if evaluate(**kw).to_json_bytes() != \
+                    evaluate(**kw).to_json_bytes():
+                failures.append("drift report is not byte-reproducible")
+            # resumed supervisor must replay to the same state
+            pilot2 = Autopilot(cfg, server=srv, resume=True,
+                               log_fn=lambda m: None)
+            if pilot2.state.generation != pilot.state.generation \
+                    or pilot2.state.rows_at_refresh \
+                    != pilot.state.rows_at_refresh:
+                failures.append("resumed state diverged: "
+                                f"{pilot2.state} vs {pilot.state}")
+    if failures:
+        for f in failures:
+            print(f"AUTOPILOT SMOKE FAILED: {f}")
+        return 1
+    print(f"autopilot smoke ok: refresh landed in "
+          f"{len(statuses)} ticks "
+          f"({pilot.state.failures} absorbed failures), generation "
+          f"{pilot.state.generation}, served scores bit-identical, "
+          "drift reports byte-reproducible")
+    return 0
+
+
+def cmd_tenants(args) -> int:
+    """The multi-tenant coalescing supervisor (tpusvm_torch.tenants)."""
+    from tpusvm_torch.autopilot import DriftThresholds
+    from tpusvm_torch.tenants import TenantsConfig, TenantsSupervisor
+
+    _refuse_trace(args, "tenants")
+    if args.smoke:
+        return _tenants_smoke(args)
+    if not args.data:
+        raise SystemExit("tenants: --data DIR is required (or --smoke)")
+    say = (lambda msg: None) if args.quiet else print
+
+    def thr(v):
+        return None if v is not None and v < 0 else v
+
+    cfg = TenantsConfig(
+        data_dir=args.data,
+        store_path=args.store,
+        artifacts_dir=args.artifacts,
+        interval_s=args.interval_s,
+        thresholds=DriftThresholds(
+            feature=thr(args.feature_threshold),
+            growth=thr(args.growth_threshold),
+            score=None,
+            staleness_s=args.staleness_s,
+            min_new_rows=args.min_new_rows,
+            jitter_frac=args.jitter_frac,
+        ),
+        hysteresis=args.hysteresis,
+        cooldown_s=args.cooldown_s,
+        warm=not args.cold,
+        checkpoint_every=args.checkpoint_every,
+        min_fleet=args.min_fleet,
+        stagger_s=args.stagger_s,
+        breaker_threshold=args.breaker_threshold,
+        breaker_cooldown_s=args.breaker_cooldown_s,
+        seed=args.seed,
+        device=args.device,
+    )
+    try:
+        sup = TenantsSupervisor(cfg, swap_url=args.swap_url,
+                                resume=args.resume, log_fn=say)
+    except (OSError, ValueError) as e:
+        raise SystemExit(f"tenants: {e}")
+    if not sup.state.tenants and not args.resume:
+        raise SystemExit(
+            "tenants: the store has no registered tenants — register "
+            "them programmatically (TenantsSupervisor.register) or "
+            "--resume an existing store"
+        )
+    say(f"tenants: supervising {len(sup.state.tenants)} tenants over "
+        f"{args.data} every {cfg.interval_s:g}s (store "
+        f"{sup.cfg.store_path}, artifacts {sup.cfg.artifacts_dir})")
+    try:
+        out = sup.run(max_ticks=args.max_ticks)
+    except KeyboardInterrupt:
+        out = {"ticks": sup.state.tick,
+               "generation": sup.state.generation,
+               "refreshes": sup.state.refreshes,
+               "failures": sup.state.failures}
+    say(f"tenants: {out['ticks']} ticks, {out['refreshes']} per-tenant "
+        f"refreshes ({out['failures']} failures), generation "
+        f"{out['generation']}")
+    return 0
+
+
+def _tenants_smoke(args) -> int:
+    """The gate: the whole multi-tenant loop in-process (ingest one shared
+    corpus, fit the tenants' donors, serve every tenant, grow the corpus,
+    supervise) on args.device; one coalesced refresh lands, every
+    tenant's swap serves its refreshed bytes, and the store resumes to the
+    same fleet state."""
+    import os
+    import tempfile
+
+    from tpusvm_torch.autopilot import DriftThresholds
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.serve import ServeConfig, Server
+    from tpusvm_torch.status import TenantsStatus
+    from tpusvm_torch.stream import ShardWriter, ingest_arrays
+    from tpusvm_torch.tenants import (
+        TenantRecord,
+        TenantsConfig,
+        TenantsSupervisor,
+        load_store,
+        tenant_labels,
+    )
+
+    say = (lambda m: None) if args.quiet else print
+    failures = []
+    n_tenants = max(2, args.smoke_tenants)
+    K = 4
+    rng = np.random.default_rng(20260806)
+    n0, n1, d = 240, 120, 6
+    X = rng.normal(size=(n0 + n1, d))
+    labels = rng.integers(0, K, size=n0 + n1).astype(np.int32)
+    for k in range(K):
+        X[labels == k] += 0.8 * k
+    with tempfile.TemporaryDirectory() as td:
+
+        data = os.path.join(td, "data")
+        ingest_arrays(data, X[:n0], labels[:n0], rows_per_shard=64)
+        recs = []
+        for i in range(n_tenants):
+            recs.append(TenantRecord(
+                tenant_id=f"tenant{i:03d}", positive_label=i % K,
+                C=1.0 + 0.5 * (i % 3), gamma=0.3 + 0.1 * (i % 2),
+                row_mod=(2 if i % 5 == 4 else None),
+            ))
+        with Server(ServeConfig(max_batch=8), device=args.device) as srv:
+            for rec in recs:
+                Y, valid = tenant_labels(labels[:n0], rec)
+                opts = {} if valid is None else {"valid": valid}
+                path = os.path.join(td, rec.tenant_id + ".donor.npz")
+                BinarySVC(SVMConfig(C=rec.C, gamma=rec.gamma),
+                          solver_opts=opts,
+                          device=args.device).fit(X[:n0], Y).save(path)
+                rec.model_path = path
+                rec.rows_at_refresh = n0
+                srv.load_model(rec.tenant_id, path)
+            srv.warmup()
+            cfg = TenantsConfig(
+                data_dir=data,
+                thresholds=DriftThresholds(growth=0.25, feature=0.10,
+                                           score=None, jitter_frac=0.0),
+                hysteresis=1, checkpoint_every=8,
+                breaker_threshold=3, breaker_cooldown_s=0.1,
+                seed=20260806, device=args.device,
+            )
+            sup = TenantsSupervisor(cfg, server=srv, log_fn=say)
+            for rec in recs:
+                sup.register(rec)
+            first = sup.tick()
+            if first["status"] != TenantsStatus.WATCHING:
+                failures.append(
+                    f"tick on unchanged data: {first['status'].name}")
+            w = ShardWriter.open_append(data)
+            w.append(X[n0:], labels[n0:])
+            w.close()
+            statuses = []
+            for _ in range(args.smoke_ticks):
+                statuses.append(sup.tick()["status"])
+                if statuses[-1] in (TenantsStatus.REFRESHED,
+                                    TenantsStatus.PARTIAL):
+                    break
+            if TenantsStatus.REFRESHED not in statuses:
+                failures.append(
+                    f"no coalesced refresh landed in {args.smoke_ticks} "
+                    f"ticks: {[s.name for s in statuses]}")
+            else:
+                for rec in recs:
+                    st_rec = sup.state.tenants[rec.tenant_id]
+                    if st_rec.generation != 1:
+                        failures.append(
+                            f"{rec.tenant_id}: generation "
+                            f"{st_rec.generation} != 1")
+                        continue
+                    scores, _ = srv.predict_direct(rec.tenant_id, X[:16])
+                    offline = BinarySVC.load(st_rec.model_path,
+                                             device=args.device)
+                    want = np.asarray(offline.decision_function(X[:16]))
+                    if not np.array_equal(scores, want):
+                        failures.append(
+                            f"{rec.tenant_id}: served scores after the "
+                            "swap are not bit-identical to its "
+                            "refreshed artifact")
+                    if srv.registry.generation(rec.tenant_id) < 2:
+                        failures.append(
+                            f"{rec.tenant_id}: registry generation did "
+                            "not advance")
+            # the store must resume to the same fleet state
+            sup2 = TenantsSupervisor(cfg, server=srv, resume=True,
+                                     log_fn=lambda m: None)
+            if sup2.state.generation != sup.state.generation or \
+                    len(sup2.state.tenants) != len(sup.state.tenants):
+                failures.append("resumed store diverged: "
+                                f"gen {sup2.state.generation} vs "
+                                f"{sup.state.generation}")
+            persisted = load_store(sup.cfg.store_path)
+            if persisted.stage != "idle":
+                failures.append(
+                    f"store left stage {persisted.stage!r} after a "
+                    "completed round")
+    if failures:
+        for f in failures:
+            print(f"TENANTS SMOKE FAILED: {f}")
+        return 1
+    print(f"tenants smoke ok: {n_tenants} tenants refreshed in one "
+          f"coalesced generation ({sup.state.failures} absorbed "
+          "failures), every tenant served its refreshed bytes, store "
+          "resumes consistently")
+    return 0
+
+
+
+
+def _info_tenant_store(path: str) -> int:
+    """Describe a multi-tenant registry/store file (the JAX command
+    line's lines)."""
+    from tpusvm_torch.tenants import load_store
+
+    try:
+        st = load_store(path)
+    except ValueError as e:
+        raise SystemExit(f"info: {e}")
+    print(f"tenant store: {len(st.tenants)} tenants, generation "
+          f"{st.generation} (tick {st.tick})")
+    print(f"stage: {st.stage}"
+          + (f" — in-flight launch over "
+             f"{len(st.inflight.get('tenant_ids', []))} tenants at "
+             f"{st.inflight.get('stage_rows')} rows"
+             if st.inflight else ""))
+    print(f"refreshes landed: {st.refreshes} ({st.failures} failures)")
+    if st.tenants:
+        gens = [r.generation for r in st.tenants.values()]
+        subset = sum(1 for r in st.tenants.values()
+                     if r.row_mod is not None)
+        armed = sum(1 for r in st.tenants.values()
+                    if r.consecutive_triggered > 0)
+        print(f"tenant generations: min {min(gens)} max {max(gens)}")
+        print(f"views: {subset} row-subset, "
+              f"{len(st.tenants) - subset} full-corpus; {armed} "
+              "drift-armed")
+    return 0
+
+
 def cmd_info(args) -> int:
     return _info_artifact(args.path) if args.path else _info_devices()
 
@@ -2209,7 +2836,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     return {"train": cmd_train, "pod": cmd_pod, "predict": cmd_predict,
             "ingest": cmd_ingest, "tune": cmd_tune, "serve": cmd_serve,
-            "refresh": cmd_refresh, "info": cmd_info}[args.cmd](args)
+            "refresh": cmd_refresh, "autopilot": cmd_autopilot,
+            "tenants": cmd_tenants, "info": cmd_info}[args.cmd](args)
 
 
 if __name__ == "__main__":

@@ -47,6 +47,16 @@
 // its a_out slice and its four stat entries; its arithmetic is the solo
 // kernel's, so a lane's outputs equal a solo launch on its operands bit for
 // bit. The caller stacks only the lanes that run a subproblem this round.
+//
+// Boxed lanes (the BOX instantiations): a seeded solve starts from float64
+// alphas that float32 cannot hold, so its lanes run on the DELTAS from them:
+// alpha in is 0, and each member carries its own box [lo, hi] = [-alpha0,
+// C - alpha0] (rounded once to float32). The masks test a > lo + eps and
+// a < hi - eps, and the pair step clips to the two members' boxes
+// (tpusvm::pair_step_box), so a member within a float32 ulp of C is still
+// told apart from C, and a late step of 1e-7 still moves its delta. A lane
+// not boxed (boxed[b] == 0 in a batched launch) keeps the plain arithmetic
+// bit for bit.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -84,7 +94,7 @@ struct Arg {
 
 __device__ __forceinline__ Arg arg_seed(float v) { return Arg{v, INT_MAX, 0.f, 0.f, 0.f, 0.f}; }
 
-// lanes past REG * THREADS, in shared memory: six vectors
+// lanes past REG * THREADS, in shared memory: six vectors (eight boxed)
 __host__ __device__ int overflow_lanes(int q) { return q > REG * THREADS ? q - REG * THREADS : 0; }
 
 // Per-warp partials of a block reduction, in two buffers used in turn: a
@@ -115,13 +125,15 @@ __device__ __forceinline__ void block_best(Arg& h, Arg& l, Partials& part, int& 
   buf ^= 1;
 }
 
-template <bool BATCHED>
+template <bool BATCHED, bool BOX>
 __global__ void __launch_bounds__(THREADS)
 inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
                  const float* __restrict__ a_in, const float* __restrict__ f_in,
                  const float* __restrict__ act_in, float C, const float* __restrict__ Cs,
-                 float eps, float tau, int q, int max_inner, int wss, int eta_exclude,
-                 float* __restrict__ a_out, int* __restrict__ stat) {
+                 const float* __restrict__ lo_in, const float* __restrict__ hi_in,
+                 const int* __restrict__ boxed, float eps, float tau, int q, int max_inner,
+                 int wss, int eta_exclude, float* __restrict__ a_out, int* __restrict__ stat) {
+  bool box = BOX;
   if (BATCHED) {
     // lane blockIdx.x: its own slices and C
     const int b = blockIdx.x;
@@ -134,6 +146,11 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
     act_in += v;
     a_out += v;
     stat += 4 * b;
+    if (BOX) {
+      lo_in += v;
+      hi_in += v;
+      box = boxed[b] != 0;
+    }
   }
   extern __shared__ float smem[];
   const int nover = overflow_lanes(q);
@@ -143,10 +160,16 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
   float* o_act = o_y + nover;
   float* o_d = o_act + nover;
   float* o_rh = o_d + nover;
+  float* o_lo = o_rh + nover;  // BOX only
+  float* o_hi = o_lo + nover;
   __shared__ Partials part;
 
+  const float Cme = C - eps;
   const int tid = threadIdx.x;
   float ra[REG], rf[REG], ry[REG], ract[REG], rd[REG], rh[REG], rl[REG];
+  // BOX: each lane's mask thresholds, lo + eps and hi - eps (eps and C -
+  // eps on a lane not boxed)
+  float rlo[REG], rhi[REG];
 #pragma unroll
   for (int j = 0; j < REG; ++j) {
     const int i = tid + j * THREADS;
@@ -158,6 +181,10 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
     rd[j] = in ? K[(size_t)i * q + i] : 0.f;
     rh[j] = 0.f;
     rl[j] = 0.f;
+    if (BOX) {
+      rlo[j] = in && box ? lo_in[i] + eps : eps;
+      rhi[j] = in && box ? hi_in[i] - eps : Cme;
+    }
   }
   for (int i = tid + REG * THREADS; i < q; i += THREADS) {
     const int o = i - REG * THREADS;
@@ -166,21 +193,28 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
     o_y[o] = y_in[i];
     o_act[o] = act_in[i];
     o_d[o] = K[(size_t)i * q + i];
+    if (BOX) {
+      o_lo[o] = box ? lo_in[i] + eps : eps;
+      o_hi[o] = box ? hi_in[i] - eps : Cme;
+    }
   }
-  // every lane of this thread: fn(i, a, f, y, act, diag, row_h value)
+  // every lane of this thread: fn(i, a, f, y, act, diag, row_h value,
+  // mask thresholds: a > lo_e is "above its lower bound", a < hi_e "below
+  // its upper")
   auto each = [&](auto&& fn) {
 #pragma unroll
     for (int j = 0; j < REG; ++j) {
       const int i = tid + j * THREADS;
-      if (i < q) fn(i, ra[j], rf[j], ry[j], ract[j], rd[j], rh[j]);
+      if (i < q) fn(i, ra[j], rf[j], ry[j], ract[j], rd[j], rh[j], BOX ? rlo[j] : eps,
+                    BOX ? rhi[j] : Cme);
     }
     for (int i = tid + REG * THREADS; i < q; i += THREADS) {
       const int o = i - REG * THREADS;
-      fn(i, o_a[o], o_f[o], o_y[o], o_act[o], o_d[o], o_rh[o]);
+      fn(i, o_a[o], o_f[o], o_y[o], o_act[o], o_d[o], o_rh[o], BOX ? o_lo[o] : eps,
+         BOX ? o_hi[o] : Cme);
     }
   };
 
-  const float Cme = C - eps;
   const float two_tau = 2.f * tau;
   int buf = 0;
   int n_upd = 0;
@@ -196,11 +230,12 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
     // ---- first-order picks: b_h/i_h over I_high, b_l/i_l1 over I_low ----
     Arg H = arg_seed(INFINITY);
     Arg L = arg_seed(-INFINITY);
-    each([&](int i, float& a, float& f, float& y, float& act, float& d, float&) {
+    each([&](int i, float& a, float& f, float& y, float& act, float& d, float&, float lo_e,
+             float hi_e) {
       const bool on = act > 0.5f;
       const bool pos = y > 0.f;
-      const bool lo = a > eps;
-      const bool hi = a < Cme;
+      const bool lo = a > lo_e;
+      const bool hi = a < hi_e;
       const bool mh = on && ((pos && hi) || (!pos && lo));
       const bool ml = on && ((pos && lo) || (!pos && hi));
       const float vhi = mh ? f : INFINITY;
@@ -218,7 +253,9 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
     const int ih = min(H.i, q - 1);
     const int il1 = min(L.i, q - 1);
     const float* row_h = K + (size_t)ih * q;
-    each([&](int i, float&, float&, float&, float&, float&, float& h) { h = row_h[i]; });
+    each([&](int i, float&, float&, float&, float&, float&, float& h, float, float) {
+      h = row_h[i];
+    });
     const float K11 = H.d;
 
     // the partner: its index, alpha, y, diag and K12 = row_h[i_l]
@@ -229,11 +266,12 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
     if (wss == 2) {
       // maximal-gain partner among violating I_low members
       Arg Gm = arg_seed(-INFINITY);
-      each([&](int i, float& a, float& f, float& y, float& act, float& d, float& h) {
+      each([&](int i, float& a, float& f, float& y, float& act, float& d, float& h,
+               float lo_e, float hi_e) {
         const bool on = act > 0.5f;
         const bool pos = y > 0.f;
-        const bool lo = a > eps;
-        const bool hi = a < Cme;
+        const bool lo = a > lo_e;
+        const bool hi = a < hi_e;
         const bool ml = on && ((pos && lo) || (!pos && hi));
         const float eta_raw = (K11 + d) - 2.f * h;
         const float eta_vec = fmaxf(eta_raw, 1e-12f);
@@ -275,7 +313,10 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
     }
 
     const tpusvm::PairStep st =
-        tpusvm::pair_step(K11, K22, K12, y_h, y_l, a_h, a_l, bh, b_l_pair, C, eps, proceed);
+        BOX && box ? tpusvm::pair_step_box(K11, K22, K12, y_h, y_l, a_h, a_l, lo_in[ih], hi_in[ih],
+                                           lo_in[il], hi_in[il], bh, b_l_pair, eps, proceed)
+                   : tpusvm::pair_step(K11, K22, K12, y_h, y_l, a_h, a_l, bh, b_l_pair, C, eps,
+                                       proceed);
     const float da_h = st.da_h;
     const float da_l = st.da_l;
     const float ch = da_h * y_h;
@@ -293,7 +334,7 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
       const int o = i - REG * THREADS;
       o_f[o] = __fmaf_rn(cl, row_l[i], __fmaf_rn(ch, o_rh[o], o_f[o]));
     }
-    each([&](int i, float& a, float&, float&, float& act, float&, float&) {
+    each([&](int i, float& a, float&, float&, float& act, float&, float&, float, float) {
       if (i == ih) a = a_h + da_h;
       if (i == il) {
         a = a_l + da_l;
@@ -307,7 +348,9 @@ inner_smo_kernel(const float* __restrict__ K, const float* __restrict__ y_in,
                     : converged ? CONVERGED : (n_upd >= max_inner ? MAX_ITER : RUNNING);
   }
 
-  each([&](int i, float& a, float&, float&, float&, float&, float&) { a_out[i] = a; });
+  each([&](int i, float& a, float&, float&, float&, float&, float&, float, float) {
+    a_out[i] = a;
+  });
   if (tid == 0) {
     stat[0] = n_upd;
     stat[1] = progress;
@@ -383,41 +426,53 @@ extern "C" int tpusvm_inner_smo_floor_probe(const float* K, int q, int iters, in
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tpusvm_inner_smo_smem_bytes(int q) {
-  return 6 * overflow_lanes(q) * (int)sizeof(float);
+extern "C" int tpusvm_inner_smo_smem_bytes(int q, int boxed) {
+  return (boxed ? 8 : 6) * overflow_lanes(q) * (int)sizeof(float);
 }
 
-extern "C" int tpusvm_inner_smo(const float* K, const float* y, const float* a, const float* f,
-                                const float* act, float C, float eps, float tau, int q,
-                                int max_inner, int wss, int eta_exclude, float* a_out, int* stat,
-                                cudaStream_t stream) {
-  const int smem = tpusvm_inner_smo_smem_bytes(q);
+template <bool BATCHED, bool BOX>
+static int launch(int blocks, const float* K, const float* y, const float* a, const float* f,
+                  const float* act, float C, const float* Cs, const float* lo, const float* hi,
+                  const int* boxed, float eps, float tau, int q, int max_inner, int wss,
+                  int eta_exclude, float* a_out, int* stat, cudaStream_t stream) {
+  const int smem = tpusvm_inner_smo_smem_bytes(q, BOX);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        inner_smo_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        inner_smo_kernel<BATCHED, BOX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  inner_smo_kernel<false><<<1, THREADS, smem, stream>>>(K, y, a, f, act, C, nullptr, eps, tau,
-                                                        q, max_inner, wss, eta_exclude, a_out,
-                                                        stat);
+  inner_smo_kernel<BATCHED, BOX><<<blocks, THREADS, smem, stream>>>(
+      K, y, a, f, act, C, Cs, lo, hi, boxed, eps, tau, q, max_inner, wss, eta_exclude, a_out,
+      stat);
   return static_cast<int>(cudaGetLastError());
 }
 
+// lo/hi (q,): the boxed subproblem on deltas (a holds them), or null for
+// the plain one on alphas in [0, C]
+extern "C" int tpusvm_inner_smo(const float* K, const float* y, const float* a, const float* f,
+                                const float* act, float C, const float* lo, const float* hi,
+                                float eps, float tau, int q, int max_inner, int wss,
+                                int eta_exclude, float* a_out, int* stat, cudaStream_t stream) {
+  if (lo != nullptr)
+    return launch<false, true>(1, K, y, a, f, act, C, nullptr, lo, hi, nullptr, eps, tau, q,
+                               max_inner, wss, eta_exclude, a_out, stat, stream);
+  return launch<false, false>(1, K, y, a, f, act, C, nullptr, nullptr, nullptr, nullptr, eps,
+                              tau, q, max_inner, wss, eta_exclude, a_out, stat, stream);
+}
+
 // B stacked working sets: K (B, q, q), y/a/f/act/a_out (B, q), Cs (B,),
-// stat (B, 4); one block a lane.
+// stat (B, 4); one block a lane. lo/hi (B, q) and boxed (B,): the lanes
+// with boxed[b] != 0 run the boxed subproblem; all null for none.
 extern "C" int tpusvm_inner_smo_batched(const float* K, const float* y, const float* a,
                                         const float* f, const float* act, const float* Cs,
+                                        const float* lo, const float* hi, const int* boxed,
                                         float eps, float tau, int q, int max_inner, int wss,
                                         int eta_exclude, int B, float* a_out, int* stat,
                                         cudaStream_t stream) {
   if (B <= 0) return static_cast<int>(cudaGetLastError());
-  const int smem = tpusvm_inner_smo_smem_bytes(q);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        inner_smo_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  inner_smo_kernel<true><<<B, THREADS, smem, stream>>>(K, y, a, f, act, 0.f, Cs, eps, tau, q,
-                                                       max_inner, wss, eta_exclude, a_out, stat);
-  return static_cast<int>(cudaGetLastError());
+  if (boxed != nullptr)
+    return launch<true, true>(B, K, y, a, f, act, 0.f, Cs, lo, hi, boxed, eps, tau, q, max_inner,
+                              wss, eta_exclude, a_out, stat, stream);
+  return launch<true, false>(B, K, y, a, f, act, 0.f, Cs, nullptr, nullptr, nullptr, eps, tau, q,
+                             max_inner, wss, eta_exclude, a_out, stat, stream);
 }

@@ -128,4 +128,31 @@ __device__ __forceinline__ PairStep pair_step(float K11, float K22, float K12, f
   return r;
 }
 
+// pair_step with a box of its own for each end: alpha_h in [lo_h, hi_h],
+// alpha_l in [lo_l, hi_l] (solver/analytic.py pair_update_box). A seeded
+// solve runs its subproblem on the deltas from its float64 alphas, whose
+// box is [-alpha0, C - alpha0] member by member.
+__device__ __forceinline__ PairStep pair_step_box(float K11, float K22, float K12, float y_h,
+                                                  float y_l, float a_h, float a_l, float lo_h,
+                                                  float hi_h, float lo_l, float hi_l,
+                                                  float b_high, float b_low, float eps,
+                                                  bool proceed) {
+  const float s = y_h * y_l;
+  const float eta = (K11 + K22) - 2.f * K12;
+  const float U = s < 0.f ? fmaxf(lo_l, (a_l + lo_h) - a_h) : fmaxf(lo_l, (a_l + a_h) - hi_h);
+  const float V = s < 0.f ? fminf(hi_l, (a_l + hi_h) - a_h) : fminf(hi_l, (a_l + a_h) - lo_h);
+  PairStep r;
+  r.feasible = U <= V + 1e-12f;
+  r.eta_ok = eta > eps;
+  r.do_update = proceed && r.feasible && r.eta_ok;
+  const float safe_eta = r.eta_ok ? eta : 1.f;
+  float a_l_new = a_l + (y_l * (b_high - b_low)) / safe_eta;
+  a_l_new = fmaxf(fminf(a_l_new, V), U);
+  const float a_h_new = a_h + s * (a_l - a_l_new);
+  r.da_h = r.do_update ? a_h_new - a_h : 0.f;
+  r.da_l = r.do_update ? a_l_new - a_l : 0.f;
+  r.stalled = r.do_update && r.da_h == 0.f && r.da_l == 0.f;
+  return r;
+}
+
 }  // namespace tpusvm

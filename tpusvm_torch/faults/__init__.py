@@ -11,8 +11,9 @@
                 serving (serve/server.py).
 
 ``python -m tpusvm_torch.faults`` (__main__.py) is the chaos command
-line: ``validate``, ``kill-resume-smoke``, ``pod-chaos-smoke`` and
-``swap-chaos-smoke``.
+line: ``validate``, ``kill-resume-smoke``, ``pod-chaos-smoke``,
+``swap-chaos-smoke``, ``autopilot-chaos-smoke`` and
+``tenant-chaos-smoke``.
 """
 
 from tpusvm_torch.faults.breaker import BreakerOpenError, CircuitBreaker

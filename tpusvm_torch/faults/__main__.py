@@ -42,9 +42,36 @@ on the card unless ``--device cpu`` is given.
                       generation serving, the corruption came back as a
                       classified ModelLoadError with /healthz degraded,
                       and a clean swap afterwards recovers health.
+  autopilot-chaos-smoke
+                      The closed-loop gate (tpusvm_torch.autopilot): a
+                      control arm (deploy, append, one refresh swapped
+                      into a live server) and a chaos arm of the same loop
+                      with a fault on every stage (a kill in the append's
+                      journal, in a shard write, at the refresh's entry
+                      and at the solver checkpoint; a failed staged swap;
+                      a corrupt artifact read; latency on scoring and
+                      ticks), every killed "process" rebuilt with
+                      resume=True, under client load. Asserts: the chaos
+                      dataset's manifest and rows equal the control's,
+                      the refreshed model is bit-identical to the
+                      control's, no response is torn or lost, the failed
+                      swap rolled back to a degraded old generation and
+                      health recovered.
+  tenant-chaos-smoke  The multi-tenant gate (tpusvm_torch.tenants): 64
+                      tenants provisioned in one cold fleet launch over
+                      one corpus, a control arm's coalesced refresh, and a
+                      chaos arm killed at its second fleet-checkpoint
+                      write under client load, then rebuilt with
+                      resume=True; then one corrupt staged artifact.
+                      Asserts: every recovered refit is bit-identical to
+                      the control's, no torn response, fleet checkpoints
+                      reaped after the swapping-stage commit, every view
+                      fingerprint equal, the corrupt swap pinned exactly
+                      one tenant (PARTIAL) which the next tick refreshed.
 
-The JAX package's other chaos commands belong to tiers not ported yet;
-each says so, names its ROADMAP Queue 1 item, and exits 2.
+The JAX package's other chaos command, router-chaos-smoke, belongs to a
+tier not ported yet; it says so, names its ROADMAP Queue 1 item, and
+exits 2.
 """
 
 from __future__ import annotations
@@ -55,8 +82,6 @@ import tempfile
 
 #: chaos commands of tiers not ported yet -> (tier, ROADMAP Queue 1 item)
 NOT_PORTED = {
-    "autopilot-chaos-smoke": ("the closed loop (autopilot)", "11(c)"),
-    "tenant-chaos-smoke": ("the closed loop (tenants)", "11(c)"),
     "router-chaos-smoke": ("the router", "11(d)"),
 }
 
@@ -388,6 +413,605 @@ def _swap_chaos_smoke(device: str) -> int:
           f"responses, 0 torn/lost, final generation {gen}, health ok")
     return 0
 
+def _autopilot_chaos_smoke(device: str) -> int:
+    import os
+    import threading
+
+    import numpy as np
+
+    from tpusvm_torch import faults
+    from tpusvm_torch.autopilot import Autopilot, AutopilotConfig, DriftThresholds
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.data import rings
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.serve import ServeConfig, Server
+    from tpusvm_torch.status import AutopilotStatus
+    from tpusvm_torch.stream import ShardWriter, ingest_arrays, open_dataset
+
+    failures = []
+    X, Y = rings(n=400, seed=11)
+    BATCHES = [(s, s + 40) for s in range(240, 400, 40)]
+    Xq = X[:24]
+
+    def setup(td):
+        """One complete closed loop: dataset, deployed artifact, server,
+        supervisor config. Identical for control and chaos arms."""
+        data = os.path.join(td, "data")
+        ingest_arrays(data, X[:240], Y[:240], rows_per_shard=64)
+        deployed = os.path.join(td, "deployed.npz")
+        BinarySVC(SVMConfig(C=10.0, gamma=10.0), device=device).fit(
+            X[:240], Y[:240]).save(deployed)
+        srv = Server(ServeConfig(max_batch=8), device=device)
+        srv.load_model("m", deployed)
+        srv.warmup()
+        cfg = AutopilotConfig(
+            data_dir=data, model_path=deployed,
+            out_path=os.path.join(td, "m.refresh.npz"),
+            name="m",
+            thresholds=DriftThresholds(growth=0.55, feature=None,
+                                       score=None, jitter_frac=0.0),
+            hysteresis=1, cooldown_s=0.0,
+            checkpoint_path=os.path.join(td, "refresh_ck.npz"),
+            checkpoint_every=1,
+            breaker_threshold=5, breaker_cooldown_s=0.05,
+            seed=20260805, device=device,
+        )
+        return data, deployed, srv, cfg
+
+    with tempfile.TemporaryDirectory() as td:
+        # ---------------- control arm: uninterrupted closed loop
+        cdir = os.path.join(td, "control")
+        os.makedirs(cdir)
+        data_c, deployed_c, srv_c, cfg_c = setup(cdir)
+        with srv_c:
+            refA, _ = srv_c.predict_direct("m", Xq)
+            # the supervisor deploys BEFORE the data grows: its state
+            # records the deployed model's 240-row provenance
+            pilot = Autopilot(cfg_c, server=srv_c, log_fn=lambda m: None)
+            w = ShardWriter.open_append(data_c)
+            for a, b in BATCHES:
+                w.append(X[a:b], Y[a:b])
+            w.close()
+            out = pilot.tick()
+            if out["status"] != AutopilotStatus.REFRESHED:
+                print(f"AUTOPILOT CHAOS SMOKE FAILED: control arm did "
+                      f"not refresh ({out['status'].name})")
+                return 1
+            # the served scores of BOTH complete generations: the chaos
+            # arm's torn-read oracle (its refit is gated bit-identical
+            # to this control artifact, so these are the only two score
+            # vectors any chaos response may bitwise-match)
+            refB, _ = srv_c.predict_direct("m", Xq)
+        control = BinarySVC.load(cfg_c.out_path, device=device)
+        ds_c = open_dataset(data_c)
+        control_manifest = ds_c.manifest.to_json()
+
+        # ---------------- chaos arm: same loop, kills at every stage
+        hdir = os.path.join(td, "chaos")
+        os.makedirs(hdir)
+        data_h, deployed_h, srv_h, cfg_h = setup(hdir)
+        # one fault on every stage of the closed loop: the append's
+        # journal commit, the raw shard write, the refresh entry, the
+        # solver checkpoint (kill at its FIRST write — the warm fit
+        # converges within a couple of segments), a staged-swap failure
+        # (transient — deterministic rollback; corrupt staged BYTES are
+        # swap-chaos-smoke's dedicated gate), a corrupt artifact read on
+        # the retry, and latency on scoring and ticks
+        plan = faults.FaultPlan([
+            faults.FaultRule(point="stream.append", kind="kill",
+                             at_hit=2),
+            faults.FaultRule(point="ingest.write_shard", kind="kill",
+                             at_hit=3),
+            faults.FaultRule(point="autopilot.refresh", kind="kill",
+                             at_hit=1),
+            faults.FaultRule(point="solver.outer_checkpoint",
+                             kind="kill", at_hit=1),
+            faults.FaultRule(point="serve.swap", kind="transient",
+                             at_hit=1),
+            faults.FaultRule(point="registry.load", kind="corrupt",
+                             at_hit=2),
+            faults.FaultRule(point="serve.score", kind="latency",
+                             p=0.3, delay_ms=2.0, max_hits=16),
+            faults.FaultRule(point="autopilot.tick", kind="latency",
+                             p=0.5, delay_ms=1.0, max_hits=8),
+        ], seed=20260805)
+
+        with srv_h:
+            refA_h, _ = srv_h.predict_direct("m", Xq)
+            if not np.array_equal(refA_h, refA):
+                failures.append("chaos deployed generation does not "
+                                "serve the control's scores — arms are "
+                                "not comparable")
+            if np.array_equal(refA, refB):
+                failures.append("deployed and refreshed models are "
+                                "indistinguishable — the torn-"
+                                "generation check is vacuous")
+            stop = threading.Event()
+            bad = []
+            bad_lock = threading.Lock()
+
+            def client(t):
+                i = t
+                while not stop.is_set():
+                    r = srv_h.submit("m", Xq[i % 24], timeout_s=10.0)
+                    if r.ok:
+                        s = np.asarray(r.scores)
+                        if s != refA[i % 24] and s != refB[i % 24]:
+                            with bad_lock:
+                                bad.append(("torn", i % 24, float(s)))
+                    elif r.status.name not in ("TIMEOUT",):
+                        with bad_lock:
+                            bad.append(("status", r.status.name))
+                    i += 1
+
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(4)]
+            kills = 0
+            degraded_seen = False
+            # deploy the supervisor before the data grows (and before
+            # the chaos starts): its crash-safe state file is what every
+            # restarted incarnation resumes from
+            pilot = Autopilot(cfg_h, server=srv_h, log_fn=lambda m: None)
+            with faults.active(plan):
+                for t in threads:
+                    t.start()
+                # appends with restart-on-kill (the killed "process" is
+                # rebuilt with resume=True and replays its batch stream)
+                for attempt in range(12):
+                    try:
+                        w = ShardWriter.open_append(
+                            data_h, resume=attempt > 0)
+                        for a, b in BATCHES:
+                            w.append(X[a:b], Y[a:b])
+                        w.close()
+                        break
+                    except faults.SimulatedKill:
+                        kills += 1
+                else:
+                    failures.append("append never completed within the "
+                                    "restart budget")
+                # supervise with restart-on-kill until the refresh lands
+                statuses = []
+                for attempt in range(24):
+                    try:
+                        out = pilot.tick()
+                    except faults.SimulatedKill:
+                        kills += 1
+                        pilot = Autopilot(cfg_h, server=srv_h,
+                                          resume=True,
+                                          log_fn=lambda m: None)
+                        continue
+                    statuses.append(out["status"])
+                    if out["status"] == AutopilotStatus.REFRESH_FAILED \
+                            and srv_h.health()["status"] == "degraded":
+                        degraded_seen = True
+                    if out["status"] == AutopilotStatus.REFRESHED:
+                        s, _ = srv_h.predict_direct("m", Xq)
+                        if not np.array_equal(s, refB):
+                            failures.append(
+                                "post-swap served scores do not "
+                                "bitwise-match the control "
+                                "generation")
+                        break
+                else:
+                    failures.append(
+                        "no refresh landed within the tick budget: "
+                        f"{[s.name for s in statuses]}")
+                stop.set()
+                for t in threads:
+                    t.join(10.0)
+            faults.deactivate()
+
+            # ---------------- the gates
+            if kills == 0:
+                failures.append("no kill rule ever fired — the chaos "
+                                "arm degenerated to the control arm")
+            if not degraded_seen:
+                failures.append(
+                    "the failed staged swap never rolled back to a "
+                    "degraded-health old generation "
+                    f"(serve.swap hits {plan.hits('serve.swap')}, "
+                    f"registry.load hits {plan.hits('registry.load')})")
+            if bad:
+                failures.append(f"client anomalies under chaos: "
+                                f"{bad[:5]} ({len(bad)} total)")
+            if srv_h.health()["status"] != "ok":
+                failures.append(
+                    f"health did not recover: {srv_h.health()}")
+
+        # journal audit: zero rows lost or duplicated
+        ds_h = open_dataset(data_h)
+        if ds_h.manifest.to_json() != control_manifest:
+            failures.append("chaos dataset manifest differs from the "
+                            "uninterrupted control (rows lost, "
+                            "duplicated, or mis-sharded)")
+        if os.path.exists(os.path.join(data_h, "ingest.journal.json")):
+            failures.append("append journal survived the commit")
+        Xc, Yc = ds_c.load_arrays()
+        Xh, Yh = ds_h.load_arrays()
+        if not (np.array_equal(Xc, Xh) and np.array_equal(Yc, Yh)):
+            failures.append("chaos dataset rows differ from control")
+
+        # the refit is bit-identical to the uninterrupted control
+        if os.path.exists(cfg_h.out_path):
+            chaos = BinarySVC.load(cfg_h.out_path, device=device)
+            if chaos.sv_alpha_.tobytes() != control.sv_alpha_.tobytes() \
+                    or not np.array_equal(chaos.sv_ids_,
+                                          control.sv_ids_) \
+                    or chaos.b_ != control.b_:
+                failures.append(
+                    "post-recovery refreshed model is NOT bit-identical "
+                    f"to the control run ({len(chaos.sv_ids_)} vs "
+                    f"{len(control.sv_ids_)} SVs, b {chaos.b_!r} vs "
+                    f"{control.b_!r})")
+        else:
+            failures.append("chaos arm never produced a refreshed "
+                            "artifact")
+
+    if failures:
+        for f in failures:
+            print(f"AUTOPILOT CHAOS SMOKE FAILED: {f}")
+        return 1
+    print(f"autopilot chaos smoke ok: {kills} kills absorbed "
+          "(append journal / shard write / refresh entry / solver "
+          "checkpoint), failed staged swap rolled back degraded then "
+          "recovered, 0 torn/lost responses, dataset journal-audited "
+          "equal, refreshed model bit-identical to the uninterrupted "
+          "control")
+    return 0
+
+
+def _tenant_chaos_smoke(device: str) -> int:
+    import glob
+    import os
+    import threading
+
+    import numpy as np
+
+    from tpusvm_torch import faults
+    from tpusvm_torch.autopilot import DriftThresholds
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.serve import ServeConfig, Server
+    from tpusvm_torch.status import TenantsStatus
+    from tpusvm_torch.stream import ShardWriter, ingest_arrays, open_dataset
+    from tpusvm_torch.tenants import (
+        TenantRecord,
+        TenantsConfig,
+        TenantsSupervisor,
+        provision_tenants,
+        tenant_labels,
+        view_fingerprint,
+    )
+
+    failures = []
+    N_T = 64
+    D, K = 6, 8
+    N0, N1, N2 = 320, 160, 160
+    rng = np.random.default_rng(20260806)
+    labels_all = rng.integers(0, K, size=N0 + N1 + N2).astype(np.int32)
+    means = rng.normal(0.0, 2.0, size=(K, D))
+    # f64 host rows: the serve tier validates/scales queries in f64
+    # (registry.validate_rows), so the bitwise served-vs-offline oracle
+    # contract is stated for f64 inputs — exactly what clients POST
+    X_all = means[labels_all] + rng.normal(0.0, 1.0,
+                                           size=(N0 + N1 + N2, D))
+    # the appended batches are distribution-shifted so every tenant's
+    # refreshed solution genuinely differs from its donor (the
+    # torn-generation oracle needs two DISTINGUISHABLE generations)
+    X_all[N0:] += 0.75
+    Xq = X_all[:8]
+    C_PAL, G_PAL = (1.0, 3.0, 10.0), (0.5, 1.5, 5.0)
+    # the supervisor's knobs, and the cold provision's too: the plain
+    # subproblem on the CPU is a loop a lane, so an uncapped q (the whole
+    # corpus) would spend minutes there
+    SOLVER_OPTS = {"q": 32, "max_inner": 8}
+
+    def mk_records():
+        recs = []
+        for i in range(N_T):
+            recs.append(TenantRecord(
+                tenant_id=f"t{i:02d}", positive_label=i % K,
+                C=C_PAL[i % 3], gamma=G_PAL[(i // 3) % 3],
+                row_mod=2 if i % 8 == 7 else None,
+                row_ofs=(i // 8) % 2 if i % 8 == 7 else 0))
+        return recs
+
+    def setup(td):
+        """One complete platform: shared dataset, 64 provisioned donors
+        (ONE cold fleet launch), supervisor config. Identical for
+        control and chaos arms."""
+        data = os.path.join(td, "data")
+        donors = os.path.join(td, "donors")
+        arts = os.path.join(td, "artifacts")
+        os.makedirs(donors)
+        ingest_arrays(data, X_all[:N0], labels_all[:N0],
+                      rows_per_shard=64)
+        recs = mk_records()
+        provision_tenants(X_all[:N0], labels_all[:N0], recs,
+                          artifacts_dir=donors, solver_opts=SOLVER_OPTS,
+                          device=device)
+        cfg = TenantsConfig(
+            data_dir=data,
+            store_path=os.path.join(td, "tenants_store.json"),
+            artifacts_dir=arts,
+            thresholds=DriftThresholds(growth=0.25, feature=None,
+                                       score=None, jitter_frac=0.0),
+            hysteresis=1, cooldown_s=0.0,
+            checkpoint_every=2, min_fleet=2,
+            breaker_threshold=5, breaker_cooldown_s=0.05,
+            seed=20260806,
+            solver_opts=SOLVER_OPTS, device=device,
+        )
+        return data, recs, cfg
+
+    def append(data, a, b):
+        w = ShardWriter.open_append(data)
+        w.append(X_all[a:b], labels_all[a:b])
+        w.close()
+
+    with tempfile.TemporaryDirectory() as td:
+        # ---------------- control arm: uninterrupted platform
+        cdir = os.path.join(td, "control")
+        os.makedirs(cdir)
+        data_c, recs_c, cfg_c = setup(cdir)
+        sup = TenantsSupervisor(cfg_c, log_fn=lambda m: None)
+        for rec in recs_c:
+            sup.register(rec)
+        out = sup.tick()
+        if out["status"] != TenantsStatus.WATCHING:
+            print("TENANT CHAOS SMOKE FAILED: control arm drifted "
+                  "before any append")
+            return 1
+        append(data_c, N0, N0 + N1)
+        out = sup.tick()
+        if out["status"] != TenantsStatus.REFRESHED:
+            print(f"TENANT CHAOS SMOKE FAILED: control arm did not "
+                  f"refresh ({out['status'].name})")
+            return 1
+        append(data_c, N0 + N1, N0 + N1 + N2)
+        tids = sorted(st.tenant_id for st in recs_c)
+        # both complete generations of every tenant, as OFFLINE oracles
+        # (serving is bitwise-equal to offline f32 decision_function —
+        # the serve-tier contract): the chaos arm's torn-read reference
+        refOld, refNew, control_art = {}, {}, {}
+        for tid in tids:
+            refOld[tid] = np.asarray(BinarySVC.load(
+                os.path.join(cdir, "donors", tid + ".npz"),
+                device=device).decision_function(Xq))
+            m = BinarySVC.load(os.path.join(cdir, "artifacts",
+                                            tid + ".npz"), device=device)
+            refNew[tid] = np.asarray(m.decision_function(Xq))
+            control_art[tid] = m
+        distinct = sum(not np.array_equal(refOld[t], refNew[t])
+                       for t in tids)
+        if distinct < N_T // 2:
+            failures.append(
+                f"only {distinct}/{N_T} tenants changed across the "
+                "refresh — the torn-generation check is vacuous")
+        ds_c = open_dataset(data_c)
+        control_manifest = ds_c.manifest.to_json()
+        Xc, Yc = ds_c.load_arrays()
+
+        # ---------------- chaos arm: same platform, killed mid-fleet
+        hdir = os.path.join(td, "chaos")
+        os.makedirs(hdir)
+        data_h, recs_h, cfg_h = setup(hdir)
+        srv = Server(ServeConfig(max_batch=8), device=device)
+        for rec in recs_h:
+            srv.load_model(rec.tenant_id, rec.model_path)
+        with srv:
+            sup_h = TenantsSupervisor(cfg_h, server=srv,
+                                      log_fn=lambda m: None)
+            for rec in recs_h:
+                sup_h.register(rec)
+            out = sup_h.tick()
+            if out["status"] != TenantsStatus.WATCHING:
+                failures.append("chaos arm drifted before any append")
+            for tid in tids:
+                s, _ = srv.predict_direct(tid, Xq)
+                if not np.array_equal(np.asarray(s), refOld[tid]):
+                    failures.append(
+                        f"chaos donor generation of {tid} does not "
+                        "serve the control's scores — arms are not "
+                        "comparable")
+                    break
+            append(data_h, N0, N0 + N1)
+
+            # the kill plan counts tenants.store hits WITHIN the
+            # refresh tick (activated only now, so registration writes
+            # don't shift the count): hit 1 is the stage="fitting"
+            # store commit, hits 2.. are the fleet segment checkpoints
+            # — at_hit=3 dies at the SECOND checkpoint write, i.e. with
+            # a durable first-segment checkpoint on disk
+            plan = faults.FaultPlan([
+                faults.FaultRule(point="tenants.store", kind="kill",
+                                 at_hit=3),
+                faults.FaultRule(point="tenants.tick", kind="latency",
+                                 p=0.5, delay_ms=1.0, max_hits=8),
+                faults.FaultRule(point="serve.score", kind="latency",
+                                 p=0.3, delay_ms=2.0, max_hits=16),
+            ], seed=20260806)
+            stop = threading.Event()
+            bad = []
+            bad_lock = threading.Lock()
+
+            def client(t):
+                i = t
+                while not stop.is_set():
+                    tid = tids[(7 * t + i) % N_T]
+                    r = srv.submit(tid, Xq[i % 8], timeout_s=10.0)
+                    if r.ok:
+                        s = np.asarray(r.scores)
+                        if s != refOld[tid][i % 8] \
+                                and s != refNew[tid][i % 8]:
+                            with bad_lock:
+                                bad.append(("torn", tid, i % 8,
+                                            float(s)))
+                    elif r.status.name not in ("TIMEOUT",):
+                        with bad_lock:
+                            bad.append(("status", r.status.name))
+                    i += 1
+                    # paced: 64 models' requests would otherwise take the
+                    # host from the supervisor under test
+                    stop.wait(0.005)
+
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(3)]
+            kills = 0
+            ck_at_kill = False
+            with faults.active(plan):
+                for t in threads:
+                    t.start()
+                statuses = []
+                for attempt in range(16):
+                    try:
+                        out = sup_h.tick()
+                    except faults.SimulatedKill:
+                        kills += 1
+                        # the evidence that recovery RESUMES rather
+                        # than restarts: a durable fleet checkpoint
+                        # exists at the moment of death
+                        if glob.glob(os.path.join(
+                                hdir, "artifacts", "fleet_*.ck.npz")):
+                            ck_at_kill = True
+                        sup_h = TenantsSupervisor(
+                            cfg_h, server=srv, resume=True,
+                            log_fn=lambda m: None)
+                        continue
+                    statuses.append(out["status"])
+                    if out["status"] == TenantsStatus.REFRESHED:
+                        break
+                else:
+                    failures.append(
+                        "no coalesced refresh landed within the tick "
+                        f"budget: {[s.name for s in statuses]}")
+                stop.set()
+                for t in threads:
+                    t.join(10.0)
+            faults.deactivate()
+
+            # ---------------- phase-1 gates
+            if kills == 0:
+                failures.append("the kill rule never fired — the chaos "
+                                "arm degenerated to the control arm")
+            if kills and not ck_at_kill:
+                failures.append(
+                    "killed mid-fleet-refresh with NO durable segment "
+                    "checkpoint on disk — recovery would re-fit from "
+                    "scratch")
+            if bad:
+                failures.append(f"client anomalies under chaos: "
+                                f"{bad[:5]} ({len(bad)} total)")
+            if glob.glob(os.path.join(hdir, "artifacts",
+                                      "fleet_*.ck.npz")):
+                failures.append("fleet checkpoints survived the "
+                                "swapping-stage commit")
+            for tid in tids:
+                rec = sup_h.state.tenants[tid]
+                if rec.generation != 1:
+                    failures.append(
+                        f"{tid} generation {rec.generation} != 1 after "
+                        "the recovered refresh")
+                    continue
+                s, _ = srv.predict_direct(tid, Xq)
+                s = np.asarray(s)
+                if not np.array_equal(s, refNew[tid]):
+                    still_old = np.array_equal(s, refOld[tid])
+                    failures.append(
+                        f"post-recovery served scores of {tid} do not "
+                        "bitwise-match the control generation "
+                        f"(max |delta| "
+                        f"{float(np.max(np.abs(s - refNew[tid])))!r}, "
+                        f"still the donor generation: {still_old})")
+                chaos = BinarySVC.load(os.path.join(
+                    hdir, "artifacts", tid + ".npz"), device=device)
+                ctrl = control_art[tid]
+                if chaos.sv_alpha_.tobytes() != ctrl.sv_alpha_.tobytes() \
+                        or not np.array_equal(chaos.sv_ids_,
+                                              ctrl.sv_ids_) \
+                        or chaos.b_ != ctrl.b_ \
+                        or chaos.n_iter_ != ctrl.n_iter_:
+                    failures.append(
+                        f"recovered refit of {tid} is NOT bit-identical "
+                        f"to the uninterrupted control "
+                        f"({len(chaos.sv_ids_)} vs {len(ctrl.sv_ids_)} "
+                        f"SVs, b {chaos.b_!r} vs {ctrl.b_!r}, n_iter "
+                        f"{chaos.n_iter_} vs {ctrl.n_iter_})")
+
+            # ---------------- phase 2: corrupt one swap's bytes
+            append(data_h, N0 + N1, N0 + N1 + N2)
+            plan2 = faults.FaultPlan([
+                faults.FaultRule(point="registry.load", kind="corrupt",
+                                 at_hit=1),
+            ], seed=20260806)
+            with faults.active(plan2):
+                out = sup_h.tick()
+            faults.deactivate()
+            if out["status"] != TenantsStatus.PARTIAL:
+                failures.append(
+                    "the corrupted swap did not surface as a PARTIAL "
+                    f"generation (got {out['status'].name})")
+            stuck = [tid for tid in tids
+                     if sup_h.state.tenants[tid].generation == 1]
+            if len(stuck) != 1:
+                failures.append(
+                    f"expected exactly one tenant pinned on its "
+                    f"previous generation, got {stuck}")
+            else:
+                s, _ = srv.predict_direct(stuck[0], Xq)
+                if not np.array_equal(np.asarray(s), refNew[stuck[0]]):
+                    failures.append(
+                        f"{stuck[0]}'s failed swap did not keep its "
+                        "previous generation serving bitwise")
+                out = sup_h.tick()
+                if out["status"] != TenantsStatus.REFRESHED \
+                        or out["drifted"] != stuck:
+                    failures.append(
+                        "the corrupted tenant did not stay armed and "
+                        f"recover solo (status {out['status'].name}, "
+                        f"drifted {out['drifted']})")
+                else:
+                    want = np.asarray(BinarySVC.load(
+                        os.path.join(hdir, "artifacts",
+                                     stuck[0] + ".npz"),
+                        device=device).decision_function(Xq))
+                    s, _ = srv.predict_direct(stuck[0], Xq)
+                    if not np.array_equal(np.asarray(s), want):
+                        failures.append(
+                            f"{stuck[0]}'s recovery swap does not "
+                            "serve its refreshed artifact bitwise")
+
+        # ---------------- gate (a): no tenant lost rows
+        ds_h = open_dataset(data_h)
+        if ds_h.manifest.to_json() != control_manifest:
+            failures.append("chaos dataset manifest differs from the "
+                            "uninterrupted control (rows lost, "
+                            "duplicated, or mis-sharded)")
+        Xh, Yh = ds_h.load_arrays()
+        if not (np.array_equal(Xc, Xh) and np.array_equal(Yc, Yh)):
+            failures.append("chaos dataset rows differ from control")
+        else:
+            for rc, rh in zip(recs_c, recs_h):
+                if view_fingerprint(*tenant_labels(Yc, rc)) != \
+                        view_fingerprint(*tenant_labels(Yh, rh)):
+                    failures.append(
+                        f"tenant {rc.tenant_id} view fingerprint "
+                        "differs between arms")
+                    break
+
+    if failures:
+        for f in failures:
+            print(f"TENANT CHAOS SMOKE FAILED: {f}")
+        return 1
+    print(f"tenant chaos smoke ok: {N_T} tenants, supervisor killed "
+          f"mid-fleet-refresh ({kills} kills) resumed from a durable "
+          "segment checkpoint to artifacts bit-identical to the "
+          "uninterrupted control, 0 torn responses, every view "
+          "fingerprint equal, corrupted swap pinned one tenant on its "
+          "previous generation then recovered solo")
+    return 0
+
+
 def _device(prog: str, rest) -> str:
     ap = argparse.ArgumentParser(prog=f"python -m tpusvm_torch.faults {prog}")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
@@ -407,6 +1031,10 @@ def main(argv=None) -> int:
         return _pod_chaos_smoke(_device(cmd, rest))
     if cmd == "swap-chaos-smoke":
         return _swap_chaos_smoke(_device(cmd, rest))
+    if cmd == "autopilot-chaos-smoke":
+        return _autopilot_chaos_smoke(_device(cmd, rest))
+    if cmd == "tenant-chaos-smoke":
+        return _tenant_chaos_smoke(_device(cmd, rest))
     if cmd == "validate":
         if len(rest) != 1:
             print("usage: python -m tpusvm_torch.faults validate PLAN.json")

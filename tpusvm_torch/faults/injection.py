@@ -45,10 +45,21 @@ The points the port has call sites for:
                               under Retry (serve/cache.py)
   ``serve.state_write``       the serve-state and bucket-manifest writes
                               (serve/cache.py)
+  ``stream.append``           the append journal's writes and the append
+                              commit's two transitions (stream/append.py)
+  ``autopilot.tick``          entry to every autopilot tick
+                              (autopilot/loop.py)
+  ``autopilot.refresh``       the autopilot's fit/save/swap stage
+                              (autopilot/loop.py)
+  ``autopilot.state``         the autopilot_state.json write
+                              (autopilot/state.py)
+  ``tenants.tick``            entry to every tenants tick (tenants/loop.py)
+  ``tenants.store``           the tenant store's writes and the coalesced
+                              refresh's fleet checkpoints (tenants/store.py)
 
-The other names of POINTS belong to modules not ported yet (the
-autopilot, tenants, the router); a plan may name them and they never
-fire here.
+The one name of POINTS left belongs to a tier not ported yet
+(``router.forward``, the router); a plan may name it and it never fires
+here.
 
 Kill semantics: :class:`SimulatedKill` subclasses ``BaseException``, so
 no ``except Exception`` recovery path, the retry machinery included, can

@@ -14,9 +14,9 @@ round's device work is batched on the problem axis:
      gamma), stacked to (lanes, q, q);
   4. the subproblems in ONE launch of kernel #2 with a problem axis, one
      thread block per lane (ops/cuda/inner_smo.py:inner_smo_batched_kernel),
-     its statuses read in the round's second host sync; a lane that made
-     no progress is redone on the solo loop engine, as the solo solver
-     does;
+     its statuses read in the round's second host sync; a lane that
+     made no progress is redone on the solo loop engine, as the solo
+     solver does;
   5. the f-update: for RBF at full f32 ONE launch of kernel #1 with a
      problem axis (ops/cuda/fused_fupdate.py:rbf_cross_matvec_batched_kernel),
      else the family's contraction per lane (kernels.cross_matvec, at the
@@ -32,9 +32,13 @@ no launch, and its alpha, f, counters and ring no longer change, as the
 JAX per-lane select freezes it. Every per-lane computation above is the
 solo solver's on that lane's data, so a lane's bits do not depend on its
 companions (the hard no-crosstalk gate of the JAX fleet) and, on the card,
-equal the solo blocked fit at inner="kernel" with the fused f-update; a
-seeded lane's kernel deltas are also held to the box [0, C]
-(kernel_delta_in_box), which the solo solver's are not.
+equal the solo blocked fit at inner="kernel" with the fused f-update. A
+seeded lane (a warm refresh's, a tune rung's) runs kernel #2's boxed
+subproblem on the deltas from its float64 alphas, held to [0, C]
+(solver/blocked.py:kernel_delta_in_box), as a seeded refresh's solo solve
+does (serve/refresh.py) and a cold solo solve does not: on the float64
+alphas themselves float32 cannot tell a member near C from C, nor take a
+late step, and such rounds made no progress in the kernel.
 
 Host syncs: two a round for the whole fleet (the stop check and the
 kernel statuses). Index lists go to the card through pinned non-blocking
@@ -57,12 +61,14 @@ from tpusvm_torch.fleet.results import unpack_results
 from tpusvm_torch.obs.convergence import ConvergenceTelemetry
 from tpusvm_torch.ops.cuda.fused_fupdate import (
     rbf_cross_matvec_batched_kernel, rbf_cross_matvec_kernel)
-from tpusvm_torch.ops.cuda.inner_smo import inner_smo_batched_kernel
+from tpusvm_torch.ops.cuda.inner_smo import (boxed_operands,
+                                             inner_smo_batched_kernel)
 from tpusvm_torch.ops.rbf import rbf_cross_matvec, sq_norms
 from tpusvm_torch.ops.selection import i_high_mask, i_low_mask
 from tpusvm_torch.solver.blocked import (SMOResult, _clamp_q, _inner_smo,
                                          check_precision_pairing,
-                                         ops_precision, refine_f)
+                                         kernel_delta_in_box, ops_precision,
+                                         refine_f)
 from tpusvm_torch.status import Status
 
 # the JAX fleet's static surface (tpusvm/fleet/solve.py _FLEET_STATIC):
@@ -77,25 +83,6 @@ _FLEET_STATIC = (
 _INERT = ("inner", "fused_fupdate", "krow_cache", "shrink_stable",
           "pallas_fused_selection", "pallas_eta_exclude", "pallas_multipair",
           "resume_state", "pause_at", "return_state", "pallas_layout")
-
-
-def kernel_delta_in_box(a_B, da_B, C):
-    """A kernel round's alpha deltas, pulled back onto [0, C] where a_B +
-    delta leaves the box; every other member keeps its delta's bits.
-
-    Kernel #2 takes alpha in float32 and the delta is taken against
-    f32(a_B), so a member it moves to a bound lands off it by a_B -
-    f32(a_B) when a_B is not a float32 value: up to half a float32 ulp of
-    C outside the box, and the next pair through it is infeasible (U > V +
-    1e-12), which ends the lane INFEASIBLE_UV. A seeded lane (a tune
-    rung's padded, re-projected solution) starts with such alphas
-    everywhere, so its deltas are pulled back; the JAX fleet runs the loop
-    engine, whose alphas never leave the box. A cold lane's alphas are
-    float32 values until a rescue round, and it keeps the solo kernel
-    engine's arithmetic (the JAX kernel path's). C: (lanes, 1), one C a
-    lane."""
-    a = a_B + da_B
-    return torch.where(a < 0, -a_B, torch.where(a > C, C - a_B, da_B))
 
 
 @dataclasses.dataclass
@@ -402,20 +389,29 @@ def fleet_smo_solve(
                 kernels.cross(kernel, Xp, Xp, **kern(b))
                 for Xp, b in ((X[Bsel[p]], b) for p, b in enumerate(lanes))])
             if kernel_lanes:
-                # the delta against the f32-quantised baseline, as the solo
-                # kernel round does
-                a_B_q = a_B.to(torch.float32).to(adt)
+                # a cold lane's delta is taken against the f32-quantised
+                # baseline, as the solo kernel round does; a seeded lane
+                # runs the boxed subproblem on deltas from its float64
+                # alphas, pulled back onto [0, C] (kernel_delta_in_box), as
+                # a seeded refresh's solo round does
+                a_in, f_in = a_B, f_B
+                base, box = a_B.to(torch.float32).to(adt), None
+                seeded = [st.seeded[b] for b in lanes]
+                if any(seeded):
+                    pull = host_to_device(seeded, torch.bool, dev)
+                    d0, f_c, lo, hi = boxed_operands(a_B, f_B, C_P, half)
+                    a_in = torch.where(pull[:, None], d0.to(adt), a_B)
+                    f_in = torch.where(pull[:, None], f_c.to(adt), f_B)
+                    base = torch.where(pull[:, None], d0.to(adt), base)
+                    box = (lo, hi, pull)
                 a_new, stat = inner_smo_batched_kernel(
-                    K_BB, y_B, a_B, f_B, active_B, C32_dev[Pb], eps, tau,
-                    max_inner=max_inner, wss=wss)
-                da_B = a_new.to(adt) - a_B_q
-                if any(st.seeded[b] for b in lanes):
-                    # seeded lanes only: a cold lane keeps the solo kernel
-                    # engine's bits (kernel_delta_in_box)
-                    pull = host_to_device([st.seeded[b] for b in lanes],
-                                          torch.bool, dev)[:, None]
+                    K_BB, y_B, a_in, f_in, active_B, C32_dev[Pb], eps, tau,
+                    max_inner=max_inner, wss=wss, box=box)
+                da_B = a_new.to(adt) - base
+                if box is not None:
                     da_B = torch.where(
-                        pull, kernel_delta_in_box(a_B, da_B, C_P), da_B)
+                        pull[:, None], kernel_delta_in_box(a_B, da_B, C_P),
+                        da_B)
                 # host sync 2: the kernel's statuses
                 t_wait = time.perf_counter()
                 stats = stat.tolist()

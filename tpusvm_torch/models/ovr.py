@@ -202,8 +202,11 @@ class OneVsRestSVC:
             for k, y in enumerate(Ys):
                 seed = {}
                 if warm_seeds is not None and warm_seeds[k].any():
-                    # an all-zero seed is a cold start: no f rebuild
-                    seed = {"alpha0": warm_seeds[k], "warm_start": True}
+                    # an all-zero seed is a cold start: no f rebuild; a
+                    # seeded head's kernel rounds are held to [0, C]
+                    # (serve/refresh.py:_seeded)
+                    seed = {"alpha0": warm_seeds[k], "warm_start": True,
+                            "_seed_in_box": True}
                 outs.append(solve(self.solver, Xd,
                                   torch.as_tensor(y, device=dev), cfg,
                                   self.accum_dtype, self.solver_opts, dev,

@@ -225,7 +225,9 @@ class BinarySVC:
         """The solve and SV extraction on already-scaled rows (fit, and
         fit_stream for the exact families). phases: host seconds so far."""
         dev = resolve_device(self.device)
-        t = time.perf_counter()
+        # the spans tile the fit from t0: the time since the caller's last
+        # phase (the device's resolution) counts in the next one
+        t = t0 + sum(phases.values())
 
         def span(name):
             nonlocal t

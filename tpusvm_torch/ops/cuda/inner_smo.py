@@ -18,6 +18,12 @@ cannot in exact arithmetic); callers raise on it.
 working sets, one thread block each (plain version
 `inner_smo_batched_ref`, the solo plain version lane by lane); a lane's
 outputs equal a solo launch on its operands bit for bit.
+
+`box=` runs the boxed subproblem of a seeded solve: a_B holds deltas from
+the solve's float64 alphas alpha0 (zero at the start), and each member
+its own box [lo, hi] = [-alpha0, C - alpha0], so the masks and the pair
+step resolve a member near its bound, and a small step, as float32 cannot
+on alpha0 itself (csrc/inner_smo.cu; `boxed_operands` builds it).
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ import torch
 
 from tpusvm_torch.device import host_to_device
 from tpusvm_torch.ops.cuda import _build
-from tpusvm_torch.solver.analytic import pair_update
+from tpusvm_torch.solver.analytic import (PairUpdate, pair_update,
+                                          pair_update_box)
 from tpusvm_torch.status import Status
 
 _P = ctypes.c_void_p
@@ -41,13 +48,32 @@ _LANE = 128
 _SMEM_LIMIT = 232448 - 1024
 
 
+def boxed_operands(a_B, f_B, C, half: int):
+    """The boxed subproblem's operands for float64 (accum dtype) alphas
+    a_B, gradients f_B and C (a scalar, or (lanes, 1)), on a working set
+    whose members 0 and `half` are its first-order b_high and b_low picks
+    (solver/blocked.py:select_working_set): (deltas 0, f_B less the
+    midpoint of those two, lo = -a_B, hi = C - a_B), each rounded once to
+    float32. The subproblem's picks, gaps and f updates are the same for
+    any shift of f; this one puts the violating members' f near 0, where
+    float32 resolves them finest. The kernel's deltas come back in
+    float32; a_B + delta may leave [0, C] by hi's rounding, which
+    solver/blocked.py:kernel_delta_in_box takes back."""
+    f32 = torch.float32
+    mid = (f_B[..., :1] + f_B[..., half:half + 1]) / 2.0
+    return (torch.zeros_like(a_B, dtype=f32), (f_B - mid).to(f32),
+            (-a_B).to(f32), (C - a_B).to(f32))
+
+
 def inner_smo_ref(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
-                  max_inner: int, wss: int = 1, eta_exclude: bool = False):
+                  max_inner: int, wss: int = 1, eta_exclude: bool = False,
+                  box=None):
     """Plain version: an eager torch loop with the kernel's semantics.
 
     Scalars are 0-d float32 tensors, never python floats (those are f64),
-    so every step rounds as the kernel's f32 arithmetic does. Returns
-    (a_B_new, stat) like the kernel wrapper.
+    so every step rounds as the kernel's f32 arithmetic does. box: (lo,
+    hi) (q,) for the boxed subproblem. Returns (a_B_new, stat) like the
+    kernel wrapper.
     """
     _check_args(wss, eta_exclude)
     dev = K_BB.device
@@ -63,6 +89,10 @@ def inner_smo_ref(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
     eps32 = torch.tensor(eps, dtype=f32, device=dev)
     tau32 = torch.tensor(tau, dtype=f32, device=dev)
     Cme = C32 - eps32
+    lo_e, hi_e = eps32, Cme
+    if box is not None:
+        lo32, hi32 = (t.to(device=dev, dtype=f32) for t in box)
+        lo_e, hi_e = lo32 + eps32, hi32 - eps32
     pos = y > 0
     inf = torch.tensor(_INF, dtype=f32, device=dev)
     n_upd = 0
@@ -71,8 +101,8 @@ def inner_smo_ref(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
     reason = Status.RUNNING
     while reason == Status.RUNNING:
         iters += 1
-        lo = a > eps32
-        hi = a < Cme
+        lo = a > lo_e
+        hi = a < hi_e
         m_h = act & ((pos & hi) | (~pos & lo))
         m_l = act & ((pos & lo) | (~pos & hi))
         vh = torch.where(m_h, f, inf)
@@ -118,8 +148,14 @@ def inner_smo_ref(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
             b_l_pair = b_h + root.float()
             if eta_exclude and not bool(g > -inf):
                 b_l_pair = b_l
-        upd = pair_update(K11, K22, K12, y_h, y_l, a_h, a_l, b_h, b_l_pair,
-                          C32, eps32, torch.tensor(proceed, device=dev))
+        go = torch.tensor(proceed, device=dev)
+        if box is None:
+            upd = pair_update(K11, K22, K12, y_h, y_l, a_h, a_l, b_h,
+                              b_l_pair, C32, eps32, go)
+        else:
+            upd = pair_update_box(K11, K22, K12, y_h, y_l, a_h, a_l,
+                                  lo32[i_h], hi32[i_h], lo32[i_l], hi32[i_l],
+                                  b_h, b_l_pair, eps32, go)
         f = _fma(upd.da_l * y_l, row_l, _fma(upd.da_h * y_h, row_h, f))
         # i_h == i_l forces eta == 0, hence zero deltas: the order is safe
         a[i_h] = a_h + upd.da_h
@@ -284,6 +320,18 @@ def _fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_box_smem(q):
+    # the boxed kernel keeps eight vectors of the lanes past 2048 in shared
+    # memory
+    if 8 * max(q - 2048, 0) * 4 > _SMEM_LIMIT:
+        raise ValueError(f"q={q} does not fit the boxed kernel's shared "
+                         "memory")
+
+
 def _check_args(wss, eta_exclude):
     if wss not in (1, 2):
         raise ValueError(f"wss must be 1 or 2, got {wss}")
@@ -294,9 +342,9 @@ def _check_args(wss, eta_exclude):
 @functools.cache
 def _bind():
     fn = _build.load("inner_smo").tpusvm_inner_smo
-    fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, _P, _P, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_float, _P, _P,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -326,16 +374,20 @@ def _operands(K_BB, y_B, a_B, f_B, active_B):
 
 def inner_smo_kernel(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
                      max_inner: int, wss: int = 1, eta_exclude: bool = False,
-                     multipair: int = 1):
+                     multipair: int = 1, box=None):
     """The subproblem on K_BB (q, q): returns (a_B_new (q,) f32, stat).
 
     stat is int32 [n_updates, progress, reason, iterations]. CPU tensors run
     `inner_smo_ref`; CUDA tensors launch the kernel (counted in
     `.launches`). Inputs may be any float dtype; compute is float32.
-    multipair=p > 1 runs `inner_smo_multipair_kernel` instead.
+    multipair=p > 1 runs `inner_smo_multipair_kernel` instead. box: (lo,
+    hi) (q,), the boxed subproblem (a_B the deltas; single pair only).
     """
     _check_args(wss, eta_exclude)
     check_multipair(K_BB.shape[0], wss, multipair)
+    if box is not None and multipair > 1:
+        raise ValueError("the boxed subproblem runs the single-pair kernel; "
+                         f"got multipair={multipair}")
     if multipair > 1:
         return inner_smo_multipair_kernel(
             K_BB, y_B, a_B, f_B, active_B, C, eps, tau, max_inner=max_inner,
@@ -343,58 +395,178 @@ def inner_smo_kernel(K_BB, y_B, a_B, f_B, active_B, C, eps, tau, *,
     if not K_BB.is_cuda:
         return inner_smo_ref(K_BB, y_B, a_B, f_B, active_B, C, eps, tau,
                              max_inner=max_inner, wss=wss,
-                             eta_exclude=eta_exclude)
+                             eta_exclude=eta_exclude, box=box)
     K, y, a, f, act = _operands(K_BB, y_B, a_B, f_B, active_B)
     q, dev = K.shape[0], K.device
+    lo = hi = None
+    if box is not None:
+        _check_box_smem(q)
+        lo, hi = (t.to(device=dev, dtype=torch.float32).contiguous()
+                  for t in box)
+        if tuple(lo.shape) != (q,) or tuple(hi.shape) != (q,):
+            raise ValueError(f"box bounds must have shape ({q},)")
     a_out = torch.empty(q, dtype=torch.float32, device=dev)
     stat = torch.empty(4, dtype=torch.int32, device=dev)
     fn = _bind()
     rc = fn(K.data_ptr(), y.data_ptr(), a.data_ptr(), f.data_ptr(),
-            act.data_ptr(), float(C), float(eps), float(tau), q,
+            act.data_ptr(), float(C), _ptr(lo), _ptr(hi), float(eps),
+            float(tau), q,
             int(max_inner), int(wss), int(bool(eta_exclude)),
             a_out.data_ptr(), stat.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     inner_smo_kernel.launches += 1
+    inner_smo_kernel.boxed_launches += box is not None
     _build.check(rc, "inner_smo kernel")
     return a_out, stat
 
 
+# launches, and of them those of the boxed subproblem
 inner_smo_kernel.launches = 0
+inner_smo_kernel.boxed_launches = 0
 
 
 def inner_smo_batched_ref(K_BB, y_B, a_B, f_B, active_B, Cs, eps, tau, *,
                           max_inner: int, wss: int = 1,
-                          eta_exclude: bool = False):
+                          eta_exclude: bool = False, box=None):
     """Plain version of the problem-axis launch: `inner_smo_ref` on each
-    lane (lane b's C is Cs[b]). Returns (a_out (B, q) f32, stat (B, 4))."""
+    lane (lane b's C is Cs[b]), all lanes stepped together. Every lane
+    takes `inner_smo_ref`'s element-wise float32 steps on its own row of
+    the stacked operands (first-extremum argmin/argmax along the lane's
+    row, the same pair update and FMA), and a lane that has ended is left
+    as it was, so each lane's outputs are `inner_smo_ref`'s bit for bit.
+    box: (lo (B, q), hi (B, q), boxed (B,) bool), the lanes with boxed
+    set running `inner_smo_ref`'s boxed subproblem on their rows.
+    Returns (a_out (B, q) f32, stat (B, 4))."""
+    _check_args(wss, eta_exclude)
+    dev = K_BB.device
+    f32 = torch.float32
+    K = K_BB.to(f32)
+    B = K.shape[0]
+    lane = torch.arange(B, device=dev)
+    diag = torch.diagonal(K, dim1=1, dim2=2).clone()
+    y = y_B.to(f32)
+    a = a_B.to(f32).clone()
+    f = f_B.to(f32).clone()
+    act = active_B.to(torch.bool).clone()
     C_list = Cs.tolist() if hasattr(Cs, "tolist") else list(Cs)
-    outs = [inner_smo_ref(K_BB[b], y_B[b], a_B[b], f_B[b], active_B[b],
-                          C_list[b], eps, tau, max_inner=max_inner, wss=wss,
-                          eta_exclude=eta_exclude)
-            for b in range(a_B.shape[0])]
-    return (torch.stack([a for a, _ in outs]),
-            torch.stack([st for _, st in outs]))
+    # each lane's C rounded to float32 as its solo 0-d tensor is
+    C32 = torch.stack([torch.tensor(c, dtype=f32, device=dev)
+                       for c in C_list])
+    eps32 = torch.tensor(eps, dtype=f32, device=dev)
+    tau32 = torch.tensor(tau, dtype=f32, device=dev)
+    Cme = (C32 - eps32)[:, None]
+    lo_e, hi_e = eps32, Cme
+    if box is not None:
+        lo32, hi32 = (t.to(device=dev, dtype=f32) for t in box[:2])
+        boxed = box[2].to(device=dev, dtype=torch.bool)
+        lo_e = torch.where(boxed[:, None], lo32 + eps32, eps32)
+        hi_e = torch.where(boxed[:, None], hi32 - eps32, Cme)
+    pos = y > 0
+    inf = torch.tensor(_INF, dtype=f32, device=dev)
+    n_upd = torch.zeros(B, dtype=torch.int64, device=dev)
+    iters = torch.zeros(B, dtype=torch.int64, device=dev)
+    progress = torch.zeros(B, dtype=torch.bool, device=dev)
+    reason = torch.full((B,), int(Status.RUNNING), dtype=torch.int64,
+                        device=dev)
+    while True:
+        run = reason == int(Status.RUNNING)
+        if not bool(run.any()):
+            break
+        iters += run
+        lo = a > lo_e
+        hi = a < hi_e
+        m_h = act & ((pos & hi) | (~pos & lo))
+        m_l = act & ((pos & lo) | (~pos & hi))
+        vh = torch.where(m_h, f, inf)
+        vl = torch.where(m_l, f, -inf)
+        i_h = torch.argmin(vh, dim=1)
+        i_l1 = torch.argmax(vl, dim=1)
+        b_h = vh[lane, i_h]
+        b_l = vl[lane, i_l1]
+        found = (b_h < inf) & (b_l > -inf)
+        converged = found & (b_l <= b_h + 2.0 * tau32)
+        proceed = found & ~converged
+        row_h = K[lane, i_h]
+        K11 = diag[lane, i_h]
+        i_l = i_l1
+        if wss == 2:
+            eta_raw = K11[:, None] + diag - 2.0 * row_h
+            eta_vec = torch.clamp_min(eta_raw, 1e-12)
+            viol = m_l & (f > b_h[:, None])
+            if eta_exclude:
+                viol = viol & (eta_raw > eps32)
+            diff = f - b_h[:, None]
+            vg = torch.where(viol, diff * diff / eta_vec, -inf)
+            i_l2 = torch.argmax(vg, dim=1)
+            g = vg[lane, i_l2]
+            if eta_exclude:
+                i_l2 = torch.where(g > -inf, i_l2, i_l1)
+            i_l = i_l2
+        row_l = K[lane, i_l]
+        K22 = diag[lane, i_l]
+        K12 = row_h[lane, i_l]
+        y_h, y_l = y[lane, i_h], y[lane, i_l]
+        a_h, a_l = a[lane, i_h], a[lane, i_l]
+        b_l_pair = b_l
+        if wss == 2:
+            eta_l = torch.clamp_min(K11 + K22 - 2.0 * K12, 1e-12)
+            root = torch.sqrt((torch.clamp_min(g, 0.0) * eta_l).double())
+            b_l_pair = b_h + root.float()
+            if eta_exclude:
+                b_l_pair = torch.where(g > -inf, b_l_pair, b_l)
+        upd = pair_update(K11, K22, K12, y_h, y_l, a_h, a_l, b_h, b_l_pair,
+                          C32, eps32, proceed)
+        if box is not None:
+            ub = pair_update_box(K11, K22, K12, y_h, y_l, a_h, a_l,
+                                 lo32[lane, i_h], hi32[lane, i_h],
+                                 lo32[lane, i_l], hi32[lane, i_l], b_h,
+                                 b_l_pair, eps32, proceed)
+            upd = PairUpdate(*(torch.where(boxed, u, v)
+                               for u, v in zip(ub, upd)))
+        f_new = _fma((upd.da_l * y_l)[:, None], row_l,
+                     _fma((upd.da_h * y_h)[:, None], row_h, f))
+        f = torch.where(run[:, None], f_new, f)
+        # i_h == i_l forces eta == 0, hence zero deltas: the order is safe
+        a[lane, i_h] = torch.where(run, a_h + upd.da_h, a_h)
+        a[lane, i_l] = torch.where(run, a_l + upd.da_l,
+                                   a[lane, i_l])
+        ok = run & upd.do_update & ~upd.stalled
+        n_upd += ok
+        progress |= ok
+        dead = run & proceed & (~upd.feasible | ~upd.eta_ok | upd.stalled)
+        act[lane[dead], i_l[dead]] = False
+        ended = torch.where(
+            ~found, int(Status.NO_WORKING_SET),
+            torch.where(converged, int(Status.CONVERGED),
+                        torch.where(n_upd >= max_inner, int(Status.MAX_ITER),
+                                    int(Status.RUNNING))))
+        reason = torch.where(run, ended, reason)
+    stat = torch.stack([n_upd, progress.to(torch.int64), reason, iters],
+                       dim=1).to(torch.int32)
+    return a, stat
 
 
 @functools.cache
 def _bind_batched():
     fn = _build.load("inner_smo").tpusvm_inner_smo_batched
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, _P, _P, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, _P, _P, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
 def inner_smo_batched_kernel(K_BB, y_B, a_B, f_B, active_B, Cs, eps, tau, *,
                              max_inner: int, wss: int = 1,
-                             eta_exclude: bool = False):
+                             eta_exclude: bool = False, box=None):
     """B subproblems in one launch: K_BB (B, q, q), y_B/a_B/f_B/active_B
     (B, q), Cs (B,) (lane b's C, rounded to f32 as the solo launch rounds
     its C). Returns (a_out (B, q) f32, stat (B, 4) int32). CPU tensors run
     `inner_smo_batched_ref`; CUDA tensors launch
     csrc/inner_smo.cu's problem-axis kernel, <<<B, 512>>> (counted in
-    `.launches`, apart from the solo launch's count)."""
+    `.launches`, apart from the solo launch's count). box: (lo (B, q), hi
+    (B, q), boxed (B,) bool): the lanes with boxed set run the boxed
+    subproblem (a_B their deltas), the others the plain one."""
     _check_args(wss, eta_exclude)
     if K_BB.dim() != 3 or K_BB.shape[1] != K_BB.shape[2]:
         raise ValueError(f"K_BB must be (B, q, q), got {tuple(K_BB.shape)}")
@@ -402,7 +574,7 @@ def inner_smo_batched_kernel(K_BB, y_B, a_B, f_B, active_B, Cs, eps, tau, *,
     if not K_BB.is_cuda:
         return inner_smo_batched_ref(K_BB, y_B, a_B, f_B, active_B, Cs, eps,
                                      tau, max_inner=max_inner, wss=wss,
-                                     eta_exclude=eta_exclude)
+                                     eta_exclude=eta_exclude, box=box)
     if 5 * q * 4 > _SMEM_LIMIT:
         raise ValueError(f"q={q} does not fit one block's shared memory")
     dev = K_BB.device
@@ -422,19 +594,30 @@ def inner_smo_batched_kernel(K_BB, y_B, a_B, f_B, active_B, Cs, eps, tau, *,
     Cs_t = Cs_t.to(device=dev, dtype=torch.float32).contiguous()
     if tuple(Cs_t.shape) != (B,):
         raise ValueError(f"Cs must have shape ({B},)")
+    lo = hi = boxed = None
+    if box is not None:
+        _check_box_smem(q)
+        lo, hi = lanes(box[0], "box lo"), lanes(box[1], "box hi")
+        boxed = box[2].to(device=dev, dtype=torch.int32).contiguous()
+        if tuple(boxed.shape) != (B,):
+            raise ValueError(f"box's lane flags must have shape ({B},)")
     stat = torch.empty((B, 4), dtype=torch.int32, device=dev)
     rc = _bind_batched()(
         K.data_ptr(), y.data_ptr(), a_in.data_ptr(), f.data_ptr(),
-        act.data_ptr(), Cs_t.data_ptr(), float(eps),
+        act.data_ptr(), Cs_t.data_ptr(), _ptr(lo), _ptr(hi), _ptr(boxed),
+        float(eps),
         float(tau), q, int(max_inner), int(wss), int(bool(eta_exclude)), B,
         a_out.data_ptr(), stat.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     inner_smo_batched_kernel.launches += 1
+    inner_smo_batched_kernel.boxed_launches += box is not None
     _build.check(rc, "inner_smo batched kernel")
     return a_out, stat
 
 
+# launches, and of them those with boxed lanes
 inner_smo_batched_kernel.launches = 0
+inner_smo_batched_kernel.boxed_launches = 0
 
 # the CUDA multipair kernel reduces each of the 2p slot halves with its own
 # warps of one 32-warp block

@@ -14,7 +14,9 @@ stale; a refresh, instead of a cold retrain and a server restart:
             max(-coef,0)] (deployed_seed_svr).
      The refresh training set must keep the deployed run's rows as a
      prefix (appended batches);
-  2. runs the blocked solver (kernels #1 and #2 on the card), through
+  2. runs the blocked solver (kernels #1 and #2 on the card; a seeded
+     refit's kernel rounds are held to the box [0, C], as the fleet's
+     seeded lanes are: `_seeded`), through
      `checkpointed_blocked_solve` when a checkpoint path is given: a
      killed refresh resumes BIT-IDENTICAL to an uninterrupted one, and an
      optional `watchdog` deadline stops a too-slow fit at a checkpointed
@@ -51,6 +53,17 @@ def _reject_approx(cfg, model_path: str) -> None:
             f"it with `train --kernel {cfg.kernel}` on the grown dataset "
             "instead"
         )
+
+
+def _seeded(alpha0) -> dict:
+    """The solver options of a seeded refit: the deployed duals, the f
+    rebuild from them, and the kernel rounds' deltas held to [0, C]. The
+    seed's float64 alphas are mostly not float32 values, and kernel #2
+    rounds alpha through float32, so without the pull-back a member moved
+    to a bound lands up to half a float32 ulp of C off it and the solve
+    can end INFEASIBLE_UV (solver/blocked.py:kernel_delta_in_box; the
+    fleet's seeded lanes pull theirs back the same way)."""
+    return {"alpha0": alpha0, "warm_start": True, "_seed_in_box": True}
 
 
 def refresh_fit(model_path: str, X: np.ndarray, Y: np.ndarray, *,
@@ -105,8 +118,7 @@ def _refresh_svc(model_path, X, Y, *, out_path, checkpoint_path,
         a0 = deployed_seed(base.sv_ids_, base.sv_alpha_, n,
                            np.asarray(Y), cfg.C)
         if a0.any():
-            opts["alpha0"] = a0
-            opts["warm_start"] = True
+            opts.update(_seeded(a0))
     if watchdog is not None:
         # checkpointed_blocked_solve takes this named argument; refresh_fit
         # refuses it without a checkpoint, so it never reaches a plain solve
@@ -187,8 +199,7 @@ def _refresh_svr(model_path, X, Y, *, out_path, checkpoint_path,
         beta0 = deployed_seed_svr(base.sv_ids_, base.sv_coef_,
                                   int(np.asarray(X).shape[0]), cfg.C)
         if beta0.any():
-            opts["alpha0"] = beta0
-            opts["warm_start"] = True
+            opts.update(_seeded(beta0))
     model = EpsilonSVR(
         config=cfg,
         dtype=dtype if dtype is not None else torch.float32,

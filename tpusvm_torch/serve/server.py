@@ -151,6 +151,22 @@ class SwapError(Exception):
         )
 
 
+# torch.cuda.Stream() hands out streams from a fixed pool (32 a priority a
+# device), so past 32 hosted models two workers share one CUDA stream: a
+# capture on it would record, or refuse, the other worker's replays. One
+# lock a CUDA stream keeps every capture, replay and copy on a stream
+# serialized, whichever workers share it.
+_STREAM_LOCKS: Dict[int, threading.RLock] = {}
+_STREAM_LOCKS_GUARD = threading.Lock()
+
+
+def _stream_lock(stream) -> threading.RLock:
+    if stream is None:
+        return threading.RLock()
+    with _STREAM_LOCKS_GUARD:
+        return _STREAM_LOCKS.setdefault(stream.cuda_stream, threading.RLock())
+
+
 class _ModelWorker:
     """Metrics + batcher + breaker for one hosted model, serving the
     current `_Generation` bundle (entry + program cache)."""
@@ -167,9 +183,9 @@ class _ModelWorker:
         # under this lock (buckets.py): the batcher thread, predict_direct
         # and a stage take turns. Reentrant: a post-warm-up capture runs
         # inside a batch.
-        self._exec_lock = threading.RLock()
         self._stream = (torch.cuda.Stream(device=entry.device)
                         if entry.device.type == "cuda" else None)
+        self._exec_lock = _stream_lock(self._stream)
         cache = self._cache(entry)
         self._gen = _Generation(entry, cache, entry.generation,
                                 self._clock())

@@ -50,7 +50,8 @@ from tpusvm_torch.ops.cuda.fused_fupdate import (fused_fupdate_select_kernel,
                                                  rbf_cross_matvec_kernel,
                                                  selection_shape)
 from tpusvm_torch.obs.convergence import ConvergenceTelemetry
-from tpusvm_torch.ops.cuda.inner_smo import check_multipair, inner_smo_kernel
+from tpusvm_torch.ops.cuda.inner_smo import (boxed_operands, check_multipair,
+                                             inner_smo_kernel)
 from tpusvm_torch.ops.rbf import coef_matvec, rbf_cross_matvec, sq_norms
 from tpusvm_torch.ops.selection import i_high_mask, i_low_mask
 from tpusvm_torch.solver.analytic import pair_update
@@ -521,6 +522,30 @@ def refine_f(X, alpha, yf, z, valid, cap: int, *, kernel: str, sn, kern,
                                              device=f.device))
 
 
+def kernel_delta_in_box(a_B, da_B, C):
+    """A kernel round's alpha deltas, pulled back onto [0, C] where a_B +
+    delta leaves the box; every other member keeps its delta's bits.
+
+    A seeded solve (a warm refresh's deployed duals, a tune rung's
+    padded, re-projected solution) starts from float64 alphas that are
+    not float32 values. Its kernel rounds run the boxed subproblem on the
+    deltas from them (ops/cuda/inner_smo.py:boxed_operands), whose bounds
+    C - a_B are rounded to float32, so a member moved to a bound can land
+    off it by that rounding; on the multipair kernel, which takes alpha
+    itself, the delta is taken against f32(a_B) and lands off by a_B -
+    f32(a_B), up to half a float32 ulp of C. Either way the next pair
+    through it would be infeasible (U > V + 1e-12) and end the solve
+    INFEASIBLE_UV, so the deltas are pulled back: the fleet's seeded lanes
+    (fleet/solve.py) and a seeded refresh's solo solve
+    (blocked_smo_solve's internal _seed_in_box, set by serve/refresh.py)
+    do it. The JAX fleet runs the loop engine, whose alphas never leave
+    the box. A cold solve's alphas are float32 values until a rescue
+    round, and it keeps the JAX kernel path's arithmetic. C: a scalar, or
+    (lanes, 1) with one C a lane."""
+    a = a_B + da_B
+    return torch.where(a < 0, -a_B, torch.where(a > C, C - a_B, da_B))
+
+
 def blocked_smo_solve(
     X,
     Y,
@@ -565,6 +590,7 @@ def blocked_smo_solve(
     coef0: float = 0.0,
     targets=None,
     device="cuda",
+    _seed_in_box: bool = False,
 ):
     """Train to the reference's stopping criterion with blocked working sets.
 
@@ -659,6 +685,12 @@ def blocked_smo_solve(
     family. targets: pseudo-targets z replacing the labels in
     f = K(alpha*y) - z (epsilon-SVR); they enter f0 and the refine
     rebuild only.
+
+    _seed_in_box (internal, set by a seeded refresh): the kernel engine
+    runs kernel #2's boxed subproblem on the deltas from the seed's float64
+    alphas (the multipair kernel the plain one) and its round deltas are
+    pulled back onto [0, C] (kernel_delta_in_box), as the fleet's seeded
+    lanes do.
     """
     kernels.validate_family(kernel)
     eta_exclude = _alias("pallas_eta_exclude", pallas_eta_exclude,
@@ -922,7 +954,16 @@ def blocked_smo_solve(
                                           | i_low_mask(a_B, y_B, C, eps))
         K_BB = kernels.cross(kernel, X_B, X_B, **kern)
         lookup = None
-        if inner == "kernel":
+        if inner == "kernel" and _seed_in_box and multipair == 1:
+            # a seeded solve: the boxed subproblem on the deltas from the
+            # float64 alphas, pulled back onto [0, C]
+            d0, f_c, lo, hi = boxed_operands(a_B, f_B, C, half)
+            a_new, stat = inner_smo_kernel(
+                K_BB, y_B, d0, f_c, active_B, C, eps, tau,
+                max_inner=max_inner, wss=wss, eta_exclude=eta_exclude,
+                box=(lo, hi))
+            da_B = kernel_delta_in_box(a_B, a_new.to(adt), C)
+        elif inner == "kernel":
             # the delta is taken against the f32-quantised baseline: the
             # kernel round-trips alpha through f32, so untouched lanes come
             # back as f32(a_B), not a_B
@@ -932,6 +973,9 @@ def blocked_smo_solve(
                 max_inner=max_inner, wss=wss, eta_exclude=eta_exclude,
                 multipair=multipair)
             da_B = a_new.to(adt) - a_B_q
+            if _seed_in_box:
+                da_B = kernel_delta_in_box(a_B, da_B, C)
+        if inner == "kernel":
             if krow_cache:
                 lookup = _cache_lookup(st.cache_keys, B, da_B * y_Ba)
                 stat = torch.cat([stat, lookup[2].to(stat.dtype).view(1)])

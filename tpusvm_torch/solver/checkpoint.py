@@ -50,7 +50,7 @@ _FP_KEYS = ("C", "gamma", "eps", "tau", "max_iter", "q", "max_outer",
             "kernel_fast", "telemetry", "shrink_stable", "krow_cache",
             "pallas_fused_selection", "fused_fupdate", "pallas_multipair",
             "multipair", "pallas_eta_exclude", "eta_exclude",
-            "fused_selection")
+            "fused_selection", "_seed_in_box")
 
 
 class WatchdogTimeout(RuntimeError):

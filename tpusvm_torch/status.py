@@ -1,8 +1,10 @@
-"""Solver termination, shard integrity, tuning and serving status codes.
+"""Solver termination, shard integrity, tuning, serving and closed-loop
+status codes.
 
 The port's own copies of the JAX package's ``Status``, ``StreamStatus``,
-``TuneStatus`` and ``ServeStatus`` enums, with the same integer values, so
-a status read from one package compares equal to the other's.
+``TuneStatus``, ``ServeStatus``, ``AutopilotStatus`` and ``TenantsStatus``
+enums, with the same integer values, so a status read from one package
+compares equal to the other's.
 
   CONVERGED       b_low <= b_high + 2*tau
   NO_WORKING_SET  I_high or I_low is empty
@@ -103,3 +105,67 @@ class ServeStatus(enum.IntEnum):
     UNAVAILABLE = 6
     DRAINING = 7
     LOAD_FAILED = 8
+
+
+class AutopilotStatus(enum.IntEnum):
+    """Per-tick outcome codes of the closed-loop supervisor (autopilot/):
+    every tick ends in exactly one of these, so why the autopilot did or
+    did not retrain is an explicit code.
+
+      WATCHING             no detector triggered; nothing to do
+      TRIGGERED_HYSTERESIS a detector triggered on fewer than `hysteresis`
+                           consecutive ticks (a noisy detector cannot
+                           thrash retrains)
+      SUPPRESSED_COOLDOWN  triggered, but the post-refresh cooldown has
+                           not elapsed
+      SUPPRESSED_BREAKER   triggered, but the refresh circuit breaker is
+                           OPEN (repeated refresh failures tripped it):
+                           watch-only instead of hot-looping a poisoned
+                           batch
+      REFRESHED            refresh fit, save and swap all succeeded; the
+                           new generation is live
+      REFRESH_FAILED       the refresh stage raised (fit error, swap
+                           rollback, injected fault); counted by the
+                           breaker, retried on a later tick
+      REFRESH_TIMEOUT      the watchdog deadline stopped the fit at a
+                           checkpointed segment boundary; the next
+                           eligible tick resumes it from its checkpoint
+    """
+
+    WATCHING = 0
+    TRIGGERED_HYSTERESIS = 1
+    SUPPRESSED_COOLDOWN = 2
+    SUPPRESSED_BREAKER = 3
+    REFRESHED = 4
+    REFRESH_FAILED = 5
+    REFRESH_TIMEOUT = 6
+
+
+class TenantsStatus(enum.IntEnum):
+    """Per-tick outcome codes of the multi-tenant supervisor (tenants/):
+    what one tick did with the currently drifted tenant set.
+
+      WATCHING            no tenant's detectors triggered past its
+                          hysteresis; nothing refreshed
+      TRIGGERED_HYSTERESIS a tenant triggered, but none on `hysteresis`
+                          consecutive ticks yet
+      SUPPRESSED_BREAKER  drifted tenants exist but the fleet refresh
+                          circuit breaker is OPEN; watch-only
+      REFRESHED           the drifted set was coalesced into fleet
+                          launches (and solo fallbacks), every artifact
+                          saved and its swap rolled out
+      PARTIAL             the launches finished but at least one tenant's
+                          save or swap failed: its previous generation
+                          keeps serving and it stays drift-armed
+      REFRESH_FAILED      the refresh stage raised before any tenant
+                          completed; breaker-counted, retried on a later
+                          tick, where an in-flight fleet checkpoint
+                          resumes bit for bit
+    """
+
+    WATCHING = 0
+    TRIGGERED_HYSTERESIS = 1
+    SUPPRESSED_BREAKER = 2
+    REFRESHED = 3
+    PARTIAL = 4
+    REFRESH_FAILED = 5

@@ -13,14 +13,16 @@ format, read and written by the port.
   assign.py   global row -> cascade-leaf assignment from the manifest;
               the cascade's Partition filled shard by shard; row gathers
   infer.py    predict_stream / evaluate_stream over prefetched batches
-
-The JAX package's append.py (crash-safe tail appends) is not ported yet:
-only its autopilot and tenants tiers use it.
+  append.py   crash-safe tail appends: ShardWriter.open_append reopens a
+              committed dataset and grows it bit for bit as a one-shot
+              ingest of the concatenation would, exactly once under a
+              kill (a per-batch CRC ledger in the journal)
 
 Command line: `python -m tpusvm_torch ingest` writes a dataset;
 `train --data`, `predict --data` and `info DIR` consume one.
 """
 
+from tpusvm_torch.stream.append import AppendError, AppendWriter, append_blocks
 from tpusvm_torch.stream.assign import (
     RowAssignment,
     assign_rows,
@@ -51,6 +53,8 @@ from tpusvm_torch.stream.stats import (
 )
 
 __all__ = [
+    "AppendError",
+    "AppendWriter",
     "FORMAT_VERSION",
     "Manifest",
     "RowAssignment",
@@ -60,6 +64,7 @@ __all__ = [
     "ShardStats",
     "ShardWriter",
     "ShardedDataset",
+    "append_blocks",
     "assign_rows",
     "compute_stats",
     "evaluate_stream",

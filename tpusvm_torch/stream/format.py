@@ -23,7 +23,8 @@ holds one shard at most. Every shard write is atomic, retried under
 faults.DEFAULT_IO_POLICY behind the ``ingest.write_shard`` fault point,
 and journaled (``stream.journal``), so a killed ingest resumes from its
 last durable shard. `ingest_csv` streams a CSV through
-data.read_csv_blocks; `ingest_arrays` shards an in-memory array.
+data.read_csv_blocks; `ingest_arrays` shards an in-memory array;
+`ShardWriter.open_append` grows a committed dataset (stream/append.py).
 
 A manifest without format_version, or with an unknown one, is refused.
 """
@@ -244,14 +245,16 @@ class ShardWriter:
     def open_append(cls, out_dir: str,
                     rows_per_shard: Optional[int] = None,
                     resume: bool = False):
-        """Reopen a committed dataset and append to its tail: the JAX
-        package's AppendWriter (tpusvm/stream/append.py), which only the
-        autopilot and tenants tiers use, is not ported yet."""
-        raise NotImplementedError(
-            "appending to a committed dataset (the JAX package's "
-            "stream/append.py AppendWriter) is not ported yet (ROADMAP "
-            "Queue 1 item 11: it arrives with the autopilot and tenants "
-            "tiers that use it)")
+        """Reopen a committed dataset directory and append to its tail.
+
+        Returns a stream.append.AppendWriter: the grown dataset is bit for
+        bit a one-shot ingest of the concatenated data (shard layout,
+        stats, manifest), with exactly-once crash safety journaled per
+        batch (stream/append.py)."""
+        from tpusvm_torch.stream.append import AppendWriter
+
+        return AppendWriter(out_dir, rows_per_shard=rows_per_shard,
+                            resume=resume)
 
     # ------------------------------------------------------- crash safety
     @property
@@ -303,8 +306,8 @@ class ShardWriter:
             raise ValueError(
                 f"unsupported ingest journal version "
                 f"{obj.get('journal_version')!r} in {jp!r}"
-                + (" — this is an APPEND-session journal, which the "
-                   "JAX package's ShardWriter.open_append resumes"
+                + (" — this is an APPEND-session journal; resume it "
+                   "with ShardWriter.open_append(dir, resume=True)"
                    if obj.get("mode") == "append" else "")
             )
         for key, have in (("rows_per_shard", self.rows_per_shard),
