@@ -224,8 +224,25 @@ Phases, in order (any failure raises and the script exits non-zero):
      lanes), at most RESCUE_SHARE_MAX of the warm lane-rounds redone on
      the loop engine; (c) `autopilot-chaos-smoke` and
      `tenant-chaos-smoke` as subprocesses beside them.
+  24. the router (tpusvm_torch.router): three `python -m tpusvm_torch
+     serve --port 0 --state --trace` replica processes on the card, each
+     hosting phase 5's artifact, behind an in-process Router (replication
+     2) and its HTTP front: (a) 8 one-row clients on the held-out rows
+     through the router while the placed replica is SIGKILLed and revived
+     on its recorded port with its replica id: no response lost, every
+     score one generation's decision_function bits on the card,
+     failovers > 0; then straight to the placed replica and through the
+     router (requests/s, p50/p99: the router's hop); (b) generation 2,
+     a warm refresh of phase 5's artifact on rows [:62000] (#1 and #2
+     launched), rolled out staggered under that load: each replica swapped
+     once, a uniform skew-free final vector; (c) every routed
+     serve.request span resolves to a router.forward span of the router's
+     trace, torn last lines counted; (d) `fleet-metrics --router URL
+     --format json` equals merge_fleet of the payloads scraped directly,
+     `top --once` prints a row a process; the replicas' device MiB; (e)
+     `router-chaos-smoke` as a subprocess beside (a) and (b).
   (Phases 15 and 16 run after 13, before 14; 17 and 18 after 14; then
-  19, 20, 21, 22 and 23.)
+  19, 20, 21, 22, 23 and 24.)
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
@@ -238,6 +255,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 
@@ -3898,6 +3916,491 @@ def phase_closed_loop(X_all, Y_all, n_tr, m5, model5_path, Xm, lm, gamma,
         log(f"[23c] python -m {' '.join(args)}: exit 0 in {secs:.1f} s "
             f"(beside (a) and (b); {smi}); {ok[-1]!r}")
 
+# phase 24's shape: N_ROUTER_REPLICAS replica processes of phase 5's model
+# behind a router of replication 2; N_ROUTER_CLIENTS one-row clients, first
+# a load through the router that runs through the kill, the revive and the
+# rollout, then N_ROUTER_HOP requests straight to the placed replica and
+# the same through the router (the router's hop); generation 2 is a warm
+# refresh on rows [:n_tr + N_ROUTER_APPEND]
+N_ROUTER_REPLICAS, N_ROUTER_CLIENTS, N_ROUTER_HOP = 3, 8, 1000
+N_ROUTER_APPEND = 2000
+ROUTER_SMOKES = ((("tpusvm_torch.faults", "router-chaos-smoke"),
+                  "router chaos smoke ok"),)
+
+
+def start_router_smokes(device, out_dir):
+    """24(e)'s chaos gate as a background process: {name: (process, start
+    time)}. Each runs in a process group of its own, which exit kills
+    whole: a gate stopped midway leaves no replica process behind."""
+    import atexit
+    import os
+    import signal
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    root = str(Path(__file__).resolve().parent)
+    smokes = {}
+    for i, (args, _) in enumerate(ROUTER_SMOKES):
+        name = f"smoke24e_{i}"
+        argv = [sys.executable, "-m", *args]
+        if device == "cpu":
+            argv += ["--device", "cpu"]
+        with open(out_dir / f"{name}.out", "w") as o, \
+                open(out_dir / f"{name}.err", "w") as e:
+            p = subprocess.Popen(argv, cwd=root, stdout=o, stderr=e,
+                                 env=dict(os.environ, PYTHONPATH=root),
+                                 start_new_session=True)
+        smokes[name] = (p, time.perf_counter())
+
+    def kill_groups():
+        for p, _ in smokes.values():
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+    atexit.register(kill_groups)
+    return smokes
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
+
+
+def _one_row_clients(url, rows, threads, want, stop=None, done_after=None):
+    """`threads` clients POST one row a request to `url` + the predict
+    route, thread t the rows t::threads, until every row is sent (`stop`
+    None) or `stop` is set (then they cycle). Each response is checked
+    against `want(i, sent_at)`, the scores it may carry. Returns (ok count,
+    bad list, latencies s, seconds)."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    bad, lat, ok = [], [], [0]
+    lock = threading.Lock()
+
+    def run(t):
+        i = t
+        while (i < len(rows)) if stop is None else not stop.is_set():
+            k = i % len(rows)
+            body = json.dumps({"instances": [rows[k]]}).encode()
+            req = urllib.request.Request(
+                url + "/v1/models/m:predict", data=body, method="POST",
+                headers={"Content-Type": "application/json"})
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=120.0) as r:
+                    code, raw = r.status, r.read()
+            except urllib.error.HTTPError as e:
+                code, raw = e.code, e.read()
+            except Exception as e:  # noqa: BLE001 — a transport failure
+                # to the front door is a lost response
+                code, raw = None, f"{type(e).__name__}: {e}".encode()
+            dt = time.perf_counter() - t0
+            with lock:
+                if code != 200:
+                    bad.append(("lost", k, code, raw[:200]))
+                else:
+                    s = np.float32(json.loads(raw)["scores"][0])
+                    if s not in want(k, t0):
+                        bad.append(("bits", k, float(s)))
+                    else:
+                        ok[0] += 1
+                        lat.append(dt)
+            i += threads
+
+    ts = [threading.Thread(target=run, args=(t,), daemon=True)
+          for t in range(threads)]
+    t0 = time.perf_counter()
+    for t in ts:
+        t.start()
+    if done_after is not None:
+        done_after()
+    for t in ts:
+        t.join(300.0)
+    secs = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in ts), "[24] a client thread hung")
+    return ok[0], bad, lat, secs
+
+
+def _card_mib():
+    """The card's memory in use in MiB, from nvidia-smi (every process on
+    it; per-process rows name the container's pids as 1)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def _trace_lines(path):
+    """(records, torn lines) of one trace file: a line that is not a JSON
+    record is counted (a SIGKILL can cut the last one), with its number."""
+    recs, torn = [], []
+    with open(path) as f:
+        lines = f.read().splitlines()
+    for i, line in enumerate(lines, 1):
+        if not line.strip():
+            continue
+        try:
+            recs.append(json.loads(line))
+        except ValueError:
+            torn.append((i, len(lines)))
+    return recs, torn
+
+
+def phase_router(X_all, Y_all, n_tr, model5_path, device, counters,
+                 launches, smi, out_dir):
+    """Phase 24, the router (tpusvm_torch.router) in front of
+    N_ROUTER_REPLICAS `python -m tpusvm_torch serve --port 0 --state ...
+    --trace ...` replica processes on the card, each hosting phase 5's
+    artifact, warmed, with (e) running beside (a)-(b):
+
+    (a) the in-process Router (replication 2) and its HTTP front; 8
+        one-row clients on the held-out rows through the router while the
+        placed replica is SIGKILLed and revived on its recorded port with
+        its replica id: no response lost, every score bit-equal to one
+        generation's decision_function on the card, router.failovers > 0;
+        once (e) has ended, N_ROUTER_HOP requests from the same clients
+        straight to the placed replica and the same through the router
+        (requests/s and p50/p99: the router's hop);
+    (b) generation 2, a warm refresh of phase 5's artifact on rows
+        [:n_tr + N_ROUTER_APPEND] (#1 and #2 launched, counted), rolled
+        out staggered under (a)'s load: each replica swapped once, a
+        uniform skew-free final generation vector, and requests sent after
+        the rollout returned get generation 2's bits;
+    (c) every complete serve.request span a replica wrote for a routed
+        request resolves to a router.forward span of the router's trace
+        (role router); a killed replica's torn last line is counted;
+    (d) `fleet-metrics --router URL --format json` equals merge_fleet of
+        the per-process payloads scraped directly, `top --once` prints one
+        row per process; the replicas' device MiB;
+    (e) router-chaos-smoke as a subprocess, started with the phase (beside
+        23(c)'s gates it slowed phase 23 by a third: PERF.md section 4),
+        exits 0."""
+    import atexit
+    import os
+    import shutil
+    import threading
+    import urllib.request
+
+    import torch
+
+    from tpusvm_torch.models import load_any
+    from tpusvm_torch.obs.fleet import merge_fleet
+    from tpusvm_torch.obs.registry import MetricsRegistry
+    from tpusvm_torch.obs.trace import Tracer
+    from tpusvm_torch.router import Router, RouterConfig, make_router_http
+    from tpusvm_torch.serve.http import start_http_thread
+    from tpusvm_torch.serve.refresh import refresh_fit
+    from tpusvm_torch.status import RouterStatus, Status
+
+    shutil.rmtree(out_dir / "replicas", ignore_errors=True)
+    (out_dir / "replicas").mkdir(parents=True)
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root)
+    procs, logs, traces = [], [], [[] for _ in range(N_ROUTER_REPLICAS)]
+    if device != "cpu":
+        sync(device)
+        mem0 = (_card_mib(), torch.cuda.memory_reserved() / 2**20)
+    smokes = start_router_smokes(device, out_dir)
+
+    def state(i):
+        return out_dir / "replicas" / f"rep{i}" / "serve_state.json"
+
+    def spawn(i, port=0):
+        state(i).parent.mkdir(parents=True, exist_ok=True)
+        traces[i].append(out_dir / "replicas"
+                         / f"rep{i}.{len(traces[i])}.jsonl")
+        argv = [sys.executable, "-m", "tpusvm_torch", "serve", "--port",
+                str(port), "--state", str(state(i)), "--trace",
+                str(traces[i][-1])]
+        if port == 0:
+            argv += ["--model", f"m={model5_path}"]
+        if device == "cpu":
+            argv += ["--device", "cpu"]
+        log = open(out_dir / "replicas" / f"rep{i}.log", "ab")
+        logs.append(log)
+        return subprocess.Popen(argv, cwd=root, stdout=log,
+                                stderr=subprocess.STDOUT, env=env)
+
+    def wait_ready(i, deadline_s=240.0):
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < deadline_s:
+            check(procs[i].poll() is None, f"[24] replica {i} exited:\n"
+                  + (out_dir / "replicas" / f"rep{i}.log").read_text()[-2000:])
+            try:
+                st = json.loads(state(i).read_text())
+                if st.get("address") and st.get("models"):
+                    url = f"http://{st['address']}"
+                    code, body = _http(url + "/healthz", timeout=5.0)
+                    if code == 200 and json.loads(body)["status"] == "ok":
+                        return url, st["replica_id"]
+            except (OSError, ValueError):
+                pass
+            time.sleep(0.1)
+        check(False, f"[24] replica {i} not serving within {deadline_s} s")
+
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    t_spawn = time.perf_counter()
+    procs.extend(spawn(i) for i in range(N_ROUTER_REPLICAS))
+
+    # (b)'s generation 2, made while the replicas start
+    n_ref = n_tr + N_ROUTER_APPEND
+    gen2_path = str(out_dir / "gen2.npz")
+    _zero(counters)
+    sync(device)
+    t = time.perf_counter()
+    g2 = refresh_fit(model5_path, X_all[:n_ref], Y_all[:n_ref],
+                     out_path=gen2_path, warm=True, solver_opts=FULL_OPTS,
+                     device=device)
+    sync(device)
+    refresh_s = time.perf_counter() - t
+    counts = _count(counters)
+    launches.setdefault("fused_fupdate", {})["24"] = counts["fused_fupdate"]
+    launches.setdefault("inner_smo", {})["24"] = counts["inner_smo"]
+    check(g2.status_ == Status.CONVERGED, f"[24b] refresh: {g2.status_.name}")
+    check(device == "cpu" or (counts["fused_fupdate"] > 0
+                              and counts["inner_smo"] > 0),
+          f"[24b] refresh: #1/#2 not launched: {counts}")
+    log(f"[24b] generation 2: warm refresh of phase 5 on rows [:{n_ref}] in "
+        f"{refresh_s:.3f} s, status {g2.status_.name}, rounds "
+        f"{g2.result_.n_outer}, updates {g2.n_iter_ - 1}, SVs "
+        f"{g2.n_support_}; launches {counts} ({smi})")
+
+    Xq = X_all[n_tr:]
+    rows = [r.tolist() for r in np.asarray(Xq, np.float64)]
+    gens = [np.asarray(load_any(p, device=device).decision_function(Xq))
+            for p in (model5_path, gen2_path)]
+    check(gens[0].tobytes() != gens[1].tobytes(),
+          "[24] the generations' scores are equal: the bit check is vacuous")
+
+    ready = [wait_ready(i) for i in range(N_ROUTER_REPLICAS)]
+    start_s = time.perf_counter() - t_spawn
+    urls = [u for u, _ in ready]
+    ids = dict(ready)
+    rtrace = out_dir / "replicas" / "router.jsonl"
+    tracer = Tracer(str(rtrace), role="router")
+    reg = MetricsRegistry()
+    router = Router(RouterConfig(replicas=tuple(urls), replication=2, seed=7,
+                                 poll_interval_s=0.2, down_after=2,
+                                 forward_timeout_s=120.0),
+                    registry=reg, log_fn=None, tracer=tracer).start()
+    httpd = make_router_http(router, port=0)
+    router.attach_http(httpd, start_http_thread(httpd))
+    front = f"http://{httpd.server_address[0]}:{httpd.server_address[1]}"
+    placed = router.replica_set.placement("m")
+    log(f"[24a] {N_ROUTER_REPLICAS} replicas ready {start_s:.1f} s after "
+        f"their start (beside the refresh and (e)): {urls}; router at "
+        f"{front}, placement of m {list(placed)}")
+
+    def metric(name):
+        return sum(m["value"] for m in reg.snapshot()["metrics"]
+                   if m["name"] == name)
+
+    # (a) and (b): one load through the kill, the revive and the rollout
+    stop = threading.Event()
+    rolled = [None]  # when the rollout returned
+    events = {}
+
+    def want(k, t0):
+        if rolled[0] is not None and t0 > rolled[0]:
+            return (gens[1][k],)
+        return (gens[0][k], gens[1][k])
+
+    def chaos():
+        try:
+            _chaos()
+        finally:
+            stop.set()  # the clients stop whatever the gates said
+
+    def _chaos():
+        n0 = metric("router.requests")
+        while metric("router.requests") < n0 + 500:
+            time.sleep(0.01)
+        dark = urls.index(placed[0])
+        port = int(json.loads(state(dark).read_text())["address"]
+                   .rsplit(":", 1)[1])
+        t0 = time.perf_counter()
+        procs[dark].kill()  # a real SIGKILL: nothing flushed, no close
+        procs[dark].wait()
+        events["killed_at"] = metric("router.requests")
+        procs[dark] = spawn(dark, port=port)
+        url, rid = wait_ready(dark)
+        events["revive_s"] = time.perf_counter() - t0
+        check(url == urls[dark], f"[24a] replica {dark} revived on {url}, "
+              f"not {urls[dark]}")
+        check(rid == ids[urls[dark]], f"[24a] replica {dark} revived as "
+              f"{rid}, not {ids[urls[dark]]}")
+        deadline = time.perf_counter() + 30.0
+        while any(s != "ok" for s in router.poller.states().values()):
+            check(time.perf_counter() < deadline,
+                  f"[24a] the poller did not re-admit the revived replica: "
+                  f"{router.poller.states()}")
+            time.sleep(0.05)
+        events["dark"] = dark
+        t0 = time.perf_counter()
+        events["rollout"] = router.rollout("m", gen2_path)
+        rolled[0] = time.perf_counter()
+        events["rollout_s"] = rolled[0] - t0
+        time.sleep(1.0)  # traffic on generation 2 alone
+
+    ok, bad, lat, secs = _one_row_clients(front, rows, N_ROUTER_CLIENTS, want,
+                                          stop=stop, done_after=chaos)
+    out = events["rollout"]
+    rep = out["report"]
+    failovers, retries = metric("router.failovers"), metric("router.retries")
+    check(not bad, f"[24a] {len(bad)} lost or off-generation responses: "
+          f"{bad[:5]}")
+    check(failovers > 0, "[24a] the kill never exercised failover "
+          "(router.failovers == 0)")
+    check(out["status"] == RouterStatus.OK.name and not out["failed"]
+          and sorted(out["swapped"]) == sorted(urls) and not out["skipped"],
+          f"[24b] rollout: {out}")
+    check(rep["skew"] == 0 and not rep["unknown"]
+          and set(rep["vector"].values()) == {2},
+          f"[24b] final generation vector not uniform at 2: {rep}")
+    log(f"[24a] through the kill and revive of replica {events['dark']} "
+        f"(the placed one, killed after {events['killed_at']:.0f} routed "
+        f"requests) and the rollout, beside (e): {ok} responses, 0 lost, "
+        f"every one a generation's bits, {ok / secs:.0f} requests/s over "
+        f"{secs:.1f} s, p50 {_pct(lat, 50) * 1e3:.3f} ms, p99 "
+        f"{_pct(lat, 99) * 1e3:.3f} ms; failovers {failovers:.0f}, retries "
+        f"{retries:.0f}; revive {events['revive_s']:.1f} s (SIGKILL to "
+        f"/healthz ok, same address and replica id) ({smi})")
+    log(f"[24b] staggered rollout to generation 2 in "
+        f"{events['rollout_s']:.3f} s under the load: swapped "
+        f"{len(out['swapped'])} of {len(urls)} once each, final vector "
+        f"{rep['vector']}, skew {rep['skew']} ({smi})")
+
+    # (e) the chaos gate, running since the phase began
+    done = _finish(smokes, out_dir, 600, "24e")
+    for i, (args, line) in enumerate(ROUTER_SMOKES):
+        text, secs = done[f"smoke24e_{i}"]
+        ok_lines = [x for x in text.splitlines() if x.startswith(line)]
+        check(ok_lines, f"[24e] {' '.join(args)}: no {line!r} line")
+        log(f"[24e] python -m {' '.join(args)}: exit 0 in {secs:.1f} s "
+            f"(beside (a) and (b); {smi}); {ok_lines[-1]!r}")
+
+    # (a) the router's hop, with (e) ended: the same clients straight to
+    # the placed replica, then through the router
+    hop = {}
+    for arm, url in (("direct", placed[0]), ("router", front)):
+        n_ok, bad, lat, secs = _one_row_clients(
+            url, rows[:N_ROUTER_HOP], N_ROUTER_CLIENTS,
+            lambda k, t0: (gens[1][k],))
+        check(not bad and n_ok == N_ROUTER_HOP,
+              f"[24a] {arm}: {len(bad)} bad responses: {bad[:5]}")
+        hop[arm] = (n_ok / secs, _pct(lat, 50) * 1e3, _pct(lat, 99) * 1e3)
+    log(f"[24a] {N_ROUTER_HOP} one-row requests from {N_ROUTER_CLIENTS} "
+        f"clients, every score generation 2's bits: straight to the placed "
+        f"replica {hop['direct'][0]:.0f} requests/s, p50 "
+        f"{hop['direct'][1]:.3f} ms, p99 {hop['direct'][2]:.3f} ms; through "
+        f"the router {hop['router'][0]:.0f} requests/s, p50 "
+        f"{hop['router'][1]:.3f} ms, p99 {hop['router'][2]:.3f} ms ({smi})")
+
+    # (d) the fleet view, at rest: no request in flight, and the poller
+    # stopped (each /healthz poll moves a replica's serve.staleness_s)
+    router.poller.stop()
+    # (the fleet commands take no device: "cuda" adds no --device flag)
+    text, _ = _cli_in_process(["fleet-metrics", "--router", front,
+                               "--format", "json"], "cuda")
+    doc = json.loads(text)
+    direct = []
+    for url in [*router.replica_set.replicas(), front]:
+        with urllib.request.urlopen(url + "/metrics.json", timeout=10) as r:
+            direct.append(json.loads(r.read()))
+
+    def canon(snap):
+        return sorted(json.dumps(e, sort_keys=True) for e in snap["metrics"])
+
+    want_merged = merge_fleet(direct)
+    check(not doc["errors"] and len(doc["processes"]) == len(direct),
+          f"[24d] fleet page: errors {doc['errors']}, "
+          f"{len(doc['processes'])} processes")
+    diff = sorted(set(canon(doc["merged"])) ^ set(canon(want_merged)))
+    check(not diff, "[24d] fleet-metrics' merged view != merge_fleet of the "
+          f"payloads scraped directly; the differing series: {diff[:6]}")
+    totals = {}
+    for e in doc["merged"]["metrics"]:
+        if e["type"] == "counter":
+            totals[e["name"]] = totals.get(e["name"], 0) + e["value"]
+    top, _ = _cli_in_process(["top", "--once", "--router", front], "cuda")
+    top_rows = top.splitlines()[1:]
+    check(len(top_rows) == len(direct)
+          and sorted(r.split()[0] for r in top_rows)
+          == ["router"] + ["serve"] * N_ROUTER_REPLICAS,
+          f"[24d] top --once:\n{top}")
+    mib = "not measured (no card)"
+    if device != "cpu":
+        sync(device)
+        # the card's use now, less this process's growth, is the replicas'
+        # (e)'s processes have exited
+        grew = (_card_mib() - mem0[0]) - (torch.cuda.memory_reserved() / 2**20
+                                          - mem0[1])
+        mib = (f"{grew:.0f} MiB for the {N_ROUTER_REPLICAS} replicas, "
+               f"{grew / N_ROUTER_REPLICAS:.0f} each (nvidia-smi's "
+               f"memory.used less this process's reserved growth)")
+    log(f"[24d] fleet-metrics --router: {len(doc['processes'])} processes, "
+        f"merged view equal to merge_fleet of the direct scrapes "
+        f"({len(want_merged['metrics'])} series); counter totals "
+        f"serve.ok {totals.get('serve.ok', 0):.0f} (the killed process's "
+        f"went with it), router.requests {totals.get('router.requests', 0):.0f}"
+        f", router.forwards {totals.get('router.forwards', 0):.0f}; top "
+        f"--once {len(top_rows)} rows; device memory {mib} ({smi})")
+    for line in top.splitlines():
+        log(f"[24d]   {line}")
+
+    # teardown: the router, then each replica by SIGTERM (a clean close
+    # ends its trace)
+    router.close()
+    tracer.close()
+    for p in procs:
+        p.terminate()
+    for i, p in enumerate(procs):
+        try:
+            rc = p.wait(60)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        check(rc == 0, f"[24] replica {i} exit {rc} on SIGTERM")
+    for f in logs:
+        f.close()
+
+    # (c) every routed serve.request span resolves to a router.forward span
+    rrecs, rtorn = _trace_lines(rtrace)
+    check(not rtorn, f"[24c] the router's trace has torn lines {rtorn}")
+    forwards = {r["id"] for r in rrecs
+                if r.get("kind") == "span" and r["name"] == "router.forward"}
+    tid = tracer.trace_id
+    routed = unresolved = 0
+    torn = {}
+    for i in range(N_ROUTER_REPLICAS):
+        for path in traces[i]:
+            recs, tl = _trace_lines(path)
+            if tl:
+                torn[path.name] = tl
+            check(all(line == n for line, n in tl),
+                  f"[24c] {path.name}: a torn line before the last {tl}")
+            for r in recs:
+                if r.get("kind") == "span" and r["name"] == "serve.request" \
+                        and r["attrs"].get("ctx"):
+                    routed += 1
+                    ctx = r["attrs"]["ctx"]
+                    if ctx.get("trace_id") != tid \
+                            or ctx.get("span_id") not in forwards:
+                        unresolved += 1
+    n_routed_ok = ok + N_ROUTER_HOP
+    check(unresolved == 0, f"[24c] {unresolved} serve.request spans do not "
+          f"resolve to a router.forward span")
+    check(routed >= n_routed_ok, f"[24c] {routed} routed serve.request spans "
+          f"for {n_routed_ok} routed responses")
+    log(f"[24c] {routed} complete serve.request spans from "
+        f"{sum(len(x) for x in traces)} replica trace files carry the "
+        f"router's context, every one resolving to one of the "
+        f"{len(forwards)} router.forward spans ({n_routed_ok} routed "
+        f"responses); torn last lines: {torn or 'none'}")
+
 
 def sync(device):
     import torch
@@ -4596,6 +5099,11 @@ def main():
                       "cuda", counters, launches, smi,
                       _build.BUILD_DIR / "chip_smoke_loop")
     clock("23")
+
+    # ---- 24. the router over serve replica processes ---------------------
+    phase_router(X_all, Y_all, 60000, model5_path, "cuda", counters,
+                 launches, smi, _build.BUILD_DIR / "chip_smoke_router")
+    clock("24")
 
     for k in kernels:
         k["launches_by_phase"] = launches[k["name"]]

@@ -1069,3 +1069,74 @@ def test_tenants_kill_arm_on_the_card_resumes_bit_for_bit(dev, tmp_path):
         b = np.load(got[tid]["out_path"])
         for k in a.files:
             assert a[k].tobytes() == b[k].tobytes(), f"{tid}:{k}"
+
+
+def test_router_over_two_card_replicas_keeps_decision_function_bits(
+        dev, tmp_path):
+    """Two in-process replicas on the card behind the router and its HTTP
+    front: every routed score is the artifact's decision_function bits on
+    the card, with the placed replica's listener stopped midway (failover
+    to the other), and the fleet view counts every routed request."""
+    import json
+    import urllib.request
+
+    from tpusvm_torch.data import rings
+    from tpusvm_torch.obs.registry import MetricsRegistry
+    from tpusvm_torch.router import Router, RouterConfig, make_router_http
+    from tpusvm_torch.serve import ServeConfig, Server
+    from tpusvm_torch.serve.http import (make_http_server, start_http_thread,
+                                         stop_http_server)
+
+    X, Y = rings(n=240, seed=2)
+    path = str(tmp_path / "m.npz")
+    BinarySVC(SVMConfig(C=10.0, gamma=10.0), device=dev).fit(X, Y).save(path)
+    Xq, _ = rings(n=64, seed=3)
+    from tpusvm_torch.models import load_any
+
+    want = np.asarray(load_any(path, device="cuda").decision_function(Xq))
+    servers, fronts = [], []
+    for _ in range(2):
+        srv = Server(ServeConfig(max_batch=8), device="cuda")
+        srv.load_model("m", path)
+        srv.warmup()
+        httpd = make_http_server(srv, port=0)
+        srv.attach_http(httpd, start_http_thread(httpd))
+        servers.append(srv)
+        fronts.append(httpd)
+    urls = [f"http://{h.server_address[0]}:{h.server_address[1]}"
+            for h in fronts]
+    router = Router(RouterConfig(replicas=tuple(urls), replication=2,
+                                 poll_interval_s=10.0),
+                    registry=MetricsRegistry(), log_fn=None)
+    router.poller.poll_once()
+    httpd = make_router_http(router, port=0)
+    router.attach_http(httpd, start_http_thread(httpd))
+    base = f"http://{httpd.server_address[0]}:{httpd.server_address[1]}"
+    try:
+        got = []
+        for i in range(len(Xq)):
+            if i == len(Xq) // 2:
+                placed = router.replica_set.placement("m")[0]
+                stop_http_server(fronts[urls.index(placed)])
+            req = urllib.request.Request(
+                base + "/v1/models/m:predict",
+                data=json.dumps({"instances": [Xq[i].tolist()]}).encode(),
+                headers={"Content-Type": "application/json"}, method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                got.append(json.loads(r.read())["scores"][0])
+        assert np.asarray(got, np.float32).tobytes() == want.tobytes()
+        # every request scored once, over the two replicas together (the
+        # dark one has no listener to scrape: read its payload in-process)
+        from tpusvm_torch.obs.fleet import merge_fleet
+
+        merged = merge_fleet([s.fleet_snapshot() for s in servers]
+                             + [router.fleet_payload()])
+        total = {n: sum(e["value"] for e in merged["metrics"]
+                        if e["name"] == n)
+                 for n in ("serve.ok", "router.requests", "router.failovers")}
+        assert total["serve.ok"] == total["router.requests"] == len(Xq)
+        assert total["router.failovers"] > 0
+    finally:
+        router.close()
+        for srv in servers:
+            srv.close()

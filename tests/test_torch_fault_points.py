@@ -190,9 +190,17 @@ def test_validate_accepts_and_refuses_as_jax(plan, tmp_path):
 
 
 def test_chaos_commands_of_unported_tiers_exit_2(capsys):
-    for cmd, item in (("router-chaos-smoke", "11(d)"),):
-        assert faults_main([cmd]) == 2
-        assert f"ROADMAP Queue 1 item {item}" in capsys.readouterr().out
+    from tpusvm_torch.faults.__main__ import NOT_PORTED
+
+    # every chaos command of the JAX package is ported: router-chaos-smoke
+    # (the last one) now parses its own flags instead of naming its item
+    assert NOT_PORTED == {}
+    with pytest.raises(SystemExit) as e:
+        faults_main(["router-chaos-smoke", "--help"])
+    assert e.value.code == 0
+    out = capsys.readouterr().out
+    assert "router-chaos-smoke" in out and "--device" in out
+    assert "ROADMAP" not in out
     assert faults_main(["no-such-command"]) == 2
 
 
@@ -206,7 +214,8 @@ def test_chaos_smokes_raise_without_a_card():
         pytest.skip("a CUDA device is present: the no-card path is not "
                     "reachable")
     for cmd in ("kill-resume-smoke", "pod-chaos-smoke", "swap-chaos-smoke",
-                "autopilot-chaos-smoke", "tenant-chaos-smoke"):
+                "autopilot-chaos-smoke", "tenant-chaos-smoke",
+                "router-chaos-smoke"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             faults_main([cmd])
 

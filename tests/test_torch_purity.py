@@ -145,7 +145,8 @@ def test_checkpoint_shrink_and_csv_entry_points_raise_without_a_card(tmp_path):
                                  "data.native_io", "serve", "serve.http",
                                  "serve.refresh", "serve.watch",
                                  "obs.fleet", "stream.append", "autopilot",
-                                 "tenants"])
+                                 "tenants", "router", "obs.trace",
+                                 "router.proxy"])
 def test_new_tiers_import_alone_without_jax_or_tpusvm(pkg):
     # each tier in a fresh interpreter, alone: what it pulls in is its own
     code = f"""

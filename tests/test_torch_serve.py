@@ -805,12 +805,24 @@ def test_cli_serve_smoke_in_process(tmp_path, capsys, binary_model):
     assert 'tpusvm_serve_ok_total{model="rings"} 32' in out
 
 
-def test_cli_serve_refuses_trace_and_nothing_to_host():
+def test_cli_serve_refuses_trace_and_nothing_to_host(tmp_path, capsys):
     from tpusvm_torch.cli import main
+    from tpusvm_torch.obs.trace import read_trace
 
-    for argv, msg in ((["serve", "--smoke", "--trace", "t.jsonl"],
-                       "item 12"),
-                      (["serve", "--smoke", "--profile", "d"], "item 12"),
+    # --trace works: a role-serve trace with the warm-up and smoke phases
+    # and the final metrics (the name is kept; --profile is still refused)
+    path = str(tmp_path / "t.jsonl")
+    assert main(["serve", "--smoke", "--trace", path, "--smoke-threads", "2",
+                 "--smoke-requests", "4", "--device", "cpu"]) == 0
+    assert "bit-equal" in capsys.readouterr().out
+    recs = read_trace(path)
+    assert recs[0]["kind"] == "meta" and recs[0]["role"] == "serve"
+    assert recs[0]["argv"] == ["serve"] and recs[-1]["kind"] == "end"
+    phases = [r["name"] for r in recs if r["kind"] == "span"]
+    assert phases == ["warmup", "smoke"]
+    assert {r["name"] for r in recs if r["kind"] == "event"} == {
+        "serve.metrics", "metrics.snapshot"}
+    for argv, msg in ((["serve", "--smoke", "--profile", "d"], "item 12"),
                       (["serve", "--device", "cpu"], "nothing to host"),
                       (["serve", "--smoke", "--assert-cached"],
                        "--cache-dir")):

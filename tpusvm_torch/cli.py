@@ -1,5 +1,5 @@
 """Command line: `python -m tpusvm_torch train|pod|predict|ingest|tune|serve|
-refresh|autopilot|tenants|info`.
+refresh|autopilot|tenants|router|fleet-metrics|top|info`.
 
 train fits a model on a CSV (--train, last column = label; --test scores a
 held-out CSV) or a synthetic dataset, scores the held-out rows and prints
@@ -45,8 +45,14 @@ closed loop of one deployed model over an append-grown dataset (drift
 detectors, warm refresh, hot-swap; --smoke is its gate), and tenants that
 of many tenant models over one shared corpus (coalesced fleet refreshes,
 a staggered roll-out; --smoke); info also describes a tenant store.
-train, predict, tune, serve, refresh, autopilot and tenants run on the
-card unless --device cpu.
+serve --trace writes a JSONL trace whose serve.request spans name the
+span of the router that forwarded them. router is the HTTP front door
+over serve replicas (tpusvm_torch.router: HRW placement, health-polled
+admission, failover, staggered rollouts with skew holds; --trace;
+--smoke is its gate), fleet-metrics prints one merged metrics view of a
+fleet's processes, and top renders it as a table. train, predict, tune,
+serve, refresh, autopilot, tenants and the router and fleet-metrics
+smokes run on the card unless --device cpu.
 """
 
 from __future__ import annotations
@@ -384,6 +390,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_tune_parser(sub)
     _add_serve_parsers(sub)
     _add_closed_loop_parsers(sub)
+    _add_router_parsers(sub)
     inf = sub.add_parser("info", help="print the torch/CUDA versions and the "
                          "visible devices, or describe a model artifact")
     inf.add_argument("path", nargs="?", default=None,
@@ -554,8 +561,8 @@ def _check_train_args(args) -> None:
             raise SystemExit("--fleet-compact needs --fleet/--solver "
                              "fleet")
     if args.trace or args.profile:
-        raise SystemExit("train --trace/--profile: the trace and profile "
-                         "layer is not ported yet (ROADMAP Queue 1 item 12)")
+        raise SystemExit("train --trace/--profile: tracing and profiling a "
+                         "fit are not ported yet (ROADMAP Queue 1 item 12)")
     if args.class_parallel:
         if not args.multiclass:
             raise SystemExit("--class-parallel requires --multiclass (it "
@@ -1138,8 +1145,9 @@ def cmd_pod(args) -> int:
     from tpusvm_torch.stream import ingest_arrays, open_dataset
 
     if args.trace_dir or args.trace_max_bytes is not None:
-        raise SystemExit("pod --trace-dir/--trace-max-bytes: the trace layer "
-                         "is not ported yet (ROADMAP Queue 1 item 12)")
+        raise SystemExit("pod --trace-dir/--trace-max-bytes: the pod's "
+                         "tracers are not ported yet (ROADMAP Queue 1 item "
+                         "12)")
     topologies = (["tree", "star"] if args.topology == "both"
                   else [args.topology])
     cfg = SVMConfig(C=args.C, gamma=args.gamma, max_rounds=args.max_rounds)
@@ -1308,8 +1316,8 @@ def cmd_ingest(args) -> int:
             f"`python -m tpusvm_torch train --data OUT --kernel "
             f"{args.kernel} --rff-dim D --rff-seed S` instead")
     if args.trace or args.profile:
-        raise SystemExit("ingest --trace/--profile: the trace and profile "
-                         "layer is not ported yet (ROADMAP Queue 1 item 12)")
+        raise SystemExit("ingest --trace/--profile: tracing and profiling "
+                         "ingest are not ported yet (ROADMAP Queue 1 item 12)")
     if args.smoke:
         return _ingest_smoke()
     if not args.out:
@@ -1411,8 +1419,8 @@ def cmd_tune(args) -> int:
                                    save_tune_result, tune)
 
     if args.trace or args.profile:
-        raise SystemExit("tune --trace/--profile: the trace and profile "
-                         "layer is not ported yet (ROADMAP Queue 1 item 12)")
+        raise SystemExit("tune --trace/--profile: tracing and profiling "
+                         "tune are not ported yet (ROADMAP Queue 1 item 12)")
     if args.smoke:
         # the JAX command line's fixture: 2 folds, a 2x2 grid; rings for
         # one family, separable blobs for a family sweep (rings fail the
@@ -1693,7 +1701,7 @@ def _info_artifact(path: str) -> int:
 # ------------------------------------------------------------- serving
 def _add_serve_parsers(sub) -> None:
     """`serve` and `refresh`, with the JAX command line's flags; serve's
-    --trace/--trace-max-bytes/--profile are refused (item 12)."""
+    --profile is refused (item 12)."""
     sv = sub.add_parser(
         "serve", help="serve saved models over HTTP with deadline-aware "
         "micro-batching, one CUDA graph per row bucket (tpusvm_torch.serve)")
@@ -1766,9 +1774,14 @@ def _add_serve_parsers(sub) -> None:
     sv.add_argument("--smoke-requests", type=int, default=32,
                     help="requests per smoke thread")
     sv.add_argument("--trace", metavar="PATH",
-                    help="not ported yet (ROADMAP Queue 1 item 12)")
+                    help="write a JSONL trace (role serve): a serve.request "
+                    "span per HTTP predict, carrying the X-Tpusvm-Trace "
+                    "context a router in front sent, the warm-up and smoke "
+                    "phases, fault/retry events and the final metrics")
     sv.add_argument("--trace-max-bytes", type=int, default=None, metavar="N",
-                    help="not ported yet (ROADMAP Queue 1 item 12)")
+                    help="rotate the --trace file past N bytes (PATH.1 keeps "
+                    "the previous file), so a long-running serve --trace "
+                    "cannot fill the disk; default: unbounded")
     sv.add_argument("--profile", "--xprof", metavar="DIR", dest="profile",
                     help="not ported yet (ROADMAP Queue 1 item 12)")
     slo = sv.add_argument_group("serving SLOs")
@@ -2091,10 +2104,9 @@ def cmd_serve(args) -> int:
 
     from tpusvm_torch.serve import ModelLoadError, Server
 
-    if args.trace or args.trace_max_bytes is not None or args.profile:
-        raise SystemExit("serve --trace/--trace-max-bytes/--profile: the "
-                         "trace and profile layer is not ported yet (ROADMAP "
-                         "Queue 1 item 12)")
+    if args.profile:
+        raise SystemExit("serve --profile: the compile observatory is not "
+                         "ported yet (ROADMAP Queue 1 item 12)")
     cache_dir = args.cache_dir or os.environ.get("TPUSVM_CACHE_DIR")
     if args.assert_cached and not cache_dir:
         raise SystemExit("serve: --assert-cached needs --cache-dir (or "
@@ -2110,18 +2122,51 @@ def cmd_serve(args) -> int:
     except ValueError as e:
         raise SystemExit(f"serve: {e}")
     server = Server(cfg, dtype=args.dtype, device=args.device)
+    tracer = _make_tracer(args, "serve", role="serve")
     with tempfile.TemporaryDirectory() as td:
         try:
-            return _serve(args, server, cache_dir, td)
+            return _serve(args, server, cache_dir, td, tracer)
         except ModelLoadError as e:
             # the classified load failure (ServeStatus.LOAD_FAILED): the
             # offending path and cause, never a raw numpy/zipfile traceback
             raise SystemExit(f"serve: {e}")
         finally:
+            if tracer is not None:
+                for name in server.registry.names():
+                    tracer.event("serve.metrics", model=name,
+                                 snapshot=server.metrics(name))
+                    tracer.metrics_snapshot(
+                        server._worker(name).metrics.registry_snapshot())
             server.close()
+            _close_tracer(tracer)
 
 
-def _serve(args, server, cache_dir, td) -> int:
+def _make_tracer(args, command: str, role=None):
+    """The --trace plumbing: one Tracer (rotating past --trace-max-bytes)
+    that also receives the fault/retry/breaker lifecycle events. role=
+    makes it a trace-context origin: its spans can be the parents of
+    another process's spans (router -> serve)."""
+    if not getattr(args, "trace", None):
+        return None
+    from tpusvm_torch import faults
+    from tpusvm_torch.obs.trace import Tracer
+
+    tracer = Tracer(args.trace, argv=[command], role=role,
+                    max_bytes=getattr(args, "trace_max_bytes", None))
+    faults.set_event_sink(tracer.event)
+    return tracer
+
+
+def _close_tracer(tracer) -> None:
+    if tracer is not None:
+        from tpusvm_torch import faults
+
+        faults.set_event_sink(None)
+        tracer.close()
+
+
+def _serve(args, server, cache_dir, td, tracer=None) -> int:
+    import contextlib
     import json
     import os
     import signal
@@ -2160,7 +2205,11 @@ def _serve(args, server, cache_dir, td) -> int:
         print("smoke: hosting a rings model (C=10, gamma=10, 240 rows)")
     if not args.no_warmup:
         t = time.perf_counter()
-        for name, n in server.warmup().items():
+        span = (tracer.span("warmup", phase=True) if tracer
+                else contextlib.nullcontext())
+        with span:
+            built = server.warmup()
+        for name, n in built.items():
             kind = ("CUDA graphs captured" if server.device.type == "cuda"
                     else "programs built")
             print(f"warmed {name}: {n} bucket {kind}")
@@ -2192,7 +2241,11 @@ def _serve(args, server, cache_dir, td) -> int:
         return 0
 
     if args.smoke:
-        rc = _serve_smoke(server, args.smoke_threads, args.smoke_requests)
+        span = (tracer.span("smoke", phase=True) if tracer
+                else contextlib.nullcontext())
+        with span:
+            rc = _serve_smoke(server, args.smoke_threads,
+                              args.smoke_requests)
         rc = rc or cached_gate()
         print(server.metrics_text(), end="")
         return rc
@@ -2200,6 +2253,9 @@ def _serve(args, server, cache_dir, td) -> int:
     from tpusvm_torch.serve.http import make_http_server
 
     httpd = make_http_server(server, host=args.host, port=args.port)
+    # per-request serve.request spans honouring a propagated
+    # X-Tpusvm-Trace context (a router in front names its forward span)
+    httpd.tpusvm_tracer = tracer
     # close() owns the HTTP teardown: shutdown + server_close + join
     server.attach_http(httpd)
     host, port = httpd.server_address[:2]
@@ -2427,7 +2483,7 @@ def _refresh_smoke(device: str) -> int:
 
 def _refuse_trace(args, cmd: str) -> None:
     if args.trace or args.trace_max_bytes is not None:
-        raise SystemExit(f"{cmd} --trace/--trace-max-bytes: the trace layer "
+        raise SystemExit(f"{cmd} --trace/--trace-max-bytes: tracing {cmd} "
                          "is not ported yet (ROADMAP Queue 1 item 12)")
 
 
@@ -2827,6 +2883,504 @@ def _info_tenant_store(path: str) -> int:
               "drift-armed")
     return 0
 
+# ------------------------------------------------- routing, fleet view
+def _add_router_parsers(sub) -> None:
+    """`router`, `fleet-metrics` and `top`, with the JAX command line's
+    flags."""
+    ro = sub.add_parser(
+        "router",
+        help="multi-replica routing tier (tpusvm_torch.router): an HTTP "
+        "front door over N `serve` replicas — HRW placement, burn-aware "
+        "admission, failover on connection failure/503, staggered "
+        "rollouts with skew holds")
+    ro.add_argument("--replica", action="append", default=[],
+                    metavar="URL", dest="replicas",
+                    help="replica base URL (http://host:port), "
+                    "repeatable; the initial membership — /admin/join "
+                    "and /admin/leave mutate it live")
+    ro.add_argument("--host", default="127.0.0.1")
+    ro.add_argument("--port", type=int, default=8470,
+                    help="router HTTP port (0 = ephemeral; default 8470)")
+    ro.add_argument("--replication", type=int, default=2, metavar="K",
+                    help="HRW replication factor: a model's requests "
+                    "prefer its K placed replicas (default 2)")
+    ro.add_argument("--seed", type=int, default=0,
+                    help="placement seed (tables are byte-reproducible "
+                    "per seed)")
+    ro.add_argument("--poll-interval-s", type=float, default=1.0,
+                    help="replica /healthz poll period (default 1.0)")
+    ro.add_argument("--down-after", type=int, default=2,
+                    help="consecutive failed polls that mark a replica "
+                    "down (default 2; one blip keeps its state)")
+    ro.add_argument("--health-timeout-s", type=float, default=2.0,
+                    help="per-poll fetch timeout (default 2.0)")
+    ro.add_argument("--forward-timeout-s", type=float, default=10.0,
+                    help="per-attempt forward timeout (default 10.0)")
+    ro.add_argument("--skew-window", type=int, default=1,
+                    help="rollout generation-skew hold threshold "
+                    "(default 1: the steady staggered state)")
+    ro.add_argument("--smoke", action="store_true",
+                    help="gate: an in-process two-replica fleet behind the "
+                    "router — concurrent clients, a replica outage mid-run "
+                    "(failover must absorb it), a staggered rollout; "
+                    "asserts zero lost responses, every score bitwise one "
+                    "of the two generations, and a skew-free final vector")
+    ro.add_argument("--smoke-threads", type=int, default=4)
+    ro.add_argument("--smoke-requests", type=int, default=40,
+                    help="requests per smoke thread")
+    ro.add_argument("--trace", metavar="PATH",
+                    help="write router.forward spans (one per proxied "
+                    "request, carrying the minted trace context that "
+                    "replicas honor) to a JSONL trace")
+    ro.add_argument("--trace-max-bytes", type=int, default=None,
+                    metavar="N")
+    ro.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where --smoke's replicas fit and score (the "
+                    "router itself is host logic)")
+
+    def add_fleet_sources(p):
+        p.add_argument("--router", metavar="URL", default=None,
+                       help="router base URL: adopts its /fleet/"
+                       "metrics.json (the router scrapes its replicas)")
+        p.add_argument("--replica", action="append", default=[],
+                       metavar="URL", dest="replicas",
+                       help="serve replica base URL (scrapes "
+                       "/metrics.json), repeatable")
+        p.add_argument("--snapshot-file", action="append", default=[],
+                       metavar="PATH", dest="snapshot_files",
+                       help="on-disk snapshot payload (e.g. an "
+                       "autopilot metrics_snapshot_path drop), "
+                       "repeatable")
+        p.add_argument("--timeout-s", type=float, default=2.0,
+                       help="per-scrape fetch timeout (default 2.0)")
+
+    fm = sub.add_parser(
+        "fleet-metrics",
+        help="scrape every fleet process (serve replicas' "
+        "/metrics.json, a router's /fleet/metrics.json, on-disk "
+        "snapshot drops) and print ONE merged, (role, instance)-"
+        "labelled metrics view (obs.fleet.merge_fleet: counters sum, "
+        "gauges max, histograms add)")
+    add_fleet_sources(fm)
+    fm.add_argument("--format", choices=["text", "json"], default="text")
+    fm.add_argument("--smoke", action="store_true",
+                    help="gate: an in-process two-replica fleet behind a "
+                    "router; non-zero exit unless the merged fleet view "
+                    "equals merge_fleet() of the per-process snapshots "
+                    "scraped directly (exact counter totals, label-tagged)")
+    fm.add_argument("-q", "--quiet", action="store_true")
+    fm.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where --smoke's replicas fit and score")
+
+    tp = sub.add_parser(
+        "top",
+        help="live fleet table (one row per process: role, instance, "
+        "pid, generation, request totals, qps, p99, burn, breaker, "
+        "live shards) refreshed from the same sources as "
+        "fleet-metrics")
+    add_fleet_sources(tp)
+    tp.add_argument("--interval-s", type=float, default=2.0,
+                    help="refresh period (default 2.0)")
+    tp.add_argument("--once", action="store_true",
+                    help="scrape once, print one table, exit (scripts; no "
+                    "screen clearing)")
+    tp.add_argument("--iterations", type=int, default=0, metavar="N",
+                    help="exit after N refreshes (0 = until Ctrl-C)")
+    tp.add_argument("--no-clear", action="store_true",
+                    help="append tables instead of clearing the screen")
+
+
+def cmd_router(args) -> int:
+    """The routing front door over `serve` replicas (host logic)."""
+    import json
+    import signal
+
+    from tpusvm_torch.router import Router, RouterConfig, make_router_http
+
+    if args.smoke:
+        return _router_smoke(args)
+    if not args.replicas:
+        raise SystemExit("router: no fleet — pass --replica URL "
+                         "(repeatable) or --smoke")
+    cfg = RouterConfig(
+        replicas=tuple(args.replicas),
+        replication=args.replication,
+        seed=args.seed,
+        poll_interval_s=args.poll_interval_s,
+        down_after=args.down_after,
+        health_timeout_s=args.health_timeout_s,
+        forward_timeout_s=args.forward_timeout_s,
+        skew_window=args.skew_window,
+    )
+    tracer = _make_tracer(args, "router", role="router")
+    router = Router(cfg, tracer=tracer).start()
+    httpd = make_router_http(router, host=args.host, port=args.port)
+    router.attach_http(httpd)
+    host, port = httpd.server_address[:2]
+
+    def _stop(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _stop)
+    print(f"routing on http://{host}:{port} over "
+          f"{len(cfg.replicas)} replicas (k={cfg.replication}, "
+          f"seed={cfg.seed}) — POST /v1/models/<name>:predict, "
+          f"POST /admin/rollout|join|leave, GET /healthz /metrics "
+          f"/v1/replicas", flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        print(router.metrics_text(), end="")
+        print(json.dumps(router.health()), flush=True)
+        router.close()
+        _close_tracer(tracer)
+    return 0
+
+
+def _smoke_replicas(paths, device, n=2):
+    """n in-process serve replicas, each hosting paths[0] as "m" (warmed)
+    behind its own HTTP listener: (servers, [(httpd, host, port)])."""
+    from tpusvm_torch.serve import ServeConfig, Server
+    from tpusvm_torch.serve.http import make_http_server, start_http_thread
+
+    servers, fronts = [], []
+    for _ in range(n):
+        srv = Server(ServeConfig(max_batch=8), device=device)
+        servers.append(srv)
+        srv.load_model("m", paths[0])
+        srv.warmup()
+        httpd = make_http_server(srv, port=0)
+        srv.attach_http(httpd, start_http_thread(httpd))
+        host, port = httpd.server_address[:2]
+        fronts.append((httpd, host, port))
+    return servers, fronts
+
+
+def _router_smoke(args) -> int:
+    """Gate: an in-process two-replica fleet behind the router.
+
+    Concurrent clients stream through Router.forward while the replica
+    every request prefers goes dark mid-run (its HTTP listener stops:
+    failover must absorb it) and comes back for a staggered rollout.
+    Asserts zero lost responses, every score bitwise one of the two
+    generations, a skew-free final vector and byte-reproducible placement
+    tables."""
+    import json
+    import os
+    import tempfile
+    import threading
+
+    from tpusvm_torch.models import BinarySVC, load_any
+    from tpusvm_torch.obs.registry import MetricsRegistry
+    from tpusvm_torch.router import (Router, RouterConfig, placement_table,
+                                     table_bytes)
+    from tpusvm_torch.serve.http import make_http_server, start_http_thread
+    from tpusvm_torch.serve.http import stop_http_server
+    from tpusvm_torch.status import RouterStatus
+
+    failures = []
+    Xa, Ya = rings(n=240, seed=2)
+    Xb, Yb = rings(n=240, seed=9)
+    A = BinarySVC(SVMConfig(C=10.0, gamma=10.0), device=args.device).fit(Xa, Ya)
+    B = BinarySVC(SVMConfig(C=10.0, gamma=5.0), device=args.device).fit(Xb, Yb)
+    Xq, _ = rings(n=16, seed=3)
+    failovers = 0
+    with tempfile.TemporaryDirectory() as td:
+        pa, pb = os.path.join(td, "v1.npz"), os.path.join(td, "v2.npz")
+        A.save(pa)
+        B.save(pb)
+        # the oracles: each artifact's offline decision_function, which a
+        # served score equals bit for bit
+        refA, refB = ([float(v) for v in np.asarray(
+            load_any(p, device=args.device).decision_function(Xq))]
+            for p in (pa, pb))
+        if refA == refB:
+            print("ROUTER SMOKE FAILED: generations are not "
+                  "distinguishable — the bitwise gate is vacuous")
+            return 1
+        replicas, fronts, router = [], [], None
+        try:
+            replicas, fronts = _smoke_replicas([pa], args.device)
+            urls = [f"http://{h}:{p}" for _, h, p in fronts]
+            keys = ["m", "m-shadow", "m-canary"]
+            if table_bytes(placement_table(keys, urls, k=2, seed=3)) \
+                    != table_bytes(placement_table(list(keys), tuple(urls),
+                                                   k=2, seed=3)):
+                failures.append("placement tables for one seed are not "
+                                "byte-identical")
+            # a deliberately SLOW poller (0.9 s grace): the outage must be
+            # met by forwards, i.e. the failover path, not admission
+            reg = MetricsRegistry()
+            router = Router(RouterConfig(
+                replicas=tuple(urls), replication=2, seed=3,
+                poll_interval_s=0.3, down_after=3, forward_timeout_s=15.0),
+                registry=reg, log_fn=None)
+            router.start()
+            bad = []
+            lock = threading.Lock()
+            phase2 = threading.Event()  # set once the rollout finished
+
+            def client(t):
+                for i in range(args.smoke_requests):
+                    idx = (t + i) % len(Xq)
+                    body = json.dumps({"instances": [
+                        np.asarray(Xq[idx], float).tolist()]}).encode()
+                    code, data, _ra = router.forward("m", body)
+                    if code == 429:
+                        time.sleep(0.05)
+                        continue
+                    if code != 200:
+                        with lock:
+                            bad.append(("code", code, data[:120]))
+                        continue
+                    s = json.loads(data)["scores"][0]
+                    if isinstance(s, list):
+                        s = s[0]
+                    allowed = ([refB[idx]] if phase2.is_set()
+                               else [refA[idx], refB[idx]])
+                    if s not in allowed:
+                        with lock:
+                            bad.append(("torn", idx, s))
+
+            def metric(name):
+                return sum(m["value"] for m in reg.snapshot()["metrics"]
+                           if m["name"] == name)
+
+            # the replica every "m" request prefers goes dark, so the
+            # outage is met by forwards and absorbed by failover
+            dark = urls.index(router.replica_set.placement("m")[0])
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(args.smoke_threads)]
+            for t in threads:
+                t.start()
+            target = (args.smoke_threads * args.smoke_requests) // 4
+            deadline = time.monotonic() + 30.0
+            while metric("router.requests") < target \
+                    and time.monotonic() < deadline:
+                time.sleep(0.005)
+            httpd0, host0, port0 = fronts[dark]
+            stop_http_server(httpd0)  # the outage: connection refused
+            for t in threads:
+                t.join(120.0)
+            if bad:
+                failures.append(f"lost/torn responses during the outage: "
+                                f"{bad[:5]} ({len(bad)} total)")
+            failovers = metric("router.failovers")
+            if not failovers:
+                failures.append("the outage never exercised failover "
+                                "(router.failovers == 0)")
+
+            # phase 2: the dark replica returns on ITS port; the rollout
+            httpd0b = make_http_server(replicas[dark], host=host0,
+                                       port=port0)
+            replicas[dark].attach_http(httpd0b, start_http_thread(httpd0b))
+            fronts[dark] = (httpd0b, host0, port0)
+            deadline = time.monotonic() + 10.0
+            while time.monotonic() < deadline:
+                router.poller.poll_once()
+                if all(s == "ok" for s in router.poller.states().values()):
+                    break
+                time.sleep(0.1)
+            out = router.rollout("m", pb)
+            rep = out["report"]
+            gens = set(rep["vector"].values())
+            if out["status"] != RouterStatus.OK.name or out["failed"] \
+                    or len(out["swapped"]) != 2 or rep["skew"] != 0 \
+                    or rep["unknown"] or len(gens) != 1:
+                failures.append(f"rollout not clean/skew-free: {out}")
+            phase2.set()
+            threads = [threading.Thread(target=client, args=(t,))
+                       for t in range(args.smoke_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120.0)
+            if bad:
+                failures.append(f"post-rollout responses off the new "
+                                f"generation: {bad[:5]}")
+            h = router.health()
+            if h["router"] != RouterStatus.OK.name:
+                failures.append(f"router health not OK at the end: {h}")
+        finally:
+            if router is not None:
+                router.close()
+            for srv in replicas:
+                srv.close()
+    if failures:
+        for f in failures:
+            print(f"ROUTER SMOKE FAILED: {f}")
+        return 1
+    total = args.smoke_threads * args.smoke_requests * 2
+    print(f"router smoke ok: {total} requests over 2 replicas, 0 "
+          f"lost/torn (failovers {int(failovers)} absorbed the outage), "
+          f"rollout skew-free, placement bytes reproducible")
+    return 0
+
+
+def _fleet_collector(args):
+    """A FleetCollector from the shared --router/--replica/--snapshot-file
+    source flags (fleet-metrics and top)."""
+    from tpusvm_torch.obs.fleet import FleetCollector
+
+    c = FleetCollector(timeout_s=args.timeout_s)
+    n = 0
+    if args.router:
+        c.add_router(args.router)
+        n += 1
+    for url in args.replicas:
+        c.add_replica(url)
+        n += 1
+    for path in args.snapshot_files:
+        c.add_file(path)
+        n += 1
+    if not n:
+        raise SystemExit(
+            f"{args.cmd}: no fleet sources — pass --router URL, "
+            "--replica URL (repeatable), and/or --snapshot-file PATH"
+            + (" (or --smoke)" if args.cmd == "fleet-metrics" else ""))
+    return c
+
+
+def _fleet_metrics_smoke(args) -> int:
+    """Gate: an in-process two-replica fleet behind a router; the merged
+    fleet view must equal merge_fleet() of the per-process payloads it
+    scraped (exact), and the merged serve.ok total must conserve the
+    routed request count across the replicas (label-tagged)."""
+    import json
+    import os
+    import tempfile
+
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.obs.fleet import (FleetCollector, merge_fleet,
+                                        render_fleet_text)
+    from tpusvm_torch.obs.registry import (MetricsRegistry,
+                                           render_snapshot_text)
+    from tpusvm_torch.router import Router, RouterConfig
+
+    failures = []
+    X, Y = rings(n=96, seed=2)
+    model = BinarySVC(SVMConfig(C=10.0, gamma=10.0),
+                      device=args.device).fit(X, Y)
+    Xq = np.asarray(X[:8], float)
+    n_req, ok, per_replica = 12, 0, {}
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "m.npz")
+        model.save(path)
+        replicas, router = [], None
+        try:
+            replicas, fronts = _smoke_replicas([path], args.device)
+            urls = [f"http://{h}:{p}" for _, h, p in fronts]
+            router = Router(RouterConfig(
+                replicas=tuple(urls), replication=2, seed=3,
+                poll_interval_s=0.2, forward_timeout_s=10.0),
+                registry=MetricsRegistry(), log_fn=None)
+            router.start()
+            for i in range(n_req):
+                body = json.dumps(
+                    {"instances": [Xq[i % len(Xq)].tolist()]}).encode()
+                code, _, _ra = router.forward("m", body)
+                ok += int(code == 200)
+            if ok != n_req:
+                failures.append(f"only {ok}/{n_req} requests scored "
+                                "through the router")
+            # scrape the fleet as `fleet-metrics` does: every replica
+            # directly, plus the router's own payload
+            coll = FleetCollector(timeout_s=2.0)
+            for url in urls:
+                coll.add_replica(url)
+            coll.add_callable(router.fleet_payload, name="router")
+            view = coll.scrape_once()
+            if view.errors:
+                failures.append(f"scrape errors: {view.errors}")
+            # the published merged view is exactly merge_fleet() of the
+            # per-process payloads it scraped, in rendered form
+            if render_snapshot_text(view.merged) != render_snapshot_text(
+                    merge_fleet(view.processes)):
+                failures.append("merged view != merge_fleet() of the "
+                                "scraped per-process snapshots")
+            # conservation: the label-tagged per-replica serve.ok counters
+            # sum to the routed request count (no double count, no loss)
+            total = 0.0
+            for m in view.merged["metrics"]:
+                if m["name"] == "serve.ok" and m["type"] == "counter":
+                    inst = m["labels"].get("instance", "?")
+                    per_replica[inst] = per_replica.get(inst, 0.0) \
+                        + m["value"]
+                    total += m["value"]
+            if total != float(ok):
+                failures.append(
+                    f"merged serve.ok total {total} != {ok} routed "
+                    f"requests (per replica: {per_replica})")
+            if len(per_replica) != 2:
+                failures.append(f"expected 2 labelled replica instances, "
+                                f"got {sorted(per_replica)}")
+            if not args.quiet:
+                print(render_fleet_text(view))
+        finally:
+            if router is not None:
+                router.close()
+            for srv in replicas:
+                srv.close()
+    if failures:
+        for f in failures:
+            print(f"FLEET-METRICS SMOKE FAILED: {f}")
+        return 1
+    print(f"fleet-metrics smoke ok: 2 replicas + router merged exactly; "
+          f"serve.ok conserved at {n_req} across {sorted(per_replica)}")
+    return 0
+
+
+def cmd_fleet_metrics(args) -> int:
+    """One merged, (role, instance)-labelled metrics view of a fleet."""
+    import json
+
+    from tpusvm_torch.obs.fleet import fleet_json, render_fleet_text
+
+    if args.smoke:
+        return _fleet_metrics_smoke(args)
+    view = _fleet_collector(args).scrape_once()
+    if args.format == "json":
+        print(json.dumps(fleet_json(view), sort_keys=True))
+    else:
+        print(render_fleet_text(view), end="")
+    # a partial scrape still prints (half a fleet view beats none), but a
+    # fleet that is ENTIRELY unreachable is an error
+    return 1 if view.errors and not view.processes else 0
+
+
+def cmd_top(args) -> int:
+    """Live fleet table over the fleet-metrics sources."""
+    from tpusvm_torch.obs.fleet import format_top, top_rows
+
+    coll = _fleet_collector(args)
+    if args.once:
+        view = coll.scrape_once()
+        print(format_top(top_rows(view, coll.rates()), errors=view.errors),
+              end="")
+        return 1 if view.errors and not view.processes else 0
+    t0 = time.monotonic()
+    i = 0
+    with coll:  # stop() joins the scrape thread on the way out
+        coll.start(interval_s=args.interval_s)
+        try:
+            while True:
+                view = coll.view()
+                out = format_top(top_rows(view, coll.rates()),
+                                 errors=view.errors,
+                                 clock_s=time.monotonic() - t0)
+                if not args.no_clear:
+                    print("\x1b[2J\x1b[H", end="")
+                print(out, end="", flush=True)
+                i += 1
+                if args.iterations and i >= args.iterations:
+                    break
+                time.sleep(args.interval_s)
+        except KeyboardInterrupt:
+            pass
+    return 0
+
 
 def cmd_info(args) -> int:
     return _info_artifact(args.path) if args.path else _info_devices()
@@ -2837,7 +3391,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     return {"train": cmd_train, "pod": cmd_pod, "predict": cmd_predict,
             "ingest": cmd_ingest, "tune": cmd_tune, "serve": cmd_serve,
             "refresh": cmd_refresh, "autopilot": cmd_autopilot,
-            "tenants": cmd_tenants, "info": cmd_info}[args.cmd](args)
+            "tenants": cmd_tenants, "router": cmd_router,
+            "fleet-metrics": cmd_fleet_metrics, "top": cmd_top,
+            "info": cmd_info}[args.cmd](args)
 
 
 if __name__ == "__main__":

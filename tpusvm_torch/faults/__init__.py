@@ -12,8 +12,8 @@
 
 ``python -m tpusvm_torch.faults`` (__main__.py) is the chaos command
 line: ``validate``, ``kill-resume-smoke``, ``pod-chaos-smoke``,
-``swap-chaos-smoke``, ``autopilot-chaos-smoke`` and
-``tenant-chaos-smoke``.
+``swap-chaos-smoke``, ``autopilot-chaos-smoke``, ``tenant-chaos-smoke``
+and ``router-chaos-smoke``.
 """
 
 from tpusvm_torch.faults.breaker import BreakerOpenError, CircuitBreaker

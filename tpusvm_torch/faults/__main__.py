@@ -29,7 +29,7 @@ on the card unless ``--device cpu`` is given.
                       checkpoint behind, and every dataset row is
                       accounted for across the workers in every arm. The
                       JAX command's third arm (the traced re-run) waits
-                      for the trace layer (ROADMAP Queue 1 item 12).
+                      for the pod's tracers (ROADMAP Queue 1 item 12).
 
   swap-chaos-smoke    The hot-swap gate (tpusvm_torch.serve): client
                       threads stream requests at a served model while
@@ -68,10 +68,25 @@ on the card unless ``--device cpu`` is given.
                       reaped after the swapping-stage commit, every view
                       fingerprint equal, the corrupt swap pinned exactly
                       one tenant (PARTIAL) which the next tick refreshed.
+  router-chaos-smoke  The routing-tier gate (tpusvm_torch.router): three
+                      REAL `python -m tpusvm_torch serve` replica
+                      processes on ephemeral ports (found through their
+                      serve_state.json) behind an in-process router and
+                      its HTTP front, four client threads through it, and
+                      a router.forward fault plan (two transients, latency
+                      on a fifth of the forwards). Replicas 0 and 1 are
+                      SIGKILLed in turn under load and revived on their
+                      recorded ports from --state, then a staggered
+                      rollout swaps the fleet to a second model. Asserts:
+                      zero lost or torn responses (every score one
+                      generation's offline decision_function bits), each
+                      revived replica back on its address with its
+                      replica id, a skew-free rollout to a uniform
+                      generation vector, placement bytes that reproduce
+                      for one seed, the fault point fired, and the router
+                      healthy at the end.
 
-The JAX package's other chaos command, router-chaos-smoke, belongs to a
-tier not ported yet; it says so, names its ROADMAP Queue 1 item, and
-exits 2.
+Every chaos command of the JAX package is ported: `NOT_PORTED` is empty.
 """
 
 from __future__ import annotations
@@ -80,10 +95,9 @@ import argparse
 import sys
 import tempfile
 
-#: chaos commands of tiers not ported yet -> (tier, ROADMAP Queue 1 item)
-NOT_PORTED = {
-    "router-chaos-smoke": ("the router", "11(d)"),
-}
+#: chaos commands of tiers not ported yet -> (tier, ROADMAP Queue 1 item);
+#: every one is ported
+NOT_PORTED: dict = {}
 
 
 def _kill_resume_smoke(device: str) -> int:
@@ -1011,6 +1025,282 @@ def _tenant_chaos_smoke(device: str) -> int:
           "previous generation then recovered solo")
     return 0
 
+def _router_chaos_smoke(device: str) -> int:
+    import json
+    import os
+    import subprocess
+    import threading
+    import time
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import tpusvm_torch
+    from tpusvm_torch import faults
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.data import rings
+    from tpusvm_torch.models import BinarySVC, load_any
+    from tpusvm_torch.obs.registry import MetricsRegistry
+    from tpusvm_torch.router import (Router, RouterConfig, make_router_http,
+                                     placement_table, table_bytes)
+    from tpusvm_torch.serve.http import start_http_thread
+    from tpusvm_torch.status import RouterStatus
+
+    N_REPLICAS = 3
+    N_CLIENTS = 4
+    failures = []
+
+    Xa, Ya = rings(n=240, seed=2)
+    Xb, Yb = rings(n=240, seed=9)
+    A = BinarySVC(SVMConfig(C=10.0, gamma=10.0), device=device).fit(Xa, Ya)
+    Bm = BinarySVC(SVMConfig(C=10.0, gamma=5.0), device=device).fit(Xb, Yb)
+    Xq, _ = rings(n=16, seed=3)
+    rows = [np.asarray(Xq[i], float).tolist() for i in range(len(Xq))]
+
+    env = dict(os.environ)
+    pkg_root = os.path.dirname(os.path.dirname(tpusvm_torch.__file__))
+    env["PYTHONPATH"] = pkg_root + os.pathsep + env.get("PYTHONPATH", "")
+    if device == "cpu":
+        # the replicas reduce with this process's intra-op thread count,
+        # so their scores are the oracle's bits
+        env["OMP_NUM_THREADS"] = str(torch.get_num_threads())
+
+    with tempfile.TemporaryDirectory() as td:
+        pa = os.path.join(td, "v1.npz")
+        pb = os.path.join(td, "v2.npz")
+        A.save(pa)
+        Bm.save(pb)
+        # the bitwise oracles: each artifact's offline decision_function,
+        # which every served score equals
+        refA, refB = ([float(v) for v in np.asarray(
+            load_any(p, device=device).decision_function(Xq))]
+            for p in (pa, pb))
+        if refA == refB:
+            print("ROUTER CHAOS SMOKE FAILED: the two generations are not "
+                  "distinguishable — the bitwise oracle is vacuous")
+            return 1
+
+        def state_path(i):
+            return os.path.join(td, f"rep{i}", "serve_state.json")
+
+        logs = []
+
+        def spawn(i, port=0):
+            """One REAL replica process: port 0 on the first boot (the
+            bound port is read from its state file); a revive passes the
+            recorded port back and restores the model set and the replica
+            identity from --state."""
+            os.makedirs(os.path.dirname(state_path(i)), exist_ok=True)
+            log = open(os.path.join(td, f"rep{i}.log"), "ab")
+            logs.append(log)
+            cmd = [sys.executable, "-m", "tpusvm_torch", "serve",
+                   "--host", "127.0.0.1", "--port", str(port),
+                   "--state", state_path(i), "--max-batch", "8",
+                   "--device", device]
+            if port == 0:
+                cmd += ["--model", f"m={pa}"]
+            return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                                    env=env)
+
+        def wait_ready(i, deadline_s=180.0):
+            """The replica's bound address from its state file, then
+            /healthz ok: (url, replica_id)."""
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < deadline_s:
+                if procs[i].poll() is not None:
+                    break
+                try:
+                    with open(state_path(i)) as f:
+                        st = json.load(f)
+                    addr = st.get("address")
+                    if addr and st.get("models"):
+                        url = f"http://{addr}"
+                        with urllib.request.urlopen(
+                                url + "/healthz", timeout=2.0) as r:
+                            payload = json.loads(r.read())
+                        if payload.get("status") == "ok":
+                            return url, st.get("replica_id")
+                except (OSError, ValueError):
+                    pass
+                time.sleep(0.2)
+            with open(os.path.join(td, f"rep{i}.log"), "rb") as f:
+                tail = f.read()[-2000:].decode(errors="replace")
+            raise RuntimeError(f"replica {i} not serving within "
+                               f"{deadline_s:g}s:\n{tail}")
+
+        procs = [spawn(i) for i in range(N_REPLICAS)]
+        router = None
+        stop = threading.Event()
+        counts = [0] * N_CLIENTS
+        kills = revives = 0
+        plan = None
+        try:
+            ready = [wait_ready(i) for i in range(N_REPLICAS)]
+            urls = [u for u, _ in ready]
+            ids0 = dict(ready)
+
+            # placement byte-reproducibility: two independent
+            # constructions of the same (keys, replicas, k, seed)
+            keys = ["m", "m-shadow", "m-canary"]
+            if table_bytes(placement_table(keys, urls, k=2, seed=7)) \
+                    != table_bytes(placement_table(list(keys), tuple(urls),
+                                                   k=2, seed=7)):
+                failures.append("placement tables for one seed are not "
+                                "byte-identical")
+
+            router = Router(RouterConfig(
+                replicas=tuple(urls), replication=2, seed=7,
+                poll_interval_s=0.2, down_after=2, forward_timeout_s=30.0),
+                registry=MetricsRegistry(), log_fn=None)
+            router.start()
+            httpd = make_router_http(router, port=0)
+            router.attach_http(httpd, start_http_thread(httpd))
+            rhost, rport = httpd.server_address[:2]
+            router_url = f"http://{rhost}:{rport}"
+
+            # chaos INSIDE the fabric: two deterministic transient forwards
+            # (each consumes one failover) and forward latency
+            plan = faults.FaultPlan([
+                faults.FaultRule(point="router.forward", kind="transient",
+                                 at_hit=5),
+                faults.FaultRule(point="router.forward", kind="transient",
+                                 at_hit=23),
+                faults.FaultRule(point="router.forward", kind="latency",
+                                 p=0.2, delay_ms=1.0, max_hits=16),
+            ], seed=20260806)
+
+            bad = []
+            bad_lock = threading.Lock()
+
+            def client(t):
+                i = t
+                while not stop.is_set():
+                    idx = i % len(rows)
+                    body = json.dumps({"instances": [rows[idx]]}).encode()
+                    req = urllib.request.Request(
+                        router_url + "/v1/models/m:predict", data=body,
+                        headers={"Content-Type": "application/json"},
+                        method="POST")
+                    try:
+                        with urllib.request.urlopen(req, timeout=60.0) as r:
+                            code, raw = r.status, r.read()
+                    except urllib.error.HTTPError as e:
+                        code, raw = e.code, e.read()
+                    except Exception as e:  # noqa: BLE001 — a transport
+                        # failure to the ROUTER itself is a lost response
+                        with bad_lock:
+                            bad.append(("transport",
+                                        f"{type(e).__name__}: {e}"))
+                        i += 1
+                        continue
+                    if code == 429:
+                        time.sleep(0.1)  # backpressure: the same row again
+                        continue
+                    if code != 200:
+                        with bad_lock:
+                            bad.append(("code", code, raw[:160]))
+                    else:
+                        s = json.loads(raw)["scores"][0]
+                        if isinstance(s, list):
+                            s = s[0]
+                        if s != refA[idx] and s != refB[idx]:
+                            with bad_lock:
+                                bad.append(("torn", idx, s))
+                        counts[t] += 1
+                    i += 1
+
+            threads = [threading.Thread(target=client, args=(t,), daemon=True)
+                       for t in range(N_CLIENTS)]
+            with faults.active(plan):
+                for t in threads:
+                    t.start()
+                time.sleep(1.0)
+                # kill and revive two replicas, one at a time, under load
+                for i in (0, 1):
+                    procs[i].kill()  # a real SIGKILL: nothing flushed
+                    procs[i].wait()
+                    kills += 1
+                    time.sleep(1.0)  # clients keep scoring via failover
+                    with open(state_path(i)) as f:
+                        st = json.load(f)
+                    port = int(st["address"].rsplit(":", 1)[1])
+                    procs[i] = spawn(i, port=port)
+                    url, rid = wait_ready(i)
+                    revives += 1
+                    if url != urls[i]:
+                        failures.append(f"replica {i} revived on {url}, not "
+                                        f"its recorded address {urls[i]}")
+                    if rid != ids0[urls[i]]:
+                        failures.append(
+                            f"replica {i} lost its identity across the "
+                            f"revive ({ids0[urls[i]]} -> {rid})")
+                # the poller re-admits the revived replicas
+                deadline = time.monotonic() + 10.0
+                while time.monotonic() < deadline and any(
+                        s != "ok" for s in router.poller.states().values()):
+                    time.sleep(0.1)
+                # staggered rollout v1 -> v2 across the fleet, under load
+                out = router.rollout("m", pb)
+                if out["status"] != RouterStatus.OK.name:
+                    failures.append(f"rollout did not complete: {out}")
+                if out["failed"]:
+                    failures.append(f"rollout swaps failed: {out['failed']}")
+                if len(out["swapped"]) != N_REPLICAS:
+                    failures.append(
+                        f"rollout reached {len(out['swapped'])}/{N_REPLICAS} "
+                        f"replicas (skipped {out['skipped']})")
+                rep = out["report"]
+                gens = set(rep["vector"].values())
+                if rep["skew"] != 0 or rep["unknown"] or len(gens) != 1 \
+                        or None in gens:
+                    failures.append("final generation vector is not "
+                                    f"uniform/skew-free: {rep}")
+                time.sleep(0.5)  # post-rollout traffic on the new generation
+                stop.set()
+                for t in threads:
+                    t.join(90.0)
+            if any(t.is_alive() for t in threads):
+                failures.append("a client thread did not finish")
+            if bad:
+                failures.append(f"lost/torn responses under chaos: "
+                                f"{bad[:5]} ({len(bad)} total)")
+            if min(counts) == 0:
+                failures.append(f"a client thread scored nothing: {counts}")
+            if plan.hits("router.forward") == 0:
+                failures.append("no router.forward fault ever fired")
+            h = router.health()
+            if h["router"] != RouterStatus.OK.name:
+                failures.append(f"router health did not recover: {h}")
+        finally:
+            stop.set()
+            if router is not None:
+                router.close()
+            for p in procs:
+                if p.poll() is None:
+                    p.terminate()
+            for p in procs:
+                try:
+                    p.wait(timeout=30.0)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+            for log in logs:
+                log.close()
+
+    if failures:
+        for f in failures:
+            print(f"ROUTER CHAOS SMOKE FAILED: {f}")
+        return 1
+    print(f"router chaos smoke ok: {N_REPLICAS} replica processes, "
+          f"{N_CLIENTS} client threads ({sum(counts)} responses, 0 "
+          f"lost/torn), {kills} SIGKILLs absorbed with identity-preserving "
+          f"revives, staggered rollout skew-free to a uniform generation "
+          f"vector, placement bytes reproducible, "
+          f"{plan.hits('router.forward')} router.forward fault-point hits")
+    return 0
+
 
 def _device(prog: str, rest) -> str:
     ap = argparse.ArgumentParser(prog=f"python -m tpusvm_torch.faults {prog}")
@@ -1035,6 +1325,8 @@ def main(argv=None) -> int:
         return _autopilot_chaos_smoke(_device(cmd, rest))
     if cmd == "tenant-chaos-smoke":
         return _tenant_chaos_smoke(_device(cmd, rest))
+    if cmd == "router-chaos-smoke":
+        return _router_chaos_smoke(_device(cmd, rest))
     if cmd == "validate":
         if len(rest) != 1:
             print("usage: python -m tpusvm_torch.faults validate PLAN.json")

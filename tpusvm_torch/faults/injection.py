@@ -56,10 +56,10 @@ The points the port has call sites for:
   ``tenants.tick``            entry to every tenants tick (tenants/loop.py)
   ``tenants.store``           the tenant store's writes and the coalesced
                               refresh's fleet checkpoints (tenants/store.py)
+  ``router.forward``          every per-replica forward attempt of the
+                              router, under Retry (router/proxy.py)
 
-The one name of POINTS left belongs to a tier not ported yet
-(``router.forward``, the router); a plan may name it and it never fires
-here.
+Every name of POINTS has a call site in the port.
 
 Kill semantics: :class:`SimulatedKill` subclasses ``BaseException``, so
 no ``except Exception`` recovery path, the retry machinery included, can

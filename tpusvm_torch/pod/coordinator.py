@@ -493,8 +493,8 @@ def pod_fit(
     device: where the coordinator's layer-2 solves and every worker run
     ("cuda" unless asked otherwise; no CPU fallback).
 
-    tracer, trace_dir, trace_max_bytes: the cross-process trace layer is
-    not ported yet (ROADMAP Queue 1 item 12); each must be None.
+    tracer, trace_dir, trace_max_bytes: the pod's tracers are not ported
+    yet (ROADMAP Queue 1 item 12); each must be None.
     """
     from tpusvm_torch.parallel.svbuffer import empty
     from tpusvm_torch.pod.worker import SHRINK_DRIVER_KEYS

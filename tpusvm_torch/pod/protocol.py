@@ -19,8 +19,8 @@ same meta and arrays (the zip entries carry the current second, as
 Framing is explicit-length on purpose: a worker SIGKILLed mid-write
 leaves a SHORT frame, which the reader surfaces as ConnectionError
 (peer death), never as a truncated-but-parsed message. The JAX package's
-trace-context helpers (attach_ctx/extract_ctx) belong to the trace layer,
-which is not ported yet (ROADMAP Queue 1 item 12).
+trace-context helpers (attach_ctx/extract_ctx) come with the pod's
+tracers (ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations

@@ -35,6 +35,10 @@ Routes:
                                   mergeable registry snapshot, the
                                   JAX package's payload)
   POST /v1/models/<name>:predict  {"instances": [[...], ...]}
+                                  (an X-Tpusvm-Trace header names the
+                                  caller's span: with `serve --trace`
+                                  the request is a serve.request span
+                                  carrying that context)
                                   -> {"predictions": [...], "scores": [...],
                                       "statuses": [...]}
                                   Calibrated binary models add
@@ -54,6 +58,7 @@ Degraded-mode response codes (per-request detail always in `statuses`):
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -164,11 +169,24 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, KeyError, TypeError) as e:
             self._send_json({"error": f"bad request body: {e}"}, code=400)
             return
-        # a propagated trace header is accepted and ignored: the port has
-        # no tracer yet (ROADMAP Queue 1 item 12)
+        # honour a propagated trace context: with a tracer attached (serve
+        # --trace) the scoring is a serve.request span whose attrs carry
+        # the caller's ctx, naming the router's forward span as its
+        # parent; without one the header is accepted and ignored
+        tracer = getattr(self.server, "tpusvm_tracer", None)
+        span = contextlib.nullcontext()
+        if tracer is not None:
+            from tpusvm_torch.obs.trace import TRACE_HEADER, TraceContext
+
+            attrs = {"model": name, "rows": int(X.shape[0])}
+            ctx = TraceContext.from_header(self.headers.get(TRACE_HEADER))
+            if ctx is not None:
+                attrs["ctx"] = ctx.to_dict()
+            span = tracer.span("serve.request", **attrs)
         try:
-            results = self._srv.submit_many(
-                name, X, timeout_s=payload.get("timeout_s"))
+            with span:
+                results = self._srv.submit_many(
+                    name, X, timeout_s=payload.get("timeout_s"))
         except KeyError as e:
             self._send_json({"error": str(e)}, code=404)
             return
@@ -221,6 +239,9 @@ def make_http_server(server, host: str = "127.0.0.1", port: int = 8471,
     """
     httpd = ThreadingHTTPServer((host, port), _Handler)
     httpd.tpusvm_server = server
+    # set by `serve --trace`: per-request serve.request spans, honouring a
+    # propagated X-Tpusvm-Trace context
+    httpd.tpusvm_tracer = None
     httpd.verbose = verbose
     # handler threads must not block interpreter exit
     httpd.daemon_threads = True

@@ -1,10 +1,10 @@
-"""Solver termination, shard integrity, tuning, serving and closed-loop
-status codes.
+"""Solver termination, shard integrity, tuning, serving, closed-loop and
+routing status codes.
 
 The port's own copies of the JAX package's ``Status``, ``StreamStatus``,
-``TuneStatus``, ``ServeStatus``, ``AutopilotStatus`` and ``TenantsStatus``
-enums, with the same integer values, so a status read from one package
-compares equal to the other's.
+``TuneStatus``, ``ServeStatus``, ``AutopilotStatus``, ``RouterStatus`` and
+``TenantsStatus`` enums, with the same integer values, so a status read
+from one package compares equal to the other's.
 
   CONVERGED       b_low <= b_high + 2*tau
   NO_WORKING_SET  I_high or I_low is empty
@@ -139,6 +139,27 @@ class AutopilotStatus(enum.IntEnum):
     REFRESHED = 4
     REFRESH_FAILED = 5
     REFRESH_TIMEOUT = 6
+
+
+class RouterStatus(enum.IntEnum):
+    """Fleet-level outcome codes of the routing tier (router/), reported
+    on the router's /healthz and by its rollout driver:
+
+      OK          replicas are admissible and rollouts are skew-free
+      NO_REPLICA  placement produced no candidate at all: the replica set
+                  is empty, or no member was ever polled healthy; nothing
+                  was forwarded
+      ALL_DOWN    candidates existed but every one was down, draining or
+                  failed the forward
+      SKEW_HOLD   a staggered rollout's generation vector spread beyond
+                  the skew window; no further swap is issued until the
+                  laggard is resolved (router/rollout.py)
+    """
+
+    OK = 0
+    NO_REPLICA = 1
+    ALL_DOWN = 2
+    SKEW_HOLD = 3
 
 
 class TenantsStatus(enum.IntEnum):

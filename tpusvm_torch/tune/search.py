@@ -263,7 +263,7 @@ def tune(
     """
     if tracer is not None:
         raise NotImplementedError(
-            "tune(tracer=...): the trace layer is not ported yet (ROADMAP "
+            "tune(tracer=...): tracing a tune is not ported yet (ROADMAP "
             "Queue 1 item 12)")
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype)
