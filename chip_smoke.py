@@ -107,7 +107,8 @@ Phases, in order (any failure raises and the script exits non-zero):
      (a) also holds #1 at q = the leaf's size (the warm-start rebuild)
      against its plain version; (d) four rank processes of `python -m
      tpusvm_torch train --mode cascade --distributed ...` on CSVs of (a)'s
-     rows share the card, and rank 0 prints (a)'s SV count, b, accuracy and
+     rows share the card (started after (a), beside (b) and (c)), and rank
+     0 prints (a)'s SV count, b, accuracy and
      rounds and writes the only artifact, which `info` describes.
   15. (a) phase 5's job with telemetry=128, equal to phase 5 bit for bit
      (alpha, b, updates, rounds) with no host sync added, its ring's gap
@@ -164,7 +165,8 @@ Phases, in order (any failure raises and the script exits non-zero):
      pod_fit with worker 1 SIGKILLed at its 2nd request: one revive,
      (a)'s bits; (c) `python -m tpusvm_torch.faults pod-chaos-smoke` and
      `kill-resume-smoke` and `python -m tpusvm_torch pod --smoke` as
-     subprocesses on the card, started together with (b), each exiting 0
+     subprocesses on the card, started together at phase 18's start,
+     before (a), each exiting 0
      with its ok line.
   20. the class axis and the front door: (a) OneVsRestSVC(solver="pair",
      class_parallel=True) on 8(b)'s job over the default mesh and over
@@ -225,7 +227,8 @@ Phases, in order (any failure raises and the script exits non-zero):
      the loop engine; (c) `autopilot-chaos-smoke` and
      `tenant-chaos-smoke` as subprocesses beside them.
   24. the router (tpusvm_torch.router): three `python -m tpusvm_torch
-     serve --port 0 --state --trace` replica processes on the card, each
+     serve --port P --state --trace` replica processes on the card (P a
+     free port below the kernel's ephemeral range), each
      hosting phase 5's artifact, behind an in-process Router (replication
      2) and its HTTP front: (a) 8 one-row clients on the held-out rows
      through the router while the placed replica is SIGKILLed and revived
@@ -241,13 +244,36 @@ Phases, in order (any failure raises and the script exits non-zero):
      --format json` equals merge_fleet of the payloads scraped directly,
      `top --once` prints a row a process; the replicas' device MiB; (e)
      `router-chaos-smoke` as a subprocess beside (a) and (b).
+  25. observability, over runs that exist: (a) phase 10's subprocess
+     `train` also writes --trace, --jsonl and a 128-slot convergence ring
+     (its printed SV count, b and accuracy still phase 5's bits): `report
+     --smoke` on the trace exits 0 here, its phase names are the
+     subprocess's timing block, its last convergence.round ends
+     CONVERGED, kernels #1 and #2 launched in that process (the trace's
+     snapshot; the kernels line counts them as phase 25's); (b) phase
+     10's in-process --n-limit run also takes --profile DIR, whose
+     torch.profiler trace names #1 and #2's launches; (c) phase 5's job
+     once more with the fit's tracer and the compile observatory on:
+     alpha, b and updates equal phase 5's, the train seconds beside phase
+     5's as an overhead fraction (printed with the JAX telemetry_overhead
+     band of 0.02, not gated); (d) 19(a) traced into a directory, one file
+     a process: `report --smoke DIR` exits 0, no cross-process parent is
+     unresolved, 19's bits unchanged (and 19(c)'s pod-chaos-smoke runs its
+     traced arm); (e) phase 2's builds and 22(a)'s graph captures under the
+     observatory: one prof.compile record a library built, with its nvcc
+     seconds, and one a (model, bucket) graph, as many as 22(a) captured;
+     (f) phase 5's {"bench": ...} record as a JSONL: benchdiff of it
+     against itself exits 0, a copy with the train seconds doubled fails at
+     --level full and passes at --level smoke.
   (Phases 15 and 16 run after 13, before 14; 17 and 18 after 14; then
-  19, 20, 21, 22, 23 and 24.)
+  19, 20, 21, 22, 23 and 24. Phase 25 runs inside 2, 10, 19 and 22, and
+  its (c) and (f) right after 5b.)
 Then one JSON line of kernel figures, the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when no
 CUDA device is present or the package is not beside this script.
 """
 
+import collections
 import contextlib
 import json
 import statistics
@@ -269,9 +295,9 @@ C, GAMMA = 10.0, 0.00125
 N_OVR_PAIR = 60000
 N_SVR_PAIR = 2000
 # the depth cut of phase 6 (PERF.md section 4): the profiled 5b fit stops
-# after this many of its 2,183 rounds (500 until phase 23 came in under
-# the same time limit)
-PROFILE_5B_ROUNDS = 250
+# after this many of its 2,183 rounds (500 until phase 23, 250 until phase
+# 25 came in under the same time limit)
+PROFILE_5B_ROUNDS = 125
 # phase 10's --n-limit run and its --mode oracle run, cut in rows (PERF.md
 # section 4: the serial NumPy oracle is O(n^2) by design); the native
 # reader is held to the Python reader on the first N_CSV_PY rows
@@ -760,7 +786,7 @@ def _cli_in_process(args, device):
 
     from tpusvm_torch.cli import main
 
-    if device == "cpu" and args[0] != "info":
+    if device == "cpu" and args[0] not in ("info", "report", "benchdiff"):
         args = [*args, "--device", "cpu"]
     buf = io.StringIO()
     t = time.perf_counter()
@@ -784,7 +810,7 @@ def _report(model, acc):
 
 
 def phase_front(X_all, Y_all, n_tr, n_lim, n_oracle, csvs, writers, m5,
-                device, model_path):
+                device, model_path, launches=None, trace_dir=None):
     """Phase 10, at full width: phase 5's rows [:n_tr] and [n_tr:] as
     CSVs (written in the background since phase 5), read by the native
     reader (seconds and MB/s), which must give phase 5's rows back and
@@ -798,7 +824,12 @@ def phase_front(X_all, Y_all, n_tr, n_lim, n_oracle, csvs, writers, m5,
     blocked fit on those rows (SV-ID symmetric difference <= 2, |db| <=
     2.5e-4: PARITY.md); `info`, which must name the card, and `info` on
     phase 5's artifact. Returns (train CSV, held-out CSV, the in-process
-    fit, n_tr) for phase 17(e)."""
+    fit, n_tr) for phase 17(e).
+
+    With trace_dir (phase 25): the subprocess run is also traced (--trace,
+    --jsonl, --convergence 128: 25(a), checked by phase_trace_front) and
+    the in-process --n-limit run profiled (--profile: 25(b)); neither
+    changes a printed bit."""
     import os
 
     import torch
@@ -849,10 +880,24 @@ def phase_front(X_all, Y_all, n_tr, n_lim, n_oracle, csvs, writers, m5,
     # call the same entry point's main here, which saves a process start
     # (about 9 s on the card's machine) each
     fits = {}
+    traced = {n_tr: [], n_lim: []}
+    if trace_dir is not None:
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        paths25 = {k: str(trace_dir / v) for k, v in (
+            ("trace", "train10.jsonl"), ("jsonl", "train10_events.jsonl"),
+            ("profile", "profile10"))}
+        for p in (paths25["trace"], paths25["jsonl"]):
+            if os.path.exists(p):
+                os.unlink(p)
+        traced = {n_tr: ["--trace", paths25["trace"], "--jsonl",
+                         paths25["jsonl"], "--convergence", "128"],
+                  n_lim: ["--profile", paths25["profile"]]}
+    outs = {}
     for n, extra, run in ((n_tr, [], _cli),
                           (n_lim, ["--n-limit", str(n_lim)], _cli_in_process)):
         out, secs = run(["train", "--train", train_csv, "--test", test_csv,
-                         *flags, *extra], device)
+                         *flags, *extra, *traced[n]], device)
+        outs[n] = out
         cli = (_line(r"SV count = (\d+)", out), _line(r"b = (-?[\d.]+)", out),
                _line(r"accuracy = ([\d.]+)", out))
         m, acc = fits[n] = in_process(n)
@@ -868,6 +913,8 @@ def phase_front(X_all, Y_all, n_tr, n_lim, n_oracle, csvs, writers, m5,
         check(m.status_ == Status.CONVERGED, f"[10] {m.status_.name}")
         check(cli == _report(m, acc), f"[10] CLI {cli} vs in process "
               f"{_report(m, acc)}")
+    if trace_dir is not None:
+        phase_trace_front(outs[n_tr], paths25, launches, device)
     m10 = fits[n_tr][0]
     same5 = _same_bits(m10, m5) and m10.n_iter_ == m5.n_iter_
     log(f"[10] the in-process fit on the CSV's rows equals phase 5 bit for "
@@ -902,6 +949,163 @@ def phase_front(X_all, Y_all, n_tr, n_lim, n_oracle, csvs, writers, m5,
         + " | ".join(out.strip().splitlines()))
     check("model: binary" in out, "[10] info does not describe the model")
     return train_csv, test_csv, m10, n_tr
+
+# ---- phase 25: observability over runs that exist ----------------------
+# 25(c)'s printed band: the JAX benchmark's telemetry_overhead rule
+# (tpusvm/obs/benchdiff.py: overhead_frac <= old + 0.02)
+TRACER_OVERHEAD_BAND = 0.02
+
+
+def phase_build_records(records, secs):
+    """25(e), phase 2's half: one prof.compile record a library nvcc built,
+    its compile_s that library's nvcc seconds, its cost unknown."""
+    built = sorted(k for k, v in secs.items() if v > 0)
+    recs = {r["executable"]: r for r in records}
+    log(f"[25e] phase 2 under the compile observatory: {len(records)} "
+        f"records for {len(built)} libraries built: "
+        + ", ".join(f"{k} {r['compile_s']:.2f} s" for k, r in recs.items()))
+    check(len(records) == len(built)
+          and sorted(recs) == [f"nvcc:{k}" for k in built],
+          f"[25e] build records {sorted(recs)} vs built {built}")
+    for k in built:
+        r = recs[f"nvcc:{k}"]
+        check(r["compile_s"] == secs[k] and r["cost_available"] is False
+              and r["flops"] is None, f"[25e] record of {k}: {r}")
+
+
+def phase_tracer_cost(X_all, Y_all, n_tr, m5, train5_s, opts, counters,
+                      trace_dir, smi, device="cuda"):
+    """25(c): phase 5's job once more in this process with the fit's tracer
+    and the compile observatory on: alpha, b and updates equal phase 5's;
+    the train seconds printed beside phase 5's as an overhead fraction,
+    with the JAX telemetry_overhead band beside it (printed, not gated)."""
+    from tpusvm_torch.config import SVMConfig
+    from tpusvm_torch.models import BinarySVC
+    from tpusvm_torch.obs import prof, read_trace
+    from tpusvm_torch.obs.trace import Tracer
+
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    path = trace_dir / "fit25c.jsonl"
+    if path.exists():
+        path.unlink()
+    model = BinarySVC(SVMConfig(C=C, gamma=GAMMA, max_iter=10**6),
+                      solver_opts=opts, device=device)
+    _zero(counters)
+    with Tracer(str(path), argv=["chip_smoke 25c"]) as tracer, \
+            prof.profiling(event_sink=tracer.event):
+        sync(device)
+        t = time.perf_counter()
+        with tracer.span("training", phase=True):
+            model.fit(X_all[:n_tr], Y_all[:n_tr], tracer=tracer)
+        sync(device)
+        train_s = time.perf_counter() - t
+    counts = _count(counters)
+    same = (_same_bits(model, m5) and model.n_iter_ == m5.n_iter_
+            and model.result_.alpha.cpu().numpy().tobytes()
+            == m5.result_.alpha.cpu().numpy().tobytes())
+    recs = read_trace(str(path))
+    spans = [r["name"] for r in recs if r["kind"] == "span"]
+    frac = train_s / train5_s - 1.0
+    log(f"[25c] phase 5's job with the fit's tracer and the observatory on: "
+        f"train {train_s:.3f} s against phase 5's {train5_s:.3f} s, overhead "
+        f"fraction {frac:+.4f} (the JAX telemetry_overhead band: "
+        f"{TRACER_OVERHEAD_BAND}; printed, not gated); {len(recs)} trace "
+        f"records, spans {spans}; alpha, b and updates equal phase 5's: "
+        f"{same}; #1/#2 launches {counts['fused_fupdate']}/"
+        f"{counts['inner_smo']} ({smi})")
+    check(same, "[25c] the traced fit differs from phase 5")
+    check(spans == [f"fit.{p}" for p in model.fit_phases_] + ["training"],
+          f"[25c] spans {spans}")
+
+
+def phase_benchdiff(bench5, out_dir):
+    """25(f): phase 5's {"bench": ...} record as a JSONL artifact; benchdiff
+    of it against itself exits 0, and a copy with the train seconds doubled
+    fails at --level full and passes at --level smoke."""
+    import contextlib
+    import io
+
+    from tpusvm_torch.cli import main as cli_main
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    base, slow = str(out_dir / "bench5.jsonl"), str(out_dir / "slow5.jsonl")
+    doubled = dict(bench5, value=2 * bench5["value"],
+                   train_s=2 * bench5["train_s"])
+    for path, rec in ((base, bench5), (slow, doubled)):
+        with open(path, "w") as f:
+            f.write(json.dumps(rec) + "\n")
+    rcs = {}
+    for label, argv in (("self", [base, base]),
+                        ("doubled full", [base, slow]),
+                        ("doubled smoke", [base, slow, "--level", "smoke"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rcs[label] = cli_main(["benchdiff", *argv])
+        verdict = [x for x in buf.getvalue().splitlines()
+                   if x.startswith("verdict:")]
+        log(f"[25f] benchdiff {label}: exit {rcs[label]}, {verdict}")
+    check(rcs == {"self": 0, "doubled full": 1, "doubled smoke": 0},
+          f"[25f] benchdiff exit codes {rcs}")
+
+
+def phase_trace_front(out, paths, launches, device):
+    """25(a) and (b), on phase 10's runs: the subprocess's trace passes
+    `report --smoke` here, its phase names are the subprocess's timing
+    block, its last convergence.round ends CONVERGED, kernels #1 and #2
+    launched in that process (its snapshot's kernel.launches gauges, which
+    the kernels line counts as phase 25's), its --jsonl records are the
+    run's; the in-process run's profile names #1 and #2's launches."""
+    import os
+    import re
+
+    from tpusvm_torch.obs import read_trace
+    from tpusvm_torch.obs.report import (convergence_rows, nonzero_counters,
+                                         phase_summary)
+
+    rep, secs = _cli_in_process(["report", "--smoke", paths["trace"]],
+                                device)
+    recs = read_trace(paths["trace"])
+    phases = list(phase_summary(recs)[0])
+    block = re.findall(r"^(.+) time: [\d.]+ s$", out, re.M)
+    block = [b for b in block if b != "elapsed"]
+    conv = convergence_rows(recs)
+    snap = [r for r in recs if r["kind"] == "event"
+            and r["name"] == "metrics.snapshot"][-1]["attrs"]["snapshot"]
+    counts = {e["labels"]["kernel"]: int(e["value"])
+              for e in snap["metrics"] if e["name"] == "kernel.launches"}
+    with open(paths["jsonl"]) as f:
+        events = [json.loads(x) for x in f]
+    log(f"[25a] phase 10's subprocess traced: {len(recs)} records, report "
+        f"--smoke {secs:.2f} s: {rep.strip().splitlines()[-1]!r}; phases "
+        f"{phases} (its timing block {block}); {len(conv)} convergence "
+        f"rounds, the last {conv[-1]['status'] if conv else None}; kernel "
+        f"launches {counts}; counters "
+        f"{[c for c in nonzero_counters(recs) if 'kernel' in c]}; --jsonl "
+        f"events {[e['event'] for e in events]}")
+    check(phases == block, f"[25a] phases {phases} vs block {block}")
+    check(conv and conv[-1]["status"] == "CONVERGED",
+          f"[25a] last round {conv[-1] if conv else None}")
+    check(counts.get("fused_fupdate", 0) > 0 and counts.get("inner_smo", 0)
+          > 0, f"[25a] #1/#2 not launched in the subprocess: {counts}")
+    check([e["event"] for e in events] == ["data", "train", "eval",
+                                           "timing"], f"[25a] {events}")
+    check(f"{events[1]['b']:.15f}" == _line(r"b = (-?[\d.]+)", out),
+          "[25a] the --jsonl train record's b is not the printed b")
+    for k in ("fused_fupdate", "inner_smo"):
+        launches.setdefault(k, {})["25"] = counts[k]
+    path = os.path.join(paths["profile"], "trace.json")
+    with open(path) as f:
+        prof = json.load(f)
+    names = collections.Counter(
+        e.get("name", "") for e in prof.get("traceEvents", [])
+        if e.get("cat") == "kernel")
+    k1 = sum(v for k, v in names.items() if "rbf_cross_matvec_kernel" in k)
+    k2 = sum(v for k, v in names.items() if "inner_smo_kernel" in k)
+    log(f"[25b] the in-process --n-limit run's --profile: {path} "
+        f"({os.path.getsize(path) / 1e6:.1f} MB), {sum(names.values())} "
+        f"kernel events, rbf_cross_matvec_kernel {k1}, inner_smo_kernel {k2}")
+    check(k1 > 0 and k2 > 0, f"[25b] the profile names no #1/#2: {k1}/{k2}")
+
 
 
 def phase_refine(X_all, Y_all, n_tr, m5, acc5, device, counters):
@@ -1166,8 +1370,9 @@ class LeafLog:
 # pair leaves are cut in rows (PERF.md section 4): at 60,000 rows the star
 # does not reach its ID-set fixed point (scripts/torch_cascade_probe.py:
 # 34 rounds in 720 s on an H100, the global set moving by 1 to 9 IDs every
-# round from round 5, each warm leaf about 17,700 iterations)
-N_CASCADE_PAIR = 10000
+# round from round 5, each warm leaf about 17,700 iterations); 5,000 rows
+# since phase 25 came in under the same time limit (10,000 before)
+N_CASCADE_PAIR = 5000
 CASCADE_CASES = (("14a", "tree", "blocked", 60000),
                  ("14b", "star", "blocked", 60000),
                  ("14c", "star", "pair", N_CASCADE_PAIR))
@@ -1381,14 +1586,12 @@ def wait_for(path, procs, deadline_s=600):
     return time.perf_counter() - t
 
 
-def phase_cascade_ranks(train_csv, test_csv, model_a, acc_a, train_a_s,
-                        out_dir, device, deadline_s=600):
-    """Phase 14(d): four rank processes of `python -m tpusvm_torch train
+def start_cascade_ranks(train_csv, test_csv, out_dir, device):
+    """Phase 14(d)'s four rank processes of `python -m tpusvm_torch train
     --mode cascade --shards 4 --topology tree --distributed ...` on the CSVs
-    of phase 5's rows, sharing the card; each is waited on with a deadline
-    (all killed on expiry) and must exit 0. Rank 0 must print 14(a)'s SV
-    count, accuracy, b to every printed digit and rounds, and write the only
-    artifact, which `info` describes with 14(a)'s cascade line."""
+    of phase 5's rows, started in the background (they share the card with
+    14(b) and (c)): (processes, artifact paths, start time)."""
+    import atexit
     import os
     import socket
     from pathlib import Path
@@ -1419,6 +1622,19 @@ def phase_cascade_ranks(train_csv, test_csv, model_a, acc_a, train_a_s,
                 [sys.executable, "-m", "tpusvm_torch", *flags, "--process-id",
                  str(r), "--save", str(paths[r])], cwd=root, stdout=o, stderr=e,
                 env=dict(os.environ, PYTHONPATH=root)))
+    # a failed phase before their end must not leave them running
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs, paths, t
+
+
+def phase_cascade_ranks(started, model_a, acc_a, train_a_s, out_dir, device,
+                        deadline_s=600):
+    """Phase 14(d), the end: each rank process (start_cascade_ranks) is
+    waited on with a deadline (all killed on expiry) and must exit 0. Rank
+    0 must print 14(a)'s SV count, accuracy, b to every printed digit and
+    rounds, and write the only artifact, which `info` describes with
+    14(a)'s cascade line."""
+    procs, paths, t = started
     try:
         for p in procs:
             p.wait(timeout=max(1.0, deadline_s - (time.perf_counter() - t)))
@@ -1441,7 +1657,8 @@ def phase_cascade_ranks(train_csv, test_csv, model_a, acc_a, train_a_s,
            _line(r"cascade: (\d+) rounds", out))
     want = (*_report(model_a, acc_a), str(model_a.cascade_rounds_))
     rounds = [ln for ln in out.splitlines() if ln.startswith("=== Round")]
-    log(f"[14d] {CASCADE_P} rank processes on one card: {wall_s:.1f} s wall; "
+    log(f"[14d] {CASCADE_P} rank processes on one card (started after 14(a), "
+        f"beside 14(b) and (c)): {wall_s:.1f} s wall; "
         f"rank 0: data "
         f"{_line(r'data time: ([\d.]+) s', out)} s, training "
         f"{_line(r'training time: ([\d.]+) s', out)} s (14(a) in one process "
@@ -1464,8 +1681,8 @@ def phase_cascade(X_all, Y_all, n_tr, m5, acc5, device, counters, launches,
                   csvs, out_dir, clock):
     """Phase 14: the one-process fits of CASCADE_CASES (cascade_case; a case
     cut in rows is held to the direct blocked fit on its rows), kernel #1 at
-    the leaf's size after 14(a), then 14(d)'s rank processes on phase 10's
-    CSVs. Adds each case's launches to `launches`; returns the one-process
+    the leaf's size after 14(a), and 14(d)'s rank processes on phase 10's
+    CSVs, started after 14(a) and finished after 14(c). Adds each case's launches to `launches`; returns the one-process
     fits by tag (cascade_case's tuples)."""
     from tpusvm_torch.config import SVMConfig
     from tpusvm_torch.models import BinarySVC
@@ -1473,6 +1690,7 @@ def phase_cascade(X_all, Y_all, n_tr, m5, acc5, device, counters, launches,
     out_dir.mkdir(parents=True, exist_ok=True)
     Xt, Yt = X_all[n_tr:], Y_all[n_tr:]
     fits = {}
+    ranks = None
     for tag, topology, solver, n_c in CASCADE_CASES:
         ref, ref_acc, ref_name = m5, acc5, "phase 5"
         if n_c < n_tr:
@@ -1499,10 +1717,13 @@ def phase_cascade(X_all, Y_all, n_tr, m5, acc5, device, counters, launches,
                 f"{rp_ms:.3f} ms")
             check(err <= tol, f"[14a] #1 at the leaf's size: error {err} "
                   f"over {tol}")
+            # 14(d)'s ranks run beside 14(b) and (c): their starts (an
+            # interpreter and a CUDA context each) overlap those fits
+            ranks = start_cascade_ranks(csvs["train"], csvs["test"], out_dir,
+                                        device)
         clock(tag)
     model_a, acc_a, train_a_s = fits["14a"][:3]
-    phase_cascade_ranks(csvs["train"], csvs["test"], model_a, acc_a,
-                        train_a_s, out_dir, device)
+    phase_cascade_ranks(ranks, model_a, acc_a, train_a_s, out_dir, device)
     clock("14d")
     return fits
 
@@ -2209,7 +2430,8 @@ def _finish_pod_smokes(smokes):
         ok = [x for x in out.splitlines() if x.startswith(line)]
         secs = ends.get(i, time.perf_counter()) - t0
         log(f"[19c] python -m {' '.join(args)}: exit {proc.returncode} in "
-            f"{secs:.1f} s (the three and 19(b) started together); "
+            f"{secs:.1f} s (the three started together before 19(a), "
+            f"in the whole run at phase 18's start); "
             f"{ok[-1] if ok else out[-300:]!r}")
         check(proc.returncode == 0 and ok,
               f"[19c] {' '.join(args)}: exit {proc.returncode}\n"
@@ -2225,7 +2447,8 @@ def _pod_bits(res, ref):
             and res.b == ref.b and res.rounds == ref.rounds)
 
 
-def phase_pod(ds, m17d, device, counters, launches, smi, prefetch_depth=2):
+def phase_pod(ds, m17d, device, counters, launches, smi, prefetch_depth=2,
+              smokes=None):
     """Phase 19, the pod on 17(a)'s dataset with 14(b)'s job (star, P =
     CASCADE_P, blocked leaves with phase 5's q, wss and max_inner): (a)
     BinarySVC.fit_pod equal to 17(d)'s fit_cascade_stream bit for bit (SV
@@ -2236,13 +2459,21 @@ def phase_pod(ds, m17d, device, counters, launches, smi, prefetch_depth=2):
     seconds, the workers' start-up (spawn, leaf load, up to READY) and
     each round's seconds printed; (b) pod_fit with worker 1 killed (a real
     SIGKILL) at its 2nd request: one revive, (a)'s bits; (c) the chaos
-    smokes and `pod --smoke` as subprocesses, started together with (b)
+    smokes and `pod --smoke` as subprocesses, started together before (a)
     (each process start costs seconds; their times and (b)'s are not
-    measurements), each exiting 0 with its ok line."""
+    measurements), each exiting 0 with its ok line.
+
+    25(d): (a) is traced, the coordinator's file and one a worker process
+    in one directory (pod_fit's trace_dir): `report --smoke DIR` exits 0,
+    every cross-process parent resolves, and (a)'s bits are 17(d)'s as
+    before; (c)'s pod-chaos-smoke runs its traced arm."""
     import json as _json
     import os
+    import shutil
 
     from tpusvm_torch.config import CascadeConfig, SVMConfig
+    from tpusvm_torch.obs.report import merge_trace_files, reparent_stats
+    from tpusvm_torch.obs.trace import Tracer
     from tpusvm_torch.pod import pod_fit
 
     cc = CascadeConfig(n_shards=CASCADE_P, sv_capacity=CASCADE_SV_CAP,
@@ -2253,46 +2484,67 @@ def phase_pod(ds, m17d, device, counters, launches, smi, prefetch_depth=2):
         return {k: (coordinator[k], [w.get(k, 0) for w in res.worker_launches])
                 for k in ("fused_fupdate", "inner_smo")}
 
-    _zero(counters)
-    sync(device)
-    t = time.perf_counter()
-    m = _cascade_model("blocked", device).fit_pod(
-        ds.path, cc, prefetch_depth=prefetch_depth)
-    sync(device)
-    fit_s = time.perf_counter() - t
-    res = m.pod_result_
-    kc = kernel_counts(_count(counters), res)
-    for k, (coord, workers) in kc.items():
-        launches.setdefault(k, {})["19a"] = coord + sum(workers)
-    same = _same_bits(m, m17d) and m.cascade_rounds_ == m17d.cascade_rounds_
-    rounds_s = [round(h["time_s"], 3) for h in res.history]
-    log(f"[19a] fit_pod, 14(b)'s star with blocked leaves in {CASCADE_P} "
-        f"worker processes on 17(a)'s shards: {fit_s:.3f} s, of which "
-        f"worker start-up (spawn, CUDA context, leaf load, up to READY) "
-        f"{res.startup_s:.3f} s and rounds {rounds_s} (sum "
-        f"{sum(rounds_s):.3f} s; 17(d) in process: see [17d]); "
-        f"{m.cascade_rounds_} rounds, status {m.status_.name}, SV count "
-        f"{m.n_support_}, b {m.b_:.15f}; 17(d)'s bits (SV IDs, alphas, SV "
-        f"rows, b, rounds): {same}; worker rows {list(res.worker_rows)}, "
-        f"live shards {list(res.worker_max_live_shards)}, revives "
-        f"{res.revives}; #1/#2 launches (coordinator, [workers]) "
-        f"{_json.dumps(kc)} ({smi})")
-    check(same, "[19a] fit_pod differs from 17(d)")
-    check(sum(res.worker_rows) == ds.n_rows, f"[19a] rows {res.worker_rows}")
-    check(max(res.worker_max_live_shards) <= prefetch_depth + 1,
-          f"[19a] live shards {res.worker_max_live_shards}")
-    check(res.revives == 0, f"[19a] revives {res.revives}")
-    check(device == "cpu" or all(
-        coord > 0 and min(workers) > 0 for coord, workers in kc.values()),
-          f"[19a] #1/#2 not launched in every process: {kc}")
-
-    plan = os.path.join(os.path.dirname(ds.path), "pod_kill_plan.json")
-    with open(plan, "w") as f:
-        _json.dump({"format_version": 1, "seed": 0, "rules": [
-            {"point": "pod.worker", "kind": "kill", "at_hit": 2}]}, f)
-    cfg = SVMConfig(C=C, gamma=GAMMA, max_iter=10**6, max_rounds=50)
-    smokes = _start_pod_smokes(device, os.path.dirname(ds.path))
+    # (c)'s subprocesses start first (smokes: already started, in the whole
+    # run at phase 18's start): their starts overlap (a) and (b)
+    if smokes is None:
+        smokes = _start_pod_smokes(device, os.path.dirname(ds.path))
     try:
+        tdir = os.path.join(os.path.dirname(ds.path), "pod_trace")
+        shutil.rmtree(tdir, ignore_errors=True)
+        os.makedirs(tdir)
+        tracer = Tracer(os.path.join(tdir, "coordinator.jsonl"),
+                        role="pod-coordinator", argv=["chip_smoke 19a"])
+        _zero(counters)
+        sync(device)
+        t = time.perf_counter()
+        try:
+            m = _cascade_model("blocked", device).fit_pod(
+                ds.path, cc, prefetch_depth=prefetch_depth, tracer=tracer,
+                trace_dir=tdir)
+        finally:
+            tracer.close()
+        sync(device)
+        fit_s = time.perf_counter() - t
+        res = m.pod_result_
+        kc = kernel_counts(_count(counters), res)
+        for k, (coord, workers) in kc.items():
+            launches.setdefault(k, {})["19a"] = coord + sum(workers)
+        same = _same_bits(m, m17d) and m.cascade_rounds_ == m17d.cascade_rounds_
+        rounds_s = [round(h["time_s"], 3) for h in res.history]
+        log(f"[19a] fit_pod, 14(b)'s star with blocked leaves in {CASCADE_P} "
+            f"worker processes on 17(a)'s shards: {fit_s:.3f} s, of which "
+            f"worker start-up (spawn, CUDA context, leaf load, up to READY) "
+            f"{res.startup_s:.3f} s and rounds {rounds_s} (sum "
+            f"{sum(rounds_s):.3f} s; 17(d) in process: see [17d]); "
+            f"{m.cascade_rounds_} rounds, status {m.status_.name}, SV count "
+            f"{m.n_support_}, b {m.b_:.15f}; 17(d)'s bits (SV IDs, alphas, SV "
+            f"rows, b, rounds): {same}; worker rows {list(res.worker_rows)}, "
+            f"live shards {list(res.worker_max_live_shards)}, revives "
+            f"{res.revives}; #1/#2 launches (coordinator, [workers]) "
+            f"{_json.dumps(kc)} ({smi})")
+        check(same, "[19a] fit_pod differs from 17(d)")
+        check(sum(res.worker_rows) == ds.n_rows, f"[19a] rows {res.worker_rows}")
+        check(max(res.worker_max_live_shards) <= prefetch_depth + 1,
+              f"[19a] live shards {res.worker_max_live_shards}")
+        check(res.revives == 0, f"[19a] revives {res.revives}")
+        check(device == "cpu" or all(
+            coord > 0 and min(workers) > 0 for coord, workers in kc.values()),
+              f"[19a] #1/#2 not launched in every process: {kc}")
+        rep, secs = _cli_in_process(["report", "--smoke", tdir], device)
+        files = sorted(os.path.join(tdir, x) for x in os.listdir(tdir)
+                       if x.endswith(".jsonl"))
+        stats = reparent_stats(merge_trace_files(files))
+        log(f"[25d] 19(a) traced into {len(files)} files: report --smoke "
+            f"{secs:.2f} s: {rep.strip().splitlines()[-1]!r}; {stats}; 19(a)'s "
+            f"bits (17(d)'s) held: {same}")
+        check(len(files) == CASCADE_P + 1 and stats["unresolved"] == 0
+              and stats["reparented"] > 0, f"[25d] {len(files)} files, {stats}")
+
+        plan = os.path.join(os.path.dirname(ds.path), "pod_kill_plan.json")
+        with open(plan, "w") as f:
+            _json.dump({"format_version": 1, "seed": 0, "rules": [
+                {"point": "pod.worker", "kind": "kill", "at_hit": 2}]}, f)
+        cfg = SVMConfig(C=C, gamma=GAMMA, max_iter=10**6, max_rounds=50)
         _zero(counters)
         t = time.perf_counter()
         rb = pod_fit(ds.path, cfg, cc, solver="blocked",
@@ -2955,6 +3207,7 @@ def phase_serve(X_all, Y_all, n_tr, m5, model5_path, m11, ovr_a, Xm, rff,
     import torch
 
     from tpusvm_torch.models import load_any
+    from tpusvm_torch.obs import prof
     from tpusvm_torch.obs.fleet import parse_payload
     from tpusvm_torch.serve import ServeConfig, Server
     from tpusvm_torch.serve.refresh import refresh_fit
@@ -2995,10 +3248,22 @@ def phase_serve(X_all, Y_all, n_tr, m5, model5_path, m11, ovr_a, Xm, rff,
         for name, _, _ in cases:
             srv.load_model(name, paths[name])
         t = time.perf_counter()
-        built = srv.warmup()
+        # 25(e): the captures under the compile observatory
+        with prof.profiling() as observatory:
+            built = srv.warmup()
         warm_s = time.perf_counter() - t
         log(f"[22a] warm-up: {json.dumps(built)} bucket graphs captured in "
             f"{warm_s:.3f} s ({smi})")
+        recs = [r for r in observatory.records
+                if r["executable"].startswith("serve.bucket[")]
+        per_model = {n: sum(r["model"] == n for r in recs) for n in built}
+        log(f"[25e] phase 22(a)'s warm-up under the compile observatory: "
+            f"{len(recs)} capture records {json.dumps(per_model)}; capture "
+            f"seconds {sum(r['compile_s'] for r in recs):.3f}, eager "
+            f"warm-up seconds {sum(r['lower_s'] for r in recs):.3f}")
+        check(per_model == built and len(recs) == len(
+            {r["executable"] for r in recs}),
+              f"[25e] capture records {per_model} vs graphs {built}")
         for name, est, X in cases:
             cap = _serving_bits("22a", srv, name, est, X, device)
             offline = np.asarray(est.decision_function(X))
@@ -4052,9 +4317,10 @@ def _trace_lines(path):
 def phase_router(X_all, Y_all, n_tr, model5_path, device, counters,
                  launches, smi, out_dir):
     """Phase 24, the router (tpusvm_torch.router) in front of
-    N_ROUTER_REPLICAS `python -m tpusvm_torch serve --port 0 --state ...
-    --trace ...` replica processes on the card, each hosting phase 5's
-    artifact, warmed, with (e) running beside (a)-(b):
+    N_ROUTER_REPLICAS `python -m tpusvm_torch serve --port P --state ...
+    --trace ...` replica processes on the card (P free and below the
+    kernel's ephemeral range: serve/http.py revivable_ports), each hosting
+    phase 5's artifact, warmed, with (e) running beside (a)-(b):
 
     (a) the in-process Router (replication 2) and its HTTP front; 8
         one-row clients on the held-out rows through the router while the
@@ -4091,7 +4357,7 @@ def phase_router(X_all, Y_all, n_tr, model5_path, device, counters,
     from tpusvm_torch.obs.registry import MetricsRegistry
     from tpusvm_torch.obs.trace import Tracer
     from tpusvm_torch.router import Router, RouterConfig, make_router_http
-    from tpusvm_torch.serve.http import start_http_thread
+    from tpusvm_torch.serve.http import revivable_ports, start_http_thread
     from tpusvm_torch.serve.refresh import refresh_fit
     from tpusvm_torch.status import RouterStatus, Status
 
@@ -4108,14 +4374,14 @@ def phase_router(X_all, Y_all, n_tr, model5_path, device, counters,
     def state(i):
         return out_dir / "replicas" / f"rep{i}" / "serve_state.json"
 
-    def spawn(i, port=0):
+    def spawn(i, port, first=True):
         state(i).parent.mkdir(parents=True, exist_ok=True)
         traces[i].append(out_dir / "replicas"
                          / f"rep{i}.{len(traces[i])}.jsonl")
         argv = [sys.executable, "-m", "tpusvm_torch", "serve", "--port",
                 str(port), "--state", str(state(i)), "--trace",
                 str(traces[i][-1])]
-        if port == 0:
+        if first:
             argv += ["--model", f"m={model5_path}"]
         if device == "cpu":
             argv += ["--device", "cpu"]
@@ -4143,7 +4409,11 @@ def phase_router(X_all, Y_all, n_tr, model5_path, device, counters,
 
     atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
     t_spawn = time.perf_counter()
-    procs.extend(spawn(i) for i in range(N_ROUTER_REPLICAS))
+    # ports below the kernel's ephemeral range: a dead replica's port
+    # cannot be taken meanwhile as a connection's local port, so the
+    # revive on its recorded port binds
+    procs.extend(spawn(i, port) for i, port in
+                 enumerate(revivable_ports(N_ROUTER_REPLICAS)))
 
     # (b)'s generation 2, made while the replicas start
     n_ref = n_tr + N_ROUTER_APPEND
@@ -4225,7 +4495,7 @@ def phase_router(X_all, Y_all, n_tr, model5_path, device, counters,
         procs[dark].kill()  # a real SIGKILL: nothing flushed, no close
         procs[dark].wait()
         events["killed_at"] = metric("router.requests")
-        procs[dark] = spawn(dark, port=port)
+        procs[dark] = spawn(dark, port, first=False)
         url, rid = wait_ready(dark)
         events["revive_s"] = time.perf_counter() - t0
         check(url == urls[dark], f"[24a] replica {dark} revived on {url}, "
@@ -4461,10 +4731,15 @@ def main():
         f"{peak_tf32 / 1e12:.1f} TFLOP/s, {peak_bw / 1e12:.2f} TB/s")
 
     # ---- 2. build ---------------------------------------------------------
+    # (25(e): with the compile observatory on, one record a library built)
+    from tpusvm_torch.obs import prof
+
     t = time.perf_counter()
-    secs = _build.build_all()
+    with prof.profiling() as observatory:
+        secs = _build.build_all()
     log(f"[2] built {sorted(secs)} in {time.perf_counter() - t:.1f} s "
         f"(per source: {json.dumps({k: round(v, 1) for k, v in secs.items()})})")
+    phase_build_records(observatory.records, secs)
     for name in secs:
         path = _build.BUILD_DIR / f"{name}.log"
         if path.exists():
@@ -4959,7 +5234,7 @@ def main():
             check(np.array_equal(again.predict(X_all[60000:]), pred),
                   "reloaded model predicts differently")
             log(f"[5] saved and reloaded {path}: predictions equal")
-            print(json.dumps({"bench": {
+            bench5 = {
                 "metric": "mnist60k_smo_train_time", "value": train_s, "unit": "s",
                 "workload": {"generator": "mnist_like", "n": 70000, "d": 784,
                              "noise": 30.0, "label_noise": 0.005, "seed": 587,
@@ -4973,10 +5248,11 @@ def main():
                 "updates": updates, "outer_rounds": res.n_outer,
                 "n_sv": model.n_support_, "accuracy": acc,
                 "status": model.status_.name,
-                "provenance": {"torch": torch.__version__,
+                "provenance": {"backend": "gpu", "torch": torch.__version__,
                                "cuda": torch.version.cuda,
                                "python": sys.version.split()[0],
-                               "device": kind, "nvidia_smi": smi}}}), flush=True)
+                               "device": kind, "nvidia_smi": smi}}
+            print(json.dumps({"bench": bench5}), flush=True)
     (m5, acc5), (m5b, acc5b) = models["5"], models["5b"]
     log(f"[5b] against phase 5's model: accuracy {acc5b:.4f} vs {acc5:.4f}, SV-ID "
         f"symmetric difference {len(set(m5.sv_ids_) ^ set(m5b.sv_ids_))} of "
@@ -4984,6 +5260,12 @@ def main():
     check(abs(acc5b - acc5) <= 0.002, f"5b accuracy {acc5b} vs phase 5 {acc5}")
 
     clock("5, 5b")
+    # ---- 25(c), 25(f): the tracer's cost on phase 5's job; benchdiff -------
+    trace_dir = _build.BUILD_DIR / "chip_smoke_trace"
+    phase_tracer_cost(X_all, Y_all, 60000, m5, train_secs["5"],
+                      full_opts["5"], counters, trace_dir, smi)
+    phase_benchdiff(bench5, trace_dir)
+    clock("25c, 25f")
     # the CSVs of phases 10, 14(d), 17(e) and 20(b), written in the
     # background from here on (stopped at exit if still running)
     import atexit
@@ -5045,7 +5327,7 @@ def main():
 
     # ---- 10-13. the front door, refine, checkpoints, shrinking, cache ----
     csv10 = phase_front(X_all, Y_all, 60000, N_CSV_LIMIT, N_ORACLE, csvs,
-                        writers, m5, "cuda", model5_path)
+                        writers, m5, "cuda", model5_path, launches, trace_dir)
     clock("10")
     m11, gaps11 = phase_refine(X_all, Y_all, 60000, m5, acc5, "cuda", counters)
     clock("11")
@@ -5072,12 +5354,16 @@ def main():
                             csv10, "cuda", counters, launches, smi,
                             _build.BUILD_DIR / "chip_smoke_stream")
     clock("17")
+    # 19(c)'s subprocesses (their own synthetic data) start here, beside 18
+    pod_smokes = _start_pod_smokes("cuda", str(Path(ds.path).parent))
+    atexit.register(lambda: _stop_pod_smokes(pod_smokes[0]))
     rff18a = phase_approx(X_all, Y_all, 60000, acc5, ds, "cuda", counters,
                           launches)
     clock("18")
 
     # ---- 19. the pod: the cascade's leaves in worker processes ----------
-    phase_pod(ds, m17d, "cuda", counters, launches, smi)
+    phase_pod(ds, m17d, "cuda", counters, launches, smi, smokes=pod_smokes)
+    # (25(d) ran inside: 19(a) traced into a directory, one file a process)
     clock("19")
 
     # ---- 20, 21. the class axis and the front door; tuning --------------

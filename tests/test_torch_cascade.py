@@ -149,14 +149,30 @@ def test_cascade_unknown_solver_rejected():
              solver="newton")
 
 
-def test_refusals():
+def test_refusals(tmp_path):
+    from tpusvm_torch.obs.trace import Tracer, read_trace
+
     Xs, Y = _ring_data(n=64)
     cc = CascadeConfig(n_shards=2, topology="star")
     with pytest.raises(ValueError, match="shrinking driver"):
         _fit(Xs, Y, CFG, cc, solver="blocked",
              solver_opts={"shrink_every": 2, "shrink_min": 8})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        _fit(Xs, Y, CFG, cc, tracer=object())
+    # the tracer is ported: a traced fit writes one cascade.round span and
+    # event a round and keeps the untraced fit's bits (small buffers and
+    # working sets keep the two fits cheap)
+    small = CascadeConfig(n_shards=2, topology="star", sv_capacity=64)
+    kw = dict(solver="blocked", solver_opts={"q": 16})
+    path = str(tmp_path / "t.jsonl")
+    with Tracer(path) as tracer:
+        traced = _fit(Xs, Y, CFG, small, tracer=tracer, **kw)
+    plain = _fit(Xs, Y, CFG, small, **kw)
+    assert traced.sv_alpha.tobytes() == plain.sv_alpha.tobytes()
+    assert traced.b == plain.b and traced.rounds == plain.rounds
+    recs = read_trace(path)
+    for kind in ("span", "event"):
+        assert [r["attrs"]["round"] for r in recs if r["kind"] == kind
+                and r["name"] == "cascade.round"] == list(
+                    range(1, plain.rounds + 1))
     # the streaming twin is ported (stream/); it refuses the approximate
     # families, as the JAX package does
     with pytest.raises(ValueError, match="approximate"):

@@ -69,11 +69,21 @@ def test_info_describes_a_tenant_store_as_jax_does(tmp_path):
 @pytest.mark.parametrize("argv, message", [
     (["autopilot"], "--data DIR and --model NPZ are required"),
     (["tenants"], "--data DIR is required"),
-    (["autopilot", "--smoke", "--trace", "t.jsonl"], "item 12"),
-    (["tenants", "--smoke", "--trace", "t.jsonl"], "item 12"),
+    (["autopilot", "--trace", "t.jsonl"], "--data DIR and --model NPZ"),
+    (["tenants", "--trace", "t.jsonl"], "--data DIR is required"),
 ], ids=["autopilot_args", "tenants_args", "autopilot_trace", "tenants_trace"])
-def test_closed_loop_commands_refuse_by_name(argv, message):
+def test_closed_loop_commands_refuse_by_name(argv, message, tmp_path,
+                                             monkeypatch):
     from tpusvm_torch.cli import main
+    from tpusvm_torch.obs.trace import read_trace
 
+    # --trace is ported: the refusal still comes, and the trace it leaves
+    # is complete (meta, the registry snapshot, end)
+    monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match=message):
         main(argv + ["--device", "cpu"])
+    if "--trace" in argv:
+        recs = read_trace("t.jsonl")
+        assert recs[0]["argv"] == [argv[0]] and recs[-1]["kind"] == "end"
+        assert [r["name"] for r in recs if r["kind"] == "event"] == [
+            "metrics.snapshot"]

@@ -1140,3 +1140,49 @@ def test_router_over_two_card_replicas_keeps_decision_function_bits(
         router.close()
         for srv in servers:
             srv.close()
+
+
+def test_train_profile_records_cuda_activity_of_kernels_1_and_2(dev, tmp_path):
+    # --profile on the card: a torch.profiler trace naming the launches of
+    # the f-update (#1) and the inner subproblem (#2); --trace beside it
+    # names the capture dir, and the fit's bits are the unprofiled fit's
+    import os
+
+    from tpusvm_torch.cli import main
+    from tpusvm_torch.obs import read_trace
+
+    prof_dir = str(tmp_path / "prof")
+    trace = str(tmp_path / "t.jsonl")
+    flags = ["train", "--synthetic", "mnist_like", "--n", "3000", "--n-test",
+             "500", "--d", "64", "--C", "10", "--gamma", "0.02", "--q", "256"]
+    assert main(flags + ["--profile", prof_dir, "--trace", trace,
+                         "--save", str(tmp_path / "a.npz")]) == 0
+    assert main(flags + ["--save", str(tmp_path / "b.npz")]) == 0
+    with open(os.path.join(prof_dir, "trace.json")) as f:
+        text = f.read()
+    assert "rbf_cross_matvec_kernel" in text and "inner_smo_kernel" in text
+    recs = read_trace(trace)
+    assert [r["attrs"]["dir"] for r in recs if r["kind"] == "event"
+            and r["name"] == "profile.capture"] == [prof_dir]
+    with np.load(str(tmp_path / "a.npz")) as a, \
+            np.load(str(tmp_path / "b.npz")) as b:
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), k
+
+
+def test_pair_chunk_graph_capture_is_one_compile_record(dev):
+    from tpusvm_torch.obs import prof
+    from tpusvm_torch.obs.registry import MetricsRegistry
+
+    X, Y = mnist_like(n=2000, d=64, seed=3)
+    cfg = SVMConfig(C=10.0, gamma=0.02)
+    plain = BinarySVC(cfg, solver="pair", device="cuda").fit(X, Y)
+    events = []
+    with prof.profiling(registry=MetricsRegistry(),
+                        event_sink=lambda n, **a: events.append(a)):
+        on = BinarySVC(cfg, solver="pair", device="cuda").fit(X, Y)
+    assert on.sv_alpha_.tobytes() == plain.sv_alpha_.tobytes()
+    assert on.b_ == plain.b_
+    recs = [e for e in events if e["executable"] == "solver.pair_chunk"]
+    assert len(recs) == 1 and recs[0]["compile_s"] > 0
+    assert recs[0]["cost_available"] is False and recs[0]["rows"] == 2000

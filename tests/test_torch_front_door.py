@@ -352,9 +352,15 @@ def test_train_smoke_cells_exit_zero(argv, capsys):
     assert "train smoke ok" in capsys.readouterr().out
 
 
-def test_train_smoke_trace_is_refused_naming_item_12():
-    with pytest.raises(SystemExit, match="item 12"):
-        main(["train", "--smoke", "--trace", "t.jsonl", "--device", "cpu"])
+def test_train_smoke_trace_passes_report_smoke(tmp_path, capsys):
+    # train --smoke --trace: the smoke's own trace gate holds, and the trace
+    # passes `report --smoke` (phase spans and convergence records)
+    path = str(tmp_path / "t.jsonl")
+    assert main(["train", "--smoke", "--trace", path, "--device",
+                 "cpu"]) == 0
+    assert "train smoke ok" in capsys.readouterr().out
+    assert main(["report", "--smoke", path]) == 0
+    assert "report smoke ok: 3 phases" in capsys.readouterr().out
 
 
 def test_ingest_map_flags_meet_the_jax_refusal(tmp_path):

@@ -101,7 +101,7 @@ def test_ovr_poly_family(data):
     assert m.score(Xt, lt) > 0.5
 
 
-def test_binary_fits_not_ported_are_refused():
+def test_binary_fits_not_ported_are_refused(tmp_path):
     from tpusvm_torch.models import BinarySVC
 
     X = np.random.default_rng(0).random((20, 3))
@@ -124,15 +124,27 @@ def test_binary_fits_not_ported_are_refused():
     with pytest.raises(ValueError, match="checkpoint_path/resume"):
         BinarySVC(SVMConfig(kernel="rff"), scale=False,
                   device="cpu").fit_stream(None, checkpoint_path="ck.npz")
-    # the cascade and its pod leaves are ported (ROADMAP Queue 1 item 9)
-    # but for their tracer (item 12); the pod refuses the approximate
-    # families as the JAX estimator does
+    # the cascade and its pod leaves are ported with their tracers; the pod
+    # refuses the approximate families as the JAX estimator does
     with pytest.raises(ValueError, match="approximate"):
         BinarySVC(SVMConfig(kernel="rff"), device="cpu").fit_pod("data")
     with pytest.raises(ValueError, match="approximate"):
         BinarySVC(SVMConfig(kernel="nystrom"), device="cpu").fit_cascade_stream(
             None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        m.fit_cascade(X, Y, tracer=object())
+    # the fit's tracer: BinarySVC.fit(tracer=) writes its host phases as
+    # fit.<phase> spans and keeps the untraced fit's bits
+    from tpusvm_torch.data import rings
+    from tpusvm_torch.obs.trace import Tracer, read_trace
+
+    X2, Y2 = rings(n=60, seed=1)
+    path = str(tmp_path / "t.jsonl")
+    with Tracer(path) as tracer:
+        traced = BinarySVC(SVMConfig(C=10.0, gamma=10.0),
+                           device="cpu").fit(X2, Y2, tracer=tracer)
+    plain = BinarySVC(SVMConfig(C=10.0, gamma=10.0), device="cpu").fit(X2, Y2)
+    assert traced.sv_alpha_.tobytes() == plain.sv_alpha_.tobytes()
+    assert traced.b_ == plain.b_ and traced.n_iter_ == plain.n_iter_
+    assert [r["name"] for r in read_trace(path) if r["kind"] == "span"] == [
+        f"fit.{p}" for p in traced.fit_phases_]
     with pytest.raises(ValueError, match="unknown solver"):
         BinarySVC(solver="fleet", device="cpu")

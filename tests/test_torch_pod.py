@@ -54,6 +54,12 @@ P = 4
 CPU = dict(device="cpu")
 
 
+class _AnonymousTracer:
+    """A tracer made without role=: it has no context to propagate."""
+
+    role = None
+
+
 def _cc(topology="tree"):
     return CascadeConfig(n_shards=P, sv_capacity=128, topology=topology)
 
@@ -289,10 +295,11 @@ def test_shrinking_leaves_recover_oracle(data_dir, oracle):
     (dict(solver="pair", solver_opts={"shrink_every": 2}), ValueError,
      "shrinking driver"),
     (dict(solver="fleet"), ValueError, "unknown solver"),
-    (dict(tracer=object()), NotImplementedError, "tracer.*item 12"),
-    (dict(trace_dir="t"), NotImplementedError, "trace_dir.*item 12"),
-    (dict(trace_max_bytes=1), NotImplementedError,
-     "trace_max_bytes.*item 12"),
+    (dict(trace_dir="t"), ValueError, "trace_dir needs a tracer"),
+    (dict(trace_dir="t", tracer=_AnonymousTracer()), ValueError,
+     "constructed with role="),
+    (dict(trace_dir="t", trace_max_bytes=1), ValueError,
+     "trace_dir needs a tracer"),
 ])
 def test_pod_fit_refusals(data_dir, kw, err, match):
     with pytest.raises(err, match=match):
@@ -435,8 +442,6 @@ def test_pod_smoke_command_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "pod ok: tree 3 rounds/13 SVs; star" in out
     assert "bit-identical to in-memory cascade" in out
-    with pytest.raises(SystemExit, match="item 12"):
-        cli_main(["pod", "--trace-dir", "t", "--device", "cpu"])
 
 
 def test_worker_snapshot_reports_its_registry(data_dir):

@@ -146,7 +146,9 @@ def test_checkpoint_shrink_and_csv_entry_points_raise_without_a_card(tmp_path):
                                  "serve.refresh", "serve.watch",
                                  "obs.fleet", "stream.append", "autopilot",
                                  "tenants", "router", "obs.trace",
-                                 "router.proxy"])
+                                 "router.proxy", "obs.report", "obs.prof",
+                                 "obs.costs", "obs.benchdiff",
+                                 "utils.logging", "utils.timing"])
 def test_new_tiers_import_alone_without_jax_or_tpusvm(pkg):
     # each tier in a fresh interpreter, alone: what it pulls in is its own
     code = f"""

@@ -12,6 +12,8 @@ one event sequence equal the JAX package's exactly.
 """
 
 import json
+import os
+import re
 import threading
 import time
 import urllib.error
@@ -809,21 +811,33 @@ def test_cli_serve_refuses_trace_and_nothing_to_host(tmp_path, capsys):
     from tpusvm_torch.cli import main
     from tpusvm_torch.obs.trace import read_trace
 
-    # --trace works: a role-serve trace with the warm-up and smoke phases
-    # and the final metrics (the name is kept; --profile is still refused)
+    # --trace works: a role-serve trace with the warm-up and smoke phases,
+    # one compile record a bucket build and the final metrics; --profile
+    # writes a torch.profiler trace of the smoke (the name is kept)
     path = str(tmp_path / "t.jsonl")
     assert main(["serve", "--smoke", "--trace", path, "--smoke-threads", "2",
                  "--smoke-requests", "4", "--device", "cpu"]) == 0
-    assert "bit-equal" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "bit-equal" in out
+    built = int(re.search(r"warmed rings: (\d+) bucket programs built",
+                          out).group(1))
     recs = read_trace(path)
     assert recs[0]["kind"] == "meta" and recs[0]["role"] == "serve"
     assert recs[0]["argv"] == ["serve"] and recs[-1]["kind"] == "end"
     phases = [r["name"] for r in recs if r["kind"] == "span"]
     assert phases == ["warmup", "smoke"]
     assert {r["name"] for r in recs if r["kind"] == "event"} == {
-        "serve.metrics", "metrics.snapshot"}
-    for argv, msg in ((["serve", "--smoke", "--profile", "d"], "item 12"),
-                      (["serve", "--device", "cpu"], "nothing to host"),
+        "serve.metrics", "metrics.snapshot", "prof.compile"}
+    compiles = [r["attrs"] for r in recs
+                if r["kind"] == "event" and r["name"] == "prof.compile"]
+    assert len({c["bucket"] for c in compiles}) == len(compiles) == built
+    assert all(c["cost_available"] is False for c in compiles)
+    prof_dir = str(tmp_path / "prof")
+    assert main(["serve", "--smoke", "--profile", prof_dir,
+                 "--smoke-threads", "2", "--smoke-requests", "4",
+                 "--device", "cpu"]) == 0
+    assert os.path.getsize(os.path.join(prof_dir, "trace.json")) > 0
+    for argv, msg in ((["serve", "--device", "cpu"], "nothing to host"),
                       (["serve", "--smoke", "--assert-cached"],
                        "--cache-dir")):
         with pytest.raises(SystemExit, match=msg):

@@ -244,8 +244,8 @@ def test_cli_ingest_train_predict_info(tmp_path):
 @pytest.mark.parametrize("argv,msg", [
     (["ingest", "--synthetic", "rings", "--out", "o", "--kernel", "rff"],
      "shards store RAW features"),
-    (["ingest", "--synthetic", "rings", "--out", "o", "--trace", "t.jsonl"],
-     "item 12"),
+    (["ingest", "--synthetic", "rings", "--out", "o", "--trace", "t.jsonl",
+      "--kernel", "nystrom"], "shards store RAW features"),
     (["train", "--data", "d", "--synthetic", "rings"], "exactly one of"),
     (["train", "--data", "d", "--multiclass"], "binary training"),
     (["train", "--data", "d", "--kernel", "rff", "--mode", "cascade"],

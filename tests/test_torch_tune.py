@@ -218,6 +218,7 @@ def test_kernel_specs_and_config_refusals():
 
 def test_cli_tune_smoke_and_info(tmp_path, capsys):
     from tpusvm_torch.cli import main
+    from tpusvm_torch.obs.trace import read_trace
 
     results = str(tmp_path / "tune.json")
     assert main(["tune", "--smoke", "--device", "cpu", "--results", results,
@@ -231,5 +232,12 @@ def test_cli_tune_smoke_and_info(tmp_path, capsys):
     with pytest.raises(SystemExit, match="both --C-grid and --gamma-grid"):
         main(["tune", "--synthetic", "rings", "--n", "64", "--C-grid", "1,2",
               "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 12"):
-        main(["tune", "--smoke", "--trace", "t.jsonl", "--device", "cpu"])
+    # --trace is ported: a tune.point event a scored point, the winner
+    trace = str(tmp_path / "t.jsonl")
+    assert main(["tune", "--smoke", "--trace", trace, "--device", "cpu",
+                 "-q"]) == 0
+    recs = read_trace(trace)
+    events = [r["name"] for r in recs if r["kind"] == "event"]
+    assert events.count("tune.point") == 4 and "tune.winner" in events
+    assert [r["name"] for r in recs if r["kind"] == "span"] == [
+        "data", "search", "final-train"]

@@ -1,5 +1,5 @@
 """Command line: `python -m tpusvm_torch train|pod|predict|ingest|tune|serve|
-refresh|autopilot|tenants|router|fleet-metrics|top|info`.
+refresh|autopilot|tenants|router|fleet-metrics|top|info|report|benchdiff`.
 
 train fits a model on a CSV (--train, last column = label; --test scores a
 held-out CSV) or a synthetic dataset, scores the held-out rows and prints
@@ -53,6 +53,17 @@ admission, failover, staggered rollouts with skew holds; --trace;
 fleet's processes, and top renders it as a table. train, predict, tune,
 serve, refresh, autopilot, tenants and the router and fleet-metrics
 smokes run on the card unless --device cpu.
+
+Observability: --trace PATH (train, ingest, tune, serve, autopilot,
+tenants, router; pod --trace-dir DIR, one file a process) writes a JSONL
+trace of phase spans, rounds, convergence records, compile records (CUDA
+graph captures, nvcc builds) and metric counters, which `report TRACE...`
+renders (several files or a directory merge onto one wall clock, with the
+cross-process timeline); --profile DIR (--xprof) captures a torch.profiler
+trace (train, ingest, tune, serve); train --jsonl PATH appends structured
+run events; `benchdiff OLD NEW` gates one benchmark JSONL against
+another. --faults PLAN.json (or TPUSVM_FAULTS) activates a seeded
+fault-injection plan for any sub-command.
 """
 
 from __future__ import annotations
@@ -74,6 +85,7 @@ from tpusvm_torch.data.synthetic import (BENCH_LABEL_NOISE, BENCH_NOISE,
                                          BENCH_NOISE_MULTICLASS, blobs,
                                          mnist_like, mnist_like_multiclass,
                                          rings, svr_sine)
+from tpusvm_torch.obs.trace import PhaseTimer
 from tpusvm_torch.status import Status
 
 _SYNTHETIC = ("mnist_like", "rings", "blobs", "mnist_like_multiclass",
@@ -285,10 +297,19 @@ def build_parser() -> argparse.ArgumentParser:
                     "unless it converges (every head, --task ovr), beats "
                     "the held-out accuracy (R^2) gate and records a gap "
                     "trajectory ending within 2 tau")
+    tr.add_argument("--jsonl", metavar="PATH",
+                    help="append structured run events (data, train, eval, "
+                    "timing) to a JSONL file")
     tr.add_argument("--trace", metavar="PATH",
-                    help="not ported yet (ROADMAP Queue 1 item 12)")
-    tr.add_argument("--profile", metavar="DIR",
-                    help="not ported yet (ROADMAP Queue 1 item 12)")
+                    help="write a schema-versioned JSONL telemetry trace "
+                    "(phase spans, cascade and pod rounds, convergence "
+                    "records, compile records, metric counters); render "
+                    "with `report PATH`")
+    tr.add_argument("--profile", "--xprof", metavar="DIR", dest="profile",
+                    help="capture a torch.profiler trace of training into "
+                    "DIR/trace.json (kernel-level on the card; view in "
+                    "Perfetto)")
+    tr.add_argument("-q", "--quiet", action="store_true")
     pr = sub.add_parser("predict", help="score a saved model")
     _add_data_args(pr, "--data", "CSV (header line, last column = label) or "
                    "a sharded dataset directory to score (a directory "
@@ -314,6 +335,9 @@ def build_parser() -> argparse.ArgumentParser:
         "checksums (the JAX package's format)")
     _add_data_args(ing, "--train", "CSV to ingest (header line, last column "
                    "= label)", device=False)
+    # the JAX command line's shared data-source group carries --test;
+    # ingest shards the --train rows only
+    ing.add_argument("--test", metavar="CSV", help=argparse.SUPPRESS)
     ing.add_argument("--out", metavar="DIR",
                      help="output dataset directory (required unless "
                      "--smoke)")
@@ -347,9 +371,12 @@ def build_parser() -> argparse.ArgumentParser:
                      "reader round-trips the rows, the manifest scaler "
                      "equals a whole-array fit, the residency bound holds")
     ing.add_argument("--trace", metavar="PATH",
-                     help="not ported yet (ROADMAP Queue 1 item 12)")
-    ing.add_argument("--profile", metavar="DIR",
-                     help="not ported yet (ROADMAP Queue 1 item 12)")
+                     help="write ingest phase spans and shard/stream "
+                     "counters to a JSONL telemetry trace")
+    ing.add_argument("--profile", "--xprof", metavar="DIR", dest="profile",
+                     help="capture a torch.profiler trace of the ingest "
+                     "phase into DIR/trace.json")
+    ing.add_argument("-q", "--quiet", action="store_true")
     po = sub.add_parser(
         "pod", help="self-contained pod-cascade run: a coordinator and "
         "worker processes train out of core from a sharded dataset, each "
@@ -381,10 +408,13 @@ def build_parser() -> argparse.ArgumentParser:
                     "workers, and keeps per-worker shard residency within "
                     "the prefetch bound")
     po.add_argument("--trace-dir", metavar="DIR", default=None,
-                    help="not ported yet (ROADMAP Queue 1 item 12)")
+                    help="distributed trace directory: the coordinator "
+                    "writes coordinator.jsonl and every worker process its "
+                    "own worker<id>.p<pid>.jsonl, stitched by propagated "
+                    "trace contexts; `report DIR` renders the fleet as ONE "
+                    "timeline")
     po.add_argument("--trace-max-bytes", type=int, default=None,
-                    metavar="N", help="not ported yet (ROADMAP Queue 1 item "
-                    "12)")
+                    metavar="N", help="per-file trace rotation bound")
     po.add_argument("-q", "--quiet", action="store_true")
     po.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     _add_tune_parser(sub)
@@ -397,12 +427,60 @@ def build_parser() -> argparse.ArgumentParser:
                      help="a model .npz of either package, a tune-results "
                      "JSON, a tenant store JSON, or a sharded dataset "
                      "directory")
+    _add_obs_parsers(sub)
+    faults_help = ("activate a seeded fault-injection plan "
+                   "(tpusvm_torch.faults) for this run: named injection "
+                   "points raise transients, inject latency, corrupt bytes "
+                   "or simulate kills per the plan; also honoured from the "
+                   "TPUSVM_FAULTS environment variable")
+    ap.add_argument("--faults", metavar="PLAN.json", default=None,
+                    help=faults_help)
+    # after the sub-command too; absent there, it keeps the root's value
+    for p in sub.choices.values():
+        p.add_argument("--faults", metavar="PLAN.json",
+                       default=argparse.SUPPRESS, help=faults_help)
     return ap
 
 
+def _add_obs_parsers(sub) -> None:
+    """`report` and `benchdiff`, with the JAX command line's flags."""
+    rep = sub.add_parser(
+        "report", help="render --trace JSONL telemetry: phase summary (the "
+        "reference's timing lines), compile table, convergence-gap table, "
+        "autopilot decisions and non-zero counters; several files or a "
+        "directory merge into one wall-clock-interleaved report")
+    rep.add_argument("path", metavar="TRACE", nargs="+",
+                     help="trace file(s) written by --trace, or a directory "
+                     "of them (pod workers and serve replicas collate into "
+                     "one report; rotated trace.jsonl.1 sets are folded in)")
+    rep.add_argument("--max-rows", type=int, default=40,
+                     help="convergence table rows before middle elision")
+    rep.add_argument("--smoke", action="store_true",
+                     help="gate: non-zero exit unless the trace(s) parse at "
+                     "the current schema version and carry at least one "
+                     "phase span and one convergence record")
+    bd = sub.add_parser(
+        "benchdiff", help="schema-aware comparison of two benchmark JSONL "
+        "artifacts (tpusvm_torch.obs.benchdiff): per-metric direction and "
+        "tolerance rules, backend-provenance check, non-zero exit on any "
+        "regression")
+    bd.add_argument("old", metavar="OLD.jsonl", help="baseline artifact")
+    bd.add_argument("new", metavar="NEW.jsonl",
+                    help="candidate artifact to gate")
+    bd.add_argument("--level", choices=["full", "smoke"], default="full",
+                    help="full = every rule; smoke = direction-only "
+                    "(wall-clock rules skipped: the CI gate, where the "
+                    "runner is not the baseline's machine)")
+    bd.add_argument("--format", choices=["text", "json", "markdown"],
+                    default="text", help="verdict rendering")
+    bd.add_argument("--allow-cross-backend", action="store_true",
+                    help="annotate instead of refusing when the two "
+                    "artifacts ran on different backends (default: refuse; "
+                    "cross-backend numbers are not comparable)")
+
+
 def _add_tune_parser(sub) -> None:
-    """The `tune` sub-command: the JAX command line's flags, the trace and
-    profile flags refused (item 12)."""
+    """The `tune` sub-command, with the JAX command line's flags."""
     tu = sub.add_parser(
         "tune", help="cross-validated (C, gamma) search with warm-started "
         "fits (tune/); trains the winner on the full data")
@@ -488,9 +566,11 @@ def _add_tune_parser(sub) -> None:
                     "seeding engaged, every point beats chance and the "
                     "winner model scores > 0.8 held out")
     tu.add_argument("--trace", metavar="PATH",
-                    help="not ported yet (ROADMAP Queue 1 item 12)")
+                    help="write a JSONL telemetry trace: tune.point spans, "
+                    "the search phase, compile records and metric counters")
     tu.add_argument("--profile", "--xprof", metavar="DIR", dest="profile",
-                    help="not ported yet (ROADMAP Queue 1 item 12)")
+                    help="capture a torch.profiler trace of the search into "
+                    "DIR/trace.json")
     tu.add_argument("-q", "--quiet", action="store_true")
 
 
@@ -560,9 +640,6 @@ def _check_train_args(args) -> None:
         if args.solver != "fleet":
             raise SystemExit("--fleet-compact needs --fleet/--solver "
                              "fleet")
-    if args.trace or args.profile:
-        raise SystemExit("train --trace/--profile: tracing and profiling a "
-                         "fit are not ported yet (ROADMAP Queue 1 item 12)")
     if args.class_parallel:
         if not args.multiclass:
             raise SystemExit("--class-parallel requires --multiclass (it "
@@ -784,38 +861,30 @@ def _parse_solver_opts(items) -> dict:
     return opts
 
 
-class _Timer:
-    def __init__(self):
-        self.t0 = time.perf_counter()
-        self.acc = {}
-
-    def add(self, name: str, since: float) -> None:
-        self.acc[name] = self.acc.get(name, 0.0) + time.perf_counter() - since
-
-    def report(self) -> str:
-        lines = [f"{k} time: {v:.3f} s" for k, v in self.acc.items()]
-        lines.append(f"elapsed time: {time.perf_counter() - self.t0:.3f} s")
-        return "\n".join(lines)
-
-
-def _accuracy_line(model, Xt, Yt, timer, task: str = "svc", mesh=None):
+def _accuracy_line(model, Xt, Yt, timer, task: str = "svc", mesh=None,
+                   log=None):
     """Print the held-out accuracy (R^2 for svr) and return it; None on no
     rows. mesh: the classifiers' rows split over it (predict
-    --mesh-predict)."""
+    --mesh-predict). log: a RunLogger (train) that also records the eval
+    event."""
     if not len(Yt):
         return None
-    t = time.perf_counter()
-    acc = (model.score(Xt, Yt) if mesh is None or task == "svr"
-           else model.score(Xt, Yt, mesh=mesh))
-    timer.add("prediction", t)
+    with timer.phase("prediction"):
+        acc = (model.score(Xt, Yt) if mesh is None or task == "svr"
+               else model.score(Xt, Yt, mesh=mesh))
+    say = print if log is None else log.info
     m = len(Yt)
     if task == "svr":
         # score() is R^2 for the regression task
         rmse = float(np.sqrt(np.mean(
             (model.predict(Xt) - np.asarray(Yt, np.float64)) ** 2)))
-        print(f"r2 = {acc:.4f}  rmse = {rmse:.4f} ({m} rows)")
+        say(f"r2 = {acc:.4f}  rmse = {rmse:.4f} ({m} rows)")
+        if log is not None:
+            log.event("eval", r2=acc, rmse=rmse, m=m)
     else:
-        print(f"accuracy = {acc:.4f} ({round(acc * m)}/{m})")
+        say(f"accuracy = {acc:.4f} ({round(acc * m)}/{m})")
+        if log is not None:
+            log.event("eval", accuracy=acc, m=m)
     return acc
 
 
@@ -856,7 +925,8 @@ def _fit_oracle(X, Y, cfg: SVMConfig, device):
     return model
 
 
-def _fit_cascade(model, X, Y, args, group, dataset=None):
+def _fit_cascade(model, X, Y, args, group, dataset=None, tracer=None,
+                 say=print):
     """--mode cascade: the cascade over --shards leaves (default: the world
     size under --distributed, else the visible cards, 1 on the CPU), in
     this process or as this rank of `group`."""
@@ -875,18 +945,19 @@ def _fit_cascade(model, X, Y, args, group, dataset=None):
                            topology=args.topology)
     except ValueError as e:
         raise SystemExit(f"train: {e}")
-    kw = dict(group=group, verbose=True, checkpoint_path=args.checkpoint,
-              resume=args.resume, stratified=args.stratify)
+    kw = dict(group=group, verbose=not args.quiet,
+              checkpoint_path=args.checkpoint, resume=args.resume,
+              stratified=args.stratify, tracer=tracer)
     if dataset is not None:
         model.fit_cascade_stream(dataset, cc, **kw)
     else:
         model.fit_cascade(X, Y, cc, **kw)
-    print(f"cascade: {model.cascade_rounds_} rounds, converged = "
-          f"{model.status_.name == 'CONVERGED'}")
+    say(f"cascade: {model.cascade_rounds_} rounds, converged = "
+        f"{model.status_.name == 'CONVERGED'}")
     return model
 
 
-def _fit_pod(model, args):
+def _fit_pod(model, args, tracer=None, say=print):
     """--mode pod: the cascade over --shards worker processes (default 4:
     a small pod of processes, not the card count), each streaming its own
     shards of --data."""
@@ -896,11 +967,11 @@ def _fit_pod(model, args):
                            topology=args.topology)
     except ValueError as e:
         raise SystemExit(f"train: {e}")
-    model.fit_pod(args.data, cc, verbose=True,
+    model.fit_pod(args.data, cc, verbose=not args.quiet,
                   checkpoint_path=args.checkpoint, resume=args.resume,
-                  stratified=args.stratify)
-    print(f"pod: {shards} workers, {model.cascade_rounds_} rounds, "
-          f"converged = {model.status_.name == 'CONVERGED'}")
+                  stratified=args.stratify, tracer=tracer)
+    say(f"pod: {shards} workers, {model.cascade_rounds_} rounds, "
+        f"converged = {model.status_.name == 'CONVERGED'}")
     return model
 
 
@@ -975,6 +1046,18 @@ def _smoke_gates(args, model, acc) -> int:
             failures.append(
                 f"final recorded gap {conv['gap'][-1]:g} exceeds the 2*tau "
                 f"stopping criterion ({2 * args.tau:g})")
+        if args.trace:
+            from tpusvm_torch.obs import read_trace
+            from tpusvm_torch.obs.report import convergence_rows, phase_summary
+
+            try:
+                records = read_trace(args.trace)
+                if not phase_summary(records)[0]:
+                    failures.append("trace carries no phase spans")
+                if not convergence_rows(records):
+                    failures.append("trace carries no convergence records")
+            except ValueError as e:
+                failures.append(f"trace unreadable: {e}")
         ok = (f"train smoke ok [{args.kernel}/{args.task}]: "
               f"{model.n_support_} SVs, {gate} "
               f"{acc if acc is None else format(acc, '.4f')}, "
@@ -1015,26 +1098,32 @@ def cmd_train(args) -> int:
 
 def _train(args, group) -> int:
     from tpusvm_torch.models import BinarySVC, EpsilonSVR, OneVsRestSVC
+    from tpusvm_torch.utils import RunLogger, trace
 
     rank0 = group is None or args.process_id == 0
     cfg = _config(args)
     task = "ovr" if args.multiclass else args.task
-    timer = _Timer()
-    t = time.perf_counter()
+    tracer = _make_tracer(args, "train") if rank0 else None
+    log = RunLogger(jsonl_path=args.jsonl if rank0 else None,
+                    primary=not args.quiet)
+    say = log.info
+    timer = PhaseTimer(tracer=tracer)
     dataset = None
-    if args.data:
-        from tpusvm_torch.stream import open_dataset
+    with timer.phase("data"):
+        if args.data:
+            from tpusvm_torch.stream import open_dataset
 
-        dataset = open_dataset(args.data)
-        X = Y = Xt = Yt = None
-        if args.test:
-            Xt, Yt = _read(args.test, args, task)
-        n, n_features = dataset.n_rows, dataset.n_features
-    else:
-        X, Y, Xt, Yt = _data(args, task)
-        n, n_features = X.shape
-    timer.add("data", t)
-    print(f"n = {n}, n_features = {n_features}")
+            dataset = open_dataset(args.data)
+            X = Y = Xt = Yt = None
+            if args.test:
+                Xt, Yt = _read(args.test, args, task)
+            n, n_features = dataset.n_rows, dataset.n_features
+        else:
+            X, Y, Xt, Yt = _data(args, task)
+            n, n_features = X.shape
+    say(f"n = {n}, n_features = {n_features}")
+    log.event("data", n=n, n_features=n_features, mode=args.mode,
+              streamed=dataset is not None)
     solver = args.solver or ("pair" if args.multiclass else "blocked")
     # the streamed approximate fit runs the primal solver: its knobs
     # replace the blocked solver's
@@ -1073,62 +1162,83 @@ def _train(args, group) -> int:
                   solver_opts=opts, scale=not args.no_scale,
                   accum_dtype="auto" if args.accum == "float64" else None,
                   dtype=args.dtype)
-    t = time.perf_counter()
-    if args.mode == "oracle":
-        model = _fit_oracle(X, Y, cfg, args.device)
-    elif args.mode == "cascade":
-        model = _fit_cascade(BinarySVC(**common), X, Y, args, group, dataset)
-    elif args.mode == "pod":
-        model = _fit_pod(BinarySVC(**common), args)
-    elif args.task == "svr":
-        model = EpsilonSVR(**common).fit(X, Y)
-    elif args.multiclass:
-        model = OneVsRestSVC(**common, class_parallel=args.class_parallel
-                             ).fit(X, Y, group=group)
-    elif dataset is not None:
-        model = BinarySVC(**common).fit_stream(
-            dataset, checkpoint_path=args.checkpoint,
-            checkpoint_every=args.checkpoint_every, resume=args.resume)
-    else:
-        model = BinarySVC(**common).fit(
-            X, Y, checkpoint_path=args.checkpoint,
-            checkpoint_every=args.checkpoint_every, resume=args.resume)
-    timer.add("training", t)
+    with timer.phase("training"), trace(args.profile, device=args.device):
+        if args.mode == "oracle":
+            model = _fit_oracle(X, Y, cfg, args.device)
+        elif args.mode == "cascade":
+            model = _fit_cascade(BinarySVC(**common), X, Y, args, group,
+                                 dataset, tracer=tracer, say=say)
+        elif args.mode == "pod":
+            model = _fit_pod(BinarySVC(**common), args, tracer=tracer,
+                             say=say)
+        elif args.task == "svr":
+            model = EpsilonSVR(**common).fit(X, Y)
+        elif args.multiclass:
+            model = OneVsRestSVC(**common, class_parallel=args.class_parallel
+                                 ).fit(X, Y, group=group)
+        elif dataset is not None:
+            model = BinarySVC(**common).fit_stream(
+                dataset, checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every, resume=args.resume)
+        else:
+            model = BinarySVC(**common).fit(
+                X, Y, checkpoint_path=args.checkpoint,
+                checkpoint_every=args.checkpoint_every, resume=args.resume,
+                tracer=tracer)
     if args.multiclass:
-        print(f"classes = {[int(c) for c in model.classes_]}")
-        print(f"status = {[Status(int(s)).name for s in model.statuses_]}")
+        say(f"classes = {[int(c) for c in model.classes_]}")
+        say(f"status = {[Status(int(s)).name for s in model.statuses_]}")
     else:
-        print(f"iterations = {model.n_iter_}")
-        print(f"b = {model.b_:.15f}")
+        say(f"iterations = {model.n_iter_}")
+        say(f"b = {model.b_:.15f}")
         if np.isfinite(model.b_high_):
             gap = (model.b_high_ - model.b_low_) / 2.0
-            print(f"(b_high - b_low)/2 * 1e10 = {gap * 1e10:.6f}")
-        print(f"SV count = {model.n_support_}")
-        print(f"status = {model.status_.name}")
+            say(f"(b_high - b_low)/2 * 1e10 = {gap * 1e10:.6f}")
+        say(f"SV count = {model.n_support_}")
+        say(f"status = {model.status_.name}")
         if getattr(model, "primal_result_", None) is not None:
             pr = model.primal_result_
-            print(f"primal: {pr.epochs_run} epochs, {pr.n_steps} steps, "
-                  f"objective {pr.objective:.9g}, live shards <= "
-                  f"{model.stream_max_live_shards_}")
+            say(f"primal: {pr.epochs_run} epochs, {pr.n_steps} steps, "
+                f"objective {pr.objective:.9g}, live shards <= "
+                f"{model.stream_max_live_shards_}")
+        log.event("train", n_iter=model.n_iter_, b=model.b_,
+                  sv_count=model.n_support_, status=model.status_.name,
+                  train_time_s=timer["training"])
     if args.calibrate:
-        t = time.perf_counter()
-        model.calibrate(X, Y, folds=args.calibrate)
-        timer.add("calibration", t)
-        print("calibrated: Platt A=%.6f B=%.6f" % model.platt_)
+        with timer.phase("calibration"):
+            model.calibrate(X, Y, folds=args.calibrate)
+        say("calibrated: Platt A=%.6f B=%.6f" % model.platt_)
+        log.event("calibrate", folds=args.calibrate,
+                  platt_a=model.platt_[0], platt_b=model.platt_[1])
     acc = None
     if Xt is not None and rank0:
-        acc = _accuracy_line(model, Xt, Yt, timer, task)
+        acc = _accuracy_line(model, Xt, Yt, timer, task, log=log)
     # the class axis's ranks all end with the whole model: each saves it
     if args.save and (rank0 or args.class_parallel):
         model.save(args.save)
-        print(f"model saved to {args.save}")
+        say(f"model saved to {args.save}")
     conv = getattr(model, "convergence_", None)
-    if conv is not None:
+    if conv is not None and not args.quiet:
         from tpusvm_torch.obs.convergence import format_gap_table
 
-        print("convergence (b_low - b_high per outer round):")
-        print(format_gap_table(conv))
-    print(timer.report())
+        say("convergence (b_low - b_high per outer round):")
+        say(format_gap_table(conv))
+    if tracer is not None:
+        from tpusvm_torch.obs import default_registry, to_trace_events
+        from tpusvm_torch.pod.worker import kernel_wrappers
+
+        if conv is not None:
+            to_trace_events(tracer, conv)
+        # the process's kernel launches ride in the snapshot (`report`
+        # lists the non-zero ones under counters)
+        reg = default_registry()
+        for name, fn in kernel_wrappers().items():
+            reg.gauge("kernel.launches", kernel=name).set(float(fn.launches))
+        tracer.metrics_snapshot(reg.snapshot())
+    say(timer.report())
+    log.event("timing", **timer.asdict())
+    log.close()
+    _close_tracer(tracer)
     if args.smoke:
         return _smoke_gates(args, model, acc)
     return 0
@@ -1144,10 +1254,19 @@ def cmd_pod(args) -> int:
     from tpusvm_torch.pod import pod_fit
     from tpusvm_torch.stream import ingest_arrays, open_dataset
 
-    if args.trace_dir or args.trace_max_bytes is not None:
-        raise SystemExit("pod --trace-dir/--trace-max-bytes: the pod's "
-                         "tracers are not ported yet (ROADMAP Queue 1 item "
-                         "12)")
+    tracer = None
+    if args.trace_dir:
+        from tpusvm_torch import faults
+        from tpusvm_torch.obs.trace import Tracer
+
+        os.makedirs(args.trace_dir, exist_ok=True)
+        # the coordinator's own trace file; workers open theirs at spawn
+        # (pod_fit hands them the dir and this tracer's context) so the
+        # whole fleet stitches into one `report` timeline
+        tracer = Tracer(os.path.join(args.trace_dir, "coordinator.jsonl"),
+                        role="pod-coordinator", argv=["pod"],
+                        max_bytes=args.trace_max_bytes)
+        faults.set_event_sink(tracer.event)
     topologies = (["tree", "star"] if args.topology == "both"
                   else [args.topology])
     cfg = SVMConfig(C=args.C, gamma=args.gamma, max_rounds=args.max_rounds)
@@ -1165,7 +1284,9 @@ def cmd_pod(args) -> int:
             cc = CascadeConfig(n_shards=args.workers,
                                sv_capacity=args.sv_capacity, topology=topo)
             res = pod_fit(data, cfg, cc, verbose=not args.quiet,
-                          device=args.device)
+                          device=args.device, tracer=tracer,
+                          trace_dir=args.trace_dir,
+                          trace_max_bytes=args.trace_max_bytes)
             if not args.quiet:
                 print(f"pod[{topo}]: {res.rounds} rounds, "
                       f"{len(res.sv_ids)} SVs, b = {res.b:.12f}, "
@@ -1197,6 +1318,12 @@ def cmd_pod(args) -> int:
             if res.b != ctrl.b:
                 failures.append(f"[{topo}] b diverges: pod {res.b!r} vs "
                                 f"in-memory {ctrl.b!r}")
+    if tracer is not None:
+        faults.set_event_sink(None)
+        tracer.close()
+        if not args.quiet:
+            print(f"trace: {args.trace_dir} (render with `python -m "
+                  f"tpusvm_torch report {args.trace_dir}`)")
     if failures:
         for f in failures:
             print(f"POD{' SMOKE' if args.smoke else ''} FAILED: {f}")
@@ -1222,7 +1349,7 @@ def cmd_predict(args) -> int:
 
     from tpusvm_torch.stream import is_dataset_dir
 
-    timer = _Timer()
+    timer = PhaseTimer()
     kind = model_task(args.model)
     if (args.data is None) == (args.synthetic is None):
         raise SystemExit("pass exactly one of --data / --synthetic")
@@ -1239,7 +1366,7 @@ def cmd_predict(args) -> int:
     else:
         _, _, Xt, Yt = _data(argparse.Namespace(**vars(args), train=None,
                                                 test=None), kind)
-    timer.add("data", t)
+    timer.add("data", time.perf_counter() - t)
     mesh = None
     if args.mesh_predict:
         from tpusvm_torch.parallel.mesh import make_mesh
@@ -1294,7 +1421,7 @@ def _predict_stream(args, kind: str, model, timer) -> int:
     t = time.perf_counter()
     acc, m = evaluate_stream(model, dataset, batch_size=args.batch_size,
                              n_limit=args.n_limit)
-    timer.add("prediction", t)
+    timer.add("prediction", time.perf_counter() - t)
     print(f"accuracy = {acc:.4f} ({round(acc * m)}/{m})")
     print(timer.report())
     return 0
@@ -1315,11 +1442,9 @@ def cmd_ingest(args) -> int:
             "prefetch, so one ingested dataset serves every map; run "
             f"`python -m tpusvm_torch train --data OUT --kernel "
             f"{args.kernel} --rff-dim D --rff-seed S` instead")
-    if args.trace or args.profile:
-        raise SystemExit("ingest --trace/--profile: tracing and profiling "
-                         "ingest are not ported yet (ROADMAP Queue 1 item 12)")
+    say = (lambda msg: None) if args.quiet else print
     if args.smoke:
-        return _ingest_smoke()
+        return _ingest_smoke(say)
     if not args.out:
         raise SystemExit("ingest: --out DIR is required (or --smoke)")
     if (args.train is None) == (args.synthetic is None):
@@ -1328,45 +1453,59 @@ def cmd_ingest(args) -> int:
         raise SystemExit("ingest shards labelled datasets; --synthetic "
                          "svr_sine generates continuous targets (train "
                          "--task svr reads it directly)")
-    timer = _Timer()
-    t = time.perf_counter()
-    if args.train:
-        manifest = ingest_csv(
-            args.out, args.train, rows_per_shard=args.rows_per_shard,
-            n_limit=args.n_limit, binary=not args.multiclass,
-            positive_label=args.positive_label, block_rows=args.block_rows,
-            resume=args.resume)
-    else:
-        if args.synthetic == "mnist_like_multiclass" and not args.multiclass:
-            raise SystemExit("--synthetic mnist_like_multiclass generates "
-                             "class ids; it requires --multiclass")
-        X, Y = _synthetic(argparse.Namespace(**dict(vars(args), n_test=0)),
-                          args.multiclass)
-        if args.n_limit is not None:
-            X, Y = X[:args.n_limit], Y[:args.n_limit]
-        manifest = ingest_arrays(
-            args.out, X, Y, rows_per_shard=args.rows_per_shard,
-            binary=not args.multiclass,
-            positive_label=None if args.multiclass else args.positive_label,
-            resume=args.resume)
-    timer.add("ingest", t)
-    t = time.perf_counter()
-    bad = [(manifest.shards[i].filename, s.name)
-           for i, s in enumerate(open_dataset(args.out).validate())
-           if s != StreamStatus.OK]
-    timer.add("validate", t)
+    from tpusvm_torch.utils import trace
+
+    tracer = _make_tracer(args, "ingest")
+    timer = PhaseTimer(tracer=tracer)
+    with timer.phase("ingest"), trace(args.profile, device="cpu"):
+        if args.train:
+            manifest = ingest_csv(
+                args.out, args.train, rows_per_shard=args.rows_per_shard,
+                n_limit=args.n_limit, binary=not args.multiclass,
+                positive_label=args.positive_label,
+                block_rows=args.block_rows, resume=args.resume)
+        else:
+            if args.synthetic == "mnist_like_multiclass" \
+                    and not args.multiclass:
+                raise SystemExit("--synthetic mnist_like_multiclass "
+                                 "generates class ids; it requires "
+                                 "--multiclass")
+            X, Y = _synthetic(
+                argparse.Namespace(**dict(vars(args), n_test=0)),
+                args.multiclass)
+            if args.n_limit is not None:
+                X, Y = X[:args.n_limit], Y[:args.n_limit]
+            manifest = ingest_arrays(
+                args.out, X, Y, rows_per_shard=args.rows_per_shard,
+                binary=not args.multiclass,
+                positive_label=(None if args.multiclass
+                                else args.positive_label),
+                resume=args.resume)
+    with timer.phase("validate"):
+        bad = [(manifest.shards[i].filename, s.name)
+               for i, s in enumerate(open_dataset(args.out).validate())
+               if s != StreamStatus.OK]
+    if tracer is not None:
+        from tpusvm_torch.obs import default_registry
+
+        tracer.event("ingest.manifest", n_rows=manifest.n_rows,
+                     n_features=manifest.n_features,
+                     n_shards=len(manifest.shards), out=args.out,
+                     valid=not bad)
+        tracer.metrics_snapshot(default_registry().snapshot())
+    _close_tracer(tracer)
     if bad:
         print(f"ingest: wrote shards that FAIL validation: {bad}")
         return 1
     stats = manifest.global_stats()
-    print(f"ingested {manifest.n_rows} rows x {manifest.n_features} features "
-          f"into {len(manifest.shards)} shards at {args.out}")
-    print(f"class counts: {dict(sorted(stats.class_counts.items()))}")
-    print(timer.report())
+    say(f"ingested {manifest.n_rows} rows x {manifest.n_features} features "
+        f"into {len(manifest.shards)} shards at {args.out}")
+    say(f"class counts: {dict(sorted(stats.class_counts.items()))}")
+    say(timer.report())
     return 0
 
 
-def _ingest_smoke() -> int:
+def _ingest_smoke(say=print) -> int:
     """Ingest a tiny synthetic dataset and check every claim of the stream
     tier: manifest integrity, reader round trip, scaler-from-stats bits,
     the prefetch residency bound."""
@@ -1402,8 +1541,8 @@ def _ingest_smoke() -> int:
         for f in failures:
             print(f"INGEST SMOKE FAILED: {f}")
         return 1
-    print(f"ingest smoke ok: {manifest.n_rows} rows, {len(manifest.shards)} "
-          "shards, scaler/round-trip/residency parity held")
+    say(f"ingest smoke ok: {manifest.n_rows} rows, {len(manifest.shards)} "
+        "shards, scaler/round-trip/residency parity held")
     return 0
 
 
@@ -1418,9 +1557,6 @@ def cmd_tune(args) -> int:
                                    make_grid, normalize_kernel_specs,
                                    save_tune_result, tune)
 
-    if args.trace or args.profile:
-        raise SystemExit("tune --trace/--profile: tracing and profiling "
-                         "tune are not ported yet (ROADMAP Queue 1 item 12)")
     if args.smoke:
         # the JAX command line's fixture: 2 folds, a 2x2 grid; rings for
         # one family, separable blobs for a family sweep (rings fail the
@@ -1466,8 +1602,10 @@ def cmd_tune(args) -> int:
     except ValueError as e:
         raise SystemExit(f"tune: {e}")
     accum = "auto" if args.accum == "float64" else None
-    timer = _Timer()
-    t = time.perf_counter()
+    from tpusvm_torch.utils import trace
+
+    tracer = _make_tracer(args, "tune")
+    timer = PhaseTimer(tracer=tracer)
     dataset = None
     if args.data:
         if args.train or args.synthetic:
@@ -1478,25 +1616,25 @@ def cmd_tune(args) -> int:
                              "with --n-limit instead)")
         from tpusvm_torch.stream import open_dataset
 
-        dataset = open_dataset(args.data)
+        with timer.phase("data"):
+            dataset = open_dataset(args.data)
         X = Y = Xt = Yt = None
         if args.test:
             Xt, Yt = _read(args.test, args, "svc")
         n, n_features = dataset.n_rows, dataset.n_features
     else:
-        X, Y, Xt, Yt = _data(args, "svc")
+        with timer.phase("data"):
+            X, Y, Xt, Yt = _data(args, "svc")
         n, n_features = X.shape
-    timer.add("data", t)
     say = (lambda msg: None) if args.quiet else print
     say(f"n = {n}, n_features = {n_features}, grid = {grid.shape[0]}x"
         f"{grid.shape[1]}, folds = {args.folds}, schedule = {args.schedule}")
-    t = time.perf_counter()
-    result = tune(X, Y, grid, config, base=base, dtype=args.dtype,
-                  accum_dtype=accum, scale=not args.no_scale,
-                  solver_opts=_parse_solver_opts(args.solver_opt),
-                  log_fn=say, dataset=dataset, kernels=kernel_specs,
-                  device=args.device)
-    timer.add("search", t)
+    with timer.phase("search"), trace(args.profile, device=args.device):
+        result = tune(X, Y, grid, config, base=base, dtype=args.dtype,
+                      accum_dtype=accum, scale=not args.no_scale,
+                      solver_opts=_parse_solver_opts(args.solver_opt),
+                      log_fn=say, dataset=dataset, tracer=tracer,
+                      kernels=kernel_specs, device=args.device)
     print(format_table(result))
     if args.results:
         save_tune_result(args.results, result)
@@ -1509,12 +1647,11 @@ def cmd_tune(args) -> int:
         coef0=result.winner["coef0"])
     model = BinarySVC(config=win_cfg, dtype=args.dtype,
                       scale=not args.no_scale, device=args.device)
-    t = time.perf_counter()
-    if dataset is not None:
-        model.fit_stream(dataset)
-    else:
-        model.fit(X, Y)
-    timer.add("final-train", t)
+    with timer.phase("final-train"):
+        if dataset is not None:
+            model.fit_stream(dataset)
+        else:
+            model.fit(X, Y)
     say(f"winner model: {model.n_support_} SVs, status {model.status_.name}")
     test_acc = None
     if Xt is not None and len(Xt):
@@ -1524,6 +1661,11 @@ def cmd_tune(args) -> int:
         model.save(args.save)
         say(f"model saved to {args.save}")
     say(timer.report())
+    if tracer is not None:
+        from tpusvm_torch.obs import default_registry
+
+        tracer.metrics_snapshot(default_registry().snapshot())
+    _close_tracer(tracer)
     if args.smoke:
         evaluated = [r for r in result.points
                      if r["status"] == TuneStatus.EVALUATED.name]
@@ -1700,8 +1842,7 @@ def _info_artifact(path: str) -> int:
 
 # ------------------------------------------------------------- serving
 def _add_serve_parsers(sub) -> None:
-    """`serve` and `refresh`, with the JAX command line's flags; serve's
-    --profile is refused (item 12)."""
+    """`serve` and `refresh`, with the JAX command line's flags."""
     sv = sub.add_parser(
         "serve", help="serve saved models over HTTP with deadline-aware "
         "micro-batching, one CUDA graph per row bucket (tpusvm_torch.serve)")
@@ -1783,7 +1924,8 @@ def _add_serve_parsers(sub) -> None:
                     "the previous file), so a long-running serve --trace "
                     "cannot fill the disk; default: unbounded")
     sv.add_argument("--profile", "--xprof", metavar="DIR", dest="profile",
-                    help="not ported yet (ROADMAP Queue 1 item 12)")
+                    help="capture a torch.profiler trace of the smoke or of "
+                    "serving until shutdown into DIR/trace.json")
     slo = sv.add_argument_group("serving SLOs")
     slo.add_argument("--slo-p99-ms", type=float, default=None, metavar="MS",
                      help="per-model p99 latency target: at most 1%% of "
@@ -1851,8 +1993,7 @@ def _add_serve_parsers(sub) -> None:
 
 
 def _add_closed_loop_parsers(sub) -> None:
-    """`autopilot` and `tenants`, with the JAX command line's flags; their
-    --trace/--trace-max-bytes are refused (item 12)."""
+    """`autopilot` and `tenants`, with the JAX command line's flags."""
     ap = sub.add_parser(
         "autopilot",
         help="supervised closed-loop online learning: watch an "
@@ -1950,10 +2091,10 @@ def _add_closed_loop_parsers(sub) -> None:
     ap.add_argument("--smoke-ticks", type=int, default=6,
                     help="smoke tick budget (default 6)")
     ap.add_argument("--trace", metavar="PATH",
-                    help="not ported yet (ROADMAP Queue 1 item 12)")
+                    help="write a JSONL trace: autopilot.tick spans, "
+                    "autopilot.drift decision events, fault events")
     ap.add_argument("--trace-max-bytes", type=int, default=None,
-                    metavar="N", help="not ported yet (ROADMAP Queue 1 "
-                    "item 12)")
+                    metavar="N", help="rotate the --trace file past N bytes")
     ap.add_argument("-q", "--quiet", action="store_true")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the refits (and --smoke's server) run "
@@ -2055,10 +2196,10 @@ def _add_closed_loop_parsers(sub) -> None:
     tn.add_argument("--smoke-ticks", type=int, default=6,
                     help="smoke tick budget (default 6)")
     tn.add_argument("--trace", metavar="PATH",
-                    help="not ported yet (ROADMAP Queue 1 item 12)")
+                    help="write a JSONL trace: tenants.tick spans, "
+                    "coalesced refresh and roll-out events, fault events")
     tn.add_argument("--trace-max-bytes", type=int, default=None,
-                    metavar="N", help="not ported yet (ROADMAP Queue 1 "
-                    "item 12)")
+                    metavar="N", help="rotate the --trace file past N bytes")
     tn.add_argument("-q", "--quiet", action="store_true")
     tn.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the fleet launches and refits (and "
@@ -2104,9 +2245,6 @@ def cmd_serve(args) -> int:
 
     from tpusvm_torch.serve import ModelLoadError, Server
 
-    if args.profile:
-        raise SystemExit("serve --profile: the compile observatory is not "
-                         "ported yet (ROADMAP Queue 1 item 12)")
     cache_dir = args.cache_dir or os.environ.get("TPUSVM_CACHE_DIR")
     if args.assert_cached and not cache_dir:
         raise SystemExit("serve: --assert-cached needs --cache-dir (or "
@@ -2142,22 +2280,34 @@ def cmd_serve(args) -> int:
 
 
 def _make_tracer(args, command: str, role=None):
-    """The --trace plumbing: one Tracer (rotating past --trace-max-bytes)
-    that also receives the fault/retry/breaker lifecycle events. role=
-    makes it a trace-context origin: its spans can be the parents of
-    another process's spans (router -> serve)."""
+    """The shared --trace plumbing: one Tracer (rotating past
+    --trace-max-bytes) receiving the fault/retry/breaker lifecycle events
+    and the compile observatory's prof.compile records (CUDA graph
+    captures, nvcc builds: obs/prof.py), plus a profile.capture event when
+    --profile/--xprof is also set, so the trace names the capture dir.
+
+    role= makes the tracer a trace-context origin (serve, router, pod): its
+    spans can be the resolved parents of other processes' spans when trace
+    files merge in `report`."""
     if not getattr(args, "trace", None):
         return None
     from tpusvm_torch import faults
+    from tpusvm_torch.obs import prof
     from tpusvm_torch.obs.trace import Tracer
 
     tracer = Tracer(args.trace, argv=[command], role=role,
                     max_bytes=getattr(args, "trace_max_bytes", None))
     faults.set_event_sink(tracer.event)
+    prof.enable_profiling(event_sink=tracer.event)
+    if getattr(args, "profile", None):
+        tracer.event("profile.capture", dir=args.profile)
     return tracer
 
 
 def _close_tracer(tracer) -> None:
+    from tpusvm_torch.obs import prof
+
+    prof.disable_profiling()
     if tracer is not None:
         from tpusvm_torch import faults
 
@@ -2240,10 +2390,12 @@ def _serve(args, server, cache_dir, td, tracer=None) -> int:
               "in the manifest")
         return 0
 
+    from tpusvm_torch.utils import trace as _profile_trace
+
     if args.smoke:
         span = (tracer.span("smoke", phase=True) if tracer
                 else contextlib.nullcontext())
-        with span:
+        with span, _profile_trace(args.profile, device=args.device):
             rc = _serve_smoke(server, args.smoke_threads,
                               args.smoke_requests)
         rc = rc or cached_gate()
@@ -2274,7 +2426,8 @@ def _serve(args, server, cache_dir, td, tracer=None) -> int:
           f"(POST /v1/models/<name>:predict, POST /admin/swap, "
           f"GET /metrics)", flush=True)
     try:
-        httpd.serve_forever()
+        with _profile_trace(args.profile, device=args.device):
+            httpd.serve_forever()
     except KeyboardInterrupt:
         pass
     finally:
@@ -2358,7 +2511,7 @@ def cmd_refresh(args) -> int:
     if args.resume and not args.checkpoint:
         raise SystemExit("refresh: --resume requires --checkpoint")
     say = (lambda msg: None) if args.quiet else print
-    timer = _Timer()
+    timer = PhaseTimer()
     # the loader needs the TASK the artifact was trained for (one-vs-rest
     # keeps raw labels, SVR reads continuous targets): sniff it
     try:
@@ -2380,7 +2533,7 @@ def cmd_refresh(args) -> int:
         Xt = Yt = None
     else:
         X, Y, Xt, Yt = _data(args, task)
-    timer.add("data", t)
+    timer.add("data", time.perf_counter() - t)
     say(f"refresh: {X.shape[0]} rows x {X.shape[1]} features ({task} "
         f"deployed: {args.model})")
     t = time.perf_counter()
@@ -2392,7 +2545,7 @@ def cmd_refresh(args) -> int:
             resume=args.resume, warm=not args.cold, device=args.device)
     except (OSError, ValueError) as e:
         raise SystemExit(f"refresh: {e}")
-    timer.add("training", t)
+    timer.add("training", time.perf_counter() - t)
     n_iter = (int(np.sum(model.n_iter_)) if np.ndim(model.n_iter_)
               else model.n_iter_)
     status = (model.status_.name if task != "ovr" else
@@ -2403,7 +2556,7 @@ def cmd_refresh(args) -> int:
     if Xt is not None and len(Xt):
         t = time.perf_counter()
         acc = model.score(Xt, Yt)
-        timer.add("prediction", t)
+        timer.add("prediction", time.perf_counter() - t)
         say(f"held-out {'r2' if task == 'svr' else 'accuracy'} = {acc:.4f}")
     if args.swap_url:
         name = args.swap_name or os.path.splitext(
@@ -2481,17 +2634,30 @@ def _refresh_smoke(device: str) -> int:
     return 0
 
 
-def _refuse_trace(args, cmd: str) -> None:
-    if args.trace or args.trace_max_bytes is not None:
-        raise SystemExit(f"{cmd} --trace/--trace-max-bytes: tracing {cmd} "
-                         "is not ported yet (ROADMAP Queue 1 item 12)")
+def _traced(args, command: str, run) -> int:
+    """Run `run()` under the command's --trace tracer; the trace ends with
+    the process registry's snapshot (autopilot and tenants)."""
+    tracer = _make_tracer(args, command)
+    try:
+        return run()
+    finally:
+        if tracer is not None:
+            from tpusvm_torch.obs import default_registry
+
+            tracer.metrics_snapshot(default_registry().snapshot())
+        _close_tracer(tracer)
 
 
 def cmd_autopilot(args) -> int:
-    """The closed-loop online-learning supervisor (tpusvm_torch.autopilot)."""
+    """The closed-loop online-learning supervisor (tpusvm_torch.autopilot);
+    with --trace its autopilot.drift decisions reach the trace through the
+    faults event sink."""
+    return _traced(args, "autopilot", lambda: _autopilot(args))
+
+
+def _autopilot(args) -> int:
     from tpusvm_torch.autopilot import Autopilot, AutopilotConfig, DriftThresholds
 
-    _refuse_trace(args, "autopilot")
     if args.smoke:
         return _autopilot_smoke(args)
     if not args.data or not args.model:
@@ -2660,10 +2826,13 @@ def _autopilot_smoke(args) -> int:
 
 def cmd_tenants(args) -> int:
     """The multi-tenant coalescing supervisor (tpusvm_torch.tenants)."""
+    return _traced(args, "tenants", lambda: _tenants(args))
+
+
+def _tenants(args) -> int:
     from tpusvm_torch.autopilot import DriftThresholds
     from tpusvm_torch.tenants import TenantsConfig, TenantsSupervisor
 
-    _refuse_trace(args, "tenants")
     if args.smoke:
         return _tenants_smoke(args)
     if not args.data:
@@ -3382,18 +3551,178 @@ def cmd_top(args) -> int:
     return 0
 
 
+def _report_paths(raw_paths) -> list:
+    """Expand the report positionals: directories become their sorted
+    *.jsonl members (rotated .jsonl.N backups are folded in by
+    read_trace, so they are not listed separately)."""
+    import glob
+    import os
+
+    paths = []
+    for p in raw_paths:
+        if os.path.isdir(p):
+            members = sorted(glob.glob(os.path.join(p, "*.jsonl")))
+            if not members:
+                raise SystemExit(
+                    f"report: directory {p!r} holds no *.jsonl trace files"
+                )
+            paths.extend(members)
+        else:
+            paths.append(p)
+    return paths
+
+
+def cmd_report(args) -> int:
+    """Render --trace JSONL telemetry back into the reference's
+    human-readable contracts (phase timing block + convergence table),
+    plus the compile observatory's cost table. Several files (or a
+    directory) merge into one wall-clock-interleaved report: registry
+    snapshots merge exactly, phase durations accumulate, and the total
+    is the cross-process wall envelope."""
+    from tpusvm_torch.obs import read_trace
+    from tpusvm_torch.obs.report import (
+        autopilot_rows,
+        compile_rows,
+        convergence_rows,
+        cross_process_spans,
+        format_autopilot_table,
+        format_compile_table,
+        format_convergence_table,
+        format_round_gantt,
+        format_timeline,
+        merge_trace_files,
+        nonzero_counters,
+        phase_summary,
+        render_phase_lines,
+        reparent_stats,
+    )
+
+    paths = _report_paths(args.path)
+    try:
+        if len(paths) == 1:
+            records = read_trace(paths[0])
+        else:
+            records = merge_trace_files(paths)
+    except OSError as e:
+        raise SystemExit(f"report: cannot read trace ({e})")
+    except ValueError as e:
+        if args.smoke:
+            print(f"REPORT SMOKE FAILED: {e}")
+            return 1
+        raise SystemExit(f"report: {e}")
+
+    phases, total = phase_summary(records)
+    conv = convergence_rows(records)
+    spans = sum(1 for r in records if r["kind"] == "span")
+    events = sum(1 for r in records if r["kind"] == "event")
+    label = paths[0] if len(paths) == 1 else f"{len(paths)} files"
+    print(f"trace: {label} ({spans} spans, {events} events)")
+    if len(paths) > 1:
+        for p in paths:
+            print(f"  {p}")
+    print()
+    comp = compile_rows(records)
+    if comp:
+        print("compiles (lower/compile wall time, XLA cost analysis):")
+        print(format_compile_table(comp))
+        print()
+    print("convergence (b_low - b_high per outer round):")
+    print(format_convergence_table(conv, max_rows=args.max_rows))
+    print()
+    auto = autopilot_rows(records)
+    if auto:
+        print("autopilot (drift decisions per tick):")
+        print(format_autopilot_table(auto, max_rows=args.max_rows))
+        print()
+    counters = nonzero_counters(records)
+    if counters:
+        print("counters:")
+        for line in counters:
+            print(f"  {line}")
+        print()
+    _, roles = cross_process_spans(records)
+    stats = None
+    if len(roles) > 1:
+        # a merged multi-process trace: the distributed-observability
+        # payoff — ONE timeline across the fleet, spans re-parented by
+        # the trace contexts propagated over frames/headers
+        stats = reparent_stats(records)
+        print(f"cross-process timeline ({stats['files']} files, "
+              f"roles: {', '.join(roles)}; "
+              f"{stats['reparented']} spans re-parented, "
+              f"{stats['unresolved']} unresolved):")
+        print(format_timeline(records, max_rows=args.max_rows))
+        print()
+        gantt = format_round_gantt(records)
+        if gantt:
+            print("pod rounds (gantt over the fit wall window):")
+            print(gantt)
+            print()
+    print(render_phase_lines(phases, total))
+
+    if args.smoke:
+        failures = []
+        if not phases:
+            failures.append("no phase spans in the trace")
+        if not conv:
+            failures.append("no convergence records in the trace")
+        if stats is not None and stats["unresolved"]:
+            # every ctx-carrying file's root spans must have found their
+            # origin span — a propagation break would silently flatten
+            # the timeline otherwise
+            failures.append(
+                f"{stats['unresolved']} cross-process root span(s) "
+                "failed to re-parent under their propagated context")
+        if failures:
+            for f in failures:
+                print(f"REPORT SMOKE FAILED: {f}")
+            return 1
+        extra = ""
+        if stats is not None:
+            extra = (f", {stats['files']} files/"
+                     f"{len(stats['roles'])} roles stitched "
+                     f"({stats['reparented']} re-parented)")
+        print(f"report smoke ok: {len(phases)} phases, "
+              f"{len(conv)} convergence rounds" + extra)
+    return 0
+
+
+def cmd_benchdiff(args) -> int:
+    """Schema-aware regression gate over two benchmark JSONL artifacts."""
+    from tpusvm_torch.obs.benchdiff import run_benchdiff
+
+    return run_benchdiff(args)
+
+
 def cmd_info(args) -> int:
     return _info_artifact(args.path) if args.path else _info_devices()
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(argv)
+    import os
+
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    plan_path = args.faults or os.environ.get("TPUSVM_FAULTS")
+    if plan_path:
+        # chaos mode: activate the seeded fault plan before any subsystem
+        # touches its injection points, so hit counting starts at 0
+        from tpusvm_torch import faults
+
+        try:
+            plan = faults.load_plan(plan_path)
+        except (OSError, ValueError) as e:
+            parser.error(f"--faults: {e}")
+        faults.activate(plan)
+        print(f"fault plan active: {plan_path} "
+              f"(seed {plan.seed}, {len(plan.rules)} rules)")
     return {"train": cmd_train, "pod": cmd_pod, "predict": cmd_predict,
             "ingest": cmd_ingest, "tune": cmd_tune, "serve": cmd_serve,
             "refresh": cmd_refresh, "autopilot": cmd_autopilot,
             "tenants": cmd_tenants, "router": cmd_router,
             "fleet-metrics": cmd_fleet_metrics, "top": cmd_top,
-            "info": cmd_info}[args.cmd](args)
+            "info": cmd_info, "report": cmd_report,
+            "benchdiff": cmd_benchdiff}[args.cmd](args)
 
 
 if __name__ == "__main__":

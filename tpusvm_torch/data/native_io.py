@@ -32,6 +32,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from tpusvm_torch.utils.durable import fsync_replace
+
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _ROOT / "native" / "csv_reader.cpp"
 BUILD_DIR = _ROOT / "build" / "tpusvm_torch"
@@ -70,6 +72,7 @@ def build_library(build_dir: Optional[Path] = None) -> Path:
     processes build once. A failed build raises with g++'s output."""
     out = library_path(build_dir)
     out.parent.mkdir(parents=True, exist_ok=True)
+    # tpusvm: durable-by=lock file opened only to hold flock; it carries no bytes
     with open(out.parent / "tpusvm_io.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if out.exists():
@@ -86,7 +89,7 @@ def build_library(build_dir: Optional[Path] = None) -> Path:
             raise RuntimeError(
                 f"g++ failed to build the native CSV reader from {SOURCE} "
                 f"(exit {proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        fsync_replace(str(tmp), str(out))
     return out
 
 

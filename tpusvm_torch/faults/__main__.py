@@ -27,9 +27,12 @@ on the card unless ``--device cpu`` is given.
                       bytes, b), the worker kill actually fired (>= 1
                       revive) and the coordinator kill left a durable
                       checkpoint behind, and every dataset row is
-                      accounted for across the workers in every arm. The
-                      JAX command's third arm (the traced re-run) waits
-                      for the pod's tracers (ROADMAP Queue 1 item 12).
+                      accounted for across the workers in every arm. A
+                      third arm re-runs the worker kill TRACED: the
+                      coordinator's and every worker's trace file (the
+                      revived worker's a fresh one) merge into one
+                      timeline with no unresolved parent, bit-identical
+                      to the control.
 
   swap-chaos-smoke    The hot-swap gate (tpusvm_torch.serve): client
                       threads stream requests at a served model while
@@ -270,6 +273,58 @@ def _pod_chaos_smoke(device: str) -> int:
                          device=device)
             check("coordinator-resume arm", r2)
 
+        # arm 3: the worker-kill arm again, TRACED: chaos must not break
+        # the distributed trace fabric. The killed worker's file ends at
+        # its last request (SIGKILL leaves no torn span line), the REVIVED
+        # worker opens a fresh per-pid file whose root spans re-parent
+        # under the coordinator through the propagated context, and the
+        # fit stays bit-identical to the control
+        from tpusvm_torch.obs.report import (merge_trace_files,
+                                             render_report, reparent_stats)
+        from tpusvm_torch.obs.trace import Tracer
+
+        tdir = os.path.join(td, "trace")
+        os.makedirs(tdir)
+        tracer = Tracer(os.path.join(tdir, "coordinator.jsonl"),
+                        role="pod-coordinator", argv=["pod-chaos"])
+        faults.set_event_sink(tracer.event)
+        try:
+            r3 = pod_fit(ds, cfg, cc, worker_faults={1: plan},
+                         tracer=tracer, trace_dir=tdir, device=device)
+        finally:
+            faults.set_event_sink(None)
+            tracer.close()
+        if r3.revives < 1:
+            failures.append("traced arm: the kill never fired "
+                            "(zero revives)")
+        check("traced arm", r3)
+        tfiles = sorted(os.path.join(tdir, f) for f in os.listdir(tdir)
+                        if f.endswith(".jsonl"))
+        # 1 coordinator + 4 workers + >= 1 revived worker (a fresh pid, a
+        # fresh file): the kill must be visible in the file census
+        if len(tfiles) < 6:
+            failures.append(
+                f"traced arm: expected >=6 trace files (coordinator + 4 "
+                f"workers + revived worker), found {len(tfiles)}")
+        stats = {"files": len(tfiles), "reparented": 0}
+        try:
+            recs = merge_trace_files(tfiles)
+            stats = reparent_stats(recs)
+            if "pod-worker" not in stats["roles"]:
+                failures.append("traced arm: no pod-worker spans in the "
+                                "merged timeline")
+            if stats["unresolved"]:
+                failures.append(
+                    f"traced arm: {stats['unresolved']} root span(s) "
+                    "failed to re-parent (revived worker's context "
+                    "broken?)")
+            if not stats["reparented"]:
+                failures.append("traced arm: zero spans re-parented "
+                                "across processes")
+            render_report(recs)  # the merged timeline must render
+        except (ValueError, KeyError) as e:
+            failures.append(f"traced arm: merged trace unusable: {e}")
+
     if failures:
         for f in failures:
             print(f"POD CHAOS SMOKE FAILED: {f}")
@@ -277,9 +332,10 @@ def _pod_chaos_smoke(device: str) -> int:
     print(f"pod chaos smoke ok: {ctrl.rounds} rounds, "
           f"{len(ctrl_ids)} SVs, worker SIGKILL revived "
           f"({r1.revives} revive) and coordinator kill resumed — both "
-          "bit-identical to the uninterrupted control, zero rows lost "
-          f"(device {device}; the traced arm waits for ROADMAP Queue 1 "
-          "item 12)")
+          "bit-identical to the uninterrupted control, zero rows lost; "
+          f"traced re-run stitched {stats['files']} files "
+          f"({stats['reparented']} spans re-parented, 0 unresolved) "
+          f"while staying bit-identical (device {device})")
     return 0
 
 
@@ -1045,7 +1101,7 @@ def _router_chaos_smoke(device: str) -> int:
     from tpusvm_torch.obs.registry import MetricsRegistry
     from tpusvm_torch.router import (Router, RouterConfig, make_router_http,
                                      placement_table, table_bytes)
-    from tpusvm_torch.serve.http import start_http_thread
+    from tpusvm_torch.serve.http import revivable_ports, start_http_thread
     from tpusvm_torch.status import RouterStatus
 
     N_REPLICAS = 3
@@ -1087,11 +1143,11 @@ def _router_chaos_smoke(device: str) -> int:
 
         logs = []
 
-        def spawn(i, port=0):
-            """One REAL replica process: port 0 on the first boot (the
-            bound port is read from its state file); a revive passes the
-            recorded port back and restores the model set and the replica
-            identity from --state."""
+        def spawn(i, port, first=True):
+            """One REAL replica process on `port` (below the ephemeral
+            range: serve/http.py revivable_ports; read back from its state
+            file); a revive passes the recorded port back and restores the
+            model set and the replica identity from --state."""
             os.makedirs(os.path.dirname(state_path(i)), exist_ok=True)
             log = open(os.path.join(td, f"rep{i}.log"), "ab")
             logs.append(log)
@@ -1099,7 +1155,7 @@ def _router_chaos_smoke(device: str) -> int:
                    "--host", "127.0.0.1", "--port", str(port),
                    "--state", state_path(i), "--max-batch", "8",
                    "--device", device]
-            if port == 0:
+            if first:
                 cmd += ["--model", f"m={pa}"]
             return subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
                                     env=env)
@@ -1130,7 +1186,8 @@ def _router_chaos_smoke(device: str) -> int:
             raise RuntimeError(f"replica {i} not serving within "
                                f"{deadline_s:g}s:\n{tail}")
 
-        procs = [spawn(i) for i in range(N_REPLICAS)]
+        procs = [spawn(i, port) for i, port in
+                 enumerate(revivable_ports(N_REPLICAS))]
         router = None
         stop = threading.Event()
         counts = [0] * N_CLIENTS
@@ -1226,7 +1283,7 @@ def _router_chaos_smoke(device: str) -> int:
                     with open(state_path(i)) as f:
                         st = json.load(f)
                     port = int(st["address"].rsplit(":", 1)[1])
-                    procs[i] = spawn(i, port=port)
+                    procs[i] = spawn(i, port, first=False)
                     url, rid = wait_ready(i)
                     revives += 1
                     if url != urls[i]:

@@ -11,8 +11,8 @@ family name, as `tpusvm/kernels/dispatch.py` routes it:
   - "poly":    (gamma x.z + coef0) ** degree;
   - "sigmoid": tanh(gamma x.z + coef0);
   - "rff" / "nystrom": the approximate families, whose X is the already
-    mapped feature matrix, so they route through the linear family. The
-    maps themselves are not ported yet: the model layer refuses them.
+    mapped feature matrix, so they route through the linear family (the
+    maps themselves are tpusvm_torch/approx/).
 """
 
 from __future__ import annotations

@@ -201,7 +201,7 @@ class BinarySVC:
     def fit(self, X: np.ndarray, Y: np.ndarray,
             checkpoint_path: Optional[str] = None,
             checkpoint_every: int = 64,
-            resume: bool = False) -> "BinarySVC":
+            resume: bool = False, tracer=None) -> "BinarySVC":
         """Scale, solve, extract the SVs.
 
         checkpoint_path (blocked solver only): the solver's outer-loop
@@ -209,19 +209,24 @@ class BinarySVC:
         and resume=True restarts from the file, bit-identical to an
         uninterrupted fit (solver/checkpoint.py; a missing file means a
         fresh start). The approximate families map the scaled rows on the
-        card before the solve."""
+        card before the solve. tracer: an obs.trace.Tracer that receives
+        each host phase of fit_phases_ as a `fit.<phase>` span; the fit's
+        results are the same bits with or without one."""
         t0 = time.perf_counter()
         Xs = self._scale_fit(np.asarray(X))
-        phases = {"scale": time.perf_counter() - t0}
+        t1 = time.perf_counter()
+        if tracer is not None:
+            tracer.add_span("fit.scale", t0, t1)
+        phases = {"scale": t1 - t0}
         return self._fit_scaled(Xs, np.asarray(Y), t0, phases,
                                 checkpoint_path=checkpoint_path,
                                 checkpoint_every=checkpoint_every,
-                                resume=resume)
+                                resume=resume, tracer=tracer)
 
     def _fit_scaled(self, Xs: np.ndarray, Y: np.ndarray, t0: float,
                     phases: dict, checkpoint_path: Optional[str] = None,
                     checkpoint_every: int = 64,
-                    resume: bool = False) -> "BinarySVC":
+                    resume: bool = False, tracer=None) -> "BinarySVC":
         """The solve and SV extraction on already-scaled rows (fit, and
         fit_stream for the exact families). phases: host seconds so far."""
         dev = resolve_device(self.device)
@@ -233,6 +238,8 @@ class BinarySVC:
             nonlocal t
             now = time.perf_counter()
             phases[name] = now - t
+            if tracer is not None:
+                tracer.add_span(f"fit.{name}", t, now)
             t = now
 
         cfg = self.config
@@ -422,7 +429,8 @@ class BinarySVC:
         n_shards, and every rank calls fit_cascade with the same data.
         checkpoint_path/resume: per-round cascade state. stratified:
         per-class round-robin sharding instead of the contiguous scatter.
-        tracer: not ported yet (ROADMAP Queue 1 item 12). The approximate
+        tracer: an obs.trace.Tracer receiving a cascade.round span and
+        event a round (parallel/cascade.py). The approximate
         families cascade over the mapped rows: the map is fitted once on
         the full scaled data and every leaf runs the linear path."""
         from tpusvm_torch.parallel.cascade import cascade_fit
@@ -504,7 +512,9 @@ class BinarySVC:
                 verbose: bool = False,
                 checkpoint_path: Optional[str] = None,
                 resume: bool = False, stratified: bool = False,
-                prefetch_depth: int = 2, tracer=None) -> "BinarySVC":
+                prefetch_depth: int = 2, tracer=None,
+                trace_dir: Optional[str] = None,
+                trace_max_bytes: Optional[int] = None) -> "BinarySVC":
         """Pod (multi-process) cascade training from a sharded dataset
         directory: each leaf runs in its OWN worker process that streams
         only its manifest shards (pod/), on this estimator's device — the
@@ -515,8 +525,11 @@ class BinarySVC:
 
         checkpoint_path/resume: per-round coordinator checkpoints
         (pod/state.py); a killed coordinator resumes bit-identically, a
-        killed worker is revived mid-round. tracer: not ported yet
-        (ROADMAP Queue 1 item 12)."""
+        killed worker is revived mid-round. tracer: an obs.trace.Tracer for
+        the pod.fit and pod.round spans and events; trace_dir (with a
+        tracer made with role=) has every worker write its own trace file
+        there, parented under the coordinator's spans (pod/coordinator.py);
+        trace_max_bytes bounds each worker's file."""
         if is_approx_family(self.config.kernel):
             raise ValueError(
                 "fit_pod does not support the approximate families yet "
@@ -537,7 +550,8 @@ class BinarySVC:
             checkpoint_path=checkpoint_path, resume=resume,
             solver=self.solver, solver_opts=self.solver_opts,
             stratified=stratified, prefetch_depth=prefetch_depth,
-            scale=self.scale, tracer=tracer, device=self.device,
+            scale=self.scale, tracer=tracer, trace_dir=trace_dir,
+            trace_max_bytes=trace_max_bytes, device=self.device,
             dtype=self.dtype)
         self.pod_result_ = res
         self.stream_max_live_shards_ = int(max(res.worker_max_live_shards))

@@ -1,11 +1,16 @@
 """Observability: the blocked solver's convergence ring (convergence.py),
 the metrics registry the fault points, the stream reader, serving and the
 router count in (registry.py), the JSONL span tracer with its
-cross-process trace context (trace.py), and the fleet view that merges
-every process's registry snapshot (fleet.py: `fleet-metrics`, `top`)."""
+cross-process trace context (trace.py), the fleet view that merges every
+process's registry snapshot (fleet.py: `fleet-metrics`, `top`), the
+renderers of trace files (report.py: `report`), the compile observatory's
+records of CUDA graph captures and nvcc builds (prof.py, costs.py) and the
+regression gate over benchmark JSONL artifacts (benchdiff.py:
+`benchdiff`)."""
 
 from tpusvm_torch.obs.convergence import (ConvergenceTelemetry,
-                                          format_gap_table, materialize)
+                                          format_gap_table, materialize,
+                                          to_trace_events)
 from tpusvm_torch.obs.fleet import (FleetCollector, format_top, merge_fleet,
                                     render_fleet_text, snapshot_payload,
                                     top_rows)
@@ -20,4 +25,5 @@ __all__ = ["ConvergenceTelemetry", "FleetCollector", "MetricsRegistry",
            "default_registry", "format_gap_table", "format_top",
            "materialize", "merge_fleet", "merge_snapshots", "read_trace",
            "render_fleet_text", "render_snapshot_text",
-           "reset_default_registry", "snapshot_payload", "top_rows"]
+           "reset_default_registry", "snapshot_payload", "to_trace_events",
+           "top_rows"]

@@ -7,16 +7,17 @@ carry: each body execution writes its Keerthi gap b_low - b_high, inner
 updates, end-of-round status and live rows into slot (round mod T), on the
 device, never read by the solve. `materialize` brings it to the host once,
 oldest round first; `format_gap_table` prints it as the JAX command line
-does. The trace events (`to_trace_events`) wait for the tracer (ROADMAP
-Queue 1 item 12: `--trace`).
+does, through obs/report.py's table renderer, and `to_trace_events` writes
+it as the convergence.round events `report` renders from a trace file.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 
+from tpusvm_torch.obs.report import format_convergence_table
 from tpusvm_torch.status import Status
 
 
@@ -68,39 +69,22 @@ def materialize(tele: ConvergenceTelemetry) -> Dict[str, Any]:
     return out
 
 
-def format_convergence_table(rows: List[dict], max_rows: int = 40) -> str:
-    """Fixed-width outer-round table: round, Keerthi gap, updates, live rows
-    (when the ring recorded them), status; long runs elided in the middle
-    (the first and last max_rows // 2 rounds are kept)."""
-    if not rows:
-        return "no convergence records in this trace"
-    has_active = any(r.get("active") is not None for r in rows)
-    if has_active:
-        head = ["round      gap            updates   active  status",
-                "-----      ---            -------   ------  ------"]
-    else:
-        head = ["round      gap            updates  status",
-                "-----      ---            -------  ------"]
-    idx = list(range(len(rows)))
-    if len(idx) > max_rows:
-        k = max_rows // 2
-        idx = idx[:k] + [None] + idx[-k:]
-    out = list(head)
-    for i in idx:
-        if i is None:
-            out.append(f"  ... {len(rows) - 2 * (max_rows // 2)} "
-                       "rounds elided ...")
-            continue
-        r = rows[i]
-        gap = r.get("gap")
-        gap_s = f"{gap:.6e}" if gap is not None else "n/a"
-        line = (f"{r.get('round', i + 1):>5}  {gap_s:>13}  "
-                f"{r.get('updates', 0):>7}")
-        if has_active:
-            act = r.get("active")
-            line += f"  {act if act is not None else 'n/a':>7}"
-        out.append(f"{line}  {r.get('status', '?')}")
-    return "\n".join(out)
+def to_trace_events(tracer, conv: Dict[str, Any]) -> None:
+    """Write a materialized telemetry dict as convergence.round events
+    (the records `report` renders as the gap table)."""
+    first = conv["rounds_recorded"] - len(conv["gap"]) + 1
+    active = conv.get("active")
+    for i in range(len(conv["gap"])):
+        g = float(conv["gap"][i])
+        extra = {} if active is None else {"active": int(active[i])}
+        tracer.event(
+            "convergence.round",
+            round=first + i,
+            gap=None if np.isnan(g) else g,
+            updates=int(conv["updates"][i]),
+            status=Status(int(conv["status"][i])).name,
+            **extra,
+        )
 
 
 def format_gap_table(conv: Dict[str, Any], max_rows: int = 40) -> str:

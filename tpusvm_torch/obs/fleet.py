@@ -204,28 +204,28 @@ class FleetCollector:
     def _update_rates(self, processes: List[dict], now: float) -> None:
         nxt: Dict[Tuple[str, str], Dict[str, Tuple[float, float]]] = {}
         rates: Dict[Tuple[str, str], Dict[str, float]] = {}
+        # held across read, compute and publish: two concurrent scrapes
+        # must not both compute from one _prev and both publish
         with self._lock:
-            prev_all = self._prev
-        for p in processes:
-            key = (p["role"], p["instance"])
-            totals = {
-                e["name"]: float(e["value"])
-                for e in p["snapshot"]["metrics"]
-                if e["type"] == "counter" and e["name"] in RATE_COUNTERS
-            }
-            nxt[key] = {k: (v, now) for k, v in totals.items()}
-            prev = prev_all.get(key, {})
-            r: Dict[str, float] = {}
-            for k, v in totals.items():
-                if k in prev:
-                    pv, pt = prev[k]
-                    dt = now - pt
-                    if dt > 0 and v >= pv:
-                        r[k] = (v - pv) / dt
-            if r:
-                # qps = the sum of this process's request-counter rates
-                rates[key] = {"qps": sum(r.values()), **r}
-        with self._lock:
+            for p in processes:
+                key = (p["role"], p["instance"])
+                totals = {
+                    e["name"]: float(e["value"])
+                    for e in p["snapshot"]["metrics"]
+                    if e["type"] == "counter" and e["name"] in RATE_COUNTERS
+                }
+                nxt[key] = {k: (v, now) for k, v in totals.items()}
+                prev = self._prev.get(key, {})
+                r: Dict[str, float] = {}
+                for k, v in totals.items():
+                    if k in prev:
+                        pv, pt = prev[k]
+                        dt = now - pt
+                        if dt > 0 and v >= pv:
+                            r[k] = (v - pv) / dt
+                if r:
+                    # qps = the sum of this process's request-counter rates
+                    rates[key] = {"qps": sum(r.values()), **r}
             self._prev = nxt
             self._rates = rates
 
@@ -275,6 +275,7 @@ class FleetCollector:
                     # per-source errors dict is the reporting channel
                     pass
 
+        # tpusvm: guarded-by=owner-only lifecycle; start/stop run on the owning thread, the scrape thread never touches _thread
         self._thread = threading.Thread(target=run, daemon=True,
                                         name="tpusvm-torch-fleet-collector")
         self._thread.start()
@@ -285,6 +286,7 @@ class FleetCollector:
         t = self._thread
         if t is not None:
             t.join(timeout=timeout_s)
+            # tpusvm: guarded-by=owner-only lifecycle; cleared after the joined thread exited
             self._thread = None
 
     def __enter__(self) -> "FleetCollector":

@@ -26,9 +26,9 @@ receiving span carries it in its attrs, so a span of one file resolves to
 its parent span in the other. Tracers without a role write exactly the
 meta record the JAX package's anonymous tracers write.
 
-`read_trace` is the version-gated parser. The merged-report renderer
-(`report`) and the compile observatory's records are ROADMAP Queue 1
-item 12.
+`read_trace` is the version-gated parser; obs/report.py renders these
+files (`python -m tpusvm_torch report TRACE...`), several at once merged
+onto one wall clock.
 
 PhaseTimer is a thin span adapter: the accumulate-by-name surface and the
 reference's `<phase> time: ... s` / `elapsed time:` lines, with every
@@ -46,6 +46,9 @@ import threading
 import time
 import uuid
 from typing import Any, Dict, Iterator, List, Optional
+
+# the single render path of the timing block (PhaseTimer.report, report)
+from tpusvm_torch.obs.report import render_phase_lines  # noqa: F401
 
 TRACE_SCHEMA_VERSION = 1
 
@@ -261,6 +264,18 @@ class Tracer:
                 "dur_s": t1 - t0, "attrs": attrs,
             })
 
+    def add_span(self, name: str, t0: float, t1: float, **attrs: Any) -> None:
+        """Write a span the caller timed itself on this tracer's clock
+        (t0, t1), parented to the innermost open span: a loop that tiles
+        its work with perf_counter marks (BinarySVC.fit's host phases)
+        records its pieces without a context manager each."""
+        stack = self._stack()
+        self._write({
+            "v": TRACE_SCHEMA_VERSION, "kind": "span", "id": self._new_id(),
+            "parent": stack[-1] if stack else None, "name": name,
+            "t0": t0, "t1": t1, "dur_s": t1 - t0, "attrs": attrs,
+        })
+
     def event(self, name: str, **attrs: Any) -> None:
         """Point-in-time record, parented to the innermost open span."""
         stack = self._stack()
@@ -349,14 +364,6 @@ def _read_one_trace(path: str) -> List[dict]:
                 )
             records.append(rec)
     return records
-
-
-def render_phase_lines(acc: Dict[str, float], total: float) -> str:
-    """The reference's end-of-run timing block: one `<phase> time: S s`
-    line a phase, then `elapsed time: S s`."""
-    lines = [f"{name} time: {secs:.3f} s" for name, secs in acc.items()]
-    lines.append(f"elapsed time: {total:.3f} s")
-    return "\n".join(lines)
 
 
 class PhaseTimer:

@@ -22,6 +22,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from tpusvm_torch.utils.durable import fsync_replace
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tpusvm_torch"
@@ -67,37 +69,49 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _staged(out: Path) -> Path:
+    """The file nvcc writes: beside its library, so the commit is a rename
+    within one directory."""
+    return out.with_suffix(f".{os.getpid()}.tmp")
+
+
 def _start(name: str):
     src, extra = SOURCES[name]
-    out = _lib_path(name)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / src)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+    cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o",
+           str(_staged(_lib_path(name))), str(CSRC / src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Build the named kernels (default: all) in parallel; returns the
     seconds each build took (0.0 when its library was already there).
     nvcc's resource report (registers, shared memory, spills) is kept in
-    build/tpusvm_torch/<name>.log."""
+    build/tpusvm_torch/<name>.log. Each library built is one compile
+    record (obs/prof.py) whose compile_s is its nvcc seconds."""
+    from tpusvm_torch.obs import prof
+
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     running = {n: _start(n) for n in names if not _lib_path(n).exists()}
     secs = {n: 0.0 for n in names}
     errors = []
-    for n, (proc, tmp, out) in running.items():
+    for n, proc in running.items():
+        out = _lib_path(n)
+        tmp = _staged(out)
         log, _ = proc.communicate()
         secs[n] = time.perf_counter() - t0
+        # tpusvm: durable-by=diagnostic log rewritten by every build; nothing reads it back as state
         (BUILD_DIR / f"{n}.log").write_text(log)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             errors.append(f"nvcc failed for {SOURCES[n][0]} "
                           f"(exit {proc.returncode}):\n{log}")
-        else:
-            os.replace(tmp, out)
+            continue
+        fsync_replace(str(tmp), str(out))
+        prof.record_compile(f"nvcc:{n}", 0.0, secs[n], kind="nvcc",
+                            source=SOURCES[n][0])
     if errors:
         raise RuntimeError("\n".join(errors))
     return secs

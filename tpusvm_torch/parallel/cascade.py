@@ -31,13 +31,14 @@ the port's solvers, so on the card the blocked leaves run kernels #1 and
 #2 and the pair leaves pair_rows. The fault points are the JAX package's:
 ``cascade.round`` before every round (a transient rule is retried, a kill
 dies between rounds) and ``cascade.checkpoint`` before the round state is
-written, atomically, through utils/durable.py. Not ported yet and refused
-by name: the tracer (ROADMAP Queue 1 item 12, which also owns the JAX
-package's profiled round call).
+written, atomically, through utils/durable.py. With a tracer each round
+is a `cascade.round` span and event (SV count, b, per-leaf merge sizes, SV
+counts, iterations and statuses), as in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import time
@@ -98,21 +99,21 @@ def save_round_state(path: str, global_sv: SVBuffer, prev_ids, rnd: int,
     if topology is not None:
         extra["topology"] = topology
     faults.point("cascade.checkpoint", path=path, round=rnd)
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        np.savez_compressed(
-            f,
-            ckpt_version=_CKPT_VERSION,
-            round=rnd,
-            b=b,
-            prev_ids=np.asarray(sorted(prev_ids), np.int32),
-            sv_X=global_sv.X.cpu().numpy(),
-            sv_Y=global_sv.Y.cpu().numpy(),
-            sv_alpha=global_sv.alpha.cpu().numpy(),
-            sv_ids=global_sv.ids.cpu().numpy(),
-            sv_valid=global_sv.valid.cpu().numpy(),
-            **extra,
-        )
+    # the JAX package's staging name (np.savez appends .npz to path.tmp)
+    tmp = path + ".tmp.npz"
+    np.savez_compressed(
+        tmp,
+        ckpt_version=_CKPT_VERSION,
+        round=rnd,
+        b=b,
+        prev_ids=np.asarray(sorted(prev_ids), np.int32),
+        sv_X=global_sv.X.cpu().numpy(),
+        sv_Y=global_sv.Y.cpu().numpy(),
+        sv_alpha=global_sv.alpha.cpu().numpy(),
+        sv_ids=global_sv.ids.cpu().numpy(),
+        sv_valid=global_sv.valid.cpu().numpy(),
+        **extra,
+    )
     fsync_replace(tmp, path)
 
 
@@ -457,7 +458,10 @@ def cascade_fit(
     stratified: deal each class round-robin over the shards instead of
     the contiguous scatter (data/partition.py).
 
-    tracer: not ported yet (ROADMAP Queue 1 item 12); must be None.
+    tracer: an obs.trace.Tracer; each round then lands as a
+    `cascade.round` span and event carrying the global SV count, b and the
+    per-leaf/per-step merge sizes, SV counts and iteration counts (the
+    per-round diagnostics the reference printed as rank-0 text).
     """
     if solver not in ("pair", "blocked"):
         raise ValueError(f"unknown solver {solver!r}")
@@ -472,10 +476,6 @@ def cascade_fit(
             "for shrinking, or drop the knobs (shrink_stable alone is "
             "a valid leaf-solver static: stability tracking only)"
         )
-    if tracer is not None:
-        raise NotImplementedError(
-            "cascade_fit(tracer=...): the trace and telemetry layer is not "
-            "ported yet (ROADMAP Queue 1 item 12); pass tracer=None")
     accum_dtype = resolve_accum_dtype(accum_dtype)
     cc = cascade_config
     n_shards = cc.n_shards
@@ -582,32 +582,35 @@ def cascade_fit(
         # must reproduce the uninterrupted trajectory from the checkpoint
         round_retry(faults.point, "cascade.round", round=rnd)
         t0 = time.perf_counter()
-        while True:
-            out_global, b_round, diag = round_fn(
-                leaves, global_sv, merged_cap=merged_cap, **common)
-            if (
-                cc.topology == "star"
-                and merged_cap < full_merged_cap
-                and diag["merged_count"][:, 1].max() > merged_cap
-            ):
-                # the worker-SV union overflowed the tight layer-2 buffer,
-                # so this round's merged solve saw a truncated union:
-                # re-run it at the concatenation bound, which always fits,
-                # and stay there (the union grows with the global set)
-                warnings.warn(
-                    f"cascade round {rnd}: worker-SV union of "
-                    f"{diag['merged_count'][:, 1].max()} rows "
-                    f"overflowed the star merge buffer ({merged_cap}); "
-                    f"retrying the round with the full concatenation "
-                    f"capacity {full_merged_cap} (set "
-                    "star_merge_capacity to avoid the recompile)",
-                    RuntimeWarning,
-                    stacklevel=2,
-                )
-                merged_cap = full_merged_cap
-                continue
-            break
-        new_global, b = out_global, float(b_round)
+        round_span = (tracer.span("cascade.round", round=rnd)
+                      if tracer else contextlib.nullcontext())
+        with round_span:
+            while True:
+                out_global, b_round, diag = round_fn(
+                    leaves, global_sv, merged_cap=merged_cap, **common)
+                if (
+                    cc.topology == "star"
+                    and merged_cap < full_merged_cap
+                    and diag["merged_count"][:, 1].max() > merged_cap
+                ):
+                    # the worker-SV union overflowed the tight layer-2 buffer,
+                    # so this round's merged solve saw a truncated union:
+                    # re-run it at the concatenation bound, which always fits,
+                    # and stay there (the union grows with the global set)
+                    warnings.warn(
+                        f"cascade round {rnd}: worker-SV union of "
+                        f"{diag['merged_count'][:, 1].max()} rows "
+                        f"overflowed the star merge buffer ({merged_cap}); "
+                        f"retrying the round with the full concatenation "
+                        f"capacity {full_merged_cap} (set "
+                        "star_merge_capacity to avoid the recompile)",
+                        RuntimeWarning,
+                        stacklevel=2,
+                    )
+                    merged_cap = full_merged_cap
+                    continue
+                break
+            new_global, b = out_global, float(b_round)
         dt = time.perf_counter() - t0
         rounds = rnd
 
@@ -641,6 +644,21 @@ def cascade_fit(
             "iters": diag["iters"],
             "status": diag["status"],
         })
+        if tracer is not None:
+            # per-round and per-leaf telemetry: the diag arrays carry one
+            # row per merge step (tree) or layer (star) per shard
+            tracer.event(
+                "cascade.round",
+                round=rnd,
+                sv_count=len(ids_now),
+                b=b,
+                time_s=dt,
+                topology=cc.topology,
+                merged_count=diag["merged_count"].tolist(),
+                leaf_sv_count=diag["sv_count"].tolist(),
+                iters=diag["iters"].tolist(),
+                status=diag["status"].tolist(),
+            )
         bad = diag["status"][diag["status"] >= int(Status.INFEASIBLE_UV)]
         if bad.size:
             warnings.warn(

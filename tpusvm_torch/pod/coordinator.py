@@ -34,8 +34,11 @@ Failure semantics:
   * stale replies from an aborted round are discarded by request
     sequence numbers.
 
-Not ported yet and refused by name: the tracer and the cross-process
-trace directory (ROADMAP Queue 1 item 12).
+Tracing is observation only: with a tracer the fit is one pod.fit span
+with a pod.round span a round (pod.round and convergence.round events
+beside them), and with a trace directory every worker writes its own file
+under the coordinator's propagated context (pod/protocol.py attach_ctx),
+so `report DIR` renders the whole fit as one timeline.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ import torch
 from tpusvm_torch import faults
 from tpusvm_torch.config import CascadeConfig, SVMConfig, resolve_accum_dtype
 from tpusvm_torch.device import resolve_device
-from tpusvm_torch.pod.protocol import recv_msg, send_msg
+from tpusvm_torch.pod.protocol import attach_ctx, recv_msg, send_msg
 from tpusvm_torch.pod.state import (
     check_pod_round_state_config,
     load_pod_round_state,
@@ -138,7 +141,9 @@ class _Pod:
     """The worker fleet: spawn/handshake/revive + framed request plumbing."""
 
     def __init__(self, n_leaves: int, init_meta: dict, prefetch_depth: int,
-                 device, worker_faults: Optional[Dict[int, str]] = None):
+                 device, worker_faults: Optional[Dict[int, str]] = None,
+                 tracer=None):
+        self.tracer = tracer
         self.n_leaves = n_leaves
         self.init_meta = init_meta
         self.prefetch_depth = prefetch_depth
@@ -286,6 +291,10 @@ class _Pod:
             "req": req,
             "use_partition": own_buf is None,
         }
+        if self.tracer is not None and self.tracer.role is not None:
+            # per-request context: the worker's train span re-parents
+            # under the coordinator's CURRENT open span (pod.round)
+            meta = attach_ctx(meta, self.tracer.ctx())
         try:
             send_msg(self.workers[r].sock, meta, arrays)
         except (OSError, ConnectionError) as e:
@@ -493,20 +502,24 @@ def pod_fit(
     device: where the coordinator's layer-2 solves and every worker run
     ("cuda" unless asked otherwise; no CPU fallback).
 
-    tracer, trace_dir, trace_max_bytes: the pod's tracers are not ported
-    yet (ROADMAP Queue 1 item 12); each must be None.
+    tracer: a Tracer the fit writes its pod.fit and pod.round spans and
+    its pod.round and convergence.round events to, and at the end every
+    live worker's registry snapshot merged with the coordinator's.
+
+    trace_dir: cross-process tracing; needs a `tracer` constructed with a
+    role (its minted context propagates). Every worker opens its own
+    Tracer in this directory (one file per worker PID: a revived worker
+    starts a fresh file) with the coordinator's TraceContext from the
+    INIT frame, and each TRAIN frame carries the current pod.round span's
+    context, so `report <trace_dir>` stitches the whole fit into one
+    timeline. trace_max_bytes bounds each worker's file (rotation). The
+    traced fit is bit-identical to an untraced one.
     """
     from tpusvm_torch.parallel.svbuffer import empty
     from tpusvm_torch.pod.worker import SHRINK_DRIVER_KEYS
     from tpusvm_torch.stream.assign import assign_rows
     from tpusvm_torch.stream.format import open_dataset
 
-    for name, value in (("tracer", tracer), ("trace_dir", trace_dir),
-                        ("trace_max_bytes", trace_max_bytes)):
-        if value is not None:
-            raise NotImplementedError(
-                f"pod_fit({name}=...): the trace and telemetry layer is not "
-                f"ported yet (ROADMAP Queue 1 item 12); pass {name}=None")
     if solver not in ("pair", "blocked"):
         raise ValueError(f"unknown solver {solver!r}")
     driver_keys = sorted(SHRINK_DRIVER_KEYS & set(solver_opts or ()))
@@ -591,8 +604,28 @@ def pod_fit(
         "train_cap": int(train_cap),
         "sv_cap": int(sv_cap),
     }
+    fit_span = None
+    if trace_dir is not None:
+        if tracer is None or tracer.role is None:
+            raise ValueError(
+                "trace_dir needs a tracer constructed with role= (the "
+                "workers parent their spans under its minted context)")
+        os.makedirs(trace_dir, exist_ok=True)
+    if tracer is not None:
+        # opened by hand (closed in the outer finally) so the whole fit
+        # (spawn, rounds, revivals, shutdown) is one span the workers'
+        # propagated contexts parent under
+        fit_span = tracer.span("pod.fit", phase=True,
+                               topology=cc.topology, n_leaves=n_leaves)
+        fit_span.__enter__()
+    if trace_dir is not None:
+        init_meta["trace"] = {
+            "dir": os.path.abspath(trace_dir),
+            "max_bytes": trace_max_bytes,
+            "ctx": tracer.ctx().to_dict(),
+        }
     pod = _Pod(n_leaves, init_meta, prefetch_depth, dev,
-               worker_faults=worker_faults)
+               worker_faults=worker_faults, tracer=tracer)
 
     new_global = global_sv
     round_retry = faults.Retry(faults.DEFAULT_IO_POLICY, op="pod.round")
@@ -609,36 +642,39 @@ def pod_fit(
             # trajectory from the checkpoint
             round_retry(faults.point, "pod.round", round=rnd)
             t0 = time.perf_counter()
-            while True:
-                try:
-                    if cc.topology == "tree":
-                        out_global, b_r, diag = _tree_round(
-                            pod, global_sv, n_leaves=n_leaves)
-                    else:
-                        out_global, b_r, diag, merged_cap = _star_round(
-                            pod, global_sv, n_leaves=n_leaves,
-                            merged_cap=merged_cap,
-                            full_merged_cap=full_merged_cap,
-                            sv_cap=sv_cap, cfg=svm_config,
-                            accum_dtype=accum, solver=solver,
-                            solver_opts=solver_opts, device=dev)
-                    break
-                except _WorkerDied as e:
-                    if pod.revives >= max_revives:
-                        raise RuntimeError(
-                            f"pod gave up after {pod.revives} worker "
-                            f"revivals (last: {e})"
-                        ) from e
-                    revived = pod.revive_dead()
-                    if verbose:
-                        print(f"round {rnd}: revived workers "
-                              f"{revived}, re-running the round")
-                    # round inputs (global_sv) are untouched until the
-                    # round commits, so the re-run is bit-identical to an
-                    # undisturbed round
-                    continue
-            new_global = out_global
-            b = float(b_r)
+            round_span = (tracer.span("pod.round", round=rnd)
+                          if tracer else contextlib.nullcontext())
+            with round_span:
+                while True:
+                    try:
+                        if cc.topology == "tree":
+                            out_global, b_r, diag = _tree_round(
+                                pod, global_sv, n_leaves=n_leaves)
+                        else:
+                            out_global, b_r, diag, merged_cap = _star_round(
+                                pod, global_sv, n_leaves=n_leaves,
+                                merged_cap=merged_cap,
+                                full_merged_cap=full_merged_cap,
+                                sv_cap=sv_cap, cfg=svm_config,
+                                accum_dtype=accum, solver=solver,
+                                solver_opts=solver_opts, device=dev)
+                        break
+                    except _WorkerDied as e:
+                        if pod.revives >= max_revives:
+                            raise RuntimeError(
+                                f"pod gave up after {pod.revives} worker "
+                                f"revivals (last: {e})"
+                            ) from e
+                        revived = pod.revive_dead()
+                        if verbose:
+                            print(f"round {rnd}: revived workers "
+                                  f"{revived}, re-running the round")
+                        # round inputs (global_sv) are untouched until the
+                        # round commits, so the re-run is bit-identical to an
+                        # undisturbed round
+                        continue
+                new_global = out_global
+                b = float(b_r)
             dt = time.perf_counter() - t0
             rounds = rnd
 
@@ -673,6 +709,31 @@ def pod_fit(
                 "iters": diag["iters"],
                 "status": diag["status"],
             })
+            if tracer is not None:
+                tracer.event(
+                    "pod.round",
+                    round=rnd,
+                    sv_count=len(ids_now),
+                    b=b,
+                    time_s=dt,
+                    topology=cc.topology,
+                    merged_count=diag["merged_count"].tolist(),
+                    leaf_sv_count=diag["sv_count"].tolist(),
+                    iters=diag["iters"].tolist(),
+                    status=diag["status"].tolist(),
+                )
+                # the report's shared convergence surface (the record
+                # cascade_fit writes too): the worst status over the leaves
+                # that solved this round (-1 marks a leaf without one)
+                sts = [int(s) for s in np.asarray(diag["status"]).ravel()
+                       if int(s) >= 0]
+                tracer.event(
+                    "convergence.round",
+                    round=rnd,
+                    updates=int(np.asarray(diag["iters"]).sum()),
+                    active=len(ids_now),
+                    status=Status(max(sts)).name if sts else "n/a",
+                )
             bad = diag["status"][
                 diag["status"] >= int(Status.INFEASIBLE_UV)]
             if bad.size:
@@ -712,7 +773,25 @@ def pod_fit(
                 break
             global_sv = new_global
     finally:
+        if tracer is not None:
+            # fleet telemetry, best effort: every live worker's registry
+            # snapshot (label-tagged, merged with the coordinator's own)
+            # lands in the trace before the fleet is torn down
+            with contextlib.suppress(Exception):
+                from tpusvm_torch.obs.fleet import (merge_fleet,
+                                                    snapshot_payload)
+                from tpusvm_torch.obs.registry import default_registry
+
+                parts = [snapshot_payload(
+                    "pod-worker", f"w{s['worker_id']}", s["snapshot"],
+                    pid=s.get("pid")) for s in pod.snapshots()]
+                parts.append(snapshot_payload(
+                    "pod-coordinator", "coordinator",
+                    default_registry().snapshot()))
+                tracer.metrics_snapshot(merge_fleet(parts))
         pod.shutdown()
+        if fit_span is not None:
+            fit_span.__exit__(None, None, None)
 
     mask = new_global.valid.cpu().numpy()
     return PodResult(

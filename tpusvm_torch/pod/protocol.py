@@ -18,9 +18,10 @@ same meta and arrays (the zip entries carry the current second, as
 
 Framing is explicit-length on purpose: a worker SIGKILLed mid-write
 leaves a SHORT frame, which the reader surfaces as ConnectionError
-(peer death), never as a truncated-but-parsed message. The JAX package's
-trace-context helpers (attach_ctx/extract_ctx) come with the pod's
-tracers (ROADMAP Queue 1 item 12).
+(peer death), never as a truncated-but-parsed message. A frame's meta may
+carry a trace context under ``ctx`` (attach_ctx/extract_ctx): a TRAIN
+frame names the coordinator's open pod.round span, under which the
+worker's span re-parents in the merged report.
 """
 
 from __future__ import annotations
@@ -62,6 +63,25 @@ def send_msg(sock: socket.socket, meta: dict,
         ab = b""
     frame = struct.pack(">I", len(mb)) + mb + ab
     sock.sendall(struct.pack(">I", len(frame)) + frame)
+
+
+def attach_ctx(meta: dict, ctx) -> dict:
+    """Return a copy of meta carrying a TraceContext under ``ctx``.
+
+    No-op passthrough when ctx is None, so call sites don't branch."""
+    if ctx is None:
+        return meta
+    out = dict(meta)
+    out["ctx"] = ctx.to_dict()
+    return out
+
+
+def extract_ctx(meta: dict):
+    """The TraceContext carried in a frame's meta, or None (absent key,
+    pre-ctx peer, or malformed payload — never an exception)."""
+    from tpusvm_torch.obs.trace import TraceContext
+
+    return TraceContext.from_dict(meta.get("ctx"))
 
 
 def recv_msg(sock: socket.socket

@@ -32,21 +32,20 @@ def save_pod_round_state(path: str, global_sv: SVBuffer, prev_ids,
     faults.point("pod.merge", path=path, round=rnd)
     # the JAX package's staging name (np.savez appends .npz to path.tmp)
     tmp = path + ".tmp.npz"
-    with open(tmp, "wb") as f:
-        np.savez_compressed(
-            f,
-            ckpt_version=POD_CKPT_VERSION,
-            round=rnd,
-            b=b,
-            prev_ids=np.asarray(sorted(prev_ids), np.int32),
-            n_leaves=n_leaves,
-            topology=topology,
-            sv_X=global_sv.X.cpu().numpy(),
-            sv_Y=global_sv.Y.cpu().numpy(),
-            sv_alpha=global_sv.alpha.cpu().numpy(),
-            sv_ids=global_sv.ids.cpu().numpy(),
-            sv_valid=global_sv.valid.cpu().numpy(),
-        )
+    np.savez_compressed(
+        tmp,
+        ckpt_version=POD_CKPT_VERSION,
+        round=rnd,
+        b=b,
+        prev_ids=np.asarray(sorted(prev_ids), np.int32),
+        n_leaves=n_leaves,
+        topology=topology,
+        sv_X=global_sv.X.cpu().numpy(),
+        sv_Y=global_sv.Y.cpu().numpy(),
+        sv_alpha=global_sv.alpha.cpu().numpy(),
+        sv_ids=global_sv.ids.cpu().numpy(),
+        sv_valid=global_sv.valid.cpu().numpy(),
+    )
     fsync_replace(tmp, path)
 
 

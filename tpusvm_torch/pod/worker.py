@@ -32,6 +32,7 @@ exactly what survives genuine process death.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import signal
 import socket
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from tpusvm_torch import faults
-from tpusvm_torch.pod.protocol import recv_msg, send_msg
+from tpusvm_torch.pod.protocol import extract_ctx, recv_msg, send_msg
 
 #: solver_opts keys routed to the host-side shrinking driver
 #: (solver/shrink.py) instead of blocked_smo_solve directly
@@ -103,7 +104,8 @@ def leaf_shards(dataset, part_mask: np.ndarray):
 
 
 def load_leaf(dataset, leaf: int, n_leaves: int, stratified: bool,
-              prefetch_depth: int, scale: bool, dtype, device="cpu"):
+              prefetch_depth: int, scale: bool, dtype, device="cpu",
+              tracer=None):
     """Build this leaf's padded SVBuffer on `device` by streaming its
     shards.
 
@@ -135,18 +137,24 @@ def load_leaf(dataset, leaf: int, n_leaves: int, stratified: bool,
     reader = ShardReader(dataset, prefetch_depth=prefetch_depth,
                          scaler=scaler, shards=subset)
     infos = [dataset.manifest.shards[i] for i in subset]
-    # the reader first: its iteration ends (and the reader closes) when
-    # the last shard has been taken
-    for (X, Y), info in zip(reader, infos):
-        g = np.arange(info.row_start, info.row_start + len(X))
-        sel = np.flatnonzero(mask[g])
-        if not sel.size:
-            continue
-        s = asg.slot[g[sel]]
-        Xp[s] = X[sel]
-        Yp[s] = Y[sel]
-        ids[s] = g[sel].astype(np.int32)
-        valid[s] = True
+    shard_iter = iter(reader)
+    for shard_idx, info in zip(subset, infos):
+        span = (tracer.span("pod.shard_prefetch", shard=int(shard_idx))
+                if tracer is not None else contextlib.nullcontext())
+        with span:
+            X, Y = next(shard_iter)
+            g = np.arange(info.row_start, info.row_start + len(X))
+            sel = np.flatnonzero(mask[g])
+            if not sel.size:
+                continue
+            s = asg.slot[g[sel]]
+            Xp[s] = X[sel]
+            Yp[s] = Y[sel]
+            ids[s] = g[sel].astype(np.int32)
+            valid[s] = True
+    # the iteration ends (and the reader closes) past the last shard
+    for _ in shard_iter:
+        pass
     rows = int(valid.sum())
     buf = SVBuffer(
         X=torch.as_tensor(Xp).to(device=device, dtype=dtype),
@@ -224,13 +232,35 @@ def serve(sock: socket.socket, worker_id: int) -> int:
     train_cap = int(meta["train_cap"])
     sv_cap = int(meta["sv_cap"])
 
+    # cross-process tracing (an optional INIT key): this worker opens its
+    # own trace file in the coordinator's trace dir, named by worker id AND
+    # pid so a revived worker starts a fresh file, carrying the
+    # coordinator's propagated context in its meta record
+    tracer = None
+    tmeta = meta.get("trace")
+    if tmeta:
+        from tpusvm_torch.obs.trace import TraceContext, Tracer
+
+        tracer = Tracer(
+            os.path.join(tmeta["dir"],
+                         f"worker{worker_id}.p{os.getpid()}.jsonl"),
+            role="pod-worker",
+            ctx=TraceContext.from_dict(tmeta.get("ctx")),
+            max_bytes=tmeta.get("max_bytes"),
+            argv=[f"pod.worker:{worker_id}"],
+        )
+
     reg = default_registry()
     dataset = open_dataset(meta["data"])
-    part_buf, rows, shards_read, live_hwm = load_leaf(
-        dataset, int(meta["leaf"]), int(meta["n_leaves"]),
-        bool(meta["stratified"]), int(meta["prefetch_depth"]),
-        bool(meta["scale"]), dtype, dev,
-    )
+    load_span = (tracer.span("pod.leaf_load", phase=True,
+                             leaf=int(meta["leaf"]))
+                 if tracer is not None else contextlib.nullcontext())
+    with load_span:
+        part_buf, rows, shards_read, live_hwm = load_leaf(
+            dataset, int(meta["leaf"]), int(meta["n_leaves"]),
+            bool(meta["stratified"]), int(meta["prefetch_depth"]),
+            bool(meta["scale"]), dtype, dev, tracer=tracer,
+        )
     reg.gauge("pod.worker_rows").set(float(rows))
     reg.gauge("pod.live_shards").set(float(live_hwm))
     reg.counter("pod.shards_read").inc(shards_read)
@@ -246,9 +276,15 @@ def serve(sock: socket.socket, worker_id: int) -> int:
     while True:
         meta, arrays = recv_msg(sock)
         op = meta["op"]
+        # the fault point fires before any span opens, so a SimulatedKill
+        # escalating to SIGKILL leaves no torn span line in the trace: the
+        # killed worker's file ends at its last request
         faults.point("pod.worker", op=op, worker=worker_id,
                      req=meta.get("req"))
         if op == "shutdown":
+            if tracer is not None:
+                tracer.metrics_snapshot(reg.snapshot())
+                tracer.close()
             send_msg(sock, {"op": "bye", "worker_id": worker_id})
             return 0
         if op == "snapshot":
@@ -262,12 +298,27 @@ def serve(sock: socket.socket, worker_id: int) -> int:
             raise RuntimeError(f"unknown pod request {op!r}")
         reg.counter("pod.worker_requests").inc()
         before = _launches(wrappers)
-        recv_buf = _buf_from_arrays(arrays, "recv_", dev)
-        own = (part_buf if meta["use_partition"]
-               else _buf_from_arrays(arrays, "own_", dev))
-        train, mcount = merge_dedup(recv_buf, own, train_cap)
-        res = leaf_solve(train, cfg, accum, solver, solver_opts, dev)
-        sv, svcount = extract_svs(train, res.alpha, cfg.sv_tol, sv_cap)
+        rctx = extract_ctx(meta)
+        span_attrs = {"req": meta.get("req"), "phase": True}
+        if rctx is not None:
+            # re-parents this request under the coordinator's pod.round
+            span_attrs["ctx"] = rctx.to_dict()
+        train_span = (tracer.span("pod.leaf_train", **span_attrs)
+                      if tracer is not None else contextlib.nullcontext())
+        with train_span:
+            recv_buf = _buf_from_arrays(arrays, "recv_", dev)
+            own = (part_buf if meta["use_partition"]
+                   else _buf_from_arrays(arrays, "own_", dev))
+            merge_span = (tracer.span("pod.merge") if tracer is not None
+                          else contextlib.nullcontext())
+            with merge_span:
+                train, mcount = merge_dedup(recv_buf, own, train_cap)
+            solve_span = (tracer.span("pod.solve") if tracer is not None
+                          else contextlib.nullcontext())
+            with solve_span:
+                res = leaf_solve(train, cfg, accum, solver, solver_opts,
+                                 dev)
+            sv, svcount = extract_svs(train, res.alpha, cfg.sv_tol, sv_cap)
         after = _launches(wrappers)
         send_msg(
             sock,

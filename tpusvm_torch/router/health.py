@@ -200,8 +200,7 @@ class HealthPoller:
             ).set(float(STATE_CODES[rec.state]))
         up = sum(1 for r in nxt.values() if r.state in ("ok", "degraded"))
         self._registry.gauge("router.replicas_up").set(float(up))
-        # single-writer publication: only the poll thread writes _health,
-        # and it is replaced whole
+        # tpusvm: guarded-by=single-writer publication; only the poll thread writes _health, and it is replaced whole — the earlier read is a snapshot base, not a predicate
         with self._lock:
             self._health = nxt
         return {url: rec.state for url, rec in nxt.items()}
@@ -256,6 +255,7 @@ class HealthPoller:
                     self.log(f"router: poll error: "
                              f"{type(e).__name__}: {e}")
 
+        # tpusvm: guarded-by=owner-only lifecycle; start/stop run on the owning thread, the poll thread never touches _thread
         self._thread = threading.Thread(target=run, daemon=True,
                                         name="tpusvm-torch-router-health")
         self._thread.start()
@@ -266,4 +266,5 @@ class HealthPoller:
         t = self._thread
         if t is not None:
             t.join(timeout=timeout_s)
+            # tpusvm: guarded-by=owner-only lifecycle; cleared after the joined thread exited
             self._thread = None

@@ -246,7 +246,7 @@ class MicroBatcher:
             return True
         # readers tolerate staleness: a racing submit either drains or
         # lands before the in-queue barrier, which serializes the rest
-        # one-way latch; a bool store is atomic under the GIL
+        # tpusvm: guarded-by=one-way latch; bool store is GIL-atomic
         self._draining = True
         bar = _DrainBarrier()
         try:
@@ -260,7 +260,7 @@ class MicroBatcher:
             return
         # requests that race past the stale read are resolved by the
         # post-join queue sweep below (no dropped futures)
-        # one-way latch; a bool store is atomic under the GIL
+        # tpusvm: guarded-by=one-way latch; bool store is GIL-atomic
         self._closed = True
         self._q.put(_SENTINEL)
         self._worker.join(timeout=timeout_s)

@@ -40,7 +40,9 @@ The capture rules, for staging a generation while another one serves:
 A failed capture or replay raises; nothing falls back to an eager or CPU
 path. Builds are observable: `compiles` counts programs built (captures
 on the card) and `recompiles` those built after warm-up (steady-state
-target: 0); each build's seconds land in the worker's registry.
+target: 0); each build is one compile record (obs/prof.py: the eager
+warm-up as lower_s, the capture as compile_s) in the worker's registry,
+and a prof.compile trace event while the observatory is on.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ import torch
 
 from tpusvm_torch.device import to_dtype, to_numpy
 from tpusvm_torch.models.svm import score_scaled
+from tpusvm_torch.obs import prof
 from tpusvm_torch.serve.registry import ModelEntry
 
 
@@ -86,6 +89,7 @@ class _Eager:
     def __init__(self, cache: "CompileCache", bucket: int):
         self.cache = cache
         self.bucket = bucket
+        self.lower_s = self.compile_s = 0.0
 
     def run(self, X: torch.Tensor, lock) -> np.ndarray:
         return to_numpy(self.cache.program(X))
@@ -110,7 +114,10 @@ class _Graph:
         with cache.lock, torch.cuda.stream(s):
             # eager first: cuBLAS creates this thread's handle and the
             # (handle, stream) workspace outside the capture
+            t0 = time.perf_counter()
             cache.program(self.static_in)
+            s.synchronize()
+            t1 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph()
             # no garbage collection while capturing: a collection in this
             # thread could destroy an unreachable graph, a call the capture
@@ -135,6 +142,9 @@ class _Graph:
         self.host_out = torch.empty(self.static_out.shape,
                                     dtype=self.static_out.dtype).pin_memory()
         s.synchronize()
+        # the compile observatory's split: eager warm-up, then capture
+        self.lower_s = t1 - t0
+        self.compile_s = time.perf_counter() - t1
 
     def run(self, X: torch.Tensor, lock) -> np.ndarray:
         # one batch at a time through the static buffers, and the previous
@@ -198,12 +208,12 @@ class CompileCache:
         t0 = time.perf_counter()
         built = (_Graph(self, bucket) if self.graphed
                  else _Eager(self, bucket))
-        secs = time.perf_counter() - t0
-        self.build_s += secs
-        if self.registry is not None:
-            nm = f"serve.bucket[{self.entry.name}:b{bucket}]"
-            self.registry.counter("prof.compiles", executable=nm).inc()
-            self.registry.gauge("prof.compile_s", executable=nm).set_max(secs)
+        self.build_s += time.perf_counter() - t0
+        e = self.entry
+        prof.record_compile(
+            f"serve.bucket[{e.name}:b{bucket}]", built.lower_s,
+            built.compile_s, registry=self.registry, model=e.name,
+            bucket=bucket, kind=e.kind)
         return built
 
     def _get(self, bucket: int):

@@ -60,9 +60,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import socket
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -273,3 +275,32 @@ def stop_http_server(httpd: ThreadingHTTPServer,
     httpd.server_close()
     if thread is not None:
         thread.join(timeout=timeout_s)
+
+
+def revivable_ports(n: int, host: str = "127.0.0.1") -> List[int]:
+    """n ports that are free now and lie below the kernel's ephemeral range,
+    for replica processes that must come back on their own port after a
+    SIGKILL: a port of the ephemeral range can be taken, while its process
+    is dead, as the local port of any outgoing connection, and the revive
+    then fails with EADDRINUSE. Each caller starts its search at an offset
+    from its pid, so concurrent callers rarely meet. [0] * n (the kernel
+    chooses) where the range cannot be read or nothing below it is free."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return [0] * n
+    first = max(1024, low - 8192)
+    width = low - first
+    out: List[int] = []
+    for k in range(width):
+        port = first + (os.getpid() * 7 + k) % width
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            try:
+                s.bind((host, port))
+            except OSError:
+                continue
+        out.append(port)
+        if len(out) == n:
+            return out
+    return [0] * n

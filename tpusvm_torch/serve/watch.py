@@ -120,8 +120,7 @@ class ModelWatcher:
                     self.log(f"watch: poll error: "
                              f"{type(e).__name__}: {e}")
 
-        # start/stop run on the owning thread; the poll thread never
-        # touches _thread
+        # tpusvm: guarded-by=owner-only lifecycle; start/stop run on the owning thread, the poll thread never touches _thread
         self._thread = threading.Thread(target=run, daemon=True,
                                         name="tpusvm-torch-serve-watch")
         self._thread.start()
@@ -132,4 +131,5 @@ class ModelWatcher:
         t = self._thread
         if t is not None:
             t.join(timeout=timeout_s)
+            # tpusvm: guarded-by=owner-only lifecycle; cleared after the joined thread exited
             self._thread = None

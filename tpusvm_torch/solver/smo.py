@@ -41,6 +41,7 @@ import torch
 
 from tpusvm_torch import kernels
 from tpusvm_torch.device import resolve_device
+from tpusvm_torch.obs import prof
 from tpusvm_torch.ops.cuda.pair_rows import (pair_rows_kernel, pair_rows_ref,
                                              replay)
 from tpusvm_torch.ops.rbf import sq_norms
@@ -227,6 +228,8 @@ def _run(state: _PairState, chunk: int, graph: bool):
     syncs = chunks = 0
     wait = 0.0
     cuda_graph = None
+    # the compile observatory times the eager first chunk and the capture
+    t_first = time.perf_counter() if prof.current() is not None else None
     while True:
         if cuda_graph is None:
             for _ in range(chunk):
@@ -247,10 +250,17 @@ def _run(state: _PairState, chunk: int, graph: bool):
             # loaded, its launch attributes set); capture records and does
             # not run, so the state stays where that chunk left it
             torch.cuda.synchronize(state.X.device)
+            t_capture = time.perf_counter()
             cuda_graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(cuda_graph):
                 for _ in range(chunk):
                     state.step()
+            if t_first is not None:
+                prof.record_compile(
+                    "solver.pair_chunk", t_capture - t_first,
+                    time.perf_counter() - t_capture, chunk=chunk,
+                    problems=int(state.status.shape[0]),
+                    rows=int(state.X.shape[0]))
 
 
 def _prepare(X, Ys, valid, alpha0, *, warm_start, accum_dtype, kernel,

@@ -217,10 +217,10 @@ class ShardReader:
                 "ShardReader is single-pass; construct a new reader to "
                 "re-read (same seed = same order)"
             )
-        # written on the consumer thread before the producer exists
-        # (Thread.start is the fence)
+        # tpusvm: guarded-by=written on the consumer thread before the producer exists (Thread.start is the fence)
         self._started = True
         if torch.cuda.is_initialized():
+            # tpusvm: guarded-by=written on the consumer thread before the producer exists (Thread.start is the fence)
             self._cuda_stream = torch.cuda.current_stream()
         self._worker.start()
         try:
@@ -238,8 +238,7 @@ class ShardReader:
                     raise item
                 if self._consumer_holds:
                     self._release()  # moving past the previous block
-                # consumer-thread confined (only the consumer and its
-                # finally-close touch it)
+                # tpusvm: guarded-by=consumer-thread confined (only the single consumer and its finally-close touch it)
                 self._consumer_holds = True
                 yield item
                 # NOTE: the yielded block's permit is released when the
@@ -296,7 +295,6 @@ class ShardReader:
                                                             BaseException):
                     self._release()
             if self._consumer_holds:
-                # consumer-thread confined (close runs on the consumer's
-                # __iter__ finally, or after it exits)
+                # tpusvm: guarded-by=consumer-thread confined (close runs on the consumer's __iter__ finally, or after it exits)
                 self._consumer_holds = False
                 self._release()

@@ -258,13 +258,13 @@ def tune(
 
     dtype: the feature dtype of the fold caches (float32, bfloat16,
     float64). device: where the fold caches live and every fit runs
-    ("cuda" unless the caller asks for "cpu"). tracer: not ported yet
-    (ROADMAP Queue 1 item 12); it must be None.
+    ("cuda" unless the caller asks for "cpu").
+
+    tracer: an obs.trace.Tracer; every scored point then lands as a
+    `tune.point` event (C, gamma, rung, subset size, CV accuracy, update
+    count, warm-seed count) and the winner as `tune.winner`: the search
+    trajectory in the run's one trace file.
     """
-    if tracer is not None:
-        raise NotImplementedError(
-            "tune(tracer=...): tracing a tune is not ported yet (ROADMAP "
-            "Queue 1 item 12)")
     dev = resolve_device(device)
     dtype = resolve_dtype(dtype)
     if dataset is not None:
@@ -413,6 +413,14 @@ def tune(
                 warm_seeded=row["warm_seeded"]
                 + sum(s is not None for s in seeds),
             )
+            if tracer is not None:
+                tracer.event(
+                    "tune.point", C=C, gamma=gamma, rung=rung, n_subset=m,
+                    kernel=spec["kernel"],
+                    cv_accuracy=row["cv_accuracy"], n_updates=updates,
+                    warm_seeded=sum(s is not None for s in seeds),
+                    wall_s=wall,
+                )
             return row
 
         if config.schedule == "grid":
@@ -494,6 +502,8 @@ def tune(
               "cv_accuracy": win["cv_accuracy"]}
     say(f"tune: winner kernel={win['kernel']} C={win['C']:g} "
         f"gamma={win['gamma']:g} cv={win['cv_accuracy']:.4f}")
+    if tracer is not None:
+        tracer.event("tune.winner", **winner)
     return TuneResult(
         fleet=config.fleet,
         schedule=config.schedule,

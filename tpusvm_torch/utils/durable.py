@@ -30,4 +30,5 @@ def fsync_replace(tmp_path: str, final_path: str) -> None:
         os.fsync(fd)
     finally:
         os.close(fd)
+    # tpusvm: durable-by=callers stage the temp beside its target; the helper's opaque params carry no directory to compare
     os.replace(tmp_path, final_path)
