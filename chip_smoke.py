@@ -1005,17 +1005,25 @@ def phase_tracer_cost(X_all, Y_all, n_tr, m5, train5_s, opts, counters,
             == m5.result_.alpha.cpu().numpy().tobytes())
     recs = read_trace(str(path))
     spans = [r["name"] for r in recs if r["kind"] == "span"]
+    by_name = collections.Counter(spans)
     frac = train_s / train5_s - 1.0
     log(f"[25c] phase 5's job with the fit's tracer and the observatory on: "
         f"train {train_s:.3f} s against phase 5's {train5_s:.3f} s, overhead "
         f"fraction {frac:+.4f} (the JAX telemetry_overhead band: "
         f"{TRACER_OVERHEAD_BAND}; printed, not gated); {len(recs)} trace "
-        f"records, spans {spans}; alpha, b and updates equal phase 5's: "
-        f"{same}; #1/#2 launches {counts['fused_fupdate']}/"
+        f"records, spans {dict(by_name)}; alpha, b and updates equal phase "
+        f"5's: {same}; #1/#2 launches {counts['fused_fupdate']}/"
         f"{counts['inner_smo']} ({smi})")
     check(same, "[25c] the traced fit differs from phase 5")
-    check(spans == [f"fit.{p}" for p in model.fit_phases_] + ["training"],
-          f"[25c] spans {spans}")
+    # the fit's phases in order, the scaler's and the solver's spans inside
+    # them (one solve.select a round), the phase span last
+    check([n for n in spans if n.startswith("fit.")]
+          == [f"fit.{p}" for p in model.fit_phases_]
+          and spans[-1] == "training"
+          and {n.split(".")[0] for n in spans[:-1]} == {"fit", "scale",
+                                                        "solve"}
+          and by_name["solve.select"] == model.result_.n_outer,
+          f"[25c] spans {dict(by_name)}")
 
 
 def phase_benchdiff(bench5, out_dir):

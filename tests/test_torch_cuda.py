@@ -176,6 +176,74 @@ def test_fit_launches_both_kernels(dev):
     assert inner_smo_kernel.launches > 0
 
 
+class _Spans:
+    def __init__(self):
+        self.spans = []
+
+    def add_span(self, name, t0, t1):
+        self.spans.append((name, t0, t1))
+
+    def of(self, name):
+        return sorted((s for s in self.spans if s[0] == name),
+                      key=lambda s: s[1])
+
+
+def test_traced_fit_waits_once_a_round_and_keeps_its_bits(dev):
+    # the kernel path: one solve.inner_wait a round (#2's status read), the
+    # two wait spans summing to host_wait_s; alphas, b and status the
+    # untraced fit's bits
+    X, Y = mnist_like(n=3000, d=784, noise=30.0, label_noise=0.005)
+    cfg, opts = SVMConfig(max_iter=10**6), dict(q=256, wss=2, max_inner=512)
+    rec = _Spans()
+    traced = BinarySVC(cfg, device="cuda", solver_opts=opts).fit(
+        X, Y, tracer=rec)
+    plain = BinarySVC(cfg, device="cuda", solver_opts=opts).fit(X, Y)
+    res = traced.result_
+    assert traced.status_.name == "CONVERGED" and res.n_outer > 1
+    assert len(rec.of("solve.inner_wait")) == res.n_outer
+    assert len(rec.of("solve.select")) == res.n_outer
+    waits = sum(b - a for n, a, b in rec.spans
+                if n in ("solve.check_wait", "solve.inner_wait"))
+    assert waits == pytest.approx(res.host_wait_s, rel=1e-9)
+    assert torch.equal(res.alpha, plain.result_.alpha)
+    assert traced.b_ == plain.b_ and traced.status_ == plain.status_
+
+
+def test_profile_anchor_puts_kernel_2_inside_its_rounds_spans(dev, tmp_path):
+    # utils.timing.trace(tracer=) on the card: moved onto perf_counter by
+    # the profile.anchor event, each round's #2 launch runs between the
+    # start of its solve.inner span and the end of its solve.inner_wait
+    import json
+    import os
+
+    from tpusvm_torch.obs.trace import Tracer, read_trace
+    from tpusvm_torch.utils.timing import TRACE_FILE, trace
+
+    X, Y = mnist_like(n=3000, d=784, noise=30.0, label_noise=0.005)
+    model = BinarySVC(SVMConfig(max_iter=10**6), device="cuda",
+                      solver_opts=dict(q=256, wss=2, max_inner=512))
+    model.fit(X, Y)  # warm: the libraries built and loaded
+    rec, path = _Spans(), str(tmp_path / "t.jsonl")
+    tracer = Tracer(path)
+    with trace(str(tmp_path / "prof"), device="cuda", tracer=tracer):
+        model.fit(X, Y, tracer=rec)
+    tracer.close()
+    (anchor,) = [r["attrs"] for r in read_trace(path)
+                 if r["kind"] == "event" and r["name"] == "profile.anchor"]
+    with open(os.path.join(str(tmp_path / "prof"), TRACE_FILE)) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    op = min((e for e in events if e["name"] == anchor["op"]),
+             key=lambda e: e["ts"])
+    kernels = sorted(anchor["t"] + (e["ts"] - op["ts"]) * 1e-6
+                     for e in events if e.get("cat") == "kernel"
+                     and "inner_smo_kernel" in e["name"])
+    inner, waits = rec.of("solve.inner"), rec.of("solve.inner_wait")
+    assert len(kernels) == len(inner) == len(waits) == model.result_.n_outer
+    slack = 2e-4  # the profiler's device clock against the host's
+    for k, (_, a, _), (_, _, b) in zip(kernels, inner, waits):
+        assert a - slack <= k <= b + slack
+
+
 @pytest.mark.parametrize("q,p,mid,dup,max_inner", [
     (512, 2, False, False, 1024), (1024, 4, False, False, 1024),
     (2048, 8, False, False, 1024), (512, 2, True, True, 8192),

@@ -144,7 +144,11 @@ def test_binary_fits_not_ported_are_refused(tmp_path):
     plain = BinarySVC(SVMConfig(C=10.0, gamma=10.0), device="cpu").fit(X2, Y2)
     assert traced.sv_alpha_.tobytes() == plain.sv_alpha_.tobytes()
     assert traced.b_ == plain.b_ and traced.n_iter_ == plain.n_iter_
-    assert [r["name"] for r in read_trace(path) if r["kind"] == "span"] == [
+    # fit.<phase> spans in the phases' order; the scaler's and the blocked
+    # solver's own spans (scale.*, solve.*) tile fit.scale and fit.solve
+    names = [r["name"] for r in read_trace(path) if r["kind"] == "span"]
+    assert [n for n in names if n.startswith("fit.")] == [
         f"fit.{p}" for p in traced.fit_phases_]
+    assert {n.split(".")[0] for n in names} == {"fit", "scale", "solve"}
     with pytest.raises(ValueError, match="unknown solver"):
         BinarySVC(solver="fleet", device="cpu")

@@ -1162,7 +1162,8 @@ def _train(args, group) -> int:
                   solver_opts=opts, scale=not args.no_scale,
                   accum_dtype="auto" if args.accum == "float64" else None,
                   dtype=args.dtype)
-    with timer.phase("training"), trace(args.profile, device=args.device):
+    with timer.phase("training"), trace(args.profile, device=args.device,
+                                        tracer=tracer):
         if args.mode == "oracle":
             model = _fit_oracle(X, Y, cfg, args.device)
         elif args.mode == "cascade":
@@ -1629,7 +1630,8 @@ def cmd_tune(args) -> int:
     say = (lambda msg: None) if args.quiet else print
     say(f"n = {n}, n_features = {n_features}, grid = {grid.shape[0]}x"
         f"{grid.shape[1]}, folds = {args.folds}, schedule = {args.schedule}")
-    with timer.phase("search"), trace(args.profile, device=args.device):
+    with timer.phase("search"), trace(args.profile, device=args.device,
+                                      tracer=tracer):
         result = tune(X, Y, grid, config, base=base, dtype=args.dtype,
                       accum_dtype=accum, scale=not args.no_scale,
                       solver_opts=_parse_solver_opts(args.solver_opt),

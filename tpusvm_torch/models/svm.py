@@ -43,14 +43,16 @@ def check_solver(solver: str) -> None:
 
 
 def solve(solver: str, X, Y, cfg: SVMConfig, accum_dtype, opts: dict,
-          device, *, checkpoint: Optional[dict] = None, **kw):
+          device, *, checkpoint: Optional[dict] = None, tracer=None, **kw):
     """One solve of `solver` with the config's hyperparameters; kw adds
     targets, sn or warm-start arguments. As the JAX estimators route it:
     solver_opts' shrink_every (with shrink_min, shrink_gap_factor,
     max_unshrinks; shrink_stable defaults to 3) runs
     shrinking_blocked_solve, and `checkpoint` (checkpoint_path,
     checkpoint_every, resume) checkpointed_blocked_solve, both on the
-    blocked solver only and not together."""
+    blocked solver only and not together. tracer: every route takes it;
+    the blocked solves record their solve.* spans there
+    (blocked_smo_solve), the pair solver none."""
     opts = dict(opts)
     shrink_every = opts.pop("shrink_every", 0)
     shrink_kw = {k: opts.pop(k) for k in
@@ -59,7 +61,7 @@ def solve(solver: str, X, Y, cfg: SVMConfig, accum_dtype, opts: dict,
     kw = dict(C=cfg.C, gamma=cfg.gamma, eps=cfg.eps, tau=cfg.tau,
               max_iter=cfg.max_iter, kernel=cfg.kernel, degree=cfg.degree,
               coef0=cfg.coef0, accum_dtype=resolve_accum_dtype(accum_dtype),
-              device=device, **kw, **opts)
+              device=device, tracer=tracer, **kw, **opts)
     if shrink_every and solver != "blocked":
         raise ValueError(
             "shrink_every drives the blocked solver's outer loop in "
@@ -103,6 +105,29 @@ def convergence_of(res) -> Optional[dict]:
 def get_sv_indices(alpha: np.ndarray, tol: float = 1e-8) -> np.ndarray:
     """Indices with alpha > tol."""
     return np.nonzero(alpha > tol)[0]
+
+
+class _SpanChain:
+    """The tracer a callee gets when its spans must tile one phase of the
+    fit: each span it hands on to `tracer` starts where the one before it
+    ended, the first at the phase's start `t`, and the last is held back
+    until close(t1) ends it at the phase's end. So the callee's entry and
+    return, which its own marks cannot see, fall in its first and last
+    span, and the phase holds no time outside them."""
+
+    def __init__(self, tracer, t: float):
+        self.tracer, self.t, self.held = tracer, t, None
+
+    def add_span(self, name: str, t0: float, t1: float) -> None:
+        if self.held is not None:
+            self.tracer.add_span(*self.held)
+        self.held = (name, self.t, t1)
+        self.t = t1
+
+    def close(self, t1: float) -> None:
+        if self.held is not None:
+            self.tracer.add_span(self.held[0], self.held[1], t1)
+            self.held = None
 
 
 class BinarySVC:
@@ -182,11 +207,20 @@ class BinarySVC:
         self.pod_worker_rows_: Optional[tuple] = None
         self.pod_result_ = None
 
-    def _scale_fit(self, X: np.ndarray) -> np.ndarray:
-        if self.scale:
-            self.scaler_ = MinMaxScaler().fit(X)
-            return self.scaler_.transform(X)
-        return X
+    def _scale_fit(self, X: np.ndarray, tracer=None) -> np.ndarray:
+        """The scaled rows; tracer receives the scaler's two passes as the
+        spans scale.minmax (MinMaxScaler.fit) and scale.transform."""
+        if not self.scale:
+            return X
+        t0 = time.perf_counter() if tracer is not None else 0.0
+        self.scaler_ = MinMaxScaler().fit(X)
+        if tracer is not None:
+            t1 = time.perf_counter()
+            tracer.add_span("scale.minmax", t0, t1)
+        Xs = self.scaler_.transform(X)
+        if tracer is not None:
+            tracer.add_span("scale.transform", t1, time.perf_counter())
+        return Xs
 
     def _map_fit(self, Xs: np.ndarray) -> None:
         """Fit the approximate feature map on the host (nothing for the
@@ -209,14 +243,19 @@ class BinarySVC:
         and resume=True restarts from the file, bit-identical to an
         uninterrupted fit (solver/checkpoint.py; a missing file means a
         fresh start). The approximate families map the scaled rows on the
-        card before the solve. tracer: an obs.trace.Tracer that receives
-        each host phase of fit_phases_ as a `fit.<phase>` span; the fit's
-        results are the same bits with or without one."""
+        card before the solve. tracer: an obs.trace.Tracer (or anything
+        with its add_span) that receives each host phase of fit_phases_ as
+        a `fit.<phase>` span on time.perf_counter, fit.scale tiled by
+        scale.minmax and scale.transform, and fit.solve by the blocked
+        solver's solve.* spans (blocked_smo_solve); the fit's results are
+        the same bits with or without one."""
         t0 = time.perf_counter()
-        Xs = self._scale_fit(np.asarray(X))
+        chain = None if tracer is None else _SpanChain(tracer, t0)
+        Xs = self._scale_fit(np.asarray(X), chain)
         t1 = time.perf_counter()
         if tracer is not None:
             tracer.add_span("fit.scale", t0, t1)
+            chain.close(t1)
         phases = {"scale": t1 - t0}
         return self._fit_scaled(Xs, np.asarray(Y), t0, phases,
                                 checkpoint_path=checkpoint_path,
@@ -258,9 +297,12 @@ class BinarySVC:
         if checkpoint_path is not None:
             ckpt = dict(checkpoint_path=checkpoint_path,
                         checkpoint_every=checkpoint_every, resume=resume)
+        chain = None if tracer is None else _SpanChain(tracer, t)
         res = solve(self.solver, Xd, Yd, cfg, self.accum_dtype,
-                    self.solver_opts, dev, checkpoint=ckpt)
+                    self.solver_opts, dev, checkpoint=ckpt, tracer=chain)
         span("solve")
+        if chain is not None:
+            chain.close(t)
         alpha = to_numpy(res.alpha)  # device->host copy: completion
         span("to_host")
         self.train_time_s_ = time.perf_counter() - t0

@@ -590,6 +590,7 @@ def blocked_smo_solve(
     coef0: float = 0.0,
     targets=None,
     device="cuda",
+    tracer=None,
     _seed_in_box: bool = False,
 ):
     """Train to the reference's stopping criterion with blocked working sets.
@@ -686,12 +687,34 @@ def blocked_smo_solve(
     f = K(alpha*y) - z (epsilon-SVR); they enter f0 and the refine
     rebuild only.
 
+    tracer: anything with add_span(name, t0, t1) (obs.trace.Tracer, a
+    benchmark's span list) receives the solve's host phases as spans on
+    time.perf_counter, tiling the call from its entry to its return:
+    solve.setup (the prologue), then per round solve.check (the masks,
+    reductions and the flags' stack), solve.check_wait (sync 1 blocked),
+    solve.refine (a refine rebuild) or solve.select (the working set and
+    its gathers), solve.kbb, solve.inner (#2's launch or the loop engine),
+    solve.inner_wait (sync 2 blocked), solve.rescue (a zero-progress round
+    redone), solve.fupdate; and solve.finish. The wait spans are exactly
+    the intervals host_wait_s sums. The results are the same bits with or
+    without a tracer.
+
     _seed_in_box (internal, set by a seeded refresh): the kernel engine
     runs kernel #2's boxed subproblem on the deltas from the seed's float64
     alphas (the multipair kernel the plain one) and its round deltas are
     pulled back onto [0, C] (kernel_delta_in_box), as the fleet's seeded
     lanes do.
     """
+    # each mark ends the span it names where the next one starts
+    t_mark = time.perf_counter() if tracer is not None else 0.0
+
+    def mark(name: str, now: Optional[float] = None) -> None:
+        nonlocal t_mark
+        if tracer is not None:
+            now = time.perf_counter() if now is None else now
+            tracer.add_span(name, t_mark, now)
+            t_mark = now
+
     kernels.validate_family(kernel)
     eta_exclude = _alias("pallas_eta_exclude", pallas_eta_exclude,
                          "eta_exclude", eta_exclude, False)
@@ -883,6 +906,7 @@ def blocked_smo_solve(
         st.tele_active[t] = live.sum()
         st.tele_i += 1
 
+    mark("solve.setup")
     while st.status == Status.RUNNING and (pause_at is None
                                            or st.n_outer < pause_at):
         alpha, f = st.alpha, st.f
@@ -898,11 +922,15 @@ def blocked_smo_solve(
             # live alpha is among them
             live = ((alpha > 0) & valid).sum()
             flags.append((live <= refine_cap).to(adt))
+        stacked = torch.stack(flags)
         # host sync 1: the stop check (and whether a refine fits)
         t_wait = time.perf_counter()
-        found, converged, bh_v, bl_v, *fits = torch.stack(flags).tolist()
-        st.host_wait_s += time.perf_counter() - t_wait
+        found, converged, bh_v, bl_v, *fits = stacked.tolist()
+        t_done = time.perf_counter()
+        st.host_wait_s += t_done - t_wait
         st.n_host_syncs += 1
+        mark("solve.check", t_wait)
+        mark("solve.check_wait", t_done)
         found, converged = bool(found), bool(converged)
         gap_t = torch.where(found_t, bl - bh, float("nan")) if telemetry \
             else None
@@ -931,6 +959,7 @@ def blocked_smo_solve(
             st.f_exact = True
             st.n_refines += 1
             record(gap_t, 0, st.status)
+            mark("solve.refine")
             continue
         if converged:
             st.status = int(Status.CONVERGED)
@@ -952,7 +981,9 @@ def blocked_smo_solve(
         # must not take part in the subproblem
         active_B = valid[B] & is_first & (i_high_mask(a_B, y_B, C, eps)
                                           | i_low_mask(a_B, y_B, C, eps))
+        mark("solve.select")
         K_BB = kernels.cross(kernel, X_B, X_B, **kern)
+        mark("solve.kbb")
         lookup = None
         if inner == "kernel" and _seed_in_box and multipair == 1:
             # a seeded solve: the boxed subproblem on the deltas from the
@@ -982,8 +1013,11 @@ def blocked_smo_solve(
             # host sync 2: the kernel's status (and the cache's verdict)
             t_wait = time.perf_counter()
             upd, progress, reason, _, *all_hit = stat.tolist()
-            st.host_wait_s += time.perf_counter() - t_wait
+            t_done = time.perf_counter()
+            st.host_wait_s += t_done - t_wait
             st.n_host_syncs += 1
+            mark("solve.inner", t_wait)
+            mark("solve.inner_wait", t_done)
             if reason < 0:
                 raise RuntimeError(
                     "inner_smo kernel tripped its iteration guard "
@@ -997,11 +1031,13 @@ def blocked_smo_solve(
                 da_B = a_new - a_B
                 st.n_rescue += 1
                 lookup = None
+                mark("solve.rescue")
         else:
             a_new, upd, progress, reason = _inner_smo(
                 K_BB, y_B, a_B, f_B, active_B, C, eps, tau, max_inner,
                 wss=wss)
             da_B = a_new - a_B
+            mark("solve.inner")
 
         dcoef = da_B * y_Ba
         if krow_cache and lookup is None:
@@ -1039,6 +1075,7 @@ def blocked_smo_solve(
         elif st.n_updates >= max_iter or st.n_outer >= max_outer:
             st.status = int(Status.MAX_ITER)
         record(gap_t, int(upd), st.status)
+        mark("solve.fupdate")
 
     result = SMOResult(
         alpha=st.alpha,
@@ -1058,6 +1095,7 @@ def blocked_smo_solve(
             gap=st.tele_gap, n_upd=st.tele_upd, status=st.tele_status,
             count=st.tele_i, active=st.tele_active) if telemetry else None),
     )
+    mark("solve.finish")
     if return_state:
         return result, st
     return result

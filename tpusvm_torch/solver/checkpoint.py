@@ -166,6 +166,9 @@ def checkpointed_blocked_solve(X, Y, *, checkpoint_path: str,
     checkpoint unless keep_checkpoint=True. The result equals the
     uninterrupted blocked_smo_solve bit for bit.
 
+    A tracer in solver_kwargs goes to every segment (blocked_smo_solve's
+    solve.* spans); it is no part of the fingerprint.
+
     watchdog: a zero-argument callable consulted after each checkpoint is
     on disk; a true answer raises WatchdogTimeout, from which a resume=True
     run continues.

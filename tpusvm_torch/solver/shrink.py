@@ -134,10 +134,11 @@ def shrinking_blocked_solve(X, Y, valid=None, alpha0=None, *,
     compacted segments cannot run.
 
     Takes every blocked_smo_solve kwarg but the segmenting surface
-    (resume_state, pause_at, return_state). refine applies to full-problem
-    segments only (a compacted rebuild would drop the frozen rows' terms);
-    fused_selection composes (its candidates are seeded again on every
-    compaction). The result's shrink_history lists its events,
+    (resume_state, pause_at, return_state); a tracer goes to every
+    segment, whose solve.* spans follow one another. refine applies to
+    full-problem segments only (a compacted rebuild would drop the frozen
+    rows' terms); fused_selection composes (its candidates are seeded
+    again on every compaction). The result's shrink_history lists its events,
     {"event": "shrink"|"unshrink"|"verify"|"anneal", "round", "active",
     "cap"} ("anneal", the port's own, marks the pause at which a bf16 rung
     gave way to full f32);

@@ -351,6 +351,7 @@ def smo_solve(
     graph="auto",
     refresh: str = "auto",
     device="cuda",
+    tracer=None,
 ) -> SMOResult:
     """Run pairwise SMO to termination on `device`.
 
@@ -364,7 +365,9 @@ def smo_solve(
     host status reads. graph: "auto" captures a chunk as a CUDA graph on
     the card (True requires the card, False runs every chunk eagerly).
     refresh: the K-row refresh, resolve_pair_refresh's ("auto": pair_rows
-    for float32 X, the plain torch refresh otherwise).
+    for float32 X, the plain torch refresh otherwise). tracer: accepted so
+    that every solver takes BinarySVC.fit's; the pair loop records no
+    spans.
     Returns SMOResult; `alpha` of padded rows is exactly 0.
     """
     Y = torch.as_tensor(Y)
