@@ -176,6 +176,60 @@ def test_fit_launches_both_kernels(dev):
     assert inner_smo_kernel.launches > 0
 
 
+@pytest.fixture(scope="module")
+def mnist60k():
+    """The benchmark's rows: 60,000 x 784 float64 pixels, scaled by numpy
+    (the host route's scaling)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from tpusvm_torch.data.scaler import MinMaxScaler
+
+    X, Y = mnist_like(n=60000, d=784, noise=30.0, label_noise=0.005)
+    ref = MinMaxScaler().fit(X)
+    return X, Y, ref, ref.transform(X)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_fit_scales_on_the_card_with_the_host_bits(dev, mnist60k, dtype):
+    # BinarySVC.fit's device route: the raw float64 rows copied once, then
+    # min-max scaled and cast on the card; the features, the scaler and
+    # the SV rows are the numpy scaling's and the host cast's bits
+    import time
+
+    from tpusvm_torch.device import to_dtype
+    from tpusvm_torch.models.svm import _PhaseClock
+
+    X, Y, ref, Xs = mnist60k
+    m = BinarySVC(device="cuda", dtype=dtype)
+    Xd, _, sv_rows = m._front_on_device(X, Y, _PhaseClock(time.perf_counter()))
+    assert m.scale_device_ == "cuda" and Xd.dtype == dtype
+    assert torch.equal(Xd.cpu(), to_dtype(Xs, dtype))
+    assert m.scaler_.min_val.tobytes() == ref.min_val.tobytes()
+    assert m.scaler_.max_val.tobytes() == ref.max_val.tobytes()
+    ids = np.sort(np.random.default_rng(1).choice(len(X), 2000,
+                                                  replace=False))
+    assert sv_rows(ids).tobytes() == Xs[ids].tobytes()
+
+
+def test_fit_from_raw_rows_is_the_fit_of_numpy_scaled_rows(dev, mnist60k):
+    # the benchmark's job: the device route's solve, SVs and sv_X_ are the
+    # host route's (the unscaled fit of the numpy-scaled rows), bit for bit
+    X, Y, _, Xs = mnist60k
+    cfg = SVMConfig(C=10.0, gamma=0.00125, eps=1e-12, tau=1e-5,
+                    max_iter=100000)
+    opts = dict(q=2048, wss=2, max_inner=4096)
+    a = BinarySVC(cfg, device="cuda", solver_opts=opts).fit(X, Y)
+    b = BinarySVC(cfg, scale=False, device="cuda", solver_opts=opts).fit(
+        Xs, Y)
+    assert a.scale_device_ == "cuda" and b.scale_device_ is None
+    assert a.status_.name == "CONVERGED"
+    assert torch.equal(a.result_.alpha, b.result_.alpha) and a.b_ == b.b_
+    assert np.array_equal(a.sv_ids_, b.sv_ids_)
+    assert a.sv_X_.tobytes() == b.sv_X_.tobytes() == Xs[a.sv_ids_].tobytes()
+    assert list(a.fit_phases_)[:3] == ["to_device", "scale", "cast"]
+
+
 class _Spans:
     def __init__(self):
         self.spans = []

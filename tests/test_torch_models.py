@@ -64,7 +64,7 @@ def test_binary_svc_matches_jax(fitted, rings_data):
 def test_fit_records_host_phases(fitted):
     _, tm = fitted
     phases = tm.fit_phases_
-    assert list(phases) == ["scale", "cast", "to_device", "solve", "to_host",
+    assert list(phases) == ["to_device", "scale", "cast", "solve", "to_host",
                             "sv_extract"]
     assert all(v >= 0.0 for v in phases.values())
     assert 0.0 <= tm.result_.host_wait_s <= phases["solve"]

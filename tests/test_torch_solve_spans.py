@@ -29,7 +29,9 @@ from tpusvm_torch.models.svm import BinarySVC
 from tpusvm_torch.obs.trace import Tracer, read_trace
 from tpusvm_torch.solver.blocked import blocked_smo_solve
 
-FIT_PHASES = ["scale", "cast", "to_device", "solve", "to_host", "sv_extract"]
+# the device route's order (BinarySVC.fit): the raw rows cross first, then
+# are scaled and cast where the solve runs
+FIT_PHASES = ["to_device", "scale", "cast", "solve", "to_host", "sv_extract"]
 ROUND = ("solve.check", "solve.check_wait", "solve.refine", "solve.select",
          "solve.kbb", "solve.inner", "solve.inner_wait", "solve.rescue",
          "solve.fupdate")
@@ -146,16 +148,21 @@ def test_solve_spans_tile_fit_solve(data, name):
 
 def test_scale_spans_tile_fit_scale(data):
     rec = Recorder()
+    before = time.perf_counter()
     _fit(data, rec, CONFIGS["loop"])
     _, t0, t1 = rec.one("fit.scale")
     scale = rec.named("scale.")
     assert [n for n, _, _ in sorted(scale, key=lambda s: s[1])] == [
         "scale.minmax", "scale.transform"]
     _assert_tile(scale, t0, t1)
-    # the fit's phases tile the fit from its start, as before
+    # fit.to_device, then fit.scale, then fit.cast, one after another
+    front = [rec.one("fit." + p) for p in ("to_device", "scale", "cast")]
+    _assert_tile(front, front[0][1], front[-1][2])
+    # the fit's phases tile the fit from its start, in the order they ran
     fit = rec.named("fit.")
     assert [n for n, _, _ in fit] == ["fit." + p for p in FIT_PHASES]
-    _assert_tile(fit, t0, fit[-1][2])
+    assert before <= fit[0][1]
+    _assert_tile(fit, fit[0][1], fit[-1][2])
 
 
 def test_an_unscaled_fit_records_no_scale_spans(data):

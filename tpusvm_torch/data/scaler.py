@@ -2,8 +2,12 @@
 
 Per-feature scaling to [0, 1]; a degenerate range (< 1e-12) counts as 1.0,
 so a constant feature passes through shifted by its min. The test set is
-always scaled with the TRAIN set's min/max. numpy throughout, bit-identical
-to the JAX package's scaler on the same array.
+always scaled with the TRAIN set's min/max. `MinMaxScaler` is numpy,
+bit-identical to the JAX package's scaler on the same array.
+`fit_transform_on_device` fits one from float rows already on a torch
+device and scales them in place there, with the same bits: BinarySVC.fit
+scales that way (the rows cross to the card raw, once), every other caller
+scales on the host.
 
 For a sharded dataset the same global min/max is assembled without holding
 X: per-shard partials merge exactly (min and max are selections, so an
@@ -15,9 +19,11 @@ array), and `MinMaxScaler.from_stats` builds the scaler from the merge
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Iterable, Tuple
 
 import numpy as np
+import torch
 
 _DEGENERATE_RANGE = 1e-12
 
@@ -82,3 +88,28 @@ class MinMaxScaler:
 
     def fit_transform(self, X: np.ndarray) -> np.ndarray:
         return self.fit(X).transform(X)
+
+
+def fit_transform_on_device(X: torch.Tensor, tracer=None) -> MinMaxScaler:
+    """A MinMaxScaler fitted on the rows of X, a float64 or float32 tensor
+    on any device, with X scaled IN PLACE on that device.
+
+    The scaler and the scaled X are the bits of MinMaxScaler().fit(Xh) and
+    .transform(Xh) on the same rows Xh in numpy: min and max are
+    selections, range_ is the scaler's own (computed on the host from the
+    d values read back), and each element is one IEEE subtraction and one
+    true division (a tensor divisor: torch takes no reciprocal). min_val
+    and max_val come back as numpy arrays of X's dtype. tracer (anything
+    with add_span) receives the spans scale.minmax (the reduction and its
+    read-back) and scale.transform (the two passes, enqueued)."""
+    t0 = time.perf_counter() if tracer is not None else 0.0
+    lo, hi = torch.aminmax(X, dim=0)
+    lo_hi = torch.stack((lo, hi)).cpu().numpy()  # one read-back
+    scaler = MinMaxScaler(min_val=lo_hi[0], max_val=lo_hi[1])
+    if tracer is not None:
+        t1 = time.perf_counter()
+        tracer.add_span("scale.minmax", t0, t1)
+    X.sub_(lo).div_(torch.from_numpy(scaler.range_).to(X.device))
+    if tracer is not None:
+        tracer.add_span("scale.transform", t1, time.perf_counter())
+    return scaler

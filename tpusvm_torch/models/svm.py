@@ -1,6 +1,8 @@
 """The binary SVM estimator: scale, solve, extract SVs, score, persist.
 
-  fit:      min-max scale on TRAIN data -> blocked or pair SMO -> extract SVs
+  fit:      rows to the device raw, min-max scale them there on TRAIN data
+            (the approximate families, non-float rows and the other fit
+            routes scale on the host) -> blocked or pair SMO -> extract SVs
   predict:  scale with TRAIN min/max -> sign(sum_sv a_k y_k K(x, x_k) - b)
   calibrate: Platt sigmoid on out-of-fold scores -> predict_proba
 
@@ -20,7 +22,7 @@ import torch
 
 from tpusvm_torch.config import (CascadeConfig, SVMConfig, is_approx_family,
                                  resolve_accum_dtype, resolve_dtype)
-from tpusvm_torch.data.scaler import MinMaxScaler
+from tpusvm_torch.data.scaler import MinMaxScaler, fit_transform_on_device
 from tpusvm_torch.device import resolve_device, to_dtype, to_numpy
 from tpusvm_torch.kernels.platt import fit_platt, platt_proba
 from tpusvm_torch.models.serialization import load_model, save_model
@@ -130,6 +132,30 @@ class _SpanChain:
             self.held = None
 
 
+class _PhaseClock:
+    """A fit's host phases as they run: clock(name) ends the phase `name`
+    now, where the one before it ended (the first at the fit's start t0),
+    records its seconds in `phases` (fit_phases_) and hands it to the
+    tracer as the span fit.<name>, so the phases tile the fit from t0.
+    chain() is the _SpanChain a callee's spans take inside the next
+    phase."""
+
+    def __init__(self, t0: float, tracer=None):
+        self.t0 = self.t = t0
+        self.tracer, self.phases = tracer, {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.phases[name] = now - self.t
+        if self.tracer is not None:
+            self.tracer.add_span(f"fit.{name}", self.t, now)
+        self.t = now
+
+    def chain(self) -> Optional[_SpanChain]:
+        return None if self.tracer is None else _SpanChain(self.tracer,
+                                                           self.t)
+
+
 class BinarySVC:
     """Binary C-SVC over any kernel family (config.kernel). The
     approximate families (rff, nystrom) fit their feature map on the host
@@ -167,6 +193,9 @@ class BinarySVC:
         self.solver_opts = dict(solver_opts or {})
         self.device = device
         self.scaler_: Optional[MinMaxScaler] = None
+        # where the fit scaled its rows: the device's type ("cuda", "cpu")
+        # when it scaled them there, "host" in numpy, None unscaled
+        self.scale_device_: Optional[str] = None
         self.sv_X_: Optional[np.ndarray] = None
         self.sv_Y_: Optional[np.ndarray] = None
         self.sv_alpha_: Optional[np.ndarray] = None
@@ -177,8 +206,10 @@ class BinarySVC:
         self.n_iter_: int = 0
         self.status_: Status = Status.RUNNING
         self.train_time_s_: float = 0.0
-        # host seconds per fit phase: scale, cast, to_device, solve,
-        # to_host, sv_extract (the solver's own wait is result_.host_wait_s)
+        # host seconds per fit phase, in the order they ran: to_device,
+        # scale, cast on the device route, scale, cast, to_device on the
+        # host's; then solve, to_host, sv_extract (the solver's own wait is
+        # result_.host_wait_s)
         self.fit_phases_: dict = {}
         self.result_ = None
         self.platt_: Optional[tuple] = None
@@ -208,8 +239,10 @@ class BinarySVC:
         self.pod_result_ = None
 
     def _scale_fit(self, X: np.ndarray, tracer=None) -> np.ndarray:
-        """The scaled rows; tracer receives the scaler's two passes as the
-        spans scale.minmax (MinMaxScaler.fit) and scale.transform."""
+        """The rows scaled on the host (fit's host route, fit_cascade);
+        tracer receives the scaler's two passes as the spans scale.minmax
+        (MinMaxScaler.fit) and scale.transform."""
+        self.scale_device_ = "host" if self.scale else None
         if not self.scale:
             return X
         t0 = time.perf_counter() if tracer is not None else 0.0
@@ -238,6 +271,17 @@ class BinarySVC:
             resume: bool = False, tracer=None) -> "BinarySVC":
         """Scale, solve, extract the SVs.
 
+        A scaled fit of an exact family from float64 or float32 rows copies
+        the raw rows to the fit's device once, scales them there in place
+        (data/scaler.py fit_transform_on_device: the bits of the numpy
+        scaler) and casts them to `dtype` there; the caller's X is never
+        written. The approximate families (their map is fitted on the
+        host's scaled rows), rows of any other dtype (numpy's promotion is
+        not torch's) and unscaled fits scale and cast on the host, then
+        copy. Both routes give the same features, so the same solve, and
+        sv_X_ holds the scaled float SV rows either way. scale_device_
+        says which route ran.
+
         checkpoint_path (blocked solver only): the solver's outer-loop
         carry is written atomically every `checkpoint_every` outer rounds,
         and resume=True restarts from the file, bit-identical to an
@@ -245,67 +289,96 @@ class BinarySVC:
         fresh start). The approximate families map the scaled rows on the
         card before the solve. tracer: an obs.trace.Tracer (or anything
         with its add_span) that receives each host phase of fit_phases_ as
-        a `fit.<phase>` span on time.perf_counter, fit.scale tiled by
-        scale.minmax and scale.transform, and fit.solve by the blocked
-        solver's solve.* spans (blocked_smo_solve); the fit's results are
-        the same bits with or without one."""
-        t0 = time.perf_counter()
-        chain = None if tracer is None else _SpanChain(tracer, t0)
-        Xs = self._scale_fit(np.asarray(X), chain)
-        t1 = time.perf_counter()
-        if tracer is not None:
-            tracer.add_span("fit.scale", t0, t1)
-            chain.close(t1)
-        phases = {"scale": t1 - t0}
-        return self._fit_scaled(Xs, np.asarray(Y), t0, phases,
-                                checkpoint_path=checkpoint_path,
-                                checkpoint_every=checkpoint_every,
-                                resume=resume, tracer=tracer)
+        a `fit.<phase>` span on time.perf_counter, in the order they ran,
+        fit.scale tiled by scale.minmax and scale.transform, and fit.solve
+        by the blocked solver's solve.* spans (blocked_smo_solve); the
+        fit's results are the same bits with or without one."""
+        clock = _PhaseClock(time.perf_counter(), tracer)
+        X, Y = np.asarray(X), np.asarray(Y)
+        kw = dict(checkpoint_path=checkpoint_path,
+                  checkpoint_every=checkpoint_every, resume=resume)
+        if (self.scale and not is_approx_family(self.config.kernel)
+                and X.dtype in (np.float64, np.float32)):
+            front = self._front_on_device(X, Y, clock)
+        else:
+            chain = clock.chain()
+            Xs = self._scale_fit(X, chain)
+            clock("scale")
+            if chain is not None:
+                chain.close(clock.t)
+            front = self._front_on_host(Xs, Y, clock)
+        return self._solve_fit(*front, Y, clock, **kw)
 
-    def _fit_scaled(self, Xs: np.ndarray, Y: np.ndarray, t0: float,
-                    phases: dict, checkpoint_path: Optional[str] = None,
-                    checkpoint_every: int = 64,
-                    resume: bool = False, tracer=None) -> "BinarySVC":
-        """The solve and SV extraction on already-scaled rows (fit, and
-        fit_stream for the exact families). phases: host seconds so far."""
+    def _front_on_device(self, X: np.ndarray, Y: np.ndarray,
+                         clock: _PhaseClock):
+        """fit's device route up to the solve: the raw rows and the labels
+        to the device (to_device), min-max scaled there in place (scale),
+        cast to the feature dtype there (cast). Returns _solve_fit's Xd, Yd
+        and sv_rows; the raw copy is freed on return unless it is the
+        features (dtype float64 from float64 rows). The SV rows are scaled
+        on the host from X, row for row the same bits."""
         dev = resolve_device(self.device)
-        # the spans tile the fit from t0: the time since the caller's last
-        # phase (the device's resolution) counts in the next one
-        t = t0 + sum(phases.values())
-
-        def span(name):
-            nonlocal t
-            now = time.perf_counter()
-            phases[name] = now - t
-            if tracer is not None:
-                tracer.add_span(f"fit.{name}", t, now)
-            t = now
-
-        cfg = self.config
-        # cast on the host: for float32 half the bytes cross to the device
-        Xc = to_dtype(Xs, self.dtype)
-        span("cast")
-        Xd = Xc.to(dev)
+        if dev.type == "cuda" and X.flags.writeable:
+            rows = np.ascontiguousarray(X)
+        else:
+            # the scaling writes in place: on the CPU torch would share the
+            # caller's memory (and warns on a read-only array), so a copy
+            rows = np.array(X, order="C")
+        Xd = torch.from_numpy(rows).to(dev)
         Yd = torch.as_tensor(Y, device=dev)
-        span("to_device")
+        clock("to_device")
+        chain = clock.chain()
+        self.scaler_ = fit_transform_on_device(Xd, chain)
+        self.scale_device_ = dev.type
+        clock("scale")
+        if chain is not None:
+            chain.close(clock.t)
+        Xd = Xd.to(self.dtype)
+        clock("cast")
+        return Xd, Yd, lambda sv: self.scaler_.transform(X[sv])
+
+    def _front_on_host(self, Xs: np.ndarray, Y: np.ndarray,
+                       clock: _PhaseClock):
+        """The host route after the scaling (fit, and fit_stream for the
+        exact families): the cast on the host (for float32 half the bytes
+        cross to the device), the copy, the approximate families' map.
+        Returns _solve_fit's Xd, Yd and sv_rows."""
+        dev = resolve_device(self.device)
+        Xd = to_dtype(Xs, self.dtype)
+        clock("cast")
+        Xd = Xd.to(dev)
+        Yd = torch.as_tensor(Y, device=dev)
+        clock("to_device")
         self._map_fit(Xs)
         if self.fmap_ is not None:
             # the solver, the SV rows and scoring live in the mapped space
             Xd = self.fmap_.transform(Xd)
-            span("map")
+            clock("map")
+        return Xd, Yd, lambda sv: Xs[sv]
+
+    def _solve_fit(self, Xd: torch.Tensor, Yd: torch.Tensor, sv_rows,
+                   Y: np.ndarray, clock: _PhaseClock,
+                   checkpoint_path: Optional[str] = None,
+                   checkpoint_every: int = 64,
+                   resume: bool = False) -> "BinarySVC":
+        """The solve on the device's features Xd and the SV extraction:
+        sv_rows(sv) gives the scaled host rows of the SV ids sv (mapped
+        fits take theirs from Xd)."""
+        dev = Xd.device
+        cfg = self.config
         ckpt = None
         if checkpoint_path is not None:
             ckpt = dict(checkpoint_path=checkpoint_path,
                         checkpoint_every=checkpoint_every, resume=resume)
-        chain = None if tracer is None else _SpanChain(tracer, t)
+        chain = clock.chain()
         res = solve(self.solver, Xd, Yd, cfg, self.accum_dtype,
                     self.solver_opts, dev, checkpoint=ckpt, tracer=chain)
-        span("solve")
+        clock("solve")
         if chain is not None:
-            chain.close(t)
+            chain.close(clock.t)
         alpha = to_numpy(res.alpha)  # device->host copy: completion
-        span("to_host")
-        self.train_time_s_ = time.perf_counter() - t0
+        clock("to_host")
+        self.train_time_s_ = clock.t - clock.t0
         self.result_ = res
         self.train_precision_ = self.solver_opts.get("matmul_precision") \
             or "f32"
@@ -316,12 +389,12 @@ class BinarySVC:
         if self.fmap_ is not None:
             self.sv_X_ = to_numpy(Xd[torch.as_tensor(sv, device=dev)])
         else:
-            self.sv_X_ = Xs[sv]
+            self.sv_X_ = sv_rows(sv)
         self.sv_Y_ = np.asarray(Y)[sv].astype(np.int32)
         self.sv_alpha_ = alpha[sv]
         self.sv_ids_ = sv.astype(np.int32)
-        span("sv_extract")
-        self.fit_phases_ = phases
+        clock("sv_extract")
+        self.fit_phases_ = clock.phases
         self.b_ = float(res.b)
         self.b_high_ = float(res.b_high)
         self.b_low_ = float(res.b_low)
@@ -355,6 +428,7 @@ class BinarySVC:
 
         t0 = time.perf_counter()
         scaler = None
+        self.scale_device_ = "host" if self.scale else None
         if self.scale:
             self.scaler_ = scaler = dataset.scaler()
         if is_approx_family(self.config.kernel):
@@ -368,11 +442,13 @@ class BinarySVC:
         parts = [X for X, _ in ShardReader(dataset, scaler=scaler)]
         Xs = np.concatenate(parts)
         del parts
-        phases = {"stream_scale": time.perf_counter() - t0}
-        return self._fit_scaled(Xs, dataset.load_labels(), t0, phases,
-                                checkpoint_path=checkpoint_path,
-                                checkpoint_every=checkpoint_every,
-                                resume=resume)
+        clock = _PhaseClock(t0)
+        clock("stream_scale")
+        Y = dataset.load_labels()
+        return self._solve_fit(*self._front_on_host(Xs, Y, clock), Y, clock,
+                               checkpoint_path=checkpoint_path,
+                               checkpoint_every=checkpoint_every,
+                               resume=resume)
 
     def _fit_stream_approx(self, dataset, scaler, t0: float) -> "BinarySVC":
         """Out-of-core approximate training: per-shard mapping on the card
@@ -536,6 +612,7 @@ class BinarySVC:
 
         t0 = time.perf_counter()
         scaler = None
+        self.scale_device_ = "host" if self.scale else None
         if self.scale:
             self.scaler_ = scaler = dataset.scaler()
         part = partition_from_dataset(dataset, cascade_config.n_shards,
@@ -584,6 +661,7 @@ class BinarySVC:
         from tpusvm_torch.stream import open_dataset
 
         t0 = time.perf_counter()
+        self.scale_device_ = "host" if self.scale else None
         if self.scale:
             self.scaler_ = open_dataset(data).scaler()
         res = pod_fit(

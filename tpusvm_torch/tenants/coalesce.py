@@ -243,7 +243,7 @@ def checkpointed_fleet_refresh(Xs, batch, *, checkpoint_path: str,
 
 def _lane_model(cfg, scale, scaler, Xs, Y, lane, device):
     """One tenant's refreshed estimator from its fleet lane: the solo
-    fit's SV extraction (models/svm.py:_fit_scaled) applied to a lane, so
+    fit's SV extraction (models/svm.py:_solve_fit) applied to a lane, so
     a coalesced artifact has the shape, provenance fields and scaled-SV
     layout a solo one has."""
     from tpusvm_torch.device import to_numpy
@@ -322,8 +322,8 @@ def refresh_drifted(X, labels, records: Sequence[TenantRecord], *,
     outcomes: dict = {}
 
     # scale ONCE: every scale=True tenant shares X, so the fitted min/max
-    # (and the scaled matrix) is what each solo fit would compute
-    # (BinarySVC._scale_fit)
+    # (and the scaled matrix) is what each solo fit would compute (on the
+    # host or, BinarySVC.fit's device route, on the card: the same bits)
     scaler = MinMaxScaler().fit(X)
     Xs_scaled = scaler.transform(X)
 
